@@ -1,0 +1,207 @@
+"""DoRA adapter: parameter init and the adapted linear (counterpart of
+``repro/core/adapter.py``), single-tenant and forward-only.
+
+    ΔY = g ⊙ (s · X·Aᵀ·Bᵀ) + (g − 1) ⊙ Y_base,   Y = Y_base + ΔY
+    g  = m / max(w_norm, ε),   w_norm = ||W + s·B·A||_row (fp32, detached)
+
+Weights follow the paper's [d_out, d_in] convention. ``dora_linear``
+routes through :mod:`repro_torch.core.dispatch`: the matmul-fused compose
+(K6) when the plan says so, else y_lora is materialized and composed by K3
+or eagerly.
+
+Frozen-adapter serving state (:func:`precompute_adapter_state`): during
+generation A/B/m are frozen, so g is computed once per adapter set and
+carried as a ``"g"`` leaf; a tree carrying it is refused under
+``training=True``. Training itself comes with the training slice of the
+port: ``dora_linear(training=True)`` raises NotImplementedError until then.
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+
+from repro_torch.core import compose as _compose
+from repro_torch.core import dispatch as _dispatch
+from repro_torch.core import factored_norm as _norm
+from repro_torch.core.config import DoRAConfig
+from repro_torch.kernels import ops as _kops
+
+_F32 = torch.float32
+
+_TRAINING_SLICE = (
+    "training=True needs the compose backward kernels and autograd "
+    "Functions, which come with the training slice of the port; this "
+    "slice serves (training=False)")
+
+
+@torch.no_grad()
+def init_dora_params(W, cfg: DoRAConfig, *, generator: torch.Generator,
+                     m_dtype=_F32):
+    """A ~ U(-1/√d_in, 1/√d_in), B = 0, m = ||W||_row (DoRA init). Stacked
+    weights [..., d_out, d_in] get stacked leaves. A is drawn on the
+    generator's device and moved to W's."""
+    if W.ndim > 2:
+        leaves = [init_dora_params(w, cfg, generator=generator,
+                                   m_dtype=m_dtype) for w in W]
+        return {k: torch.stack([lf[k] for lf in leaves])
+                for k in leaves[0]}
+    d_out, d_in = W.shape
+    bound = 1.0 / (d_in ** 0.5)
+    u = torch.rand((cfg.rank, d_in), generator=generator,
+                   device=generator.device, dtype=_F32)
+    A = ((u * 2.0 - 1.0) * bound).to(device=W.device, dtype=W.dtype)
+    B = torch.zeros((d_out, cfg.rank), dtype=W.dtype, device=W.device)
+    base_sq, _, _ = _norm.factored_norm_terms(W, A, B, compute_cross=False)
+    m = torch.sqrt(torch.clamp_min(base_sq, 0.0)).to(m_dtype)
+    out = {"A": A, "B": B, "m": m}
+    if cfg.cache_base_norm:
+        out["base_sq"] = base_sq
+    return out
+
+
+@torch.no_grad()
+def compute_weight_norm(W, A, B, cfg: DoRAConfig, *, base_sq_cache=None):
+    """Detached fp32 [d_out] row norm of the composed weight, routed
+    through the configured implementation and the norm plan."""
+    if cfg.norm_impl == "peft_eye":
+        return _norm.norm_peft_eye(W, A, B, cfg.scaling)
+    if cfg.norm_impl == "dense_ba":
+        return _norm.norm_dense_ba(W, A, B, cfg.scaling)
+    plan = _dispatch.plan_norm(cfg, d_out=W.shape[0], device=W.device)
+    if plan.fused:
+        return _kops.fused_norm(W, A, B, cfg.scaling,
+                                base_sq_cache=base_sq_cache)
+    return _norm.factored_norm(W, A, B, cfg.scaling,
+                               chunk_mb=cfg.resolve_chunk_mb(),
+                               base_sq_cache=base_sq_cache)
+
+
+def _row_count(shape) -> int:
+    rows = 1
+    for d in shape[:-1]:
+        rows *= d
+    return rows
+
+
+def compose_delta(y_base, y_lora, g, cfg: DoRAConfig, *, training: bool):
+    """Compose a materialized y_lora through the dispatch (never
+    matmul-fused: the rank is unknown here)."""
+    _compose.check_broadcast(g, y_base)
+    plan = _dispatch.plan_compose(cfg, training=training,
+                                  rows=_row_count(y_base.shape),
+                                  d_out=y_base.shape[-1],
+                                  device=y_base.device)
+    if plan.tier is _dispatch.Tier.EAGER:
+        return _compose.compose_stable(y_base, y_lora, g, cfg.scaling)
+    if plan.tier is _dispatch.Tier.FUSED_BWD:
+        raise NotImplementedError(_TRAINING_SLICE)
+    return _kops.fused_compose(y_base, y_lora, g.detach(), cfg.scaling)
+
+
+def compose_delta_factored(y_base, h, B, g, cfg: DoRAConfig, *,
+                           training: bool):
+    """Compose from the factored LoRA activation h = x·Aᵀ: matmul-fused
+    (K6, y_lora never written) when the plan allows, else y_lora is
+    materialized once and :func:`compose_delta` runs."""
+    _compose.check_broadcast(g, y_base)
+    plan = _dispatch.plan_compose(cfg, training=training,
+                                  rows=_row_count(y_base.shape),
+                                  d_out=y_base.shape[-1], rank=B.shape[-1],
+                                  device=y_base.device)
+    if plan.matmul_fused:
+        if plan.tier is _dispatch.Tier.FUSED_BWD:
+            raise NotImplementedError(_TRAINING_SLICE)
+        return _kops.fused_compose_mm(y_base, h, B, g.detach(), cfg.scaling)
+    y_lora = h @ B.T
+    return compose_delta(y_base, y_lora, g, cfg, training=training)
+
+
+def dora_linear(x, W, adapter: dict[str, Any], cfg: DoRAConfig, *,
+                bias=None, training: bool = True):
+    """Adapted linear: x [..., d_in] → y [..., d_out].
+
+    W: frozen [d_out, d_in]; adapter: {"A": [r, d_in], "B": [d_out, r],
+    "m": [d_out]} plus optional "base_sq" (precomputed ||W||²_row) and the
+    serving state of
+    :func:`precompute_adapter_state` ("g", optionally "gsB"). A cached "g"
+    skips the factored norm and is refused under ``training=True``."""
+    A, B, m = adapter["A"], adapter["B"], adapter["m"]
+    if "g" in adapter:
+        if training:
+            raise ValueError(
+                "adapter tree carries precomputed serving state ('g'), "
+                "which is stale the moment A/B/m change: it is invalid "
+                "under training=True. Train on the raw adapter tree and "
+                "rebuild the state with precompute_adapter_state() after "
+                "the update.")
+        g = adapter["g"].detach().to(_F32)
+    else:
+        if training:
+            raise NotImplementedError(_TRAINING_SLICE)
+        w_norm = compute_weight_norm(W, A, B, cfg,
+                                     base_sq_cache=adapter.get("base_sq"))
+        g = _compose.magnitude_scale(m, w_norm, _norm.dtype_eps(x.dtype))
+
+    W = W.detach()
+    y_base = x @ W.T
+    h = x @ A.T
+    if "gsB" in adapter:
+        # Serving fast path: g·s pre-folded into B, so the compose is two
+        # matmuls and one fused multiply-add.
+        t = h.to(_F32) @ adapter["gsB"].detach().to(_F32).T
+        delta = ((g - 1.0) * y_base.to(_F32) + t).to(y_base.dtype)
+    else:
+        delta = compose_delta_factored(y_base, h, B, g, cfg,
+                                       training=training)
+    y = y_base + delta
+    if bias is not None:
+        y = y + bias                 # re-added after the compose
+    return y
+
+
+def _is_adapter_leaf(node) -> bool:
+    return isinstance(node, dict) and {"A", "B", "m"} <= set(node.keys())
+
+
+@torch.no_grad()
+def precompute_adapter_state(params, adapters, cfg: DoRAConfig, *,
+                             act_dtype=None, fold_gsb: bool = False):
+    """A NEW adapter tree whose leaves also carry ``"g"`` (fp32 [d_out],
+    with the eps of ``act_dtype``) and, with ``fold_gsb``, ``"gsB"``
+    (fp32 [d_out, r], g·s folded into B). Stacked leaves ([n_scan, ...])
+    are handled slice by slice. Serving only: any update to A/B/m makes
+    the state stale."""
+    eps = _norm.dtype_eps(act_dtype if act_dtype is not None else _F32)
+
+    def leaf_g(W, ad):
+        if W.ndim > 2:
+            return torch.stack([
+                leaf_g(W[i], {k: v[i] for k, v in ad.items()})
+                for i in range(W.shape[0])])
+        w_norm = compute_weight_norm(W, ad["A"], ad["B"], cfg,
+                                     base_sq_cache=ad.get("base_sq"))
+        return _compose.magnitude_scale(ad["m"], w_norm, eps)
+
+    def leaf_state(W, ad):
+        out = {k: v for k, v in ad.items() if k not in ("g", "gsB")}
+        out["g"] = leaf_g(W, out)
+        if fold_gsb:
+            gs = out["g"] * _compose.f32(cfg.scaling)
+            out["gsB"] = gs[..., :, None] * ad["B"].to(_F32)
+        return out
+
+    def walk(p_node, a_node):
+        if _is_adapter_leaf(a_node):
+            return leaf_state(p_node, a_node)
+        return {k: walk(p_node[k], v) for k, v in a_node.items()}
+
+    return walk(params, adapters)
+
+
+def invalidate_adapter_state(adapters):
+    """Strip the serving-state leaves ("g"/"gsB"): the inverse of
+    :func:`precompute_adapter_state`."""
+    if _is_adapter_leaf(adapters):
+        return {k: v for k, v in adapters.items() if k not in ("g", "gsB")}
+    return {k: invalidate_adapter_state(v) for k, v in adapters.items()}

@@ -1,0 +1,108 @@
+"""Three-tier runtime dispatch (paper §4); counterpart of
+``repro/core/dispatch.py``.
+
+Tier 1 — fused backward (training; its kernels come with the training
+         slice of the port).
+Tier 2 — fused forward: inference on the kernel route.
+Tier 3 — eager: forced off, CPU tensors in auto mode, sub-crossover
+         shapes, d_out % 128 != 0.
+
+Two backends: ``cuda`` (the hand-written kernels in
+:mod:`repro_torch.kernels`) and ``eager`` (plain PyTorch). The plan depends
+only on the config, the shapes and the tensors' device type, and makes
+the same tier and ``matmul_fused`` decisions as the reference's plan for
+the same (config, rows, d_out, rank) on its accelerator. In auto mode CPU
+tensors take the eager backend: that is the caller's choice of device,
+not a fallback. A forced kernel tier on CPU tensors keeps the kernel
+route, whose wrappers then run the kernels' plain versions.
+"""
+from __future__ import annotations
+
+import dataclasses
+import enum
+
+import torch
+
+from repro_torch.core.config import DoRAConfig
+
+
+class Tier(enum.Enum):
+    FUSED_BWD = 1
+    FUSED_FWD = 2
+    EAGER = 3
+
+
+@dataclasses.dataclass(frozen=True)
+class KernelPlan:
+    """Resolved execution plan for one kernel call site."""
+    tier: Tier
+    backend: str                  # "cuda" | "eager"
+    # The LoRA up-projection h@Bᵀ runs inside the compose kernel.
+    matmul_fused: bool = False
+
+    @property
+    def fused(self) -> bool:
+        return self.tier is not Tier.EAGER
+
+
+def resolve_backend(cfg: DoRAConfig, device) -> str:
+    """Mode → backend name. Auto picks ``cuda`` for CUDA tensors and
+    ``eager`` for CPU tensors; a forced mode is honoured as given."""
+    mode = cfg.resolve_mode()
+    if mode == "auto":
+        return "cuda" if torch.device(device).type == "cuda" else "eager"
+    return "cuda" if mode == "fused" else "eager"
+
+
+def above_crossover(rows: int, d_out: int, cfg: DoRAConfig) -> bool:
+    """Paper §4: d_out >= 2048 and rows*d_out >= 2048*6144."""
+    return (d_out >= cfg.min_fused_dout
+            and rows * d_out >= cfg.min_fused_elems)
+
+
+def shape_supported(d_out: int) -> bool:
+    """Paper App. C: d_out must divide the 128-lane block. The CUDA
+    kernels mask ragged edges, but the constraint is kept so the port
+    routes every shape as the reference does."""
+    return d_out % 128 == 0
+
+
+def mm_fused_eligible(rank: int | None, cfg: DoRAConfig,
+                      rows: int | None = None) -> bool:
+    """Rank guard for the matmul-fused compose. The rank is priced padded
+    to 128 as in the reference (whose kernel pads it), although the CUDA
+    kernel takes r as given: a padding change must not move the plan."""
+    if rank is None or not cfg.compose_matmul_fused:
+        return False
+    rank_padded = (rank + 127) // 128 * 128
+    return rank_padded <= cfg.resolve_mm_fused_max_rank(rows)
+
+
+def plan_compose(cfg: DoRAConfig, *, training: bool, rows: int,
+                 d_out: int, rank: int | None = None,
+                 device="cuda") -> KernelPlan:
+    """Resolve the compose call site. The shape constraint outranks a
+    forced tier; ``rank`` is given when the caller still holds the
+    factored ``h = x@Aᵀ``."""
+    if not shape_supported(d_out):
+        return KernelPlan(Tier.EAGER, "eager")
+    backend = resolve_backend(cfg, device)
+    if backend == "eager":
+        return KernelPlan(Tier.EAGER, "eager")
+    if cfg.resolve_mode() == "auto" and not above_crossover(rows, d_out,
+                                                             cfg):
+        return KernelPlan(Tier.EAGER, "eager")
+    tier = Tier.FUSED_BWD if training else Tier.FUSED_FWD
+    return KernelPlan(tier, backend,
+                      matmul_fused=mm_fused_eligible(rank, cfg, rows))
+
+
+def plan_norm(cfg: DoRAConfig, *, d_out: int, device="cuda") -> KernelPlan:
+    """Resolve the factored-norm call site: forward-only (Tier 2) with no
+    crossover guard (paper §2.3)."""
+    if not shape_supported(d_out):
+        return KernelPlan(Tier.EAGER, "eager")
+    backend = resolve_backend(cfg, device)
+    if backend == "eager":
+        return KernelPlan(Tier.EAGER, "eager")
+    return KernelPlan(Tier.FUSED_FWD, backend)

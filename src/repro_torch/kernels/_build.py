@@ -1,0 +1,153 @@
+"""Build and bind the hand-written CUDA kernels.
+
+Every ``csrc/*.cu`` is compiled by ``nvcc`` for ``sm_90a`` (one process per
+source, all started together) and linked into ONE shared library with a
+plain C interface, loaded with ``ctypes``. The build runs once, at the
+first kernel launch, never at import. The library lands in
+``build/repro_torch/`` at the repository root under a name that carries a
+hash of the sources and flags, so a stale library is never loaded.
+
+Every C entry point returns ``cudaGetLastError()``; :func:`check` raises
+when it is not 0.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import subprocess
+import tempfile
+from pathlib import Path
+
+import torch
+
+from repro_torch import probes
+
+SRC_DIR = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# Element type codes of csrc/common.cuh (enum DTypeCode).
+DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+# C signatures of the entry points: (argtypes, restype).
+_SIGNATURES = {
+    "norm_terms": ((_P, _P, _P, _P, _P, _I, _I, _I, _I, _P), _I),
+    "assemble_norm": ((_P, _P, _P, _P, _I, _F, _F, _P), _I),
+    "compose_fwd": ((_P, _P, _P, _P, ctypes.c_longlong, _I, _F, _I, _I, _P),
+                    _I),
+    "compose_mm_fwd": ((_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P), _I),
+    "runtime_error_string": ((_I,), ctypes.c_char_p),
+}
+
+
+def sources() -> list[Path]:
+    return sorted(SRC_DIR.glob("*.cu"))
+
+
+def source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sorted(SRC_DIR.glob("*.cu*")):
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def library_path() -> Path:
+    return BUILD_DIR / f"libreprotorch_{source_hash()}.so"
+
+
+def build() -> Path:
+    """Compile and link the library if it is not there yet; return its
+    path. The compiler's output (ptxas register and spill counts included)
+    is kept beside it in a ``.log`` file."""
+    out = library_path()
+    if out.exists():
+        return out
+    nvcc = probes.nvcc_path()
+    if nvcc is None:
+        raise RuntimeError("cannot build the CUDA kernels: nvcc not found "
+                           "on PATH, in $CUDA_HOME/bin or /usr/local/cuda/bin")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    log = []
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs, procs = [], []
+        for src in sources():
+            obj = Path(tmp) / (src.stem + ".o")
+            objs.append(obj)
+            procs.append((src, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        failed = []
+        for src, proc in procs:
+            text, _ = proc.communicate()
+            log.append(f"== {src.name} (exit {proc.returncode})\n{text}")
+            if proc.returncode != 0:
+                failed.append(src.name)
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n" + "\n".join(log))
+        tmp_lib = Path(tmp) / out.name
+        link = subprocess.run(
+            [nvcc, *NVCC_FLAGS[:2], "-shared", *map(str, objs), "-o",
+             str(tmp_lib)], capture_output=True, text=True)
+        log.append(f"== link (exit {link.returncode})\n{link.stdout}"
+                   f"{link.stderr}")
+        if link.returncode != 0:
+            raise RuntimeError("linking the kernels failed:\n"
+                               + "\n".join(log))
+        os.replace(tmp_lib, out)
+    out.with_suffix(".log").write_text("\n".join(log))
+    return out
+
+
+@functools.cache
+def library() -> ctypes.CDLL:
+    """The built library with every entry point's C signature declared."""
+    lib = ctypes.CDLL(str(build()))
+    for name, (argtypes, restype) in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = restype
+    return lib
+
+
+def check(rc: int, kernel: str) -> None:
+    if rc != 0:
+        msg = library().runtime_error_string(rc).decode()
+        raise RuntimeError(f"{kernel}: CUDA launch failed with error {rc} "
+                           f"({msg})")
+
+
+def stream_of(t: torch.Tensor) -> int:
+    """The handle of PyTorch's current stream on ``t``'s device."""
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def check_operands(kernel: str, *tensors: torch.Tensor, dtype=None) -> None:
+    """Every operand on one CUDA device, contiguous, and (where ``dtype``
+    is given) of that dtype; raise naming what is wrong."""
+    probes.require_cuda(tensors[0].device.index or 0)
+    dev = tensors[0].device
+    for i, t in enumerate(tensors):
+        if t.device != dev:
+            raise ValueError(f"{kernel}: operand {i} is on {t.device}, "
+                             f"operand 0 on {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"{kernel}: operand {i} is not contiguous")
+        if dtype is not None and t.dtype != dtype:
+            raise TypeError(f"{kernel}: operand {i} has dtype {t.dtype}, "
+                            f"expected {dtype}")
+
+
+def dtype_code(kernel: str, t: torch.Tensor) -> int:
+    if t.dtype not in DTYPE_CODE:
+        raise TypeError(f"{kernel}: dtype {t.dtype} is not supported "
+                        f"(expected one of {list(DTYPE_CODE)})")
+    return DTYPE_CODE[t.dtype]

@@ -1,0 +1,224 @@
+"""LM assembly (counterpart of ``repro/models/lm.py``): parameter specs and
+init, DoRA adapter trees, the rectangular KV cache and the forward pass.
+
+Trees are plain dicts that mirror the reference's pytrees: the layer
+stack is one unit whose leaves carry a leading ``[n_scan, ...]`` dim, so
+a weight's "/"-joined path is the same in both packages. ``forward``
+walks the stack with a Python loop over the ``n_scan`` slices where the
+reference runs ``lax.scan``.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any
+
+import torch
+
+from repro_torch.core.adapter import init_dora_params
+from repro_torch.core.config import DoRAConfig
+from repro_torch.models import layers as L
+from repro_torch.models.config import ModelConfig, check_supported
+
+_F32 = torch.float32
+
+DEFAULT_DORA_TARGETS = ("wq", "wk", "wv", "wo",
+                        "w_gate", "w_up", "w_down",
+                        "in_proj", "out_proj")
+
+
+def _norm_spec(mcfg: ModelConfig):
+    return {"scale": ("ones", (mcfg.d_model,))}
+
+
+def _attn_spec(mcfg: ModelConfig):
+    D, qd, kvd = mcfg.d_model, mcfg.q_dim, mcfg.kv_dim
+    s = {"wq": ("linear", (qd, D)), "wk": ("linear", (kvd, D)),
+         "wv": ("linear", (kvd, D)), "wo": ("linear", (D, qd))}
+    if mcfg.qkv_bias:
+        s["wq_bias"] = ("zeros", (qd,))
+        s["wk_bias"] = ("zeros", (kvd,))
+        s["wv_bias"] = ("zeros", (kvd,))
+    return s
+
+
+def _mlp_spec(mcfg: ModelConfig):
+    D, ff = mcfg.d_model, mcfg.d_ff
+    return {"w_gate": ("linear", (ff, D)), "w_up": ("linear", (ff, D)),
+            "w_down": ("linear", (D, ff))}
+
+
+def unit_spec(mcfg: ModelConfig):
+    """The repeating stack unit: one attention + SwiGLU layer, "l0"."""
+    return {"l0": {"ln1": _norm_spec(mcfg), "mixer": _attn_spec(mcfg),
+                   "ln2": _norm_spec(mcfg), "ffn": _mlp_spec(mcfg)}}
+
+
+def model_spec(mcfg: ModelConfig):
+    """Leaves are (init_kind, shape) tuples, as in the reference."""
+    check_supported(mcfg)
+    D, V = mcfg.d_model, mcfg.vocab_size
+    return {"embed": ("embed", (V, D)),
+            "stack": unit_spec(mcfg),
+            "final_norm": _norm_spec(mcfg),
+            "head": ("linear", (V, D))}
+
+
+def _is_leaf_spec(x) -> bool:
+    return isinstance(x, tuple) and len(x) == 2 and isinstance(x[0], str)
+
+
+def _spec_items(spec, path=()):
+    """(path, leaf) pairs in the reference's flatten order (sorted keys)."""
+    for k in sorted(spec):
+        v = spec[k]
+        if _is_leaf_spec(v):
+            yield path + (k,), v
+        else:
+            yield from _spec_items(v, path + (k,))
+
+
+def _set_path(tree: dict, path, value) -> None:
+    for k in path[:-1]:
+        tree = tree.setdefault(k, {})
+    tree[path[-1]] = value
+
+
+def _init_leaf(generator, kind, shape, dtype):
+    device = generator.device
+    if kind == "zeros":
+        return torch.zeros(shape, dtype=dtype, device=device)
+    if kind == "ones":
+        return torch.ones(shape, dtype=dtype, device=device)
+    w = torch.randn(shape, generator=generator, dtype=_F32, device=device)
+    if kind == "embed":
+        return (0.02 * w).to(dtype)
+    return (w / math.sqrt(shape[-1])).to(dtype)   # linear: fan-in scaled
+
+
+@torch.no_grad()
+def init_params(generator: torch.Generator, mcfg: ModelConfig):
+    """Random weights drawn from ``generator``, on its device. Stacked
+    leaves are drawn one scan slice at a time, so no fp32 copy of a whole
+    stack exists."""
+    device = generator.device
+    n_scan = mcfg.n_scan
+    params: dict[str, Any] = {}
+    for path, (kind, shape) in _spec_items(model_spec(mcfg)):
+        if path[0] == "stack":
+            leaf = torch.empty((n_scan,) + shape, dtype=mcfg.dtype,
+                               device=device)
+            for i in range(n_scan):
+                leaf[i] = _init_leaf(generator, kind, shape, mcfg.dtype)
+        else:
+            leaf = _init_leaf(generator, kind, shape, mcfg.dtype)
+        _set_path(params, path, leaf)
+    return params
+
+
+def _adapted_paths(mcfg: ModelConfig, targets):
+    """Paths into the stack unit that get adapters, with (d_out, d_in)."""
+    return [(path, shape)
+            for path, (kind, shape) in _spec_items(unit_spec(mcfg))
+            if path[-1] in targets and kind == "linear" and len(shape) == 2]
+
+
+def _get_path(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+@torch.no_grad()
+def init_adapters(generator: torch.Generator, mcfg: ModelConfig, params,
+                  dcfg: DoRAConfig, targets=DEFAULT_DORA_TARGETS):
+    """A ~ U(±1/√d_in), B = 0, m = ||W||_row (DoRA init) per layer slice,
+    on the params' device."""
+    tree: dict[str, Any] = {}
+    for path, _ in _adapted_paths(mcfg, targets):
+        W = _get_path(params["stack"], path)         # [n_scan, d_out, d_in]
+        _set_path(tree, path, init_dora_params(W, dcfg, generator=generator))
+    return {"stack": tree}
+
+
+def cache_shapes(mcfg: ModelConfig, batch: int, max_len: int, dtype=None):
+    """{"stack": {"l0": {"k", "v"}}} as (shape, dtype) pairs; K/V are
+    [n_scan, batch, max_len, Hkv, hd]. "len" is a scalar int."""
+    check_supported(mcfg)
+    kv = ((mcfg.n_scan, batch, max_len, mcfg.num_kv_heads, mcfg.head_dim),
+          dtype or mcfg.dtype)
+    return {"stack": {"l0": {"k": kv, "v": kv}}, "len": ((), torch.int64)}
+
+
+def init_cache(mcfg: ModelConfig, batch: int, max_len: int, dtype=None, *,
+               device=None):
+    shapes = cache_shapes(mcfg, batch, max_len, dtype)
+    unit = {li: {name: torch.zeros(shape, dtype=dt, device=device)
+                 for name, (shape, dt) in layer.items()}
+            for li, layer in shapes["stack"].items()}
+    return {"stack": unit, "len": 0}
+
+
+def _layer_apply(x, p, a, c, mcfg, dcfg, *, positions, length, training):
+    """Pre-norm attention + pre-norm SwiGLU, residual adds. ``c`` is this
+    layer's cache slice (written in place) or None."""
+    h = L.rms_norm(x, p["ln1"]["scale"], mcfg.norm_eps)
+    attn_cache = None if c is None else {"k": c["k"], "v": c["v"],
+                                         "len": length}
+    y, _ = L.attention(h, p["mixer"], (a or {}).get("mixer"), mcfg, dcfg,
+                       positions=positions, cache=attn_cache,
+                       training=training)
+    x = x + y
+    h = L.rms_norm(x, p["ln2"]["scale"], mcfg.norm_eps)
+    return x + L.mlp_swiglu(h, p["ffn"], (a or {}).get("ffn"), dcfg,
+                            training=training)
+
+
+def _slice_tree(tree, i: int):
+    if isinstance(tree, dict):
+        return {k: _slice_tree(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+def forward(mcfg: ModelConfig, params, adapters, dcfg: DoRAConfig | None,
+            *, tokens, cache=None, positions=None, training: bool = True,
+            loss_slice: int | None = None,
+            gather_position: int | None = None):
+    """Returns (logits [B, S, V], new_cache).
+
+    ``cache``: the decode cache or None. Its K/V buffers are updated IN
+    PLACE; the returned cache holds the same buffers with "len" advanced.
+    ``loss_slice``: keep only the last N positions before the LM head.
+    ``gather_position``: keep ONLY this position before the final norm and
+    the head (logits [B, 1, V]); overrides ``loss_slice``.
+    """
+    check_supported(mcfg)
+    adapters = adapters or {}
+    x = params["embed"].detach()[tokens]
+    B, S = x.shape[:2]
+    length = cache["len"] if cache is not None else None
+    if positions is None:
+        base = 0 if length is None else int(length)
+        positions = (base + torch.arange(S, device=x.device)).expand(B, S)
+
+    stack_p = params["stack"]
+    stack_a = adapters.get("stack", {})
+    stack_c = cache["stack"] if cache is not None else None
+    for i in range(mcfg.n_scan):
+        unit_p = _slice_tree(stack_p, i)
+        unit_a = _slice_tree(stack_a, i)
+        unit_c = _slice_tree(stack_c, i) if stack_c is not None else None
+        for li in unit_p:
+            x = _layer_apply(
+                x, unit_p[li], unit_a.get(li),
+                unit_c[li] if unit_c is not None else None, mcfg, dcfg,
+                positions=positions, length=length, training=training)
+    new_cache = (None if cache is None
+                 else {"stack": stack_c, "len": int(length) + S})
+
+    if gather_position is not None:
+        x = x[:, gather_position:gather_position + 1]
+    elif loss_slice is not None and loss_slice < x.shape[1]:
+        x = x[:, -loss_slice:]
+    x = L.rms_norm(x, params["final_norm"]["scale"], mcfg.norm_eps)
+    logits = x @ params["head"].detach().T
+    return logits, new_cache

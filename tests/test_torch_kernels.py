@@ -1,0 +1,261 @@
+"""The port's kernel modules against the reference's Pallas kernels.
+
+Each kernel's plain PyTorch version (what its wrapper runs on CPU tensors)
+is held against the JAX package's Pallas kernel run in interpret mode, on
+the same numpy inputs, in fp32 and bf16. Tolerances are scaled to the
+reference's largest magnitude: 1e-5 of it where fp32 sums are taken in
+another order (the matmul-based terms), 1e-6 where both sides run the
+same pinned fp32 operations, and one bf16 ulp of it (2^-8) for bf16
+outputs. The CUDA kernels themselves are held against the same plain
+versions on the card by chip_smoke.py.
+"""
+import jax.numpy as jnp
+import ml_dtypes
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import dora_compose as jk_compose
+from repro.kernels import ops as jops
+from repro.kernels.factored_norm import norm_terms_pallas
+from repro.kernels.norm_assembly import assemble_norm_pallas
+from repro_torch import kernels as tkernels
+from repro_torch.bridge import tensor_from_numpy
+from repro_torch.kernels import _build
+from repro_torch.kernels import dora_compose as tk_compose
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels.factored_norm import norm_terms
+from repro_torch.kernels.norm_assembly import (assemble_norm,
+                                               assemble_norm_plain)
+
+BF16 = ml_dtypes.bfloat16
+DTYPES = {"fp32": (np.float32, 1e-5), "bf16": (BF16, 1e-5)}
+
+
+def _np(rng, shape, dtype=np.float32, scale=1.0):
+    return (rng.standard_normal(shape) * scale).astype(np.float32).astype(
+        dtype)
+
+
+def _f32(x):
+    if isinstance(x, torch.Tensor):
+        return x.detach().float().numpy()
+    return np.asarray(jnp.asarray(x, jnp.float32))
+
+
+def _close(got, want, rel):
+    got, want = _f32(got), _f32(want)
+    assert got.shape == want.shape
+    tol = rel * np.abs(want).max()
+    err = np.abs(got - want).max()
+    assert err <= tol, f"max err {err} > {tol} ({rel} x max|ref|)"
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("d_out,d_in,r", [(256, 384, 16), (128, 512, 40)])
+def test_norm_terms_plain_matches_pallas(dtype, d_out, d_in, r):
+    rng = np.random.default_rng(0)
+    npdt, rel = DTYPES[dtype]
+    W = _np(rng, (d_out, d_in), npdt, d_in ** -0.5)
+    A = _np(rng, (r, d_in), npdt, d_in ** -0.5)
+    B = _np(rng, (d_out, r), npdt, 0.1)
+    # The Pallas kernel needs r padded to the sublane size; zeros are inert.
+    rp = -(-r // 8) * 8
+    Ap = np.pad(A, ((0, rp - r), (0, 0)))
+    Bp = np.pad(B, ((0, 0), (0, rp - r)))
+    jb, jc = norm_terms_pallas(jnp.asarray(W), jnp.asarray(Ap),
+                               jnp.asarray(Bp), block_rows=128, block_k=128,
+                               interpret=True)
+    tb, tc = norm_terms(*(tensor_from_numpy(x) for x in (W, A, B)))
+    _close(tb, jb, rel)
+    _close(tc, jc, rel)
+    assert tb.dtype == tc.dtype == torch.float32
+
+
+@pytest.mark.parametrize("s", [0.5, 9.797958971132712])
+def test_assemble_norm_plain_matches_pallas(s):
+    rng = np.random.default_rng(1)
+    n = 384
+    base = np.abs(_np(rng, (n,)))
+    cross = _np(rng, (n,), scale=0.1)
+    ba = np.abs(_np(rng, (n,), scale=0.01))
+    base[:5] = [np.nan, -1.0, 0.0, np.inf, 1.0]   # NaN, clamp, edges
+    cross[1] = ba[1] = 0.0
+    want = assemble_norm_pallas(*(jnp.asarray(v) for v in (base, cross, ba)),
+                                s, interpret=True)
+    got = assemble_norm(*(tensor_from_numpy(v) for v in (base, cross, ba)), s)
+    got, want = _f32(got), _f32(want)
+    assert np.isnan(got[0]) and np.isnan(want[0]), "max must propagate NaN"
+    assert got[1] == want[1] == 0.0, "negative sums clamp to 0"
+    assert np.isinf(got[3])
+    fin = np.isfinite(want)
+    np.testing.assert_array_equal(np.isfinite(got), fin)
+    _close(got[fin], want[fin], 1e-6)
+
+
+def test_assemble_norm_nan_propagates_through_plain():
+    nan = torch.tensor([float("nan"), -2.0, 4.0])
+    out = assemble_norm_plain(nan, torch.zeros(3), torch.zeros(3), 1.0)
+    assert torch.isnan(out[0]) and out[1] == 0.0 and out[2] == 2.0
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("m,n", [(8, 128), (100, 384), (3, 256)])
+def test_compose_fwd_plain_matches_pallas(dtype, m, n):
+    rng = np.random.default_rng(2)
+    npdt, _ = DTYPES[dtype]
+    base = _np(rng, (m, n), npdt)
+    lora = _np(rng, (m, n), npdt, 0.5)
+    g = (1.0 + 0.05 * rng.standard_normal(n)).astype(np.float32)
+    s = 0.75
+    # Through the wrappers: the reference pads the ragged rows to its
+    # block, the port's kernel masks them.
+    want = jops.fused_compose(jnp.asarray(base), jnp.asarray(lora),
+                              jnp.asarray(g), s, save_inner=False,
+                              mag_grad=False, block_m=64, block_n=128,
+                              interpret=True)
+    got = tops.fused_compose(tensor_from_numpy(base), tensor_from_numpy(lora),
+                             tensor_from_numpy(g), s)
+    assert got.dtype == tensor_from_numpy(base).dtype
+    _close(got, want, 1e-6 if dtype == "fp32" else 2.0 ** -8)
+    # ... and the bare kernel function on its own, on the first 8 rows
+    # (the Pallas kernel takes whole 8-row blocks; pad with zero rows).
+    rows = min(m, 8)
+    b8 = np.pad(base[:rows], ((0, 8 - rows), (0, 0)))
+    l8 = np.pad(lora[:rows], ((0, 8 - rows), (0, 0)))
+    gm1 = (g - 1.0).reshape(1, n)
+    want_k = jk_compose.compose_fwd_pallas(
+        jnp.asarray(b8), jnp.asarray(l8), jnp.asarray(gm1), s,
+        save_inner=False, block_m=8, block_n=128, interpret=True)
+    got_k = tk_compose.compose_fwd(tensor_from_numpy(base[:rows]),
+                                   tensor_from_numpy(lora[:rows]),
+                                   tensor_from_numpy(gm1[0]), s)
+    _close(got_k, _f32(want_k)[:rows],
+           1e-6 if dtype == "fp32" else 2.0 ** -8)
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("m,n,r", [(100, 256, 40), (64, 384, 16),
+                                   (5, 128, 130)])
+def test_compose_mm_fwd_plain_matches_pallas(dtype, m, n, r):
+    """r not a multiple of 128 (the reference pads it, the port does not)
+    and ragged rows."""
+    rng = np.random.default_rng(3)
+    npdt, rel = DTYPES[dtype]
+    base = _np(rng, (m, n), npdt)
+    h = _np(rng, (m, r), npdt, 0.5)
+    B = _np(rng, (n, r), npdt, 0.1)
+    g = (1.0 + 0.05 * rng.standard_normal(n)).astype(np.float32)
+    s = 1.25
+    want = jops.fused_compose_mm(jnp.asarray(base), jnp.asarray(h),
+                                 jnp.asarray(B), jnp.asarray(g), s,
+                                 mag_grad=False, block_m=64, block_n=128,
+                                 interpret=True)
+    got = tops.fused_compose_mm(*(tensor_from_numpy(x)
+                                  for x in (base, h, B, g)), s)
+    _close(got, want, rel if dtype == "fp32" else 2.0 ** -8)
+
+
+def test_compose_mm_leading_dims_and_bad_shapes():
+    rng = np.random.default_rng(4)
+    base = torch.from_numpy(_np(rng, (2, 3, 128)))
+    h = torch.from_numpy(_np(rng, (2, 3, 8)))
+    B = torch.from_numpy(_np(rng, (128, 8)))
+    g = torch.ones(128)
+    out = tops.fused_compose_mm(base, h, B, g, 2.0)
+    assert out.shape == base.shape
+    # g == 1 → delta = s·(h·Bᵀ)
+    torch.testing.assert_close(out, 2.0 * (h @ B.T), rtol=1e-5, atol=1e-5)
+    with pytest.raises(ValueError, match="leading dims"):
+        tops.fused_compose_mm(base, h[:1], B, g, 2.0)
+    with pytest.raises(ValueError, match="do not agree"):
+        tk_compose.compose_mm_fwd(base[0], h[0], B[:64], g, 2.0)
+    with pytest.raises(ValueError, match="gm1"):
+        tk_compose.compose_fwd(base[0], base[0], g[:64], 2.0)
+    with pytest.raises(ValueError, match="do not agree"):
+        norm_terms(B, h[0], B)
+
+
+@pytest.mark.parametrize("s", [0.0, 1.5])
+def test_fused_norm_matches_reference_wrapper(s):
+    """s == 0 fast path and the cached base term, against the reference's
+    fused_norm in interpret mode."""
+    rng = np.random.default_rng(5)
+    W = _np(rng, (256, 200), scale=0.07)
+    A = _np(rng, (12, 200), scale=0.07)
+    B = _np(rng, (256, 12), scale=0.1)
+    want = jops.fused_norm(jnp.asarray(W), jnp.asarray(A), jnp.asarray(B),
+                           s, block_rows=128, block_k=128, interpret=True)
+    got = tops.fused_norm(*(tensor_from_numpy(x) for x in (W, A, B)), s)
+    _close(got, want, 1e-5)
+    base_sq = (W.astype(np.float64) ** 2).sum(1).astype(np.float32) * 1.01
+    want_c = jops.fused_norm(jnp.asarray(W), jnp.asarray(A), jnp.asarray(B),
+                             s, block_rows=128, block_k=128, interpret=True,
+                             base_sq_cache=jnp.asarray(base_sq))
+    got_c = tops.fused_norm(*(tensor_from_numpy(x) for x in (W, A, B)), s,
+                            base_sq_cache=torch.from_numpy(base_sq))
+    _close(got_c, want_c, 1e-5)
+    assert not np.allclose(_f32(got_c), _f32(got))
+
+
+def test_compose_wrappers_are_forward_only():
+    base = torch.zeros(4, 128, requires_grad=True)
+    h = torch.zeros(4, 8)
+    B = torch.zeros(128, 8)
+    g = torch.ones(128)
+    with pytest.raises(NotImplementedError, match="training slice"):
+        tops.fused_compose(base, base, g, 1.0)
+    with pytest.raises(NotImplementedError, match="training slice"):
+        tops.fused_compose_mm(base, h, B, g, 1.0)
+    with torch.no_grad():
+        assert tops.fused_compose_mm(base, h, B, g, 1.0).shape == (4, 128)
+
+
+def test_plain_versions_do_not_count_launches():
+    tkernels.reset_launch_counts()
+    x = torch.ones(8, 128)
+    tops.fused_compose(x, x, torch.ones(128), 1.0)
+    tops.fused_norm(x, torch.ones(4, 128), torch.ones(8, 4), 1.0)
+    assert tkernels.launch_counts() == dict.fromkeys(tkernels.KERNELS, 0)
+
+
+def test_non_cpu_tensor_never_falls_back():
+    """A tensor off the CPU launches the kernel or raises; here there is
+    no card, so every wrapper raises instead of running its plain
+    version."""
+    meta = torch.empty(8, 128, device="meta")
+    with pytest.raises(RuntimeError, match="CUDA unavailable"):
+        tk_compose.compose_fwd(meta, meta, torch.empty(128, device="meta"),
+                               1.0)
+    with pytest.raises(RuntimeError, match="CUDA unavailable"):
+        norm_terms(meta, torch.empty(4, 128, device="meta"),
+                   torch.empty(8, 4, device="meta"))
+    with pytest.raises(RuntimeError, match="CUDA unavailable"):
+        v = torch.empty(8, device="meta")
+        assemble_norm(v, v, v, 1.0)
+
+
+def test_build_needs_nvcc_and_names_library_by_source_hash(monkeypatch,
+                                                           tmp_path):
+    assert _build.library_path().parent == _build.BUILD_DIR
+    assert _build.BUILD_DIR.parts[-2:] == ("build", "repro_torch")
+    assert _build.source_hash() in _build.library_path().name
+    assert {p.name for p in _build.sources()} == {
+        "norm_terms.cu", "assemble_norm.cu", "compose.cu", "compose_mm.cu"}
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build.probes, "nvcc_path", lambda: None)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.build()
+    assert list(tmp_path.iterdir()) == []
+
+
+def test_kernel_sources_name_the_tpu_kernel_they_replace():
+    expect = {"norm_terms.cu": "factored_norm.py:49",
+              "assemble_norm.cu": "norm_assembly.py:37",
+              "compose.cu": "dora_compose.py:106",
+              "compose_mm.cu": "dora_compose.py:211"}
+    for name, ref in expect.items():
+        text = (_build.SRC_DIR / name).read_text()
+        assert ref in text and "Bound on the H100" in text, name
+    assert "--use_fast_math" not in " ".join(_build.NVCC_FLAGS)
+    assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
