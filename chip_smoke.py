@@ -7,9 +7,9 @@ Run from the repository root on a machine with the card:
 
 It builds the hand-written kernels from ``src/repro_torch/kernels/csrc``,
 holds each kernel against its plain PyTorch version at the shapes the
-serving path gives it, then serves full-width qwen2-7b (28 layers, random
-weights from a seed) with r=384 DoRA adapters on all seven projections
-through ``repro_torch.launch.serve.generate``:
+serving and training paths give it, then serves full-width qwen2-7b (28
+layers, random weights from a seed) with r=384 DoRA adapters on all seven
+projections through ``repro_torch.launch.serve.generate``:
 
   1. auto mode in bf16 (the main path): precompute, padded prefill of
      4 x 1024, 32 decode tokens; the kernel launch counts must be
@@ -25,9 +25,30 @@ through ``repro_torch.launch.serve.generate``:
      plain versions), whose prefill logits must agree within
      1e-4 x max|logit| and whose greedy tokens must match.
 
-Any failed check raises, so the exit code is non-zero. The line before
-the last is the kernels' JSON record; the last line is
-``{"ok": true, "device": {...}}``. Without CUDA it exits non-zero before
+Then it trains the same bf16 weights (the serving cache freed) through
+``repro_torch.launch.steps.make_train_step``: batch 2 x seq 2048, loss on
+the last 1024 tokens, layer remat, AdamW defaults:
+
+  5. auto mode, 3 steps (the training main path): per step K1 = K2 = 196,
+     K6 = 280 (the layers' forward and their recompute), K7 = 140 and no
+     element-wise compose kernel; the loss finite, the gradient norm
+     finite and non-zero;
+  6. the element-wise route (``compose_matmul_fused=False``, the route of
+     every rank that pads above 512), 3 steps: per step K4 = 280,
+     K5 = 140, K6 = K7 = 0;
+  7. the three routes (5, 6 and eager) one step each on the same weights
+     upcast to fp32 at full width and 4 layers: losses within 1e-5
+     relative, each kernel route's adapter gradient at cosine >= 0.99999
+     with eager's;
+  8. a 2-layer fp32 model trained 2 steps on the card and on the CPU, on
+     both compose routes: losses and adapters within 1e-4 x max|value|.
+
+Any failed check raises, so the exit code is non-zero. The card's name
+and power limit (as nvidia-smi gives them) are printed first and again
+two lines before the last; the line before the last is the kernels' JSON
+record and the last line is ``{"ok": true, "device": {...}}``. Every
+shape's kernel row and each phase's full numbers are written to
+``build/chip_smoke.json``. Without CUDA it exits non-zero before
 printing anything.
 """
 from __future__ import annotations
@@ -52,6 +73,10 @@ RANK, ALPHA, SEED = 384, 192.0, 0
 FORCED_GEN = 3
 COSINE_MIN = 0.9999
 
+TRAIN_BATCH, TRAIN_SEQ, LOSS_TOKENS, TRAIN_STEPS = 2, 2048, 1024, 3
+AGREE_LAYERS = 4
+GRAD_COSINE_MIN = 0.99999
+
 SOURCES = {
     "norm_terms": ("src/repro_torch/kernels/csrc/norm_terms.cu",
                    "src/repro/kernels/factored_norm.py:49"),
@@ -59,14 +84,36 @@ SOURCES = {
                       "src/repro/kernels/norm_assembly.py:37"),
     "compose_fwd": ("src/repro_torch/kernels/csrc/compose.cu",
                     "src/repro/kernels/dora_compose.py:106"),
+    "compose_fwd_dual": ("src/repro_torch/kernels/csrc/compose.cu",
+                         "src/repro/kernels/dora_compose.py:106"),
+    "compose_bwd": ("src/repro_torch/kernels/csrc/compose_bwd.cu",
+                    "src/repro/kernels/dora_compose.py:136"),
     "compose_mm_fwd": ("src/repro_torch/kernels/csrc/compose_mm.cu",
                        "src/repro/kernels/dora_compose.py:211"),
+    "compose_mm_bwd": ("src/repro_torch/kernels/csrc/compose_mm_bwd.cu",
+                       "src/repro/kernels/dora_compose.py:239"),
 }
+# The path whose launch count each kernel's record carries, and the index
+# of the shape its top-level numbers are read at (w_gate, or the forced
+# decode rows on w_gate for K3).
+RECORD_PATH = {"norm_terms": ("serve_auto", 2),
+               "assemble_norm": ("serve_auto", 2),
+               "compose_fwd": ("serve_fused", 1),
+               "compose_fwd_dual": ("train_elementwise", 0),
+               "compose_bwd": ("train_elementwise", 0),
+               "compose_mm_fwd": ("serve_auto", 1),
+               "compose_mm_bwd": ("train_auto", 0)}
 
 
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise RuntimeError(f"chip smoke check failed: {msg}")
+
+
+def counts_of(**launched) -> dict:
+    """Every kernel's expected launch count: the named ones, 0 for the
+    rest."""
+    return {name: launched.get(name, 0) for name in SOURCES}
 
 
 def time_ms(fn, *, target_ms: float = 150.0) -> float:
@@ -126,8 +173,7 @@ def kernel_checks(dev) -> dict:
         return (torch.randn(shape, generator=gen, device=dev) * scale).to(
             dtype)
 
-    rows = {"norm_terms": [], "assemble_norm": [], "compose_fwd": [],
-            "compose_mm_fwd": []}
+    rows = {name: [] for name in SOURCES}
 
     def record(name, shape, err, ref_max, rel, ms, plain, nbytes, ops_s,
                lib_ms=None, lib_call=None, **extra):
@@ -215,6 +261,60 @@ def kernel_checks(dev) -> dict:
                2 * m * n * RANK / PEAK_OPS[bf] + 5 * m * n / F32_OPS,
                time_ms(lambda: h @ B.T), "h @ B.T")
         del base, h, B
+
+    # K4, K5 and K7 at training rows (batch 2 x seq 2048) on the d_out of
+    # w_gate/w_up and of wq/wo/w_down.
+    for m, n in ((4096, 18944), (4096, 3584)):
+        base = randn(m, n)
+        lora = randn(m, n, scale=2.0)
+        gm1 = randn(n, scale=0.05, dtype=torch.float32)
+        gs = (gm1 + 1.0) * s
+        delta, inner = kc.compose_fwd_dual(base, lora, gm1, s)
+        ref_d, ref_i = kc.compose_fwd_dual_plain(base, lora, gm1, s)
+        e1, m1 = max_err(delta, ref_d)
+        e2, m2 = max_err(inner, ref_i)
+        # Same pinned fp32 operations, one bf16 rounding: one bf16 ulp of
+        # the largest value.
+        record("compose_fwd_dual", [m, n], max(e1, e2), max(m1, m2),
+               2.0 ** -8,
+               time_ms(lambda: kc.compose_fwd_dual(base, lora, gm1, s)),
+               time_ms(lambda: kc.compose_fwd_dual_plain(base, lora, gm1,
+                                                         s)),
+               4 * m * n * esz + n * 4, 6 * m * n / F32_OPS,
+               bitwise_equal_plain=bool(torch.equal(delta, ref_d)
+                                        and torch.equal(inner, ref_i)))
+        del lora, delta, inner, ref_d, ref_i
+        dy = base
+        d_base, d_lora = kc.compose_bwd(dy, gm1, gs)
+        ref_b, ref_l = kc.compose_bwd_plain(dy, gm1, gs)
+        e1, m1 = max_err(d_base, ref_b)
+        e2, m2 = max_err(d_lora, ref_l)
+        # One fp32 product, one bf16 rounding: one bf16 ulp.
+        record("compose_bwd", [m, n], max(e1, e2), max(m1, m2), 2.0 ** -8,
+               time_ms(lambda: kc.compose_bwd(dy, gm1, gs)),
+               time_ms(lambda: kc.compose_bwd_plain(dy, gm1, gs)),
+               3 * m * n * esz + 2 * n * 4, 2 * m * n / F32_OPS,
+               bitwise_equal_plain=bool(torch.equal(d_base, ref_b)
+                                        and torch.equal(d_lora, ref_l)))
+        del d_base, d_lora, ref_b, ref_l
+        B = randn(n, RANK, scale=0.02)
+        d_base, d_h = kc.compose_mm_bwd(dy, B, gm1, gs)
+        ref_b, ref_h = kc.compose_mm_bwd_plain(dy, B, gm1, gs)
+        e1, _ = max_err(d_base, ref_b)
+        e2, m2 = max_err(d_h, ref_h)
+        check(torch.equal(d_base, ref_b), f"compose_mm_bwd [{m}, {n}]: "
+              f"d_base differs from the plain version (err {e1})")
+        # d_h: fp32 sums of N products in another order than cuBLAS's,
+        # 1e-4 of the largest |d_h|; d_base must be bitwise equal.
+        dys = (dy.float() * gs).to(dy.dtype)
+        record("compose_mm_bwd", [m, n, RANK], e2, m2, 1e-4,
+               time_ms(lambda: kc.compose_mm_bwd(dy, B, gm1, gs)),
+               time_ms(lambda: kc.compose_mm_bwd_plain(dy, B, gm1, gs)),
+               2 * m * n * esz + n * RANK * esz + m * RANK * 4 + 2 * n * 4,
+               2 * m * n * RANK / PEAK_OPS[bf] + 2 * m * n / F32_OPS,
+               time_ms(lambda: dys @ B), "(dY*gs) @ B, bf16 product only",
+               d_base_bitwise_equal_plain=True)
+        del dy, base, B, d_base, d_h, ref_b, ref_h, dys
     torch.cuda.empty_cache()
     return rows
 
@@ -304,9 +404,9 @@ def serve_checks(dev) -> dict:
     auto_counts = kernels.launch_counts()
     peak = torch.cuda.max_memory_allocated(dev)
     n_adapted = 7 * mcfg.num_layers
-    check(auto_counts == {"norm_terms": n_adapted,
-                          "assemble_norm": n_adapted, "compose_fwd": 0,
-                          "compose_mm_fwd": 5 * mcfg.num_layers},
+    check(auto_counts == counts_of(norm_terms=n_adapted,
+                                   assemble_norm=n_adapted,
+                                   compose_mm_fwd=5 * mcfg.num_layers),
           f"auto-mode launch counts {auto_counts}")
     check(tuple(toks.shape) == (BATCH, PROMPT + GEN), f"tokens {toks.shape}")
     check(all(torch.isfinite(lg.float()).all().item() for lg in logits),
@@ -330,10 +430,10 @@ def serve_checks(dev) -> dict:
         max_len=MAX_LEN, device=dev, return_logits=True, stats=fstats)
     torch.cuda.synchronize()
     fused_counts = kernels.launch_counts()
-    check(fused_counts == {"norm_terms": n_adapted,
-                           "assemble_norm": n_adapted,
-                           "compose_fwd": n_adapted * FORCED_GEN,
-                           "compose_mm_fwd": n_adapted},
+    check(fused_counts == counts_of(norm_terms=n_adapted,
+                                    assemble_norm=n_adapted,
+                                    compose_fwd=n_adapted * FORCED_GEN,
+                                    compose_mm_fwd=n_adapted),
           f"forced-mode launch counts {fused_counts}")
     serve_fused = {"prefill_ms": fstats["prefill_s"] * 1e3,
                    "decode_ms_per_token":
@@ -376,11 +476,286 @@ def serve_checks(dev) -> dict:
           <= 2 * (1 - cos["bf16_eager_vs_fp32_eager"]) + 1e-9,
           "bf16 kernel route is further from the fp32 logits than the bf16 "
           "eager route")
-    del params, adapters
     torch.cuda.empty_cache()
-    return {"auto": auto_counts, "fused": fused_counts,
-            "serve_auto": serve_auto, "serve_fused": serve_fused,
-            "cosines": cos}
+    return ({"auto": auto_counts, "fused": fused_counts,
+             "serve_auto": serve_auto, "serve_fused": serve_fused,
+             "cosines": cos}, mcfg, params, adapters)
+
+
+# ---------------------------------------------------------------------------
+# Training at full width.
+# ---------------------------------------------------------------------------
+
+def _train_batches(mcfg, steps: int):
+    """The port's synthetic pipeline at the training shape, on the host."""
+    from repro_torch.data import DataConfig, make_train_iterator
+
+    it = make_train_iterator(DataConfig(
+        vocab_size=mcfg.vocab_size, seq_len=TRAIN_SEQ,
+        global_batch=TRAIN_BATCH, seed=SEED + 2))
+    return [next(it) for _ in range(steps)]
+
+
+def _steps_on(dev, mcfg, params, adapters, dcfg, batches, name):
+    """One train step of ``dcfg``'s route per batch, launch counts read
+    per step; the counts are zeroed just before the first step and read
+    just after the last (the record's "launches")."""
+    from repro_torch import kernels
+    from repro_torch.launch.steps import StepConfig, make_train_step
+    from repro_torch.optim import adamw_init
+
+    scfg = StepConfig(dora=dcfg, loss_tokens=LOSS_TOKENS)
+    step = make_train_step(mcfg, scfg, batch=TRAIN_BATCH, seq=TRAIN_SEQ)
+    opt = adamw_init(adapters)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    per_step, steps = [], []
+    kernels.reset_launch_counts()
+    for batch in batches:
+        before = kernels.launch_counts()
+        stats: dict = {}
+        bt = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+        adapters, opt, met = step(params, adapters, opt, bt, stats=stats)
+        after = kernels.launch_counts()
+        per_step.append({k: after[k] - before[k] for k in after})
+        steps.append({"loss": float(met["loss"]),
+                      "grad_norm": float(met["grad_norm"]),
+                      "lr": met["lr"], "grad_ms": stats["grad_s"] * 1e3,
+                      "optim_ms": stats["optim_s"] * 1e3})
+    launches = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    del opt
+    torch.cuda.empty_cache()
+    # The first step pays for cuBLAS and allocator warm-up: the later
+    # steps are the steady state.
+    warm = steps[1:] or steps
+    step_ms = sum(st["grad_ms"] + st["optim_ms"] for st in warm) / len(warm)
+    rec = {"steps": steps, "step_ms": step_ms,
+           "grad_ms": sum(st["grad_ms"] for st in warm) / len(warm),
+           "optim_ms": sum(st["optim_ms"] for st in warm) / len(warm),
+           "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / (step_ms / 1e3),
+           "max_memory_allocated_bytes": peak, "launches_per_step": per_step,
+           "launches": launches}
+    print(f"train {name} (bf16): " + json.dumps(rec), flush=True)
+    for st in steps:
+        check(math.isfinite(st["loss"]), f"train {name}: loss {st['loss']}")
+        check(math.isfinite(st["grad_norm"]) and st["grad_norm"] > 0,
+              f"train {name}: grad norm {st['grad_norm']}")
+    return rec
+
+
+def _kernel_family(name: str) -> str:
+    """A coarse class of a device kernel's name, for the step profile."""
+    for ours in SOURCES:
+        if ours + "_kernel" in name:
+            return ours
+    low = name.lower()
+    for family, keys in (("gemm", ("gemm", "xmma", "cutlass", "matmul")),
+                         ("reduce", ("reduce",)),
+                         ("memcpy/memset", ("memcpy", "memset")),
+                         ("elementwise", ("elementwise", "vectorized",
+                                          "unrolled"))):
+        if any(k in low for k in keys):
+            return family
+    return "other"
+
+
+def _profile_step(dev, mcfg, params, adapters, dcfg, batch) -> dict:
+    """One more training step under torch.profiler, outside every launch
+    count: device time by kernel family and by kernel, and the device's
+    idle share of the step's wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch.steps import StepConfig, make_train_step
+    from repro_torch.optim import adamw_init
+
+    step = make_train_step(mcfg, StepConfig(dora=dcfg,
+                                            loss_tokens=LOSS_TOKENS),
+                           batch=TRAIN_BATCH, seq=TRAIN_SEQ)
+    opt = adamw_init(adapters)
+    bt = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            step(params, adapters, opt, bt)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        by_name: dict = {}
+        for ev in prof.events():
+            if ev.device_type != DeviceType.CUDA:
+                continue
+            us = ev.time_range.end - ev.time_range.start
+            n, t = by_name.get(ev.name, (0, 0.0))
+            by_name[ev.name] = (n + 1, t + us)
+    except Exception as exc:   # the profiler is a measurement, not a check
+        del opt
+        torch.cuda.empty_cache()
+        print(f"train profile: unavailable ({exc!r})", flush=True)
+        return {"error": repr(exc)}
+    del opt
+    torch.cuda.empty_cache()
+    busy_us = sum(t for _, t in by_name.values())
+    families: dict = {}
+    for name, (n, t) in by_name.items():
+        fam = families.setdefault(_kernel_family(name), [0, 0.0])
+        fam[0] += n
+        fam[1] += t
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:15]
+    rec = {"wall_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3,
+           "device_idle_share": 1.0 - busy_us / wall_us,
+           "families_ms": {k: {"launches": n, "ms": t / 1e3}
+                           for k, (n, t) in sorted(
+                               families.items(), key=lambda kv: -kv[1][1])},
+           "top_kernels_ms": [{"name": k[:100], "launches": n, "ms": t / 1e3}
+                              for k, (n, t) in top]}
+    print("train profile (auto, bf16, one step): " + json.dumps(rec),
+          flush=True)
+    return rec
+
+
+def _upcast_layers(tree, n: int):
+    """fp32 copies of the first ``n`` layer slices of a stacked tree (the
+    stack's leaves) and of every other leaf."""
+    out = {}
+    for k, v in tree.items():
+        if k == "stack":
+            out[k] = _tree_map(lambda t: t[:n].float(), v)
+        elif isinstance(v, dict):
+            out[k] = _tree_map(lambda t: t.float(), v)
+        else:
+            out[k] = v.float()
+    return out
+
+
+def train_checks(dev, mcfg, params, adapters) -> dict:
+    """Phases 5-7: full-width bf16 training on both compose routes with
+    exact launch counts, then the three routes held together in fp32."""
+    import dataclasses
+
+    from repro_torch import kernels
+    from repro_torch.core.config import DoRAConfig
+    from repro_torch.launch.steps import StepConfig, make_grad_step
+
+    L = mcfg.num_layers
+    n_adapted = 7 * L
+    batches = _train_batches(mcfg, TRAIN_STEPS)
+    auto = DoRAConfig(rank=RANK, alpha=ALPHA, mode="auto")
+    elem = dataclasses.replace(auto, compose_matmul_fused=False)
+
+    # --- 5: the training main path (auto mode, bf16) ---
+    t_auto = _steps_on(dev, mcfg, params, adapters, auto, batches, "auto")
+    want = counts_of(norm_terms=n_adapted, assemble_norm=n_adapted,
+                     compose_mm_fwd=2 * 5 * L, compose_mm_bwd=5 * L)
+    for i, got in enumerate(t_auto["launches_per_step"]):
+        check(got == want, f"train auto step {i} launch counts {got}")
+    t_auto["profile"] = _profile_step(dev, mcfg, params, adapters, auto,
+                                      batches[-1])
+
+    # --- 6: the element-wise route on the same state ---
+    t_elem = _steps_on(dev, mcfg, params, adapters, elem, batches,
+                       "elementwise")
+    want = counts_of(norm_terms=n_adapted, assemble_norm=n_adapted,
+                     compose_fwd_dual=2 * 5 * L, compose_bwd=5 * L)
+    for i, got in enumerate(t_elem["launches_per_step"]):
+        check(got == want, f"train elementwise step {i} launch counts {got}")
+
+    # --- 7: route agreement in fp32, full width, AGREE_LAYERS layers ---
+    mcfg32 = dataclasses.replace(mcfg, num_layers=AGREE_LAYERS,
+                                 dtype=torch.float32)
+    p32 = _upcast_layers(params, AGREE_LAYERS)
+    a32 = _upcast_layers(adapters, AGREE_LAYERS)
+    bt = {k: torch.as_tensor(v, device=dev) for k, v in batches[0].items()}
+    agree, grads = {}, {}
+    for name, dcfg in (("auto", auto), ("elementwise", elem),
+                       ("eager", dataclasses.replace(auto, mode="eager"))):
+        kernels.reset_launch_counts()
+        loss, g = make_grad_step(mcfg32, StepConfig(
+            dora=dcfg, loss_tokens=LOSS_TOKENS), batch=TRAIN_BATCH,
+            seq=TRAIN_SEQ)(p32, a32, bt)
+        counts = kernels.launch_counts()
+        grads[name] = torch.cat([t.flatten() for t in
+                                 _leaves_sorted(g)]).double()
+        agree[name] = {"loss": float(loss), "launches": counts}
+        del g
+    check(agree["auto"]["launches"]["compose_mm_bwd"] == 5 * AGREE_LAYERS
+          and agree["elementwise"]["launches"]["compose_bwd"]
+          == 5 * AGREE_LAYERS
+          and sum(agree["eager"]["launches"].values()) == 0,
+          f"fp32 agreement routes launched {agree}")
+    for name in ("auto", "elementwise"):
+        rel = abs(agree[name]["loss"] / agree["eager"]["loss"] - 1)
+        cos = cosine(grads[name], grads["eager"])
+        agree[name].update(loss_rel_to_eager=rel, grad_cosine_to_eager=cos)
+        check(rel <= 1e-5, f"fp32 {name} loss differs from eager by {rel}")
+        check(cos >= GRAD_COSINE_MIN,
+              f"fp32 {name} gradient cosine to eager {cos}")
+    del p32, a32, grads
+    torch.cuda.empty_cache()
+    print("train fp32 route agreement: " + json.dumps(agree), flush=True)
+    return {"train_auto": t_auto, "train_elementwise": t_elem,
+            "fp32_agreement": agree}
+
+
+def _leaves_sorted(tree):
+    from repro_torch.tree import flatten_paths
+    return [v for _, v in sorted(flatten_paths(tree).items())]
+
+
+def train_parity(dev) -> dict:
+    """Phase 8: a 2-layer fp32 model trained 2 steps on the card (kernels)
+    and on the CPU (their plain versions) from the same state, on both
+    compose routes. AdamW runs with lr 1e-2 and eps 1e-4 so the adapters
+    move by a visible step and the step is smooth in the gradient (at
+    eps = 1e-8 a gradient element near 1e-8 turns a rounding difference
+    into a different step)."""
+    from repro_torch.core.config import DoRAConfig
+    from repro_torch.launch import train
+    from repro_torch.launch.steps import StepConfig, make_train_step
+    from repro_torch.models.config import ModelConfig
+    from repro_torch.optim import OptimizerConfig
+
+    mcfg = ModelConfig(name="parity-2l", family="dense", num_layers=2,
+                       d_model=256, num_heads=2, num_kv_heads=1, d_ff=512,
+                       vocab_size=512, qkv_bias=True, attn_chunk=16,
+                       dtype=torch.float32)
+    toks = np.random.default_rng(SEED).integers(0, 512, (2, 2, 33))
+    out = {}
+    for route, extra in (("mm", {}), ("elementwise",
+                                      {"compose_matmul_fused": False})):
+        dcfg = DoRAConfig(rank=16, alpha=32.0, mode="fused", **extra)
+        scfg = StepConfig(dora=dcfg, optim=OptimizerConfig(
+            lr=1e-2, warmup_steps=1, total_steps=2, eps=1e-4))
+        res = {}
+        for where in ("cpu", "cuda"):
+            params, adapters, opt = train.build_state(mcfg, dcfg, SEED, "cpu")
+            perturb_adapters(adapters, torch.Generator().manual_seed(SEED))
+            if where == "cuda":
+                params, adapters, opt = (_tree_map(lambda t: t.to(dev), x)
+                                         for x in (params, adapters, opt))
+            step = make_train_step(mcfg, scfg, batch=2, seq=32)
+            losses = []
+            for t in toks:
+                bt = {"tokens": torch.as_tensor(t[:, :-1], device=where),
+                      "labels": torch.as_tensor(t[:, 1:], device=where)}
+                adapters, opt, met = step(params, adapters, opt, bt)
+                losses.append(float(met["loss"]))
+            res[where] = (losses, _leaves_sorted(adapters))
+        (l_cpu, a_cpu), (l_dev, a_dev) = res["cpu"], res["cuda"]
+        loss_err = max(abs(a - b) for a, b in zip(l_dev, l_cpu))
+        mx = max(abs(v) for v in l_cpu)
+        ad_err = max((d.cpu() - c).abs().max().item() / c.abs().max().item()
+                     for d, c in zip(a_dev, a_cpu))
+        out[route] = {"losses_cpu": l_cpu, "losses_cuda": l_dev,
+                      "loss_err": loss_err, "adapter_rel_err": ad_err}
+        print(f"train parity {route} (2 layers, fp32, card vs CPU plain): "
+              f"loss err {loss_err:.3g} (tol {1e-4 * mx:.3g}), adapter "
+              f"err {ad_err:.3g} of max (tol 1e-4)", flush=True)
+        check(loss_err <= 1e-4 * mx, f"train parity {route} loss {loss_err}")
+        check(ad_err <= 1e-4, f"train parity {route} adapters {ad_err}")
+    return out
 
 
 def small_parity(dev) -> None:
@@ -449,33 +824,57 @@ def main() -> int:
     print("kernels vs plain versions:", flush=True)
     rows = kernel_checks(dev)
     small_parity(dev)
-    served = serve_checks(dev)
+    t0 = time.perf_counter()
+    served, mcfg, params, adapters = serve_checks(dev)
+    print(f"serve phases: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    trained = train_checks(dev, mcfg, params, adapters)
+    del params, adapters
+    torch.cuda.empty_cache()
+    parity = train_parity(dev)
+    print(f"train phases: {time.perf_counter() - t0:.1f} s", flush=True)
 
-    # The shape each kernel's top-level numbers are read at: w_gate for
-    # the norm pair, the forced-mode decode rows on w_gate for K3, the
-    # prefill rows on w_gate for K6.
-    headline = {"norm_terms": 2, "assemble_norm": 2, "compose_fwd": 1,
-                "compose_mm_fwd": 1}
+    by_path = {"serve_auto": served["auto"], "serve_fused": served["fused"],
+               "train_auto": trained["train_auto"]["launches"],
+               "train_elementwise": trained["train_elementwise"]["launches"]}
     record = []
     for name, (src, replaces) in SOURCES.items():
-        top = rows[name][headline[name]]
-        path = "serve_fused" if name == "compose_fwd" else "serve_auto"
-        counts = served["fused" if path == "serve_fused" else "auto"]
-        check(counts[name] > 0, f"{name} never launched on {path}")
+        path, at = RECORD_PATH[name]
+        top = rows[name][at]
+        check(by_path[path][name] > 0, f"{name} never launched on {path}")
         record.append({
             "name": name, "route": "cuda", "source": src,
-            "replaces": replaces, "launches": counts[name], "path": path,
-            "launches_by_path": {"serve_auto": served["auto"][name],
-                                 "serve_fused": served["fused"][name]},
+            "replaces": replaces, "launches": by_path[path][name],
+            "path": path,
+            "launches_by_path": {p: c[name] for p, c in by_path.items()},
             "max_abs_err": max(r["max_abs_err"] for r in rows[name]),
             "tol": top["tol"], "ms": top["ms"], "plain_ms": top["plain_ms"],
             "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
             "library_ms": top["library_ms"],
-            "library_call": top["library_call"], "at_shape": top["shape"],
-            "shapes": rows[name]})
+            "library_call": top["library_call"], "at_shape": top["shape"]})
+    train_summary = {
+        k: {f: trained[k][f] for f in ("step_ms", "grad_ms", "optim_ms",
+                                       "tokens_per_s",
+                                       "max_memory_allocated_bytes")}
+        for k in ("train_auto", "train_elementwise")}
+    train_summary["train_auto"]["profile"] = {
+        k: v for k, v in trained["train_auto"]["profile"].items()
+        if k != "top_kernels_ms"}
+    # Every shape's row and every phase's numbers go to a file; the
+    # output keeps the headline record short enough to read whole.
+    detail = root / "build" / "chip_smoke.json"
+    detail.parent.mkdir(exist_ok=True)
+    detail.write_text(json.dumps({
+        "card": smi, "kernel_rows": rows, "serve": served,
+        "train": {k: trained[k] for k in ("train_auto", "train_elementwise",
+                                          "fp32_agreement")},
+        "train_parity": parity}, indent=1))
+    print(f"details: {detail.relative_to(root)}")
+    print(smi)
     print(json.dumps({"kernels": record, "card": smi,
                       "serve": {k: served[k] for k in
-                                ("serve_auto", "serve_fused", "cosines")}}))
+                                ("serve_auto", "serve_fused", "cosines")},
+                      "train": train_summary}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,14 +1,17 @@
-"""Carry weights from the reference's pytrees into the port's trees.
+"""Carry weights and optimizer state between the reference's pytrees and
+the port's trees.
 
-The reference's ``params`` / ``adapters`` trees, given as nested dicts of
-numpy arrays (``np.asarray`` of each JAX leaf), become the port's trees of
-tensors on a chosen device. Leaves are keyed by the same "/"-joined paths
-that the reference's checkpoints write (``repro/checkpoint/store.py``),
-so :func:`flatten_paths` of either tree names the same leaves.
+The reference's ``params`` / ``adapters`` / AdamW state (``mu``, ``nu``,
+``count``) trees, given as nested dicts of numpy arrays (``np.asarray``
+of each JAX leaf), become the port's trees of tensors on a chosen device
+(:func:`tree_from_numpy`), and back (:func:`tree_to_numpy`). Leaves are
+keyed by the same "/"-joined paths that the reference's checkpoints write
+(``repro/checkpoint/store.py``), so :func:`flatten_paths` of either tree
+names the same leaves.
 
 bf16 arrays (numpy dtype ``bfloat16`` from ``ml_dtypes``, which
 ``torch.from_numpy`` refuses) are carried bit for bit as uint16 and
-viewed back as ``torch.bfloat16``: the conversion is exact.
+viewed back as ``torch.bfloat16``: the conversion is exact both ways.
 """
 from __future__ import annotations
 
@@ -17,44 +20,46 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
+from repro_torch.tree import flatten_paths, unflatten_paths
+
+__all__ = ["tensor_from_numpy", "tensor_to_numpy", "tree_from_numpy",
+           "tree_to_numpy", "flatten_paths", "unflatten_paths"]
+
 
 def tensor_from_numpy(arr, device=None) -> torch.Tensor:
-    """One array → tensor, exactly; bf16 goes through a uint16 view."""
-    arr = np.asarray(arr)
+    """One array → tensor, exactly; bf16 goes through a uint16 view. On
+    the CPU the tensor shares memory with a writable C-contiguous array
+    (as ``torch.from_numpy``), so an in-place update (the train step's)
+    writes through; a read-only array (a JAX buffer) is copied first."""
+    # np.require keeps a 0-d array 0-d (np.ascontiguousarray makes it 1-d).
+    arr = np.require(arr, requirements=["C", "W"])
     if arr.dtype.name == "bfloat16":
-        t = torch.from_numpy(np.ascontiguousarray(arr).view(np.uint16))
-        t = t.view(torch.bfloat16)
+        t = torch.from_numpy(arr.view(np.uint16)).view(torch.bfloat16)
     else:
-        t = torch.from_numpy(np.ascontiguousarray(arr))
+        t = torch.from_numpy(arr)
     return t.to(device) if device is not None else t
-
-
-def flatten_paths(tree: Mapping[str, Any], prefix: str = "") -> dict:
-    """Nested dict → {"a/b/c": leaf}."""
-    out = {}
-    for k, v in tree.items():
-        name = f"{prefix}/{k}" if prefix else str(k)
-        if isinstance(v, Mapping):
-            out.update(flatten_paths(v, name))
-        else:
-            out[name] = v
-    return out
-
-
-def unflatten_paths(named: Mapping[str, Any]) -> dict:
-    """{"a/b/c": leaf} → nested dict."""
-    tree: dict = {}
-    for name, leaf in named.items():
-        node = tree
-        *parents, last = name.split("/")
-        for k in parents:
-            node = node.setdefault(k, {})
-        node[last] = leaf
-    return tree
 
 
 def tree_from_numpy(tree: Mapping[str, Any], device=None) -> dict:
     """The reference's nested dict of arrays → the port's nested dict of
     tensors on ``device``, leaf paths unchanged."""
     return unflatten_paths({name: tensor_from_numpy(leaf, device)
+                            for name, leaf in flatten_paths(tree).items()})
+
+
+def tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
+    """One tensor → a numpy array on the host, exactly. bf16 becomes
+    numpy ``bfloat16`` (``ml_dtypes``, imported only here) through a
+    uint16 view."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy()
+
+
+def tree_to_numpy(tree: Mapping[str, Any]) -> dict:
+    """The port's nested dict of tensors → nested dict of numpy arrays,
+    leaf paths unchanged (for the reference or for comparisons)."""
+    return unflatten_paths({name: tensor_to_numpy(leaf)
                             for name, leaf in flatten_paths(tree).items()})

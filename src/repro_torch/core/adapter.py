@@ -1,19 +1,21 @@
 """DoRA adapter: parameter init and the adapted linear (counterpart of
-``repro/core/adapter.py``), single-tenant and forward-only.
+``repro/core/adapter.py``), single-tenant.
 
     ΔY = g ⊙ (s · X·Aᵀ·Bᵀ) + (g − 1) ⊙ Y_base,   Y = Y_base + ΔY
     g  = m / max(w_norm, ε),   w_norm = ||W + s·B·A||_row (fp32, detached)
 
 Weights follow the paper's [d_out, d_in] convention. ``dora_linear``
 routes through :mod:`repro_torch.core.dispatch`: the matmul-fused compose
-(K6) when the plan says so, else y_lora is materialized and composed by K3
-or eagerly.
+(K6 forward, K7 backward) when the plan says so, else y_lora is
+materialized and composed by the element-wise kernels (K3 or K4 forward,
+K5 backward) or eagerly. Under ``training=True`` the norm is computed
+detached and g = m / max(w_norm, eps) carries the gradient to m (unless
+``magnitude_trainable=False``).
 
 Frozen-adapter serving state (:func:`precompute_adapter_state`): during
 generation A/B/m are frozen, so g is computed once per adapter set and
 carried as a ``"g"`` leaf; a tree carrying it is refused under
-``training=True``. Training itself comes with the training slice of the
-port: ``dora_linear(training=True)`` raises NotImplementedError until then.
+``training=True``.
 """
 from __future__ import annotations
 
@@ -28,11 +30,6 @@ from repro_torch.core.config import DoRAConfig
 from repro_torch.kernels import ops as _kops
 
 _F32 = torch.float32
-
-_TRAINING_SLICE = (
-    "training=True needs the compose backward kernels and autograd "
-    "Functions, which come with the training slice of the port; this "
-    "slice serves (training=False)")
 
 
 @torch.no_grad()
@@ -94,15 +91,19 @@ def compose_delta(y_base, y_lora, g, cfg: DoRAConfig, *, training: bool):
                                   device=y_base.device)
     if plan.tier is _dispatch.Tier.EAGER:
         return _compose.compose_stable(y_base, y_lora, g, cfg.scaling)
-    if plan.tier is _dispatch.Tier.FUSED_BWD:
-        raise NotImplementedError(_TRAINING_SLICE)
-    return _kops.fused_compose(y_base, y_lora, g.detach(), cfg.scaling)
+    if plan.tier is _dispatch.Tier.FUSED_FWD:
+        return _kops.fused_compose(y_base, y_lora, g.detach(), cfg.scaling,
+                                   save_inner=False, mag_grad=False)
+    return _kops.fused_compose(
+        y_base, y_lora, g, cfg.scaling,
+        save_inner=cfg.save_inner and cfg.magnitude_trainable,
+        mag_grad=cfg.magnitude_trainable)
 
 
 def compose_delta_factored(y_base, h, B, g, cfg: DoRAConfig, *,
                            training: bool):
     """Compose from the factored LoRA activation h = x·Aᵀ: matmul-fused
-    (K6, y_lora never written) when the plan allows, else y_lora is
+    (K6/K7, y_lora never written) when the plan allows, else y_lora is
     materialized once and :func:`compose_delta` runs."""
     _compose.check_broadcast(g, y_base)
     plan = _dispatch.plan_compose(cfg, training=training,
@@ -110,9 +111,12 @@ def compose_delta_factored(y_base, h, B, g, cfg: DoRAConfig, *,
                                   d_out=y_base.shape[-1], rank=B.shape[-1],
                                   device=y_base.device)
     if plan.matmul_fused:
-        if plan.tier is _dispatch.Tier.FUSED_BWD:
-            raise NotImplementedError(_TRAINING_SLICE)
-        return _kops.fused_compose_mm(y_base, h, B, g.detach(), cfg.scaling)
+        mag_grad = cfg.magnitude_trainable
+        if plan.tier is _dispatch.Tier.FUSED_FWD:
+            g = g.detach()
+            mag_grad = False
+        return _kops.fused_compose_mm(y_base, h, B, g, cfg.scaling,
+                                      mag_grad=mag_grad)
     y_lora = h @ B.T
     return compose_delta(y_base, y_lora, g, cfg, training=training)
 
@@ -122,10 +126,14 @@ def dora_linear(x, W, adapter: dict[str, Any], cfg: DoRAConfig, *,
     """Adapted linear: x [..., d_in] → y [..., d_out].
 
     W: frozen [d_out, d_in]; adapter: {"A": [r, d_in], "B": [d_out, r],
-    "m": [d_out]} plus optional "base_sq" (precomputed ||W||²_row) and the
-    serving state of
-    :func:`precompute_adapter_state` ("g", optionally "gsB"). A cached "g"
-    skips the factored norm and is refused under ``training=True``."""
+    "m": [d_out]} plus optional "base_sq" (precomputed ||W||²_row), the
+    serving state of :func:`precompute_adapter_state` ("g", optionally
+    "gsB") and "w_norm". A cached "g" skips the factored norm and is
+    refused under ``training=True``. "w_norm" is the detached norm of
+    this step's A and B, computed by the caller: the layer-remat training
+    forward computes it before the checkpointed layer so that the
+    recompute in the backward does no norm work (the reference's remat
+    policy saves it under the name "dora_wnorm")."""
     A, B, m = adapter["A"], adapter["B"], adapter["m"]
     if "g" in adapter:
         if training:
@@ -137,16 +145,19 @@ def dora_linear(x, W, adapter: dict[str, Any], cfg: DoRAConfig, *,
                 "the update.")
         g = adapter["g"].detach().to(_F32)
     else:
-        if training:
-            raise NotImplementedError(_TRAINING_SLICE)
-        w_norm = compute_weight_norm(W, A, B, cfg,
-                                     base_sq_cache=adapter.get("base_sq"))
-        g = _compose.magnitude_scale(m, w_norm, _norm.dtype_eps(x.dtype))
+        w_norm = adapter.get("w_norm")
+        if w_norm is None:
+            w_norm = compute_weight_norm(
+                W, A, B, cfg, base_sq_cache=adapter.get("base_sq"))
+        g = _compose.magnitude_scale(m, w_norm.detach(),
+                                     _norm.dtype_eps(x.dtype))
+    if not cfg.magnitude_trainable:
+        g = g.detach()
 
     W = W.detach()
     y_base = x @ W.T
     h = x @ A.T
-    if "gsB" in adapter:
+    if "gsB" in adapter and not training:
         # Serving fast path: g·s pre-folded into B, so the compose is two
         # matmuls and one fused multiply-add.
         t = h.to(_F32) @ adapter["gsB"].detach().to(_F32).T
@@ -197,6 +208,26 @@ def precompute_adapter_state(params, adapters, cfg: DoRAConfig, *,
         return {k: walk(p_node[k], v) for k, v in a_node.items()}
 
     return walk(params, adapters)
+
+
+@torch.no_grad()
+def attach_weight_norms(params, adapters, cfg: DoRAConfig):
+    """A NEW adapter tree whose unstacked leaves also carry ``"w_norm"``,
+    the detached fp32 [d_out] norm of their current A and B (K1/K2 on the
+    kernel route). The training forward (``models/lm.py``) calls it before
+    each layer, which layer remat checkpoints, so the layer's recompute in
+    the backward reuses the norm instead of running the factored norm
+    again. Leaves carrying
+    serving state ("g") are left as they are, for
+    :func:`dora_linear` to refuse under training."""
+    if _is_adapter_leaf(adapters):
+        if "g" in adapters:
+            return adapters
+        return {**adapters, "w_norm": compute_weight_norm(
+            params, adapters["A"], adapters["B"], cfg,
+            base_sq_cache=adapters.get("base_sq"))}
+    return {k: attach_weight_norms(params[k], v, cfg)
+            for k, v in adapters.items()}
 
 
 def invalidate_adapter_state(adapters):

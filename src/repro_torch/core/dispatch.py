@@ -1,9 +1,9 @@
 """Three-tier runtime dispatch (paper §4); counterpart of
 ``repro/core/dispatch.py``.
 
-Tier 1 — fused backward (training; its kernels come with the training
-         slice of the port).
-Tier 2 — fused forward: inference on the kernel route.
+Tier 1 — fused backward: training on the kernel route (autograd
+         Functions whose backward is a kernel too: K5 or K7).
+Tier 2 — fused forward: inference on the kernel route (g detached).
 Tier 3 — eager: forced off, CPU tensors in auto mode, sub-crossover
          shapes, d_out % 128 != 0.
 

@@ -8,13 +8,17 @@ kernels its path went through.
 """
 from __future__ import annotations
 
-from repro_torch.kernels.dora_compose import compose_fwd, compose_mm_fwd
+from repro_torch.kernels.dora_compose import (compose_bwd, compose_fwd,
+                                              compose_fwd_dual,
+                                              compose_mm_bwd, compose_mm_fwd)
 from repro_torch.kernels.factored_norm import norm_terms
 from repro_torch.kernels.norm_assembly import assemble_norm
 
-# name → wrapper, in the order of the TPU kernel table (K1, K2, K3, K6).
+# name → wrapper, in the order of the TPU kernel table (K1–K7).
 KERNELS = {"norm_terms": norm_terms, "assemble_norm": assemble_norm,
-           "compose_fwd": compose_fwd, "compose_mm_fwd": compose_mm_fwd}
+           "compose_fwd": compose_fwd, "compose_fwd_dual": compose_fwd_dual,
+           "compose_bwd": compose_bwd, "compose_mm_fwd": compose_mm_fwd,
+           "compose_mm_bwd": compose_mm_bwd}
 
 
 def launch_counts() -> dict[str, int]:

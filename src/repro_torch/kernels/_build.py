@@ -42,7 +42,12 @@ _SIGNATURES = {
     "assemble_norm": ((_P, _P, _P, _P, _I, _F, _F, _P), _I),
     "compose_fwd": ((_P, _P, _P, _P, ctypes.c_longlong, _I, _F, _I, _I, _P),
                     _I),
+    "compose_fwd_dual": ((_P, _P, _P, _P, _P, ctypes.c_longlong, _I, _F, _I,
+                          _I, _P), _I),
+    "compose_bwd": ((_P, _P, _P, _P, _P, ctypes.c_longlong, _I, _I, _I, _P),
+                    _I),
     "compose_mm_fwd": ((_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P), _I),
+    "compose_mm_bwd": ((_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P), _I),
     "runtime_error_string": ((_I,), ctypes.c_char_p),
 }
 

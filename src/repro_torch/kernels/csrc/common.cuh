@@ -39,11 +39,32 @@ __device__ __forceinline__ __half from_f32<__half>(float x) {
 // Stable DoRA compose of one element (paper §3.1), in the reference's
 // pinned order: t = s*lora first, then gm1*base + (gm1 + 1)*t. The
 // round-to-nearest intrinsics keep nvcc from contracting a*b + c into an
-// FMA, which would round differently from the reference.
+// FMA, which would round differently from the reference. compose_elem_t
+// takes the rounded t = __fmul_rn(s, lora) itself, for the dual-output
+// forward that also writes inner = base + t.
+__device__ __forceinline__ float compose_elem_t(float gm1, float base,
+                                                float t) {
+  return __fadd_rn(__fmul_rn(gm1, base), __fmul_rn(__fadd_rn(gm1, 1.0f), t));
+}
+
 __device__ __forceinline__ float compose_elem(float gm1, float base,
                                               float lora, float s) {
-  const float t = __fmul_rn(s, lora);
-  return __fadd_rn(__fmul_rn(gm1, base), __fmul_rn(__fadd_rn(gm1, 1.0f), t));
+  return compose_elem_t(gm1, base, __fmul_rn(s, lora));
+}
+
+// VEC elements of T moved as one aligned vector (16 bytes when
+// VEC = 16 / sizeof(T)) by the element-wise kernels.
+template <typename T, int VEC>
+struct alignas(sizeof(T) * VEC) Pack {
+  T v[VEC];
+};
+
+// Blocks for a grid-stride loop over `work` items of 256 threads: one
+// block per 256 items, at most 16 blocks per SM of the H100's 132.
+inline int stride_blocks(long long work) {
+  long long blocks = (work + 255) / 256;
+  if (blocks > 132 * 16) blocks = 132 * 16;
+  return blocks < 1 ? 1 : static_cast<int>(blocks);
 }
 
 // Run `body` with T bound to the element type of `code`; an unknown code

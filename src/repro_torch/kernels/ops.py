@@ -1,62 +1,139 @@
 """Wrappers the adapter calls around the kernels (counterpart of
-``repro/kernels/ops.py``), forward only.
+``repro/kernels/ops.py``).
 
   - :func:`fused_norm`: K1 (terms) + the Gram term in plain matmuls + K2
     (assembly); detached.
-  - :func:`fused_compose`: K3 on a materialized y_lora.
-  - :func:`fused_compose_mm`: K6 on the factored h = x·Aᵀ.
+  - :func:`fused_compose`: a ``torch.autograd.Function`` on a materialized
+    y_lora. Forward K4 (delta and the saved inner) when the magnitude
+    gradient wants inner, else K3; backward K5 for d_base and d_lora, and
+    d_g = Σ_rows dY⊙inner as a separate fp32 sum (paper §3.2: no atomics).
+  - :func:`fused_compose_mm`: a ``torch.autograd.Function`` on the factored
+    h = x·Aᵀ. Forward K6; backward K7 for d_base and d_h, then the cross
+    product T = dYᵀ·h in fp32 (a plain matmul, as the reference leaves it
+    outside its kernels) for d_B and the lora half of d_g.
 
-The kernels mask their ragged edges, so nothing is padded here. The
-compose backward kernels come with the training slice of the port; until
-then the compose wrappers refuse inputs that would need a gradient.
+The kernels mask their ragged edges, so nothing is padded here. dY from
+autograd may be non-contiguous; it is made contiguous before a launch.
+Under layer remat each Function's forward runs twice a step (the layer's
+forward and its recompute), and its launch counter shows both.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.dora_compose import compose_fwd, compose_mm_fwd
+from repro_torch.core.compose import f32
+from repro_torch.kernels.dora_compose import (compose_bwd, compose_fwd,
+                                              compose_fwd_dual,
+                                              compose_mm_bwd, compose_mm_fwd)
 from repro_torch.kernels.factored_norm import norm_terms
 from repro_torch.kernels.norm_assembly import assemble_norm
 
 _F32 = torch.float32
 
 
-def _refuse_grad(name: str, *tensors) -> None:
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            f"{name} is forward-only: its backward kernels come with the "
-            f"training slice of the port. Run it under torch.no_grad() or "
-            f"on tensors that do not require grad.")
+def _rows(x, n: int):
+    return x.reshape(-1, n).contiguous()
 
 
-def _gm1(g, n: int):
-    return (g.to(_F32) - 1.0).reshape(n).contiguous()
+class _Compose(torch.autograd.Function):
+    """delta = (g-1)⊙base + g⊙s⊙lora; mirrors ``_make_compose``
+    (``repro/kernels/ops.py:55-141``)."""
+
+    @staticmethod
+    def forward(ctx, base, lora, g, s, save_inner, mag_grad):
+        n = base.shape[-1]
+        g32 = g.to(_F32).reshape(n)
+        gm1 = (g32 - 1.0).contiguous()
+        if save_inner and mag_grad:
+            delta, inner = compose_fwd_dual(_rows(base, n), _rows(lora, n),
+                                            gm1, s)
+            ctx.save_for_backward(g32, inner)
+        else:
+            delta = compose_fwd(_rows(base, n), _rows(lora, n), gm1, s)
+            ctx.save_for_backward(*((g32, base, lora) if mag_grad
+                                    else (g32,)))
+        ctx.s, ctx.mag_grad = s, mag_grad
+        return delta.reshape(base.shape)
+
+    @staticmethod
+    def backward(ctx, dy):
+        g32, *res = ctx.saved_tensors
+        s, n = ctx.s, dy.shape[-1]
+        dy2 = _rows(dy, n)
+        d_base, d_lora = compose_bwd(dy2, (g32 - 1.0).contiguous(),
+                                     (g32 * f32(s)).contiguous())
+        if not ctx.mag_grad:
+            d_g = torch.zeros_like(g32)
+        else:
+            if len(res) == 1:
+                inner32 = res[0].to(_F32)
+            else:
+                base, lora = res
+                inner32 = (_rows(base, n).to(_F32)
+                           + f32(s) * _rows(lora, n).to(_F32))
+            d_g = (dy2.to(_F32) * inner32).sum(dim=0)
+        return (d_base.reshape(dy.shape), d_lora.reshape(dy.shape), d_g,
+                None, None, None)
 
 
-def fused_compose(base, lora, g, s: float):
-    """delta = (g-1)⊙base + g⊙s⊙lora through K3. base, lora [..., d_out];
-    g fp32 [d_out]."""
-    _refuse_grad("fused_compose", base, lora, g)
-    shape = base.shape
-    n = shape[-1]
-    delta = compose_fwd(base.reshape(-1, n).contiguous(),
-                        lora.reshape(-1, n).contiguous(), _gm1(g, n), s)
-    return delta.reshape(shape)
+class _ComposeMM(torch.autograd.Function):
+    """delta = (g-1)⊙base + g⊙s⊙(h·Bᵀ); mirrors ``_make_compose_mm``
+    (``repro/kernels/ops.py:156-224``). The residuals are tensors already
+    live in the layer (h, B, base), so nothing extra is written for the
+    backward."""
+
+    @staticmethod
+    def forward(ctx, base, h, B, g, s, mag_grad):
+        n, r = base.shape[-1], h.shape[-1]
+        g32 = g.to(_F32).reshape(n)
+        delta = compose_mm_fwd(_rows(base, n), _rows(h, r), B.contiguous(),
+                               (g32 - 1.0).contiguous(), s)
+        ctx.save_for_backward(g32, h, B, base if mag_grad else None)
+        ctx.s, ctx.mag_grad = s, mag_grad
+        return delta.reshape(base.shape)
+
+    @staticmethod
+    def backward(ctx, dy):
+        g32, h, B, base = ctx.saved_tensors
+        s, n, r = ctx.s, dy.shape[-1], h.shape[-1]
+        gs = (g32 * f32(s)).contiguous()
+        dy2 = _rows(dy, n)
+        d_base, d_h = compose_mm_bwd(dy2, B.contiguous(),
+                                     (g32 - 1.0).contiguous(), gs)
+        # d_B = (g·s) ⊙ (dYᵀ·h): the one cross product the backward cannot
+        # avoid; it also carries the lora half of d_g, so it is taken once.
+        dy32 = dy2.to(_F32)
+        T = dy32.T @ _rows(h, r).to(_F32)                     # [n, r]
+        d_B = (gs[:, None] * T).to(B.dtype)
+        if not ctx.mag_grad:
+            d_g = torch.zeros_like(g32)
+        else:
+            # d_g = Σ_rows dY⊙(base + s·lora); the lora term contracts
+            # through T: Σ_m dY⊙(h·Bᵀ) = rowsum(B ⊙ T).
+            d_g = ((dy32 * _rows(base, n).to(_F32)).sum(dim=0)
+                   + f32(s) * (B.to(_F32) * T).sum(dim=1))
+        return (d_base.reshape(dy.shape), d_h.reshape(h.shape).to(h.dtype),
+                d_B, d_g, None, None)
 
 
-def fused_compose_mm(base, h, B, g, s: float):
-    """delta = (g-1)⊙base + g⊙s⊙(h·Bᵀ) through K6. base [..., d_out],
-    h = x·Aᵀ [..., r], B [d_out, r], g fp32 [d_out]."""
+def fused_compose(base, lora, g, s: float, *, save_inner: bool = True,
+                  mag_grad: bool = True):
+    """delta = (g-1)⊙base + g⊙s⊙lora through K3/K4 forward and K5
+    backward. base, lora [..., d_out]; g fp32 [d_out], differentiable
+    unless ``mag_grad=False`` (the frozen-magnitude path, which also
+    skips the inner save)."""
+    return _Compose.apply(base, lora, g, float(s), bool(save_inner),
+                          bool(mag_grad))
+
+
+def fused_compose_mm(base, h, B, g, s: float, *, mag_grad: bool = True):
+    """delta = (g-1)⊙base + g⊙s⊙(h·Bᵀ) through K6 forward and K7
+    backward. base [..., d_out], h = x·Aᵀ [..., r], B [d_out, r], g fp32
+    [d_out]. The [..., d_out] y_lora is never materialized."""
     if base.shape[:-1] != h.shape[:-1]:
         raise ValueError(f"base leading dims {tuple(base.shape[:-1])} != "
                          f"h leading dims {tuple(h.shape[:-1])}")
-    _refuse_grad("fused_compose_mm", base, h, B, g)
-    shape = base.shape
-    n = shape[-1]
-    delta = compose_mm_fwd(base.reshape(-1, n).contiguous(),
-                           h.reshape(-1, h.shape[-1]).contiguous(),
-                           B.contiguous(), _gm1(g, n), s)
-    return delta.reshape(shape)
+    return _ComposeMM.apply(base, h, B, g, float(s), bool(mag_grad))
 
 
 @torch.no_grad()

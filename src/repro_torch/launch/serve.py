@@ -14,7 +14,6 @@ Weights are random, drawn from ``--seed`` on the serving device.
 from __future__ import annotations
 
 import argparse
-import time
 
 import numpy as np
 import torch
@@ -22,8 +21,9 @@ import torch
 from repro_torch import probes
 from repro_torch.configs import get_config
 from repro_torch.core.config import DoRAConfig
-from repro_torch.launch.steps import (StepConfig, make_decode_step,
-                                      make_precompute_step, make_prefill_step)
+from repro_torch.launch.steps import (PhaseClock, StepConfig,
+                                      make_decode_step, make_precompute_step,
+                                      make_prefill_step)
 from repro_torch.models.lm import init_adapters, init_params
 
 
@@ -47,37 +47,12 @@ def _sample(last, temperature: float, generator):
     return nxt[:, None]
 
 
-class _PhaseClock:
-    """Wall time of each serving phase into ``stats`` (seconds), measured
-    between device synchronisations; does nothing when ``stats`` is None,
-    so an untimed run never synchronises."""
-
-    def __init__(self, stats: dict | None, device: torch.device):
-        self.stats = stats
-        self.device = device
-        self.t0 = None
-
-    def _sync(self):
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-
-    def start(self):
-        if self.stats is not None:
-            self._sync()
-            self.t0 = time.perf_counter()
-
-    def stop(self, name: str):
-        if self.stats is not None:
-            self._sync()
-            self.stats[name] = time.perf_counter() - self.t0
-
-
 def _decode_loop(prefill, decode, params, adapters, toks, *, prompt_len,
                  gen_len, pad, temperature, seed, collect_logits=False,
-                 clock: _PhaseClock | None = None):
+                 clock: PhaseClock | None = None):
     """The prefill → sample → decode loop. Returns (tokens [B, P+gen_len],
     the logits each sampled token was drawn from, or None)."""
-    clock = clock or _PhaseClock(None, toks.device)
+    clock = clock or PhaseClock(None, toks.device)
     P = prompt_len
     batch_in = {"tokens": toks}
     if pad:
@@ -127,7 +102,7 @@ def generate(mcfg, params, adapters, scfg: StepConfig, prompts, *,
     if params["embed"].device != dev:
         raise ValueError(f"params live on {params['embed'].device}, serving "
                          f"was asked on {dev}")
-    clock = _PhaseClock(stats, dev)
+    clock = PhaseClock(stats, dev)
     if cache_adapters:
         clock.start()
         adapters = make_precompute_step(mcfg, scfg, fold_gsb=fold_gsb)(

@@ -1,14 +1,17 @@
-"""Serving step functions (counterpart of ``repro/launch/steps.py``):
-precompute, padded prefill and decode.
+"""Step functions (counterpart of ``repro/launch/steps.py``): the train
+step, and the serving steps precompute, padded prefill and decode.
 
 Each builder returns a plain function over (params, adapters, ...). The
-decode cache is updated IN PLACE: the K/V buffers the prefill allocates
-are the ones every decode step writes, and the cache dict a step returns
-holds those same buffers with "len" advanced.
+train step updates the adapters and the optimizer state IN PLACE and
+returns the same trees. The decode cache is updated IN PLACE: the K/V
+buffers the prefill allocates are the ones every decode step writes, and
+the cache dict a step returns holds those same buffers with "len"
+advanced.
 """
 from __future__ import annotations
 
 import dataclasses
+import time
 
 import torch
 
@@ -16,12 +19,156 @@ from repro_torch.core.adapter import precompute_adapter_state
 from repro_torch.core.config import DoRAConfig
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.lm import forward, init_cache
+from repro_torch.optim.adamw import OptimizerConfig, adamw_update
+from repro_torch.tree import flatten_paths, tree_map, unflatten_paths
+
+_F32 = torch.float32
 
 
 @dataclasses.dataclass(frozen=True)
 class StepConfig:
     """Everything the step builders need beyond the model config."""
     dora: DoRAConfig = DoRAConfig(rank=384, alpha=192.0, mode="auto")
+    optim: OptimizerConfig = OptimizerConfig()
+    # paper §5.1: partial-sequence loss (1024 tokens) matches production
+    # RLHF memory profiles and avoids the full-seq logit spike.
+    loss_tokens: int | None = None
+    grad_accum: int = 1
+
+
+class PhaseClock:
+    """Wall time of each phase of a step into ``stats`` (seconds),
+    measured between device synchronisations; does nothing when ``stats``
+    is None, so an untimed run never synchronises."""
+
+    def __init__(self, stats: dict | None, device: torch.device):
+        self.stats = stats
+        self.device = torch.device(device)
+        self.t0 = None
+
+    def _sync(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def start(self):
+        if self.stats is not None:
+            self._sync()
+            self.t0 = time.perf_counter()
+
+    def stop(self, name: str):
+        if self.stats is not None:
+            self._sync()
+            self.stats[name] = time.perf_counter() - self.t0
+
+
+# ---------------------------------------------------------------------------
+# Training.
+# ---------------------------------------------------------------------------
+
+def cross_entropy(logits, labels):
+    """Mean token NLL with an fp32 logsumexp."""
+    logits32 = logits.to(_F32)
+    lse = torch.logsumexp(logits32, dim=-1)
+    gold = torch.gather(logits32, -1, labels.long()[..., None])[..., 0]
+    return (lse - gold).mean()
+
+
+def make_grad_step(mcfg: ModelConfig, scfg: StepConfig, *, batch: int,
+                   seq: int):
+    """(params, adapters, batch_in) -> (loss, grads): the train step
+    without its optimizer update.
+
+    ``batch_in``: {"tokens", "labels"} int [batch, seq]. ``grads`` has the
+    adapter tree's structure; the frozen base params get no gradient.
+    ``scfg.loss_tokens``: the loss reads only the last N positions (the
+    head runs on those alone). ``scfg.grad_accum`` = ga: the batch is
+    split into ga microbatches along its first dim, their gradients
+    summed in fp32 and divided by ga, as the reference's scan does."""
+    lt = scfg.loss_tokens
+    ga = max(scfg.grad_accum, 1)
+    if batch % ga:
+        raise ValueError(f"batch {batch} is not divisible by grad_accum "
+                         f"{ga}")
+
+    def loss_fn(params, adapters, tokens, labels):
+        logits, _ = forward(mcfg, params, adapters, scfg.dora, tokens=tokens,
+                            training=True, loss_slice=lt)
+        lbl = labels if lt is None or lt >= labels.shape[1] \
+            else labels[:, -lt:]
+        return cross_entropy(logits, lbl)
+
+    def value_and_grad(params, adapters, tokens, labels):
+        leaves = flatten_paths(adapters)
+        was = {name: leaf.requires_grad for name, leaf in leaves.items()}
+        try:
+            for leaf in leaves.values():
+                leaf.requires_grad_(True)
+            with torch.enable_grad():
+                loss = loss_fn(params, adapters, tokens, labels)
+                grads = torch.autograd.grad(loss, list(leaves.values()),
+                                            allow_unused=True)
+        finally:
+            for name, leaf in leaves.items():
+                leaf.requires_grad_(was[name])
+        # Leaves the loss does not reach (the frozen base_sq) get zeros,
+        # as jax.grad gives them.
+        return loss.detach(), unflatten_paths({
+            name: torch.zeros_like(leaf) if g is None else g
+            for (name, leaf), g in zip(leaves.items(), grads)})
+
+    def grad_step(params, adapters, batch_in):
+        tokens, labels = batch_in["tokens"], batch_in["labels"]
+        if tuple(tokens.shape) != (batch, seq) \
+                or tuple(labels.shape) != (batch, seq):
+            raise ValueError(f"step built for [{batch}, {seq}] tokens and "
+                             f"labels, got {tuple(tokens.shape)} and "
+                             f"{tuple(labels.shape)}")
+        if ga == 1:
+            return value_and_grad(params, adapters, tokens, labels)
+        mb = batch // ga
+        loss = torch.zeros((), dtype=_F32, device=tokens.device)
+        grads = tree_map(lambda a: torch.zeros(a.shape, dtype=_F32,
+                                               device=a.device), adapters)
+        for i in range(ga):
+            rows = slice(i * mb, (i + 1) * mb)
+            loss_i, g_i = value_and_grad(params, adapters, tokens[rows],
+                                         labels[rows])
+            loss = loss + loss_i
+            tree_map(lambda acc, g: acc.add_(g), grads, g_i)
+        return loss / ga, tree_map(lambda g: g / ga, grads)
+
+    return grad_step
+
+
+def make_train_step(mcfg: ModelConfig, scfg: StepConfig, *, batch: int,
+                    seq: int):
+    """(params, adapters, opt_state, batch_in, stats=None) -> (adapters',
+    opt_state', metrics): :func:`make_grad_step`, then AdamW.
+
+    The adapters and the AdamW state are updated in place (the returned
+    trees are the ones given). ``metrics``: {"loss", "grad_norm"} fp32 0-d
+    tensors and the float "lr". ``stats``: when given, filled with the
+    wall seconds of the forward+backward (``grad_s``) and of the optimizer
+    (``optim_s``), each ended by a device synchronisation."""
+    grad_step = make_grad_step(mcfg, scfg, batch=batch, seq=seq)
+
+    def train_step(params, adapters, opt_state, batch_in, stats=None):
+        clock = PhaseClock(stats, batch_in["tokens"].device)
+        clock.start()
+        loss, grads = grad_step(params, adapters, batch_in)
+        clock.stop("grad_s")
+        clock.start()
+        adapters, opt_state, ostats = adamw_update(grads, opt_state, adapters,
+                                                   scfg.optim)
+        clock.stop("optim_s")
+        return adapters, opt_state, {"loss": loss, **ostats}
+
+    return train_step
+
+
+# ---------------------------------------------------------------------------
+# Serving.
+# ---------------------------------------------------------------------------
 
 
 def make_precompute_step(mcfg: ModelConfig, scfg: StepConfig, *,

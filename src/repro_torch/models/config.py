@@ -43,6 +43,9 @@ class ModelConfig:
     norm_eps: float = 1e-5
     frontend: str | None = None
     dtype: Any = torch.bfloat16
+    # remat: "none" | "layer" (training recomputes each layer's internals
+    # in the backward and keeps only the layer boundaries and the norms)
+    remat: str = "layer"
 
     def __post_init__(self):
         if self.head_dim == 0 and self.num_heads:
@@ -82,6 +85,9 @@ def check_supported(mcfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"{mcfg.name}: pos_mode {mcfg.pos_mode!r} is not ported yet "
             f"(this slice has standard RoPE)")
+    if mcfg.remat not in ("none", "layer"):
+        raise ValueError(f"{mcfg.name}: unknown remat {mcfg.remat!r} "
+                         f"(expected 'none' or 'layer')")
     for field, ported in (("mlp_kind", "swiglu"), ("norm_kind", "rms"),
                           ("qk_norm", False)):
         if getattr(mcfg, field) != ported:

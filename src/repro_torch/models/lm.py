@@ -6,6 +6,14 @@ stack is one unit whose leaves carry a leading ``[n_scan, ...]`` dim, so
 a weight's "/"-joined path is the same in both packages. ``forward``
 walks the stack with a Python loop over the ``n_scan`` slices where the
 reference runs ``lax.scan``.
+
+Training with ``remat="layer"`` (the reference's default) checkpoints
+each layer (``torch.utils.checkpoint``, non-reentrant): only the layer
+boundaries are kept and the layer's internals are recomputed in the
+backward. As the reference's remat policy saves the ``"dora_wnorm"``
+values, each adapted module's detached norm is computed before the
+checkpointed layer and passed in, so the recompute does no norm work: K1
+and K2 run once per adapted module per step.
 """
 from __future__ import annotations
 
@@ -13,8 +21,9 @@ import math
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
-from repro_torch.core.adapter import init_dora_params
+from repro_torch.core.adapter import attach_weight_norms, init_dora_params
 from repro_torch.core.config import DoRAConfig
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig, check_supported
@@ -179,12 +188,25 @@ def _slice_tree(tree, i: int):
     return tree[i]
 
 
+def _unstack_tree(tree, n: int) -> list:
+    """Stacked leaves [n, ...] → n per-slice trees through ``unbind``: the
+    gradient of a stacked adapter leaf is then one stack of its n slice
+    gradients, not n full-size scatters added up."""
+    if isinstance(tree, dict):
+        per_key = {k: _unstack_tree(v, n) for k, v in tree.items()}
+        return [{k: v[i] for k, v in per_key.items()} for i in range(n)]
+    return list(tree.unbind(0))
+
+
 def forward(mcfg: ModelConfig, params, adapters, dcfg: DoRAConfig | None,
             *, tokens, cache=None, positions=None, training: bool = True,
             loss_slice: int | None = None,
             gather_position: int | None = None):
     """Returns (logits [B, S, V], new_cache).
 
+    ``training``: the DoRA layers run their training route (norm
+    recomputed from the current A/B, g differentiable); with grad enabled
+    and ``mcfg.remat == "layer"`` each layer is checkpointed.
     ``cache``: the decode cache or None. Its K/V buffers are updated IN
     PLACE; the returned cache holds the same buffers with "len" advanced.
     ``loss_slice``: keep only the last N positions before the LM head.
@@ -203,15 +225,26 @@ def forward(mcfg: ModelConfig, params, adapters, dcfg: DoRAConfig | None,
     stack_p = params["stack"]
     stack_a = adapters.get("stack", {})
     stack_c = cache["stack"] if cache is not None else None
+    units_a = _unstack_tree(stack_a, mcfg.n_scan)
+    remat = (training and mcfg.remat == "layer" and cache is None
+             and torch.is_grad_enabled())
     for i in range(mcfg.n_scan):
         unit_p = _slice_tree(stack_p, i)
-        unit_a = _slice_tree(stack_a, i)
+        unit_a = units_a[i]
         unit_c = _slice_tree(stack_c, i) if stack_c is not None else None
         for li in unit_p:
-            x = _layer_apply(
-                x, unit_p[li], unit_a.get(li),
-                unit_c[li] if unit_c is not None else None, mcfg, dcfg,
-                positions=positions, length=length, training=training)
+            a = unit_a.get(li)
+            if training and a is not None:
+                a = attach_weight_norms(unit_p[li], a, dcfg)
+            c = unit_c[li] if unit_c is not None else None
+            kw = dict(mcfg=mcfg, dcfg=dcfg, positions=positions,
+                      length=length, training=training)
+            if remat:
+                x = checkpoint(_layer_apply, x, unit_p[li], a, c,
+                               use_reentrant=False, preserve_rng_state=False,
+                               **kw)
+            else:
+                x = _layer_apply(x, unit_p[li], a, c, **kw)
     new_cache = (None if cache is None
                  else {"stack": stack_c, "len": int(length) + S})
 

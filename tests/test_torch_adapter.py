@@ -186,20 +186,26 @@ def test_init_dora_params_stacked():
 
 
 def test_training_is_refused_until_the_training_slice():
+    """The training slice is here: training=True runs on the raw adapter
+    tree (eager and kernel routes) with gradients to A, B and m, and only
+    a tree carrying serving state ("g") is still refused."""
     rng = np.random.default_rng(5)
     W, ad = _adapter(rng, 128, 32, 4)
-    tad = tree_from_numpy(ad)
-    x = torch.zeros(2, 32)
+    x = torch.from_numpy(rng.standard_normal((2, 32)).astype(np.float32))
+    for cfg in (DoRAConfig(rank=4), DoRAConfig(rank=4, mode="fused")):
+        tad = {k: v.requires_grad_(True)
+               for k, v in tree_from_numpy(ad).items()}
+        tadapter.dora_linear(x, torch.from_numpy(W), tad, cfg,
+                             training=True).square().sum().backward()
+        assert all(tad[k].grad is not None for k in ("A", "B", "m"))
     cfg = DoRAConfig(rank=4)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        tadapter.dora_linear(x, torch.from_numpy(W), tad, cfg, training=True)
-    state = tadapter.precompute_adapter_state({"w": torch.from_numpy(W)},
-                                              {"w": tad}, cfg)["w"]
+    state = tadapter.precompute_adapter_state(
+        {"w": torch.from_numpy(W)}, {"w": tree_from_numpy(ad)}, cfg)["w"]
     with pytest.raises(ValueError, match="precomputed serving state"):
         tadapter.dora_linear(x, torch.from_numpy(W), state, cfg,
                              training=True)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        tadapter.compose_delta(torch.zeros(2, 128), torch.zeros(2, 128),
-                               torch.ones(128), DoRAConfig(rank=4,
-                                                           mode="fused"),
-                               training=True)
+    g = torch.ones(128, requires_grad=True)
+    tadapter.compose_delta(torch.ones(2, 128), torch.ones(2, 128), g,
+                           DoRAConfig(rank=4, mode="fused"),
+                           training=True).sum().backward()
+    assert g.grad is not None

@@ -6,9 +6,13 @@ the same numpy inputs, in fp32 and bf16. Tolerances are scaled to the
 reference's largest magnitude: 1e-5 of it where fp32 sums are taken in
 another order (the matmul-based terms), 1e-6 where both sides run the
 same pinned fp32 operations, and one bf16 ulp of it (2^-8) for bf16
-outputs. The CUDA kernels themselves are held against the same plain
-versions on the card by chip_smoke.py.
+outputs (2^-7 where an fp32 sum is rounded to bf16). The two autograd
+Functions of ``kernels/ops.py`` are held against ``jax.grad`` through the
+reference's custom-VJP wrappers in interpret mode. The CUDA kernels
+themselves are held against the same plain versions on the card by
+chip_smoke.py.
 """
+import jax
 import jax.numpy as jnp
 import ml_dtypes
 import numpy as np
@@ -198,15 +202,177 @@ def test_fused_norm_matches_reference_wrapper(s):
     assert not np.allclose(_f32(got_c), _f32(got))
 
 
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("m,n", [(8, 128), (96, 384)])
+def test_compose_fwd_dual_plain_matches_pallas(dtype, m, n):
+    """K4: delta and inner = base + s·lora, as the reference's dual-output
+    kernel writes them."""
+    rng = np.random.default_rng(6)
+    npdt, _ = DTYPES[dtype]
+    base = _np(rng, (m, n), npdt)
+    lora = _np(rng, (m, n), npdt, 0.5)
+    gm1 = (0.05 * rng.standard_normal((1, n))).astype(np.float32)
+    s = 1.75
+    want_d, want_i = jk_compose.compose_fwd_pallas(
+        jnp.asarray(base), jnp.asarray(lora), jnp.asarray(gm1), s,
+        save_inner=True, block_m=8, block_n=128, interpret=True)
+    got_d, got_i = tk_compose.compose_fwd_dual(
+        tensor_from_numpy(base), tensor_from_numpy(lora),
+        tensor_from_numpy(gm1[0]), s)
+    assert got_d.dtype == got_i.dtype == tensor_from_numpy(base).dtype
+    # Same pinned fp32 operations, one rounding to the output dtype.
+    rel = 1e-6 if dtype == "fp32" else 2.0 ** -8
+    _close(got_d, want_d, rel)
+    _close(got_i, want_i, rel)
+    # delta is K3's output, bit for bit.
+    assert torch.equal(got_d, tk_compose.compose_fwd(
+        tensor_from_numpy(base), tensor_from_numpy(lora),
+        tensor_from_numpy(gm1[0]), s))
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("m,n", [(8, 128), (64, 256)])
+def test_compose_bwd_plain_matches_pallas(dtype, m, n):
+    """K5: d_base = (g-1)⊙dY and d_lora = (g·s)⊙dY in dY's dtype."""
+    rng = np.random.default_rng(7)
+    npdt, _ = DTYPES[dtype]
+    dy = _np(rng, (m, n), npdt)
+    g = (1.0 + 0.05 * rng.standard_normal(n)).astype(np.float32)
+    gm1, gs = (g - 1.0)[None], (g * np.float32(2.5))[None]
+    want_b, want_l = jk_compose.compose_bwd_pallas(
+        jnp.asarray(dy), jnp.asarray(gm1), jnp.asarray(gs), block_m=8,
+        block_n=128, interpret=True)
+    got_b, got_l = tk_compose.compose_bwd(tensor_from_numpy(dy),
+                                          tensor_from_numpy(gm1[0]),
+                                          tensor_from_numpy(gs[0]))
+    assert got_b.dtype == got_l.dtype == tensor_from_numpy(dy).dtype
+    rel = 1e-6 if dtype == "fp32" else 2.0 ** -8
+    _close(got_b, want_b, rel)
+    _close(got_l, want_l, rel)
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("m,n,r", [(64, 256, 40), (8, 384, 130)])
+def test_compose_mm_bwd_plain_matches_pallas(dtype, m, n, r):
+    """K7: d_base and the fp32 d_h = ((g·s)⊙dY)·B summed over all of N;
+    the reference's kernel takes the rank padded to 128 with zeros."""
+    rng = np.random.default_rng(8)
+    npdt, rel = DTYPES[dtype]
+    dy = _np(rng, (m, n), npdt)
+    B = _np(rng, (n, r), npdt, 0.1)
+    g = (1.0 + 0.05 * rng.standard_normal(n)).astype(np.float32)
+    gm1, gs = (g - 1.0)[None], (g * np.float32(0.8))[None]
+    rp = -(-r // 128) * 128
+    want_b, want_h = jk_compose.compose_mm_bwd_pallas(
+        jnp.asarray(dy), jnp.asarray(np.pad(B, ((0, 0), (0, rp - r)))),
+        jnp.asarray(gm1), jnp.asarray(gs), block_m=8, block_n=128,
+        interpret=True)
+    got_b, got_h = tk_compose.compose_mm_bwd(tensor_from_numpy(dy),
+                                             tensor_from_numpy(B),
+                                             tensor_from_numpy(gm1[0]),
+                                             tensor_from_numpy(gs[0]))
+    assert got_h.dtype == torch.float32 and got_h.shape == (m, r)
+    _close(got_b, want_b, 1e-6 if dtype == "fp32" else 2.0 ** -8)
+    # d_h: fp32 sums over N taken in another order.
+    _close(got_h, _f32(want_h)[:, :r], rel)
+
+
+def _grads(fn, *args):
+    """Gradients of sum(fn(*args) ⊙ w) for a fixed numpy weight w."""
+    out = fn(*args)
+    w = np.random.default_rng(99).standard_normal(tuple(out.shape)).astype(
+        np.float32)
+    if isinstance(out, torch.Tensor):
+        (out.float() * torch.from_numpy(w)).sum().backward()
+        return [a.grad for a in args]
+    return jax.grad(lambda *a: jnp.sum(fn(*a).astype(jnp.float32) * w),
+                    argnums=tuple(range(len(args))))(*args)
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("save_inner,mag_grad", [(True, True),
+                                                 (False, True),
+                                                 (False, False)])
+def test_compose_function_grads_match_reference(dtype, save_inner, mag_grad):
+    """The element-wise autograd Function (K4 or K3 forward, K5 backward,
+    the separate d_g sum) against jax.grad through the reference's
+    fused_compose in interpret mode. Leading dims and ragged rows."""
+    rng = np.random.default_rng(9)
+    npdt, _ = DTYPES[dtype]
+    base = _np(rng, (3, 7, 256), npdt)
+    lora = _np(rng, (3, 7, 256), npdt, 0.5)
+    g = (1.0 + 0.05 * rng.standard_normal(256)).astype(np.float32)
+    s = 1.5
+    want = _grads(lambda b, lo, gg: jops.fused_compose(
+        b, lo, gg, s, save_inner=save_inner, mag_grad=mag_grad, block_m=8,
+        block_n=128, interpret=True), *map(jnp.asarray, (base, lora, g)))
+    got = _grads(lambda b, lo, gg: tops.fused_compose(
+        b, lo, gg, s, save_inner=save_inner, mag_grad=mag_grad),
+        *(tensor_from_numpy(x).requires_grad_(True)
+          for x in (base, lora, g)))
+    for gt, wt in zip(got[:2], want[:2]):
+        assert gt.dtype == tensor_from_numpy(base).dtype
+        _close(gt, wt, 1e-6 if dtype == "fp32" else 2.0 ** -8)
+    if mag_grad:
+        _close(got[2], want[2], 1e-5)
+    else:
+        assert not got[2].any() and not np.asarray(want[2]).any()
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("mag_grad", [True, False])
+def test_compose_mm_function_grads_match_reference(dtype, mag_grad):
+    """The matmul-fused autograd Function (K6 forward; K7 backward, then
+    d_B and d_g from T = dYᵀ·h) against jax.grad through the reference's
+    fused_compose_mm in interpret mode; r = 40 is not padded here."""
+    rng = np.random.default_rng(10)
+    npdt, rel = DTYPES[dtype]
+    base = _np(rng, (2, 9, 256), npdt)
+    h = _np(rng, (2, 9, 40), npdt, 0.5)
+    B = _np(rng, (256, 40), npdt, 0.1)
+    g = (1.0 + 0.05 * rng.standard_normal(256)).astype(np.float32)
+    s = 0.9
+    want = _grads(lambda b, hh, bb, gg: jops.fused_compose_mm(
+        b, hh, bb, gg, s, mag_grad=mag_grad, block_m=8, block_n=128,
+        interpret=True), *map(jnp.asarray, (base, h, B, g)))
+    got = _grads(lambda b, hh, bb, gg: tops.fused_compose_mm(
+        b, hh, bb, gg, s, mag_grad=mag_grad),
+        *(tensor_from_numpy(x).requires_grad_(True)
+          for x in (base, h, B, g)))
+    _close(got[0], want[0], 1e-6 if dtype == "fp32" else 2.0 ** -8)
+    # d_h and d_B are fp32 sums rounded to the input dtype at the end.
+    for gt, wt in zip(got[1:3], want[1:3]):
+        assert gt.dtype == tensor_from_numpy(h).dtype
+        _close(gt, wt, rel if dtype == "fp32" else 2.0 ** -7)
+    if mag_grad:
+        _close(got[3], want[3], 1e-5)
+    else:
+        assert not got[3].any() and not np.asarray(want[3]).any()
+
+
 def test_compose_wrappers_are_forward_only():
-    base = torch.zeros(4, 128, requires_grad=True)
-    h = torch.zeros(4, 8)
-    B = torch.zeros(128, 8)
-    g = torch.ones(128)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        tops.fused_compose(base, base, g, 1.0)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        tops.fused_compose_mm(base, h, B, g, 1.0)
+    """Forward-only where the tier says so: the wrappers carry gradients
+    to base/lora (h, B) and g, but the Tier.FUSED_FWD call sites of the
+    adapter detach g and take the plain K3 forward (no inner save)."""
+    from repro_torch.core import adapter as tadapter
+    from repro_torch.core.config import DoRAConfig
+
+    base = torch.randn(4, 128, requires_grad=True)
+    h = torch.randn(4, 8, requires_grad=True)
+    B = torch.randn(128, 8, requires_grad=True)
+    g = torch.full((128,), 1.1, requires_grad=True)
+    tops.fused_compose(base, base, g, 1.0).sum().backward()
+    assert base.grad is not None and g.grad is not None
+    tops.fused_compose_mm(base, h, B, g, 1.0).sum().backward()
+    assert h.grad is not None and B.grad is not None
+    g.grad = None
+    cfg = DoRAConfig(rank=8, mode="fused")
+    tkernels.reset_launch_counts()
+    for delta in (tadapter.compose_delta(base, base, g, cfg, training=False),
+                  tadapter.compose_delta_factored(base, h, B, g, cfg,
+                                                  training=False)):
+        delta.sum().backward()
+    assert g.grad is None, "Tier.FUSED_FWD must detach g"
     with torch.no_grad():
         assert tops.fused_compose_mm(base, h, B, g, 1.0).shape == (4, 128)
 
@@ -233,6 +399,13 @@ def test_non_cpu_tensor_never_falls_back():
     with pytest.raises(RuntimeError, match="CUDA unavailable"):
         v = torch.empty(8, device="meta")
         assemble_norm(v, v, v, 1.0)
+    v = torch.empty(128, device="meta")
+    for call in (lambda: tk_compose.compose_fwd_dual(meta, meta, v, 1.0),
+                 lambda: tk_compose.compose_bwd(meta, v, v),
+                 lambda: tk_compose.compose_mm_bwd(
+                     meta, torch.empty(128, 4, device="meta"), v, v)):
+        with pytest.raises(RuntimeError, match="CUDA unavailable"):
+            call()
 
 
 def test_build_needs_nvcc_and_names_library_by_source_hash(monkeypatch,
@@ -241,7 +414,8 @@ def test_build_needs_nvcc_and_names_library_by_source_hash(monkeypatch,
     assert _build.BUILD_DIR.parts[-2:] == ("build", "repro_torch")
     assert _build.source_hash() in _build.library_path().name
     assert {p.name for p in _build.sources()} == {
-        "norm_terms.cu", "assemble_norm.cu", "compose.cu", "compose_mm.cu"}
+        "norm_terms.cu", "assemble_norm.cu", "compose.cu", "compose_bwd.cu",
+        "compose_mm.cu", "compose_mm_bwd.cu"}
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
     monkeypatch.setattr(_build.probes, "nvcc_path", lambda: None)
     with pytest.raises(RuntimeError, match="nvcc not found"):
@@ -253,7 +427,9 @@ def test_kernel_sources_name_the_tpu_kernel_they_replace():
     expect = {"norm_terms.cu": "factored_norm.py:49",
               "assemble_norm.cu": "norm_assembly.py:37",
               "compose.cu": "dora_compose.py:106",
-              "compose_mm.cu": "dora_compose.py:211"}
+              "compose_bwd.cu": "dora_compose.py:136",
+              "compose_mm.cu": "dora_compose.py:211",
+              "compose_mm_bwd.cu": "dora_compose.py:239"}
     for name, ref in expect.items():
         text = (_build.SRC_DIR / name).read_text()
         assert ref in text and "Bound on the H100" in text, name
