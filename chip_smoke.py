@@ -25,6 +25,24 @@ projections through ``repro_torch.launch.serve.generate``:
      plain versions), whose prefill logits must agree within
      1e-4 x max|logit| and whose greedy tokens must match.
 
+Then the continuous-batching engine (``repro_torch.launch.engine``) on
+the same bf16 weights, with one folded serving tree (g and g·s·B):
+
+  E1. the engine's main path: the precompute and the paged engine (8
+      slots, max_len 2048, blocks of 16, chunks of 256, 512 blocks) over
+      24 requests with prompts uniform in 256-1024 and 64 new tokens,
+      exponential arrivals of mean 3 ticks; K1 = K2 = 196 and K8 = 2 x 28
+      per decode and chunk step, nothing else; the pool drains;
+  E2. the same engine with the plain gather: the same greedy streams,
+      bitwise, and no kernel launched;
+  E3. the committed ``BENCH_serve.json`` traces: the rectangular engine's
+      and the paged engine's counters equal ``continuous.engine_model``
+      and ``paged.schedule_model`` (peak 13 blocks, pool drained), and K8
+      launches exactly 2 x 28 x (35 + 18) = 2,968 times;
+  E4. paged == rectangular greedy streams in fp32 at 4 layers over the
+      committed paged trace, and a 2-layer fp32 engine on the card and on
+      the CPU with the same streams.
+
 Then it trains the same bf16 weights (the serving cache freed) through
 ``repro_torch.launch.steps.make_train_step``: batch 2 x seq 2048, loss on
 the last 1024 tokens, layer remat, AdamW defaults:
@@ -77,6 +95,14 @@ TRAIN_BATCH, TRAIN_SEQ, LOSS_TOKENS, TRAIN_STEPS = 2, 2048, 1024, 3
 AGREE_LAYERS = 4
 GRAD_COSINE_MIN = 0.99999
 
+# The engine at realistic length: a chat or RAG server with long prompts
+# of mixed length, short answers and a pool of half the blocks that a
+# rectangular cache of the same slots would pin.
+ENGINE_SLOTS, ENGINE_MAX_LEN, ENGINE_BLOCK, ENGINE_CHUNK = 8, 2048, 16, 256
+ENGINE_BLOCKS = 512
+ENGINE_REQUESTS, ENGINE_PROMPT, ENGINE_NEW, ENGINE_ARRIVAL = (
+    24, (256, 1024), 64, 3.0)
+
 SOURCES = {
     "norm_terms": ("src/repro_torch/kernels/csrc/norm_terms.cu",
                    "src/repro/kernels/factored_norm.py:49"),
@@ -92,6 +118,8 @@ SOURCES = {
                        "src/repro/kernels/dora_compose.py:211"),
     "compose_mm_bwd": ("src/repro_torch/kernels/csrc/compose_mm_bwd.cu",
                        "src/repro/kernels/dora_compose.py:239"),
+    "paged_gather": ("src/repro_torch/kernels/csrc/paged_gather.cu",
+                     "src/repro/kernels/paged_gather.py:90"),
 }
 # The path whose launch count each kernel's record carries, and the index
 # of the shape its top-level numbers are read at (w_gate, or the forced
@@ -102,7 +130,8 @@ RECORD_PATH = {"norm_terms": ("serve_auto", 2),
                "compose_fwd_dual": ("train_elementwise", 0),
                "compose_bwd": ("train_elementwise", 0),
                "compose_mm_fwd": ("serve_auto", 1),
-               "compose_mm_bwd": ("train_auto", 0)}
+               "compose_mm_bwd": ("train_auto", 0),
+               "paged_gather": ("engine_paged", 0)}
 
 
 def check(cond: bool, msg: str) -> None:
@@ -315,6 +344,50 @@ def kernel_checks(dev) -> dict:
                time_ms(lambda: dys @ B), "(dY*gs) @ B, bf16 product only",
                d_base_bitwise_equal_plain=True)
         del dy, base, B, d_base, d_h, ref_b, ref_h, dys
+
+    # K8 at the paged engine's decode and chunk-step shapes: a pool of
+    # 512 blocks of [16, 4 KV heads x 128] and tables of max_len / 16 = 128
+    # slots per row, the ids out of order with -1 holes.
+    from repro_torch.kernels import paged_gather as kp
+    bs, hkv, hd = ENGINE_BLOCK, 4, 128
+    mb = ENGINE_MAX_LEN // bs
+    pool = randn(ENGINE_BLOCKS, bs, hkv, hd)
+    block_bytes = bs * hkv * hd * esz
+    table_rng = np.random.default_rng(SEED + 8)
+    for b in (ENGINE_SLOTS, 1):
+        table = np.full(b * mb, -1, np.int32)
+        n_valid = min(ENGINE_BLOCKS, b * mb * 3 // 4)
+        table[table_rng.permutation(b * mb)[:n_valid]] = \
+            table_rng.permutation(ENGINE_BLOCKS)[:n_valid]
+        pages = torch.as_tensor(table.reshape(b, mb), device=dev)
+        out = kp.paged_gather(pool, pages)
+        ref = kp.paged_gather_plain(pool, pages)
+        torch.cuda.synchronize()
+        bitwise = torch.equal(out.view(torch.int16), ref.view(torch.int16))
+        check(bitwise, f"paged_gather [{b}, {mb}]: not bitwise the plain "
+              f"version")
+        e, mx = max_err(out, ref)
+        ids = pages.clamp_min(0).long().reshape(-1)
+        # A copy: bitwise, tolerance 0. Bytes: the output written once,
+        # the allocated blocks and the table read once.
+        record("paged_gather", [b, mb * bs, hkv, hd], e, mx, 0.0,
+               time_ms(lambda: kp.paged_gather(pool, pages)),
+               time_ms(lambda: kp.paged_gather_plain(pool, pages)),
+               (b * mb + n_valid) * block_bytes + b * mb * 4, 0.0,
+               time_ms(lambda: pool.index_select(0, ids)),
+               "pool.index_select(0, clamped ids), no zero fill",
+               bitwise_equal_plain=bitwise, valid_entries=n_valid)
+        # The events above time the wrapper's host side as much as the
+        # copy; the profiler reads the kernel's own device time.
+        prof = profile(lambda: [kp.paged_gather(pool, pages)
+                                for _ in range(20)],
+                       f"paged_gather [{b}, {mb}] x 20")
+        mine = [k for k in prof.get("top_kernels_ms", [])
+                if "paged_gather_kernel" in k["name"]]
+        rows["paged_gather"][-1]["device_ms"] = (
+            mine[0]["ms"] / mine[0]["launches"] if mine else None)
+        del out, ref
+    del pool
     torch.cuda.empty_cache()
     return rows
 
@@ -483,6 +556,488 @@ def serve_checks(dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# The continuous-batching engine at full width.
+# ---------------------------------------------------------------------------
+
+# make_arrival_trace, make_longcontext_trace, simulate_continuous and
+# simulate_paged are copies of benchmarks/serve_bench.py's (which imports
+# jax); simulate_paged also counts its chunk steps.
+
+def make_arrival_trace(*, n_requests=12, mean_interarrival=2.0,
+                       prompt_len=8, gen_lens=(4, 6, 8, 10), seed=0):
+    rng = np.random.default_rng(seed)
+    t, reqs = 0.0, []
+    for _ in range(n_requests):
+        t += rng.exponential(mean_interarrival)
+        reqs.append({"arrival_step": int(t),
+                     "prompt_len": int(prompt_len),
+                     "gen_len": int(rng.choice(gen_lens))})
+    return reqs
+
+
+def make_longcontext_trace(trace_params, *, long_arrival: int,
+                           long_prompt_len: int, long_gen_len: int):
+    trace = make_arrival_trace(**trace_params)
+    req = {"arrival_step": int(long_arrival),
+           "prompt_len": int(long_prompt_len),
+           "gen_len": int(long_gen_len)}
+    idx = next((i for i, r in enumerate(trace)
+                if r["arrival_step"] > long_arrival), len(trace))
+    trace.insert(idx, req)
+    return trace
+
+
+def simulate_continuous(trace, *, slots: int) -> dict:
+    from collections import deque
+    queue: deque = deque()
+    table = [None] * slots
+    i, step = 0, 0
+    decode_steps = prefills = generated = slot_steps = 0
+    n = len(trace)
+
+    def has_work():
+        return bool(queue) or any(v is not None for v in table)
+
+    while i < n or has_work():
+        while i < n and trace[i]["arrival_step"] <= step:
+            queue.append(trace[i])
+            i += 1
+        for j in range(slots):
+            while table[j] is None and queue:
+                r = queue.popleft()
+                prefills += 1
+                generated += 1
+                if r["gen_len"] - 1 > 0:
+                    table[j] = r["gen_len"] - 1
+        active = [j for j in range(slots) if table[j] is not None]
+        if active:
+            decode_steps += 1
+            slot_steps += len(active)
+            for j in active:
+                generated += 1
+                table[j] -= 1
+                if table[j] == 0:
+                    table[j] = None
+        step += 1
+    occ = slot_steps / (decode_steps * slots) if decode_steps else 0.0
+    return {"steps": step, "decode_steps": decode_steps,
+            "prefills": prefills, "generated_tokens": generated,
+            "slot_steps": slot_steps, "mean_occupancy": occ}
+
+
+def simulate_paged(trace, *, slots: int, max_len: int, block_size: int,
+                   n_blocks: int, chunk: int) -> dict:
+    if max_len % block_size:
+        raise ValueError(f"max_len={max_len} % block_size={block_size}")
+    max_blocks = max_len // block_size
+    if n_blocks < max_blocks:
+        raise ValueError(f"n_blocks={n_blocks} < max_blocks={max_blocks}")
+    from collections import deque
+    queue: deque = deque()
+    rows = [None] * slots
+    i, step = 0, 0
+    decode_steps = prefills = generated = slot_steps = chunk_steps = 0
+    free, used, peak_used = n_blocks, 0, 0
+    resident_block_steps = deferral_ticks = 0
+    n = len(trace)
+
+    def blocks_for(upto):
+        return -(-upto // block_size)
+
+    def retire(j):
+        nonlocal free, used
+        free += rows[j]["blocks"]
+        used -= rows[j]["blocks"]
+        rows[j] = None
+
+    def has_work():
+        return bool(queue) or any(r is not None for r in rows)
+
+    while i < n or has_work():
+        while i < n and trace[i]["arrival_step"] <= step:
+            queue.append(trace[i])
+            i += 1
+        for j in range(slots):
+            if rows[j] is None and queue:
+                r = queue[0]
+                need = blocks_for(r["prompt_len"] + 1)
+                if free < need:
+                    deferral_ticks += 1
+                    break
+                queue.popleft()
+                free -= need
+                used += need
+                peak_used = max(peak_used, used)
+                rows[j] = {"p": r["prompt_len"], "budget": r["gen_len"],
+                           "chunk_next": 0, "prefilling": True,
+                           "pos": 0, "blocks": need, "emitted": 0}
+        for j in range(slots):
+            s = rows[j]
+            if s is None or not s["prefilling"]:
+                continue
+            chunk_steps += 1
+            if s["p"] - s["chunk_next"] <= chunk:
+                s["prefilling"] = False
+                s["pos"] = s["p"]
+                prefills += 1
+                generated += 1
+                s["emitted"] = 1
+                if s["emitted"] == s["budget"]:
+                    retire(j)
+            else:
+                s["chunk_next"] += chunk
+        active = [j for j in range(slots)
+                  if rows[j] is not None and not rows[j]["prefilling"]]
+        if active:
+            for j in active:
+                s = rows[j]
+                need = blocks_for(s["pos"] + 1)
+                grow = need - s["blocks"]
+                if grow > 0:
+                    if free < grow:
+                        raise RuntimeError(
+                            "simulate_paged does not model reclaim "
+                            "preemption — size n_blocks above the "
+                            "trace's peak demand")
+                    free -= grow
+                    used += grow
+                    s["blocks"] = need
+                    peak_used = max(peak_used, used)
+            decode_steps += 1
+            slot_steps += len(active)
+            for j in active:
+                s = rows[j]
+                generated += 1
+                s["emitted"] += 1
+                s["pos"] += 1
+                if s["emitted"] == s["budget"]:
+                    retire(j)
+        resident_block_steps += used
+        step += 1
+    occ = slot_steps / (decode_steps * slots) if decode_steps else 0.0
+    return {"steps": step, "decode_steps": decode_steps,
+            "prefills": prefills, "generated_tokens": generated,
+            "slot_steps": slot_steps, "mean_occupancy": occ,
+            "peak_used_blocks": peak_used,
+            "resident_block_steps": resident_block_steps,
+            "mean_resident_blocks":
+                resident_block_steps / step if step else 0.0,
+            "deferral_ticks": deferral_ticks, "chunk_steps": chunk_steps}
+
+
+def committed_trace(section: str):
+    """(trace, engine kwargs, committed model, simulated model) of a
+    ``BENCH_serve.json`` section, the trace rebuilt from its parameters."""
+    sec = json.loads((Path(__file__).resolve().parent
+                      / "BENCH_serve.json").read_text())[section]
+    tp = dict(sec["trace"])
+    slots, max_len = tp.pop("slots"), tp.pop("max_len")
+    kw = {"slots": slots, "max_len": max_len}
+    if section == "continuous":
+        trace = make_arrival_trace(**tp)
+        return trace, kw, sec["engine_model"], simulate_continuous(
+            trace, slots=slots)
+    paged = {k: tp.pop(k) for k in ("block_size", "n_blocks",
+                                    "prefill_chunk")}
+    trace = make_longcontext_trace(
+        tp, **{k: tp.pop(k) for k in ("long_arrival", "long_prompt_len",
+                                      "long_gen_len")})
+    kw.update(paged=True, **paged)
+    return trace, kw, sec["schedule_model"], simulate_paged(
+        trace, slots=slots, max_len=max_len, block_size=paged["block_size"],
+        n_blocks=paged["n_blocks"], chunk=paged["prefill_chunk"])
+
+
+def realistic_trace():
+    """The long-prompt trace: prompts uniform in ENGINE_PROMPT, ENGINE_NEW
+    new tokens each, exponential arrivals of mean ENGINE_ARRIVAL ticks."""
+    rng = np.random.default_rng(SEED)
+    t, reqs = 0.0, []
+    lo, hi = ENGINE_PROMPT
+    for _ in range(ENGINE_REQUESTS):
+        t += rng.exponential(ENGINE_ARRIVAL)
+        reqs.append({"arrival_step": int(t),
+                     "prompt_len": int(rng.integers(lo, hi + 1)),
+                     "gen_len": ENGINE_NEW})
+    return reqs
+
+
+def drive_engine(engine, trace, vocab: int, *, timed: bool = False) -> dict:
+    """Submit each request of ``trace`` as its arrival step comes due and
+    tick once per step (the arrival loop of the committed models). Returns
+    the token streams and the wall seconds; with ``timed``, also the wall
+    ms of every decode and chunk step, each between device
+    synchronisations."""
+    rng = np.random.default_rng(SEED + 1)
+    prompts = [rng.integers(0, vocab, r["prompt_len"]) for r in trace]
+    streams: dict = {}
+    times: dict = {"decode": [], "prefill_chunk": []}
+    if timed:
+        dev = engine.device     # not the engine: no reference cycle
+
+        def timer(name, fn):
+            def call(*a, **k):
+                _sync(dev)
+                t0 = time.perf_counter()
+                out = fn(*a, **k)
+                _sync(dev)
+                times[name].append((time.perf_counter() - t0) * 1e3)
+                return out
+            return call
+        engine._decode = timer("decode", engine._decode)
+        if engine._paged:
+            engine._chunk_prefill = timer("prefill_chunk",
+                                          engine._chunk_prefill)
+
+    def on_token(rid, tok):
+        streams.setdefault(rid, []).append(tok)
+
+    _sync(engine.device)
+    t0 = time.perf_counter()
+    i, step = 0, 0
+    while i < len(trace) or engine.has_work():
+        while i < len(trace) and trace[i]["arrival_step"] <= step:
+            engine.submit(prompts[i], max_new_tokens=trace[i]["gen_len"],
+                          key_id=i)
+            i += 1
+        engine.step(on_token)
+        step += 1
+    _sync(engine.device)
+    return {"streams": streams, "wall_s": time.perf_counter() - t0,
+            "times_ms": times}
+
+
+def _sync(dev) -> None:
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _reset_peak(dev) -> None:
+    if torch.device(dev).type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+
+
+def _peak(dev):
+    if torch.device(dev).type == "cuda":
+        return torch.cuda.max_memory_allocated(dev)
+    return None
+
+
+def _empty_cache(dev) -> None:
+    if torch.device(dev).type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def _mean(xs):
+    return sum(xs) / len(xs) if xs else None
+
+
+def engine_checks(dev, mcfg, params, adapters) -> dict:
+    """The engine phases at the model's full width (bf16, r = 384 DoRA):
+
+    - the main path: the serving precompute (K1, K2) and the paged engine
+      on the realistic trace, launch counts exact, the pool drained;
+    - the same engine with the plain gather (``mode="eager"``, the only
+      route the engine's dispatch decides with a folded serving tree):
+      bitwise the same streams and schedule, no kernel launched;
+    - both committed traces: counters equal ``BENCH_serve.json``'s models
+      (and this file's copies of their simulators), K8 launched exactly
+      twice per layer and device step on the paged one."""
+    from repro_torch import kernels
+    from repro_torch.core.config import DoRAConfig
+    from repro_torch.launch.engine import DecodeEngine
+    from repro_torch.launch.steps import StepConfig, make_precompute_step
+
+    L = mcfg.num_layers
+    n_adapted = 7 * L
+    auto, eager = (StepConfig(dora=DoRAConfig(rank=RANK, alpha=ALPHA,
+                                              mode=mode))
+                   for mode in ("auto", "eager"))
+    paged_kw = dict(slots=ENGINE_SLOTS, max_len=ENGINE_MAX_LEN, paged=True,
+                    block_size=ENGINE_BLOCK, n_blocks=ENGINE_BLOCKS,
+                    prefill_chunk=ENGINE_CHUNK, device=dev)
+    trace = realistic_trace()
+
+    # --- the main path: precompute, then the paged engine at length ---
+    _sync(dev)
+    _reset_peak(dev)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    state = make_precompute_step(mcfg, auto, fold_gsb=True)(params,
+                                                            adapters)
+    _sync(dev)
+    precompute_ms = (time.perf_counter() - t0) * 1e3
+    engine = DecodeEngine(mcfg, auto, params, adapters=state, **paged_kw)
+    run = drive_engine(engine, trace, mcfg.vocab_size, timed=True)
+    counts = kernels.launch_counts()
+    peak = _peak(dev)
+    steps = engine.device_steps()
+    st, ps = engine.stats(), engine.pool_stats()
+    check(counts == counts_of(norm_terms=n_adapted, assemble_norm=n_adapted,
+                              paged_gather=2 * L * (steps["decode"]
+                                                    + steps["prefill_chunk"])),
+          f"engine main-path launch counts {counts} (device steps {steps})")
+    check(ps["used_blocks"] == 0 and ps["per_slot_blocks"]
+          == [0] * ENGINE_SLOTS, f"engine pool did not drain: {ps}")
+    check(st.generated_tokens == ENGINE_REQUESTS * ENGINE_NEW
+          and st.retired == ENGINE_REQUESTS
+          and all(len(v) == ENGINE_NEW for v in run["streams"].values()),
+          f"engine generated {st.generated_tokens} tokens, "
+          f"retired {st.retired}")
+    check(all(0 <= t < mcfg.vocab_size for v in run["streams"].values()
+              for t in v), "engine token ids out of range")
+    # One decode tick with every slot active, profiled after the counts
+    # were read: 8 prompts of 768 tokens admitted, one warm tick, then the
+    # profiled one.
+    rng = np.random.default_rng(SEED + 2)
+    for _ in range(ENGINE_SLOTS):
+        engine.submit(rng.integers(0, mcfg.vocab_size, 768),
+                      max_new_tokens=8)
+    while engine._queue or any(s.prefilling for s in engine._slots):
+        engine.step()
+    engine.step()
+    tick_profile = profile(engine.step, "engine decode tick (8 rows, bf16)")
+    engine.run()
+    main = {
+        "trace": {"requests": ENGINE_REQUESTS, "prompt_len": ENGINE_PROMPT,
+                  "new_tokens": ENGINE_NEW,
+                  "mean_interarrival_ticks": ENGINE_ARRIVAL,
+                  "slots": ENGINE_SLOTS, "max_len": ENGINE_MAX_LEN,
+                  "block_size": ENGINE_BLOCK, "n_blocks": ENGINE_BLOCKS,
+                  "prefill_chunk": ENGINE_CHUNK,
+                  "prompt_tokens": sum(r["prompt_len"] for r in trace)},
+        "ticks": st.steps, "decode_steps": st.decode_steps,
+        "chunk_steps": steps["prefill_chunk"],
+        "preemptions": st.preemptions,
+        "peak_used_blocks": ps["peak_used_blocks"],
+        "mean_occupancy": st.mean_occupancy,
+        "precompute_ms": precompute_ms,
+        "decode_ms_per_tick": _mean(run["times_ms"]["decode"]),
+        "chunk_step_ms": _mean(run["times_ms"]["prefill_chunk"]),
+        "wall_s": run["wall_s"],
+        "tokens_per_s": st.generated_tokens / run["wall_s"],
+        "max_memory_allocated_bytes": peak, "launches": counts,
+        "decode_tick_profile": tick_profile}
+    print("engine paged, realistic length (bf16): " + json.dumps(main),
+          flush=True)
+
+    # --- the same engine with the plain gather: bitwise the same ---
+    kernels.reset_launch_counts()
+    plain = DecodeEngine(mcfg, eager, params, adapters=state, **paged_kw)
+    plain_run = drive_engine(plain, trace, mcfg.vocab_size)
+    check(sum(kernels.launch_counts().values()) == 0,
+          f"the plain-gather engine launched {kernels.launch_counts()}")
+    check(plain_run["streams"] == run["streams"],
+          "K8 engine streams differ from the plain-gather engine's")
+    check(plain.stats() == st, "the plain-gather engine ran another schedule")
+    main["plain_gather_wall_s"] = plain_run["wall_s"]
+    del engine, plain
+
+    # --- the committed traces ---
+    traces = {}
+    for section in ("continuous", "paged"):
+        trace_c, kw, model, sim = committed_trace(section)
+        kernels.reset_launch_counts()
+        engine = DecodeEngine(mcfg, auto, params, adapters=state, device=dev,
+                              **kw)
+        run_c = drive_engine(engine, trace_c, mcfg.vocab_size)
+        st_c, steps_c = engine.stats(), engine.device_steps()
+        counts_c = kernels.launch_counts()
+        rec = {"stats": st_c.as_dict(), "device_steps": steps_c,
+               "wall_s": run_c["wall_s"], "launches": counts_c}
+        for field in ("steps", "decode_steps", "prefills",
+                      "generated_tokens", "slot_steps"):
+            check(sim[field] == model[field],
+                  f"{section}: simulator {field}={sim[field]}, "
+                  f"BENCH_serve.json {model[field]}")
+            check(getattr(st_c, field) == model[field],
+                  f"{section} engine {field}={getattr(st_c, field)}, "
+                  f"BENCH_serve.json {model[field]}")
+        if section == "paged":
+            ps_c = engine.pool_stats()
+            rec["pool"] = ps_c
+            check(ps_c["peak_used_blocks"] == model["peak_used_blocks"]
+                  == sim["peak_used_blocks"],
+                  f"paged peak {ps_c['peak_used_blocks']} blocks, "
+                  f"BENCH_serve.json {model['peak_used_blocks']}")
+            check(ps_c["used_blocks"] == 0, f"paged pool leaked: {ps_c}")
+            check(steps_c["prefill_chunk"] == sim["chunk_steps"],
+                  f"paged chunk steps {steps_c} vs {sim['chunk_steps']}")
+            want = counts_of(paged_gather=2 * L * (
+                sim["decode_steps"] + sim["chunk_steps"]))
+        else:
+            want = counts_of()
+        check(counts_c == want, f"{section} launch counts {counts_c}, "
+              f"want {want}")
+        traces[section] = rec
+        print(f"engine {section} trace (bf16): " + json.dumps(rec),
+              flush=True)
+        del engine
+    del state
+    _empty_cache(dev)
+    return {"engine_paged": main, "traces": traces}
+
+
+def engine_parity(dev, mcfg, params, adapters) -> dict:
+    """Paged == rectangular greedy streams over the committed paged trace
+    in fp32 at full width and AGREE_LAYERS layers on the card; then a
+    2-layer fp32 paged engine on the card and on the CPU (the kernels'
+    plain versions): the same streams."""
+    import dataclasses
+
+    from repro_torch.core.config import DoRAConfig
+    from repro_torch.launch import serve
+    from repro_torch.launch.engine import DecodeEngine
+    from repro_torch.launch.steps import StepConfig, make_precompute_step
+    from repro_torch.models.config import ModelConfig
+
+    trace, kw, _, _ = committed_trace("paged")
+    rect_kw = {"slots": kw["slots"], "max_len": kw["max_len"]}
+    out = {}
+    scfg = StepConfig(dora=DoRAConfig(rank=RANK, alpha=ALPHA, mode="auto"))
+    mcfg32 = dataclasses.replace(mcfg, num_layers=AGREE_LAYERS,
+                                 dtype=torch.float32)
+    p32 = _upcast_layers(params, AGREE_LAYERS)
+    state = make_precompute_step(mcfg32, scfg, fold_gsb=True)(
+        p32, _upcast_layers(adapters, AGREE_LAYERS))
+    streams = {}
+    for name, extra in (("rect", rect_kw), ("paged", kw)):
+        engine = DecodeEngine(mcfg32, scfg, p32, adapters=state, device=dev,
+                              **extra)
+        streams[name] = drive_engine(engine, trace,
+                                     mcfg.vocab_size)["streams"]
+    check(streams["paged"] == streams["rect"],
+          "fp32 paged engine streams differ from the rectangular engine's")
+    out["fp32_paged_equals_rect"] = {
+        "layers": AGREE_LAYERS, "requests": len(streams["paged"]),
+        "tokens": sum(len(v) for v in streams["paged"].values())}
+    del state, p32
+    _empty_cache(dev)
+
+    small = ModelConfig(name="parity-2l", family="dense", num_layers=2,
+                        d_model=256, num_heads=2, num_kv_heads=1, d_ff=512,
+                        vocab_size=512, qkv_bias=True, attn_chunk=16,
+                        dtype=torch.float32)
+    sm_cfg = StepConfig(dora=DoRAConfig(rank=16, alpha=32.0, mode="fused"))
+    p_cpu, a_cpu = serve.build_state(small, sm_cfg.dora, SEED, "cpu")
+    a_cpu = perturb_adapters(a_cpu, torch.Generator().manual_seed(SEED + 1))
+    streams = {}
+    for where in ("cpu", dev):
+        p = _tree_map(lambda t: t.to(where), p_cpu)
+        a = _tree_map(lambda t: t.to(where), a_cpu)
+        state = make_precompute_step(small, sm_cfg, fold_gsb=True)(p, a)
+        engine = DecodeEngine(small, sm_cfg, p, adapters=state, device=where,
+                              **kw)
+        streams[str(where)] = drive_engine(engine, trace, 512)["streams"]
+    check(streams["cpu"] == streams[str(dev)],
+          "2-layer engine streams differ between the card and the CPU")
+    out["small_card_vs_cpu"] = {"layers": 2, "tokens": sum(
+        len(v) for v in streams["cpu"].values())}
+    print("engine parity: " + json.dumps(out), flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Training at full width.
 # ---------------------------------------------------------------------------
 
@@ -560,28 +1115,21 @@ def _kernel_family(name: str) -> str:
     return "other"
 
 
-def _profile_step(dev, mcfg, params, adapters, dcfg, batch) -> dict:
-    """One more training step under torch.profiler, outside every launch
-    count: device time by kernel family and by kernel, and the device's
-    idle share of the step's wall time."""
+def profile(run, label: str) -> dict:
+    """``run()`` under torch.profiler, outside every launch count: device
+    time by kernel family and by kernel, and the device's idle share of
+    the wall time."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile as torch_profile
 
-    from repro_torch.launch.steps import StepConfig, make_train_step
-    from repro_torch.optim import adamw_init
-
-    step = make_train_step(mcfg, StepConfig(dora=dcfg,
-                                            loss_tokens=LOSS_TOKENS),
-                           batch=TRAIN_BATCH, seq=TRAIN_SEQ)
-    opt = adamw_init(adapters)
-    bt = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
-    torch.cuda.synchronize()
+    dev = "cuda" if torch.cuda.is_available() else "cpu"
+    _sync(dev)
     try:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with torch_profile(activities=[ProfilerActivity.CPU,
+                                       ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            step(params, adapters, opt, bt)
-            torch.cuda.synchronize()
+            run()
+            _sync(dev)
             wall_us = (time.perf_counter() - t0) * 1e6
         by_name: dict = {}
         for ev in prof.events():
@@ -591,12 +1139,8 @@ def _profile_step(dev, mcfg, params, adapters, dcfg, batch) -> dict:
             n, t = by_name.get(ev.name, (0, 0.0))
             by_name[ev.name] = (n + 1, t + us)
     except Exception as exc:   # the profiler is a measurement, not a check
-        del opt
-        torch.cuda.empty_cache()
-        print(f"train profile: unavailable ({exc!r})", flush=True)
+        print(f"{label} profile: unavailable ({exc!r})", flush=True)
         return {"error": repr(exc)}
-    del opt
-    torch.cuda.empty_cache()
     busy_us = sum(t for _, t in by_name.values())
     families: dict = {}
     for name, (n, t) in by_name.items():
@@ -611,8 +1155,24 @@ def _profile_step(dev, mcfg, params, adapters, dcfg, batch) -> dict:
                                families.items(), key=lambda kv: -kv[1][1])},
            "top_kernels_ms": [{"name": k[:100], "launches": n, "ms": t / 1e3}
                               for k, (n, t) in top]}
-    print("train profile (auto, bf16, one step): " + json.dumps(rec),
-          flush=True)
+    print(f"{label} profile: " + json.dumps(rec), flush=True)
+    return rec
+
+
+def _profile_step(dev, mcfg, params, adapters, dcfg, batch) -> dict:
+    """One more training step under the profiler."""
+    from repro_torch.launch.steps import StepConfig, make_train_step
+    from repro_torch.optim import adamw_init
+
+    step = make_train_step(mcfg, StepConfig(dora=dcfg,
+                                            loss_tokens=LOSS_TOKENS),
+                           batch=TRAIN_BATCH, seq=TRAIN_SEQ)
+    opt = adamw_init(adapters)
+    bt = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+    rec = profile(lambda: step(params, adapters, opt, bt),
+                  "train (auto, bf16, one step)")
+    del opt
+    torch.cuda.empty_cache()
     return rec
 
 
@@ -828,6 +1388,10 @@ def main() -> int:
     served, mcfg, params, adapters = serve_checks(dev)
     print(f"serve phases: {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
+    engine = engine_checks(dev, mcfg, params, adapters)
+    engine["parity"] = engine_parity(dev, mcfg, params, adapters)
+    print(f"engine phases: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
     trained = train_checks(dev, mcfg, params, adapters)
     del params, adapters
     torch.cuda.empty_cache()
@@ -836,7 +1400,9 @@ def main() -> int:
 
     by_path = {"serve_auto": served["auto"], "serve_fused": served["fused"],
                "train_auto": trained["train_auto"]["launches"],
-               "train_elementwise": trained["train_elementwise"]["launches"]}
+               "train_elementwise": trained["train_elementwise"]["launches"],
+               "engine_paged": engine["engine_paged"]["launches"],
+               "engine_trace_paged": engine["traces"]["paged"]["launches"]}
     record = []
     for name, (src, replaces) in SOURCES.items():
         path, at = RECORD_PATH[name]
@@ -866,6 +1432,7 @@ def main() -> int:
     detail.parent.mkdir(exist_ok=True)
     detail.write_text(json.dumps({
         "card": smi, "kernel_rows": rows, "serve": served,
+        "engine": engine,
         "train": {k: trained[k] for k in ("train_auto", "train_elementwise",
                                           "fp32_agreement")},
         "train_parity": parity}, indent=1))
@@ -874,6 +1441,9 @@ def main() -> int:
     print(json.dumps({"kernels": record, "card": smi,
                       "serve": {k: served[k] for k in
                                 ("serve_auto", "serve_fused", "cosines")},
+                      "engine": {k: v for k, v in engine["engine_paged"].items()
+                                 if k not in ("trace", "launches",
+                                              "decode_tick_profile")},
                       "train": train_summary}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

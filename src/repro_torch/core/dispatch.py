@@ -106,3 +106,20 @@ def plan_norm(cfg: DoRAConfig, *, d_out: int, device="cuda") -> KernelPlan:
     if backend == "eager":
         return KernelPlan(Tier.EAGER, "eager")
     return KernelPlan(Tier.FUSED_FWD, backend)
+
+
+def plan_gather(cfg: DoRAConfig | None, *, head_elems: int,
+                device="cuda") -> KernelPlan:
+    """Resolve the paged K/V gather call site (block pool → logical view,
+    K8). Forward-only (the cache carries no gradient), so the kernel
+    choice is Tier 2, like the norm. ``head_elems`` = Hkv·hd, the
+    flattened trailing dim of one cache block, must divide the 128-lane
+    block; an unsupported shape, and ``cfg=None`` (a base model served
+    without an adapter config), take the plain gather, which is bitwise
+    the kernel (both are copies with a zero fill)."""
+    if cfg is None or not shape_supported(head_elems):
+        return KernelPlan(Tier.EAGER, "eager")
+    backend = resolve_backend(cfg, device)
+    if backend == "eager":
+        return KernelPlan(Tier.EAGER, "eager")
+    return KernelPlan(Tier.FUSED_FWD, backend)

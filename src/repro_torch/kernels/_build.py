@@ -36,18 +36,17 @@ DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 # C signatures of the entry points: (argtypes, restype).
 _SIGNATURES = {
     "norm_terms": ((_P, _P, _P, _P, _P, _I, _I, _I, _I, _P), _I),
     "assemble_norm": ((_P, _P, _P, _P, _I, _F, _F, _P), _I),
-    "compose_fwd": ((_P, _P, _P, _P, ctypes.c_longlong, _I, _F, _I, _I, _P),
-                    _I),
-    "compose_fwd_dual": ((_P, _P, _P, _P, _P, ctypes.c_longlong, _I, _F, _I,
-                          _I, _P), _I),
-    "compose_bwd": ((_P, _P, _P, _P, _P, ctypes.c_longlong, _I, _I, _I, _P),
-                    _I),
+    "compose_fwd": ((_P, _P, _P, _P, _L, _I, _F, _I, _I, _P), _I),
+    "compose_fwd_dual": ((_P, _P, _P, _P, _P, _L, _I, _F, _I, _I, _P), _I),
+    "compose_bwd": ((_P, _P, _P, _P, _P, _L, _I, _I, _I, _P), _I),
     "compose_mm_fwd": ((_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P), _I),
     "compose_mm_bwd": ((_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P), _I),
+    "paged_gather": ((_P, _P, _P, _L, _L, _L, _P), _I),
     "runtime_error_string": ((_I,), ctypes.c_char_p),
 }
 

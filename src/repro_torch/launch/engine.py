@@ -1,0 +1,843 @@
+"""Continuous-batching decode engine (counterpart of
+``repro/launch/engine.py``), single-tenant.
+
+The static serve loop (``launch/serve.py``) retires a batch only when
+every row is done. This engine keeps the decode batch full instead:
+
+  - **slot table**: the decode batch is ``slots`` fixed rows over ONE
+    persistent cache whose "len" is a per-row tensor
+    (``init_cache(..., row_lens=True)``), so every row stands at its own
+    position, attends under its own causal frontier and writes its K/V
+    at its own depth;
+  - **admission**: a queued request is prefilled INTO a free row of the
+    running batch (``make_prefill_into_slot_step``) while the other rows
+    are left as they are;
+  - **retirement**: a row retires the moment its request finishes (EOS,
+    its token budget, or the cache's ``max_len``), and the freed slot
+    admits the next queued request at the next engine step.
+
+With ``paged=True`` the rectangular K/V gives way to a block pool per
+layer and a per-slot block table (``cache["pages"]``): blocks are
+allocated as a row's frontier crosses into them and freed at retirement
+or preemption, and prompts are admitted in fixed-size chunks interleaved
+with decode ticks (``make_prefill_chunk_step``). The attention gathers
+the pools through the table with K8 (``kernels/paged_gather.py``).
+Greedy paged streams equal the rectangular engine's.
+
+Scheduling is HOST logic over host mirrors (per-slot positions, budgets
+and block lists): the engine never reads ``cache["len"]`` or the table
+back from the device, and writes the table to the device once before
+each device step that reads it (:meth:`DecodeEngine._flush_pages`). The
+only read-back per step is the logits fetch that sampling needs. The
+schedule is deterministic and model-independent when no ``eos_id`` is
+set, so its counters equal the models committed in ``BENCH_serve.json``.
+
+Sampling: greedy is a host argmax over the fetched logits. With
+``temperature > 0`` each request draws from its own ``torch.Generator``,
+seeded from (seed, key_id, number of tokens sampled so far), so a
+request's stream does not depend on what shares its batch; these draws
+are not the reference's ``jax.random`` draws.
+
+What this slice leaves to later ones (each raises ``NotImplementedError``
+at construction, naming its ROADMAP queue 1 item 4 sub-slice): per-request
+adapters through an adapter-state cache (``adapter_cache``,
+``dynamic_grouping``, ``max_active_per_adapter``), speculative decoding
+(``speculative_k``), the fault plan (``fault_plan``), tracing (``trace``)
+and a device mesh (``mesh``). The reference's ``compile_counts()`` counts
+XLA executables, which PyTorch does not have; :meth:`device_steps` counts
+the device steps the engine ran instead.
+
+SSM/Mamba archs are refused (their states integrate every processed
+token and cannot rewind to a slot's true prompt length), and MoE FFNs
+too (expert-capacity dispatch couples rows).
+"""
+from __future__ import annotations
+
+import dataclasses
+from collections import deque
+
+import numpy as np
+import torch
+
+from repro_torch.launch.serve import resolve_device
+from repro_torch.launch.steps import (StepConfig, make_decode_step,
+                                      make_prefill_chunk_step,
+                                      make_prefill_into_slot_step)
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.lm import init_cache
+
+#: Every finish_reason a RequestResult can carry.
+#:   eos           the request's eos_id was sampled
+#:   length        the request's max_new_tokens budget ran out
+#:   max_len       the CACHE bound ran out before the request's budget
+#:   error         admission-time resolution failed (cache-routed engines)
+#:   timeout       deadline_ticks expired (queued or mid-decode); tokens
+#:                 generated so far are delivered
+#:   error_numeric the row's logits went non-finite and it was quarantined
+FINISH_REASONS = ("eos", "length", "max_len", "error", "timeout",
+                  "error_numeric")
+
+_LATER = "ROADMAP queue 1 item 4"
+
+
+@dataclasses.dataclass(frozen=True)
+class EngineRequest:
+    """One queued or running request (built by
+    :meth:`DecodeEngine.submit`)."""
+    request_id: int
+    prompt: np.ndarray                 # int32 [P]
+    max_new_tokens: int
+    eos_id: int | None = None
+    key_id: int = 0                    # sampling stream id (see submit)
+    priority: int = 0                  # higher admits first, preempts lower
+    deadline_step: int | None = None   # ABSOLUTE engine step; -> "timeout"
+    # -- continuation bookkeeping (set by preemption, not by submit) --------
+    prefix: np.ndarray | None = None   # tokens generated before preemption
+    orig_prompt: np.ndarray | None = None   # prompt as originally submitted
+    resume_cap: str | None = None      # finish_cap carried across preemption
+    first_admitted: int | None = None  # step of the FIRST admission
+    preempted: int = 0                 # times this request was preempted
+
+
+@dataclasses.dataclass
+class RequestResult:
+    """Everything the engine produced for one request."""
+    request_id: int
+    prompt: np.ndarray                 # int32 [P] (as submitted)
+    tokens: np.ndarray                 # int32 [n] generated tokens
+    finish_reason: str                 # one of FINISH_REASONS
+    admitted_step: int                 # engine step of the first admission
+    finished_step: int                 # engine step the last token landed
+    preempted: int = 0                 # times the request was preempted
+
+
+@dataclasses.dataclass(frozen=True)
+class EngineStats:
+    """Deterministic scheduling counters (point-in-time snapshot), with
+    the reference's fields. The speculative, fleet and fault-injection
+    counters stay 0 until those slices are ported."""
+    slots: int
+    steps: int                  # engine steps driven (incl. idle ones)
+    decode_steps: int           # steps that ran the batched decode
+    prefills: int               # completed admissions (prefill or chunks)
+    admitted: int
+    retired: int
+    generated_tokens: int       # sampled tokens (admission + decode)
+    slot_steps: int             # sum over decode steps of active slots
+    draft_steps: int = 0
+    verify_steps: int = 0
+    accepted_drafts: int = 0
+    stack_inserts: int = 0
+    preemptions: int = 0        # slots displaced (priority or pool reclaim)
+    timeouts: int = 0           # requests retired by deadline expiry
+    quarantined: int = 0        # rows retired with non-finite logits
+    busy_rejections: int = 0
+    spec_disables: int = 0
+    spec_reenables: int = 0
+    injected_nans: int = 0
+    forced_evictions: int = 0
+    stale_injected: int = 0
+    slow_ticks: int = 0
+
+    @property
+    def mean_occupancy(self) -> float:
+        """Active rows per decode step / slots."""
+        if self.decode_steps == 0:
+            return 0.0
+        return self.slot_steps / (self.decode_steps * self.slots)
+
+    def as_dict(self) -> dict:
+        d = dataclasses.asdict(self)
+        d["mean_occupancy"] = self.mean_occupancy
+        return d
+
+
+@dataclasses.dataclass
+class _Slot:
+    idx: int = -1                      # this slot's row index (fixed)
+    req: EngineRequest | None = None
+    last_token: int = 0
+    budget: int = 0                    # tokens still to sample
+    finish_cap: str = "length"         # reason when the budget runs out
+    generated: list = dataclasses.field(default_factory=list)
+    admitted_step: int = 0
+    pos: int = 0                       # host mirror of cache["len"][slot]
+    n_prior: int = 0                   # tokens emitted in earlier legs of a
+    #                                    preempted request (keeps the
+    #                                    sampling stream continuous)
+    prefilling: bool = False           # paged chunked admission in flight
+    chunk_next: int = 0                # next chunk's start into the prompt
+
+    @property
+    def occupied(self) -> bool:
+        """The slot holds a request (decoding OR mid-admission)."""
+        return self.req is not None
+
+    @property
+    def active(self) -> bool:
+        """The slot decodes this tick (admission, if any, is complete)."""
+        return self.req is not None and not self.prefilling
+
+
+class DecodeEngine:
+    """Slot-scheduled continuous-batching serving over one decode step.
+
+    ``adapters`` is the precomputed serving tree every request shares
+    (``make_precompute_step``). ``device``: None is the card, which must
+    be present; ``"cpu"`` is the explicit CPU request; ``params`` and
+    ``adapters`` must live there.
+
+    ``step()`` is one scheduler tick: expire deadlines → admit into free
+    slots (preempting lower-priority rows when an outranking request is
+    queued) → one prompt chunk per admitting slot (paged) → one batched
+    decode over every active slot. ``run()`` drives until the queue and
+    the slot table drain.
+
+    Paged knobs: ``block_size`` (default: the largest divisor of
+    ``max_len`` up to 16), ``n_blocks`` (default: enough for every slot
+    to reach ``max_len``; pass fewer to realise the memory win) and
+    ``prefill_chunk`` (default: ``block_size``). When the pool runs out,
+    an admission waits at the head of the queue, and a decoding row that
+    needs a block preempts :meth:`_block_victim` slots until it fits.
+    """
+
+    def __init__(self, mcfg: ModelConfig, scfg: StepConfig, params, *,
+                 slots: int, max_len: int, adapters=None,
+                 temperature: float = 0.0, seed: int = 0,
+                 paged: bool = False, block_size: int | None = None,
+                 n_blocks: int | None = None,
+                 prefill_chunk: int | None = None, device=None,
+                 adapter_cache=None, dynamic_grouping: bool = False,
+                 max_active_per_adapter: int | None = None,
+                 speculative_k: int = 0, fault_plan=None, trace=None,
+                 mesh=None):
+        if mcfg.ssm or mcfg.attn_period:
+            raise NotImplementedError(
+                f"continuous batching requires attention-only caches: SSM "
+                f"states integrate every processed token and cannot rewind "
+                f"to a slot's true prompt length, so admission "
+                f"(prefill-into-slot) and per-row retirement are "
+                f"ill-defined (arch {mcfg.name!r})")
+        if mcfg.moe:
+            raise NotImplementedError(
+                f"continuous batching does not support MoE FFNs: expert-"
+                f"capacity dispatch couples batch rows, so a retired "
+                f"slot's garbage tokens could evict a live row's tokens "
+                f"from an expert (arch {mcfg.name!r})")
+        for name, given, item in (
+                ("adapter_cache", adapter_cache is not None,
+                 "fleet grouping"),
+                ("dynamic_grouping", dynamic_grouping, "fleet grouping"),
+                ("max_active_per_adapter",
+                 max_active_per_adapter is not None, "fleet grouping"),
+                ("speculative_k", speculative_k != 0,
+                 "speculative decoding"),
+                ("fault_plan", fault_plan is not None, "the fault plan"),
+                ("trace", trace is not None, "obs wiring"),
+                ("mesh", mesh is not None, "multi-device serving")):
+            if given:
+                raise NotImplementedError(
+                    f"DecodeEngine({name}=...) is not ported yet: it comes "
+                    f"with {item} ({_LATER} and ROADMAP.md)")
+        if adapters is None:
+            raise ValueError(
+                "DecodeEngine serves one fixed precomputed `adapters` "
+                "tree (make_precompute_step); per-request adapters come "
+                f"with fleet grouping ({_LATER})")
+        if slots < 1:
+            raise ValueError(f"need at least one slot, got {slots}")
+        self.device = resolve_device(device)
+        if params["embed"].device != self.device:
+            raise ValueError(f"params live on {params['embed'].device}, "
+                             f"the engine was asked on {self.device}")
+        self.mcfg = mcfg
+        self.scfg = scfg
+        self.params = params
+        self.adapters = adapters
+        self.slots = int(slots)
+        self.max_len = int(max_len)
+        self.temperature = float(temperature)
+        self.seed = int(seed)
+        # -- paged K/V knobs -----------------------------------------------
+        self._paged = bool(paged)
+        if not self._paged and (block_size is not None or n_blocks is not None
+                                or prefill_chunk is not None):
+            raise ValueError(
+                "block_size / n_blocks / prefill_chunk require paged=True")
+        if self._paged:
+            if block_size is None:
+                block_size = max(d for d in range(1, min(16, self.max_len) + 1)
+                                 if self.max_len % d == 0)
+            self._block_size = int(block_size)
+            if self.max_len % self._block_size != 0:
+                raise ValueError(
+                    f"max_len={self.max_len} must be a multiple of "
+                    f"block_size={self._block_size}")
+            self._max_blocks = self.max_len // self._block_size
+            if n_blocks is None:
+                n_blocks = self.slots * self._max_blocks
+            self._n_blocks = int(n_blocks)
+            if self._n_blocks < self._max_blocks:
+                raise ValueError(
+                    f"n_blocks={self._n_blocks} < max_blocks="
+                    f"{self._max_blocks}: one slot alone must be able to "
+                    f"grow to max_len, or the engine could deadlock with "
+                    f"an admitted request it can never finish")
+            self._chunk = int(prefill_chunk if prefill_chunk is not None
+                              else self._block_size)
+            if not 1 <= self._chunk <= self.max_len:
+                raise ValueError(
+                    f"prefill_chunk={self._chunk} not in [1, "
+                    f"max_len={self.max_len}] (the chunk step's row writes "
+                    f"must fit the logical window)")
+
+        self.cache = init_cache(
+            mcfg, self.slots, self.max_len, row_lens=True,
+            block_size=self._block_size if self._paged else None,
+            n_blocks=self._n_blocks if self._paged else None,
+            device=self.device)
+        self._decode = make_decode_step(mcfg, scfg, batch=self.slots)
+        if self._paged:
+            self._chunk_prefill = make_prefill_chunk_step(mcfg, scfg,
+                                                          chunk=self._chunk)
+        else:
+            self._prefill = make_prefill_into_slot_step(mcfg, scfg,
+                                                        seq=self.max_len)
+        self._device_steps = {"prefill_into_slot": 0, "prefill_chunk": 0,
+                              "decode": 0}
+        # -- host mirror of the block pool (paged only) --------------------
+        # The engine owns the free list and the per-slot block lists,
+        # mirrors them into the int32 table and writes the table to the
+        # device before a device step that reads the cache.
+        if self._paged:
+            # pop() hands out ascending ids; freed blocks return LIFO.
+            self._free: list[int] = list(range(self._n_blocks - 1, -1, -1))
+            self._blocks: list[list[int]] = [[] for _ in range(self.slots)]
+            self._pages_np = np.full((self.slots, self._max_blocks), -1,
+                                     np.int32)
+            self._pages_dirty = False
+            self._peak_used = 0
+        self._slots: list[_Slot] = [_Slot(idx=i) for i in range(self.slots)]
+        self._queue: deque[EngineRequest] = deque()
+        self._results: dict[int, RequestResult] = {}
+        self._next_id = 0
+        self._steps = 0
+        self._decode_steps = 0
+        self._prefills = 0
+        self._admitted = 0
+        self._retired = 0
+        self._generated = 0
+        self._slot_steps = 0
+        self._preemptions = 0
+        self._timeouts = 0
+        self._quarantined = 0
+
+    # -- submission ---------------------------------------------------------
+
+    def check_request(self, prompt, *, adapter=None, max_new_tokens: int):
+        """Validate a request WITHOUT queuing it: raises exactly what
+        :meth:`submit` would and returns the normalized prompt."""
+        prompt = np.asarray(prompt, np.int32).reshape(-1)
+        P = prompt.shape[0]
+        if P < 1:
+            raise ValueError("empty prompt")
+        if P + 1 > self.max_len:
+            raise ValueError(
+                f"prompt length {P} leaves no room to generate within "
+                f"max_len={self.max_len} (need P + 1 <= max_len)")
+        if max_new_tokens < 1:
+            raise ValueError(f"max_new_tokens={max_new_tokens} < 1")
+        if adapter is not None:
+            raise ValueError(
+                "this engine serves one fixed adapter tree; requests "
+                "cannot carry adapter handles (per-request adapters come "
+                f"with fleet grouping, {_LATER})")
+        return prompt
+
+    def submit(self, prompt, *, adapter=None, max_new_tokens: int,
+               eos_id: int | None = None, key_id: int | None = None,
+               priority: int = 0, deadline_ticks: int | None = None) -> int:
+        """Queue one request; returns its request id. ``key_id``: the id
+        of this request's sampling stream at ``temperature > 0`` (default:
+        the request id). ``priority``: higher admits first and may PREEMPT
+        a lower-priority slot when no slot is free (the victim re-queues
+        as a continuation). ``deadline_ticks``: the request expires that
+        many engine steps from now, queued or mid-decode, and retires with
+        ``finish_reason="timeout"`` and whatever tokens it generated."""
+        if deadline_ticks is not None and deadline_ticks < 1:
+            raise ValueError(f"deadline_ticks={deadline_ticks} < 1")
+        prompt = self.check_request(prompt, adapter=adapter,
+                                    max_new_tokens=max_new_tokens)
+        rid = self._next_id
+        self._next_id += 1
+        self._queue.append(EngineRequest(
+            rid, prompt, int(max_new_tokens), eos_id,
+            key_id=rid if key_id is None else int(key_id),
+            priority=int(priority),
+            deadline_step=(None if deadline_ticks is None
+                           else self._steps + int(deadline_ticks))))
+        return rid
+
+    # -- scheduling ---------------------------------------------------------
+
+    def has_work(self) -> bool:
+        return bool(self._queue) or any(s.occupied for s in self._slots)
+
+    def stats(self) -> EngineStats:
+        return EngineStats(slots=self.slots, steps=self._steps,
+                           decode_steps=self._decode_steps,
+                           prefills=self._prefills,
+                           admitted=self._admitted, retired=self._retired,
+                           generated_tokens=self._generated,
+                           slot_steps=self._slot_steps,
+                           preemptions=self._preemptions,
+                           timeouts=self._timeouts,
+                           quarantined=self._quarantined)
+
+    def device_steps(self) -> dict:
+        """How many times each device step ran: "prefill_into_slot"
+        (rectangular admissions), "prefill_chunk" (paged chunks) and
+        "decode". A paged engine launches K8 twice per layer in each
+        chunk and decode step."""
+        return dict(self._device_steps)
+
+    # -- block pool (paged K/V) ---------------------------------------------
+
+    def pool_stats(self) -> dict:
+        """Host-mirror block-pool accounting (paged engines only). After
+        the engine drains, ``used_blocks == 0``."""
+        if not self._paged:
+            raise ValueError("pool_stats() requires a paged engine "
+                             "(construct with paged=True)")
+        used = self._n_blocks - len(self._free)
+        return {"block_size": self._block_size,
+                "n_blocks": self._n_blocks,
+                "max_blocks": self._max_blocks,
+                "prefill_chunk": self._chunk,
+                "free_blocks": len(self._free),
+                "used_blocks": used,
+                "peak_used_blocks": self._peak_used,
+                "per_slot_blocks": [len(b) for b in self._blocks]}
+
+    def _ensure_blocks(self, idx: int, upto_len: int) -> bool:
+        """Grow slot ``idx``'s block list until it covers K/V positions
+        [0, upto_len); False (the partial growth kept) when the pool runs
+        dry."""
+        need = -(-upto_len // self._block_size)
+        blocks = self._blocks[idx]
+        while len(blocks) < need:
+            if not self._free:
+                return False
+            b = self._free.pop()
+            self._pages_np[idx, len(blocks)] = b
+            blocks.append(b)
+            self._pages_dirty = True
+        used = self._n_blocks - len(self._free)
+        if used > self._peak_used:
+            self._peak_used = used
+        return True
+
+    def _free_tail(self, idx: int, new_len: int) -> None:
+        """Return every block of slot ``idx`` past position ``new_len`` to
+        the pool. A freed block's stale content is harmless wherever it is
+        reallocated: a slot receives a block only when its frontier
+        crosses into it, so every stale position lies at or past the new
+        owner's causal frontier until it is overwritten."""
+        keep = -(-new_len // self._block_size)
+        blocks = self._blocks[idx]
+        while len(blocks) > keep:
+            b = blocks.pop()
+            self._pages_np[idx, len(blocks)] = -1
+            self._free.append(b)
+            self._pages_dirty = True
+
+    def _free_all(self, idx: int) -> None:
+        self._free_tail(idx, 0)
+
+    def _flush_pages(self) -> None:
+        """Write the host block table to the device as a FRESH tensor
+        (a device step still in flight may read the old one), before every
+        device step that reads the cache."""
+        if not self._pages_dirty:
+            return
+        self.cache["pages"] = torch.as_tensor(self._pages_np.copy(),
+                                              device=self.device)
+        self._pages_dirty = False
+
+    def _block_victim(self) -> int | None:
+        """Reclaim order under pool exhaustion: lowest priority first,
+        most recently admitted among equals, highest slot index last."""
+        occ = [i for i, s in enumerate(self._slots) if s.occupied]
+        if not occ:
+            return None
+        return min(occ, key=lambda i: (self._slots[i].req.priority,
+                                       -self._slots[i].admitted_step, -i))
+
+    def _ensure_active_blocks(self, rows: list[int], extra: int
+                              ) -> list[int]:
+        """Allocate so every row in ``rows`` can write K/V positions
+        pos..pos+extra-1 this tick, preempting :meth:`_block_victim` slots
+        while the pool is exhausted. Returns the rows still active (a row
+        preempted as its own victim drops out)."""
+        for i in rows:
+            slot = self._slots[i]
+            while slot.active and not self._ensure_blocks(i, slot.pos + extra):
+                victim = self._block_victim()
+                if victim is None:     # unreachable: row i itself is occupied
+                    raise RuntimeError(
+                        "paged block pool exhausted with nothing to preempt")
+                self._preempt(victim)
+        return [i for i in rows if self._slots[i].active]
+
+    def _sample_rows(self, logits_rows, key_ids_and_counts) -> list[int]:
+        """One token per row from the fetched host logits: the argmax, or
+        at ``temperature > 0`` a draw from the request's own generator."""
+        if self.temperature <= 0.0:
+            return [int(np.argmax(row)) for row in logits_rows]
+        out = []
+        for row, (kid, n) in zip(logits_rows, key_ids_and_counts):
+            seed = int(np.random.SeedSequence(
+                [self.seed, kid, n]).generate_state(1)[0])
+            gen = torch.Generator().manual_seed(seed)
+            probs = torch.softmax(
+                torch.as_tensor(row, dtype=torch.float64)
+                / self.temperature, dim=-1)
+            out.append(int(torch.multinomial(probs, 1, generator=gen)))
+        return out
+
+    def _fetch(self, logits) -> np.ndarray:
+        """The per-step read-back: fp32 host logits."""
+        return logits.float().cpu().numpy()
+
+    def _finish(self, slot: _Slot, reason: str) -> None:
+        req = slot.req
+        # A preempted-and-resumed request reports its ORIGINAL prompt, the
+        # full token stream and its FIRST admission step.
+        prefix = [] if req.prefix is None else list(req.prefix)
+        self._results[req.request_id] = RequestResult(
+            request_id=req.request_id,
+            prompt=(req.prompt if req.orig_prompt is None
+                    else req.orig_prompt),
+            tokens=np.asarray(prefix + slot.generated, np.int32),
+            finish_reason=reason,
+            admitted_step=(slot.admitted_step if req.first_admitted is None
+                           else req.first_admitted),
+            finished_step=self._steps, preempted=req.preempted)
+        if reason == "timeout":
+            self._timeouts += 1
+        elif reason == "error_numeric":
+            self._quarantined += 1
+        self._retired += 1
+        if self._paged:
+            self._free_all(slot.idx)
+        slot.req = None
+        slot.generated = []
+        slot.prefilling = False
+
+    def _note_token(self, slot: _Slot, tok: int, on_token) -> str | None:
+        """Record one sampled token; returns the finish reason if the
+        request is now done."""
+        slot.generated.append(tok)
+        slot.budget -= 1
+        slot.last_token = tok
+        self._generated += 1
+        if on_token is not None:
+            on_token(slot.req.request_id, tok)
+        if slot.req.eos_id is not None and tok == slot.req.eos_id:
+            return "eos"
+        if slot.budget <= 0:
+            return slot.finish_cap
+        return None
+
+    def _timeout_queued(self, req: EngineRequest) -> None:
+        """Retire a QUEUED request whose deadline expired; it reports
+        whatever earlier legs generated."""
+        self._results[req.request_id] = RequestResult(
+            request_id=req.request_id,
+            prompt=(req.prompt if req.orig_prompt is None
+                    else req.orig_prompt),
+            tokens=np.asarray(
+                [] if req.prefix is None else list(req.prefix), np.int32),
+            finish_reason="timeout",
+            admitted_step=(self._steps if req.first_admitted is None
+                           else req.first_admitted),
+            finished_step=self._steps, preempted=req.preempted)
+        self._timeouts += 1
+
+    def _expire_deadlines(self) -> None:
+        """Retire every request, queued or mid-decode, whose absolute
+        deadline step has arrived."""
+        if any(r.deadline_step is not None and self._steps >= r.deadline_step
+               for r in self._queue):
+            keep: deque[EngineRequest] = deque()
+            for req in self._queue:
+                if (req.deadline_step is not None
+                        and self._steps >= req.deadline_step):
+                    self._timeout_queued(req)
+                else:
+                    keep.append(req)
+            self._queue = keep
+        for slot in self._slots:
+            if (slot.occupied and slot.req.deadline_step is not None
+                    and self._steps >= slot.req.deadline_step):
+                self._finish(slot, "timeout")
+
+    def _pop_next(self) -> EngineRequest:
+        """Pop the highest-priority queued request, the earliest submitted
+        among equals (an all-default-priority queue stays FIFO)."""
+        best = 0
+        for j, r in enumerate(self._queue):
+            if r.priority > self._queue[best].priority:
+                best = j
+        if best == 0:
+            return self._queue.popleft()
+        self._queue.rotate(-best)
+        req = self._queue.popleft()
+        self._queue.rotate(best)
+        return req
+
+    def _preempt(self, idx: int) -> None:
+        """Displace slot ``idx``: re-queue its request as a CONTINUATION
+        whose prompt is prompt + generated-so-far, which re-admission
+        prefills again; the sampling stream continues through n_prior. A
+        slot still MID-ADMISSION (paged) re-queues its request unchanged
+        and returns its reserved blocks."""
+        slot = self._slots[idx]
+        req = slot.req
+        if slot.prefilling:
+            self._queue.append(dataclasses.replace(
+                req, preempted=req.preempted + 1))
+        else:
+            gen = np.asarray(slot.generated, np.int32)
+            self._queue.append(dataclasses.replace(
+                req,
+                prompt=np.concatenate([req.prompt, gen]),
+                max_new_tokens=slot.budget,
+                prefix=(gen if req.prefix is None
+                        else np.concatenate([req.prefix, gen])),
+                orig_prompt=(req.prompt if req.orig_prompt is None
+                             else req.orig_prompt),
+                resume_cap=slot.finish_cap,
+                first_admitted=(slot.admitted_step
+                                if req.first_admitted is None
+                                else req.first_admitted),
+                preempted=req.preempted + 1))
+        self._preemptions += 1
+        if self._paged:
+            self._free_all(idx)
+        slot.req = None
+        slot.generated = []
+        slot.prefilling = False
+
+    def _set_budget(self, slot: _Slot, req: EngineRequest, P: int) -> None:
+        """Token budget: the request's own cap, or the cache bound
+        (P + budget - 1 decode writes stay below max_len). A continuation
+        keeps its ORIGINAL cap label."""
+        room = self.max_len - P
+        slot.budget = min(req.max_new_tokens, room)
+        slot.finish_cap = (req.resume_cap if req.resume_cap is not None
+                           else ("length" if req.max_new_tokens <= room
+                                 else "max_len"))
+
+    def _first_token(self, slot: _Slot, logits, on_token) -> None:
+        """Sample a completed admission's first token, behind the
+        non-finite guard."""
+        req = slot.req
+        row = self._fetch(logits)[0]
+        if not np.isfinite(row).all():
+            self._finish(slot, "error_numeric")
+            return
+        tok = self._sample_rows([row], [(req.key_id, slot.n_prior)])[0]
+        reason = self._note_token(slot, tok, on_token)
+        if reason is not None:
+            self._finish(slot, reason)
+
+    def _admit_into(self, idx: int, slot: _Slot, req: EngineRequest,
+                    on_token) -> bool:
+        """One admission. Rectangular: prefill INTO slot ``idx`` and sample
+        the first token (a one-token budget retires here without taking a
+        decode row). Paged: SEAT the request, reserving blocks for the
+        whole prompt and the first decode write, and mark the slot
+        ``prefilling``; :meth:`_chunk_tick` streams the prompt in and its
+        final chunk samples the first token. Returns False only when a
+        paged admission is DEFERRED (the pool cannot hold the prompt now:
+        the request goes back to the queue head and this tick admits no
+        more)."""
+        P = req.prompt.shape[0]
+        n_prior = 0 if req.prefix is None else int(req.prefix.shape[0])
+        if self._paged:
+            need = -(-(P + 1) // self._block_size)
+            if len(self._free) < need:
+                self._queue.appendleft(req)
+                return False
+            slot.req = req
+            slot.admitted_step = self._steps
+            slot.pos = 0
+            slot.n_prior = n_prior
+            slot.generated = []
+            slot.prefilling = True
+            slot.chunk_next = 0
+            self._ensure_blocks(idx, P + 1)
+            return True
+        toks = np.zeros((1, self.max_len), np.int64)
+        toks[0, :P] = req.prompt
+        logits, self.cache = self._prefill(
+            self.params, self.adapters, self.cache,
+            {"tokens": torch.as_tensor(toks, device=self.device),
+             "prompt_len": P, "slot": idx})
+        self._device_steps["prefill_into_slot"] += 1
+        self._prefills += 1
+        self._admitted += 1
+        slot.req = req
+        slot.admitted_step = self._steps
+        slot.pos = P    # first decode K/V write lands at P
+        slot.n_prior = n_prior
+        self._set_budget(slot, req, P)
+        self._first_token(slot, logits, on_token)
+        return True
+
+    def _admit(self, on_token=None) -> None:
+        """Fill free slots from the queue (highest priority first, FIFO
+        among equals), then preempt: while a queued request outranks the
+        lowest-priority OCCUPIED slot and no slot is free, that victim is
+        displaced and the fill loop seats the outranking request in its
+        row. A paged admission deferred on block exhaustion stops the
+        tick's admitting (head-of-line)."""
+        while True:
+            for idx, slot in enumerate(self._slots):
+                while not slot.occupied and self._queue:
+                    if not self._admit_into(idx, slot, self._pop_next(),
+                                            on_token):
+                        return
+            if not self._queue:
+                return
+            best = max(r.priority for r in self._queue)
+            occupied = [i for i, s in enumerate(self._slots) if s.occupied]
+            if not occupied:
+                return
+            victim = min(occupied,
+                         key=lambda i: (self._slots[i].req.priority, i))
+            if best <= self._slots[victim].req.priority:
+                return
+            self._preempt(victim)
+
+    def _quarantine(self, rows: list[int], logits_np: np.ndarray
+                    ) -> list[int]:
+        """Per-row non-finite guard over the fetched host logits: a row
+        whose logits are not all finite retires with
+        ``finish_reason="error_numeric"``; the others go on untouched.
+        Returns the surviving rows."""
+        bad = [i for i in rows if not np.isfinite(logits_np[i]).all()]
+        for i in bad:
+            self._finish(self._slots[i], "error_numeric")
+        if bad:
+            rows = [i for i in rows if self._slots[i].active]
+        return rows
+
+    def _chunk_tick(self, on_token) -> None:
+        """Paged chunked admission: ONE prompt chunk per mid-admission slot
+        per tick. Chunks start at 0, C, 2C, ... and the FINAL chunk is
+        re-anchored at P - C (when P > C): it overlaps the previous chunk
+        and rewrites those positions with the same K/V. The final chunk's
+        last-position logits give the first token, and the slot joins
+        decode this tick.
+
+        Between a slot's chunks, the batched decode advances every row's
+        device length and writes one garbage K/V row at the admitting
+        slot's drifted frontier; the chunk step takes its start from the
+        HOST mirror, and the drifted position falls inside the next
+        chunk's window, so the garbage is overwritten before it is read."""
+        for idx, slot in enumerate(self._slots):
+            if not slot.prefilling:
+                continue
+            req = slot.req
+            P = req.prompt.shape[0]
+            C = self._chunk
+            final = P - slot.chunk_next <= C
+            if final:
+                c_len = min(P, C)
+                start = P - c_len
+            else:
+                start, c_len = slot.chunk_next, C
+            toks = np.zeros((1, C), np.int64)
+            toks[0, :c_len] = req.prompt[start:start + c_len]
+            self._flush_pages()
+            logits, self.cache = self._chunk_prefill(
+                self.params, self.adapters, self.cache,
+                {"tokens": torch.as_tensor(toks, device=self.device),
+                 "slot": idx, "start": start, "chunk_len": c_len})
+            self._device_steps["prefill_chunk"] += 1
+            if not final:
+                slot.chunk_next = start + C
+                continue
+            slot.prefilling = False
+            slot.pos = P
+            self._prefills += 1
+            self._admitted += 1
+            self._set_budget(slot, req, P)
+            self._first_token(slot, logits, on_token)
+
+    def _decode_tick(self, active: list[int], on_token) -> None:
+        """One batched decode over the active slots."""
+        if self._paged:
+            active = self._ensure_active_blocks(active, 1)
+            if not active:
+                return
+            self._flush_pages()
+        toks = np.zeros((self.slots, 1), np.int64)
+        for i in active:
+            toks[i, 0] = self._slots[i].last_token
+        logits, self.cache = self._decode(
+            self.params, self.adapters, self.cache,
+            {"tokens": torch.as_tensor(toks, device=self.device)})
+        self._device_steps["decode"] += 1
+        logits_np = self._fetch(logits)      # the sampling sync
+        self._decode_steps += 1
+        self._slot_steps += len(active)
+        active = self._quarantine(active, logits_np)
+        toks_out = self._sample_rows(
+            [logits_np[i] for i in active],
+            [(self._slots[i].req.key_id,
+              self._slots[i].n_prior + len(self._slots[i].generated))
+             for i in active])
+        for i, tok in zip(active, toks_out):
+            slot = self._slots[i]
+            slot.pos += 1               # this decode wrote K/V at pos
+            reason = self._note_token(slot, tok, on_token)
+            if reason is not None:
+                self._finish(slot, reason)
+
+    def step(self, on_token=None) -> list[RequestResult]:
+        """One scheduler tick: expire deadlines, admit into free slots,
+        one chunk per admitting slot (paged), then one batched decode over
+        every active slot. Returns the requests that FINISHED during this
+        tick. ``on_token(request_id, token)`` streams every sampled
+        token."""
+        before = set(self._results)
+        self._expire_deadlines()
+        self._admit(on_token)
+        if self._paged:
+            self._chunk_tick(on_token)
+        active = [i for i, s in enumerate(self._slots) if s.active]
+        if active:
+            self._decode_tick(active, on_token)
+        self._steps += 1
+        return [self._results[rid]
+                for rid in sorted(set(self._results) - before)]
+
+    def run(self, on_token=None) -> list[RequestResult]:
+        """Drive :meth:`step` until the queue and slot table drain, then
+        hand over (and drop) every undelivered result, by request id."""
+        while self.has_work():
+            self.step(on_token)
+        return self.pop_results()
+
+    def results(self) -> list[RequestResult]:
+        """Finished-but-undelivered results, oldest request first."""
+        return [self._results[rid] for rid in sorted(self._results)]
+
+    def pop_results(self) -> list[RequestResult]:
+        """:meth:`results`, removing them from the engine."""
+        out = self.results()
+        self._results.clear()
+        return out

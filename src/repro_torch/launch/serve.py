@@ -8,6 +8,12 @@ Runs on the card unless the CPU is asked for explicitly::
         --batch 4 --prompt-len 960 --gen-len 32 --rank 384 --alpha 192
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-7b \\
         --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-7b \\
+        --smoke --device cpu --continuous --paged
+
+``--continuous`` serves 2 x ``--batch`` mixed-length requests through the
+continuous-batching engine (``--batch`` slots; ``launch/engine.py``),
+``--paged`` with its block-paged K/V cache and chunked prefill.
 
 Weights are random, drawn from ``--seed`` on the serving device.
 """
@@ -153,6 +159,16 @@ def main() -> None:
     ap.add_argument("--no-adapter-cache", action="store_true",
                     help="skip the frozen-adapter precompute (recompute the "
                          "factored norm every step)")
+    ap.add_argument("--continuous", action="store_true",
+                    help="continuous-batching demo: 2x--batch MIXED-length "
+                         "requests through the slot-scheduled engine "
+                         "(--batch slots; requests join/leave mid-decode)")
+    ap.add_argument("--paged", action="store_true",
+                    help="with --continuous: block-paged K/V cache + "
+                         "chunked prefill; asserts the block pool drains")
+    ap.add_argument("--block-size", type=int, default=0, metavar="B",
+                    help="with --paged: K/V block size (0 = auto: the "
+                         "largest divisor of max_len up to 16)")
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default; raises without a card) or 'cpu'")
     args = ap.parse_args()
@@ -163,6 +179,12 @@ def main() -> None:
     scfg = StepConfig(dora=dcfg)
     params, adapters = build_state(mcfg, dcfg, args.seed, dev)
     rng = np.random.default_rng(args.seed)
+    where = (probes.device_name(dev.index or 0) if dev.type == "cuda"
+             else "cpu")
+    if args.continuous:
+        _serve_continuous(args, mcfg, scfg, params, adapters, rng, dev,
+                          where)
+        return
     prompts = rng.integers(0, mcfg.vocab_size, (args.batch, args.prompt_len))
     stats: dict = {}
     toks = generate(mcfg, params, adapters, scfg, prompts,
@@ -172,14 +194,55 @@ def main() -> None:
                     cache_adapters=not args.no_adapter_cache,
                     fold_gsb=args.fold_gsb, device=dev, stats=stats)
     toks = toks.cpu().numpy()
-    where = (probes.device_name(dev.index or 0) if dev.type == "cuda"
-             else "cpu")
     print(f"generated [{toks.shape[0]}, {toks.shape[1]}] on {where}: "
           + ", ".join(f"{k} {v:.3f}" for k, v in stats.items())
           + f"; decode {args.batch * args.gen_len / stats['decode_s']:.1f}"
           f" tok/s")
     for b in range(min(args.batch, 2)):
         print(f"  seq{b}: ...{toks[b, args.prompt_len - 4:].tolist()}")
+
+
+def _serve_continuous(args, mcfg, scfg, params, adapters, rng, dev,
+                      where) -> None:
+    """The single-tenant engine over 2 x ``--batch`` requests with prompt
+    lengths drawn from [prompt_len // 2, prompt_len]."""
+    import time
+
+    from repro_torch.launch.engine import DecodeEngine
+
+    state = make_precompute_step(mcfg, scfg, fold_gsb=True)(params,
+                                                            adapters)
+    engine = DecodeEngine(mcfg, scfg, params, slots=args.batch,
+                          max_len=args.prompt_len + args.gen_len,
+                          adapters=state, temperature=args.temperature,
+                          seed=args.seed, paged=args.paged,
+                          block_size=((args.block_size or None)
+                                      if args.paged else None),
+                          device=dev)
+    n_req = 2 * args.batch
+    for i in range(n_req):
+        p_len = int(rng.integers(args.prompt_len // 2, args.prompt_len + 1))
+        engine.submit(rng.integers(0, mcfg.vocab_size, p_len),
+                      max_new_tokens=args.gen_len, key_id=i)
+    t0 = time.perf_counter()
+    results = engine.run()
+    dt = time.perf_counter() - t0
+    st = engine.stats()
+    print(f"continuous: {n_req} mixed-length requests through {args.batch} "
+          f"slots on {where} in {dt:.2f}s ({st.generated_tokens / dt:.1f} "
+          f"tok/s, occupancy {st.mean_occupancy:.2f}, {st.decode_steps} "
+          f"decode steps)")
+    if args.paged:
+        ps = engine.pool_stats()
+        assert ps["used_blocks"] == 0, f"leaked blocks: {ps}"
+        assert ps["per_slot_blocks"] == [0] * args.batch, ps
+        print(f"  paged: block_size={ps['block_size']} "
+              f"n_blocks={ps['n_blocks']} chunk={ps['prefill_chunk']} "
+              f"peak_used={ps['peak_used_blocks']} blocks (pool drained); "
+              f"device steps {engine.device_steps()}")
+    for r in results[:2]:
+        print(f"  req{r.request_id}: P={len(r.prompt)} "
+              f"-> {r.tokens.tolist()} ({r.finish_reason})")
 
 
 if __name__ == "__main__":

@@ -1,5 +1,6 @@
 """Step functions (counterpart of ``repro/launch/steps.py``): the train
-step, and the serving steps precompute, padded prefill and decode.
+step, and the serving steps precompute, padded prefill, decode, and the
+continuous-batching engine's prefill-into-slot and prefill-chunk.
 
 Each builder returns a plain function over (params, adapters, ...). The
 train step updates the adapters and the optimizer state IN PLACE and
@@ -219,10 +220,88 @@ def make_prefill_step(mcfg: ModelConfig, scfg: StepConfig, *, batch: int,
     return prefill_step
 
 
+def make_prefill_into_slot_step(mcfg: ModelConfig, scfg: StepConfig, *,
+                                seq: int):
+    """(params, adapters, cache, batch_in) -> (logits [1, V], cache).
+
+    Continuous-batching admission (``launch/engine.py``): prefill ONE new
+    request into row ``batch_in["slot"]`` of a running batch's rectangular
+    row-length cache (``init_cache(..., row_lens=True)``) and leave every
+    other row as it is. ``batch_in``: the prompt right-padded to ``seq``
+    as "tokens" [1, seq] and its true length "prompt_len". The row runs
+    the padded batch-1 prefill of :func:`make_prefill_step`, its K/V
+    [seq] are copied into the slot's row in place and ``len[slot]``
+    becomes P, so the first decoded token writes at position P. The
+    engine also re-admits a preempted request through this step, with
+    prompt + the tokens generated so far."""
+    row_prefill = make_prefill_step(mcfg, scfg, batch=1, seq=seq,
+                                    padded=True)
+
+    @torch.no_grad()
+    def prefill_into_slot(params, adapters, cache, batch_in):
+        if "pages" in cache:
+            raise ValueError("prefill_into_slot fills a rectangular cache; "
+                             "a paged cache is admitted in chunks "
+                             "(make_prefill_chunk_step)")
+        p_len, slot = int(batch_in["prompt_len"]), int(batch_in["slot"])
+        logits, row = row_prefill(params, adapters,
+                                  {"tokens": batch_in["tokens"],
+                                   "prompt_len": p_len})
+        for li, layer in cache["stack"].items():
+            for name, big in layer.items():
+                big[:, slot] = row["stack"][li][name][:, 0]
+        cache["len"][slot] = p_len
+        return logits, cache
+
+    return prefill_into_slot
+
+
+def make_prefill_chunk_step(mcfg: ModelConfig, scfg: StepConfig, *,
+                            chunk: int):
+    """(params, adapters, cache, batch_in) -> (logits [1, V], cache).
+
+    Chunked admission into the PAGED cache (``launch/engine.py``): run
+    ``chunk`` prompt tokens of one request into its slot's blocks of a
+    running batch's shared pools, so a long prompt streams in between
+    decode ticks. ``batch_in``: "tokens" [1, chunk] (the chunk's tokens,
+    right-padded) and the ints "slot", "start" and "chunk_len".
+
+    ``start`` is the HOST's admission frontier, not the device
+    ``len[slot]``: every decode tick advances all rows' lengths, a row
+    still admitting included, so the device value drifts. The forward runs
+    over a batch-1 view (the shared pools, the slot's row of the table,
+    ``len = [start]``), the K/V land in the pools in place, ``len[slot]``
+    becomes ``start + chunk_len``, and the logits are taken at
+    ``chunk_len - 1``: on the final chunk, the first token's."""
+
+    @torch.no_grad()
+    def prefill_chunk(params, adapters, cache, batch_in):
+        tokens = batch_in["tokens"]
+        if tuple(tokens.shape) != (1, chunk):
+            raise ValueError(f"chunk step built for tokens [1, {chunk}], "
+                             f"got {tuple(tokens.shape)}")
+        slot, start = int(batch_in["slot"]), int(batch_in["start"])
+        c_len = int(batch_in["chunk_len"])
+        lens = cache["len"]
+        view = {"stack": cache["stack"],
+                "len": torch.full((1,), start, dtype=lens.dtype,
+                                  device=lens.device),
+                "pages": cache["pages"][slot:slot + 1]}
+        logits, _ = forward(mcfg, params, adapters, scfg.dora,
+                            tokens=tokens, cache=view, training=False,
+                            gather_position=c_len - 1)
+        lens[slot] = start + c_len
+        return logits[:, -1], cache
+
+    return prefill_chunk
+
+
 def make_decode_step(mcfg: ModelConfig, scfg: StepConfig, *, batch: int):
     """(params, adapters, cache, batch_in) -> (logits [B, V], cache'): one
     new token ``batch_in["tokens"]`` [B, 1] against the cache, written in
-    place at position ``cache["len"]``."""
+    place at position ``cache["len"]``: one int for the whole batch, or a
+    [B] tensor of per-row lengths (continuous batching), where each row
+    writes and attends at its own position."""
 
     @torch.no_grad()
     def decode_step(params, adapters, cache, batch_in):

@@ -1,6 +1,6 @@
 """Shared NN layers (counterpart of ``repro/models/layers.py``): RMSNorm,
-RoPE, GQA attention with a rectangular KV cache, SwiGLU MLP, with DoRA
-adaptation of every linear through ``maybe_dora``.
+RoPE, GQA attention with a rectangular or block-paged KV cache, SwiGLU
+MLP, with DoRA adaptation of every linear through ``maybe_dora``.
 
 Weights follow the paper's [d_out, d_in] convention, y = x @ Wᵀ.
 Attention is plain PyTorch that mirrors the reference's jnp code: every
@@ -16,6 +16,10 @@ import torch.nn.functional as F
 
 from repro_torch.core.adapter import dora_linear
 from repro_torch.core.config import DoRAConfig
+from repro_torch.core.dispatch import plan_gather
+from repro_torch.kernels.paged_gather import (paged_gather,
+                                              paged_gather_plain,
+                                              paged_scatter)
 
 _F32 = torch.float32
 
@@ -69,21 +73,35 @@ def apply_rope(x, cos, sin):
     return torch.stack([o1, o2], dim=-1).reshape(x.shape).to(x.dtype)
 
 
-def _causal_mask_bias(q_len: int, kv_len: int, offset: int, device):
-    """Additive fp32 causal bias [q_len, kv_len]; ``offset`` is the
-    absolute position of the first query row."""
-    q_pos = offset + torch.arange(q_len, device=device)
+def _per_row(offset) -> bool:
+    return isinstance(offset, torch.Tensor) and offset.ndim == 1
+
+
+def _causal_mask_bias(q_len: int, kv_len: int, offset, device):
+    """Additive fp32 causal bias. ``offset`` is the absolute position of
+    the first query row: an int gives [q_len, kv_len]; a [B] tensor of
+    per-row cache lengths (continuous batching: every row has its own
+    causal frontier) gives [B, 1, 1, q_len, kv_len], broadcast over the
+    (kv-head, group) dims of the scores."""
+    steps = torch.arange(q_len, device=device)
     k_pos = torch.arange(kv_len, device=device)
+    if _per_row(offset):
+        q_pos = offset.long()[:, None] + steps              # [B, q]
+        ok = k_pos <= q_pos[..., None]                      # [B, q, kv]
+        return torch.where(ok, 0.0, -1e30).to(_F32)[:, None, None]
+    q_pos = offset + steps
     ok = k_pos[None, :] <= q_pos[:, None]
     return torch.where(ok, 0.0, -1e30).to(_F32)
 
 
-def attention_core(q, k, v, *, offset: int = 0, chunk: int | None = None):
+def attention_core(q, k, v, *, offset=0, chunk: int | None = None):
     """Grouped-query attention core. q: [B,S,Hq,hd]; k/v: [B,T,Hkv,hd].
     Queries are reshaped to [B,S,Hkv,group,hd] against the shared KV head.
 
-    ``chunk``: online softmax over KV chunks, so the S×T score matrix is
-    never materialized whole."""
+    ``offset``: the first query row's position, an int or a [B] tensor of
+    per-row positions. ``chunk``: online softmax over KV chunks, so the
+    S×T score matrix is never materialized whole; it takes one causal
+    frontier for the batch and refuses per-row offsets."""
     b, s, hq, hd = q.shape
     _, t, hkv, _ = k.shape
     group = hq // hkv
@@ -98,6 +116,11 @@ def attention_core(q, k, v, *, offset: int = 0, chunk: int | None = None):
                            probs.to(q.dtype).to(_F32), v.to(_F32))
         return out.reshape(b, s, hq, hd).to(q.dtype)
 
+    if _per_row(offset):
+        raise NotImplementedError(
+            "per-row cache offsets are only supported on the dense "
+            "attention path (decode s==1 and short prefills); the chunked "
+            "online-softmax scan assumes one causal frontier per batch")
     q_pos = offset + torch.arange(s, device=q.device)
     m = torch.full((b, hkv, group, s), -math.inf, dtype=_F32,
                    device=q.device)
@@ -125,15 +148,48 @@ def attention_core(q, k, v, *, offset: int = 0, chunk: int | None = None):
     return out.to(q.dtype)
 
 
+def _write_rows(buf, new, pos):
+    """Write new [B, s, Hkv, hd] into buf [B, T, Hkv, hd] IN PLACE at each
+    row's position: ``pos`` an int (every row) or a [B] tensor (per row).
+    A per-row start is clamped to [0, T - s], as the reference's
+    ``dynamic_update_slice`` clamps it: only rows that no request holds
+    run past T, and their content is never read."""
+    s, t = new.shape[1], buf.shape[1]
+    if not _per_row(pos):
+        if pos + s > t:
+            raise ValueError(f"KV cache of {t} positions cannot take {s} "
+                             f"more at position {pos}")
+        buf[:, pos:pos + s] = new.to(buf.dtype)
+        return
+    start = pos.long().clamp(0, t - s)
+    cols = start[:, None] + torch.arange(s, device=buf.device)     # [B, s]
+    rows = torch.arange(buf.shape[0], device=buf.device)[:, None]
+    buf[rows, cols] = new.to(buf.dtype)
+
+
 def attention(x, params, dora, mcfg, dcfg: DoRAConfig | None, *,
               positions, cache=None, training: bool = True):
     """Attention block: QKV (DoRA-adapted), RoPE, core, O-proj.
 
-    Returns (out, new_cache). ``cache`` = {"k", "v", "len"} with k/v
-    [B, T, Hkv, hd] and a scalar int "len": the new K/V rows are written
-    IN PLACE into the given buffers at position ``len`` (the reference
-    returns updated copies), and attention runs over the whole buffer,
-    whose unwritten rows causality masks."""
+    Returns (out, new_cache). ``cache`` = {"k", "v", "len"} and, for the
+    block-paged cache, "pages".
+
+    Rectangular: k/v are [B, T, Hkv, hd] and the new K/V rows are written
+    IN PLACE into the given buffers at position "len" (the reference
+    returns updated copies); attention runs over the whole buffer, whose
+    unwritten rows causality masks. "len" is an int, or a [B] tensor of
+    per-row lengths (continuous batching), where each row writes at its
+    own position and the dense path is forced.
+
+    Paged: k/v are block pools [n_blocks, bs, Hkv, hd] and "pages" the
+    [B, max_blocks] table. The pools are gathered through the table into
+    the logical [B, max_blocks * bs, Hkv, hd] view (K8 via
+    :func:`~repro_torch.core.dispatch.plan_gather`), the new rows are
+    written into that view, attention runs over it unchanged, and the
+    view is scattered back into the pools. The view is a fresh tensor:
+    the pools see the write only through the scatter. Unallocated blocks
+    read as zeros and lie at or past their row's frontier, where the
+    causal bias gives them a softmax weight of exactly 0."""
     b, s, _ = x.shape
     hq, hkv, hd = mcfg.num_heads, mcfg.num_kv_heads, mcfg.head_dim
     dora = dora or {}
@@ -153,18 +209,37 @@ def attention(x, params, dora, mcfg, dcfg: DoRAConfig | None, *,
         out = attention_core(q, k, v, offset=0, chunk=mcfg.attn_chunk)
         new_cache = None
     else:
-        pos = int(cache["len"])
-        ck, cv = cache["k"], cache["v"]
-        if pos + s > ck.shape[1]:
-            raise ValueError(f"KV cache of {ck.shape[1]} positions cannot "
-                             f"take {s} more at position {pos}")
-        ck[:, pos:pos + s] = k.to(ck.dtype)
-        cv[:, pos:pos + s] = v.to(cv.dtype)
+        pos = cache["len"]
+        if not _per_row(pos):
+            pos = int(pos)
+        pages = cache.get("pages")
+        if pages is not None:
+            if not _per_row(pos):
+                raise ValueError("paged K/V requires per-row lengths "
+                                 "(cache_shapes(..., row_lens=True))")
+            plan = plan_gather(dcfg, head_elems=hkv * hd,
+                               device=cache["k"].device)
+            gather = paged_gather if plan.fused else paged_gather_plain
+            ck = gather(cache["k"], pages)
+            cv = gather(cache["v"], pages)
+        else:
+            ck, cv = cache["k"], cache["v"]
+        _write_rows(ck, k, pos)
+        _write_rows(cv, v, pos)
         # Decode (s == 1) attends densely over the cache: its score matrix
-        # is [B, Hq, 1, T], and chunking would only add steps.
+        # is [B, Hq, 1, T], and chunking would only add steps. Per-row
+        # offsets force the dense path too: the chunked scan takes one
+        # causal frontier per batch.
+        dense = s == 1 or _per_row(pos)
         out = attention_core(q, ck, cv, offset=pos,
-                             chunk=None if s == 1 else mcfg.attn_chunk)
-        new_cache = {"k": ck, "v": cv, "len": pos + s}
+                             chunk=None if dense else mcfg.attn_chunk)
+        if pages is not None:
+            paged_scatter(cache["k"], pages, ck)
+            paged_scatter(cache["v"], pages, cv)
+            new_cache = {"k": cache["k"], "v": cache["v"], "len": pos + s,
+                         "pages": pages}
+        else:
+            new_cache = {"k": ck, "v": cv, "len": pos + s}
 
     out = out.reshape(b, s, hq * hd)
     y = maybe_dora(out, params["wo"], dora.get("wo"), dcfg,

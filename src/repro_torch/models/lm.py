@@ -1,5 +1,6 @@
 """LM assembly (counterpart of ``repro/models/lm.py``): parameter specs and
-init, DoRA adapter trees, the rectangular KV cache and the forward pass.
+init, DoRA adapter trees, the rectangular and block-paged KV caches and
+the forward pass.
 
 Trees are plain dicts that mirror the reference's pytrees: the layer
 stack is one unit whose leaves carry a leading ``[n_scan, ...]`` dim, so
@@ -149,30 +150,80 @@ def init_adapters(generator: torch.Generator, mcfg: ModelConfig, params,
     return {"stack": tree}
 
 
-def cache_shapes(mcfg: ModelConfig, batch: int, max_len: int, dtype=None):
-    """{"stack": {"l0": {"k", "v"}}} as (shape, dtype) pairs; K/V are
-    [n_scan, batch, max_len, Hkv, hd]. "len" is a scalar int."""
+def cache_shapes(mcfg: ModelConfig, batch: int, max_len: int, dtype=None,
+                 *, row_lens: bool = False, block_size: int | None = None,
+                 n_blocks: int | None = None):
+    """{"stack": {"l0": {"k", "v"}}, "len": ...} as (shape, dtype) pairs.
+
+    Rectangular (the default): K/V are [n_scan, batch, max_len, Hkv, hd]
+    and "len" is a scalar int. ``row_lens=True``: the continuous-batching
+    cache, whose "len" is a [batch] int32 tensor of per-row lengths, so
+    every row stands at its own position (``launch/engine.py``).
+
+    ``block_size``: the block-PAGED cache. K/V become a block pool
+    [n_scan, n_blocks, block_size, Hkv, hd] shared by all rows, addressed
+    through the block table "pages" [batch, max_len // block_size] int32
+    (-1 = unallocated, reads as zeros). ``n_blocks`` defaults to
+    batch * max_len // block_size (the rectangular cache's bytes). Needs
+    ``row_lens=True`` and ``max_len`` a multiple of ``block_size``."""
     check_supported(mcfg)
-    kv = ((mcfg.n_scan, batch, max_len, mcfg.num_kv_heads, mcfg.head_dim),
-          dtype or mcfg.dtype)
-    return {"stack": {"l0": {"k": kv, "v": kv}}, "len": ((), torch.int64)}
+    dtype = dtype or mcfg.dtype
+    hkv, hd = mcfg.num_kv_heads, mcfg.head_dim
+    paged = block_size is not None
+    if paged:
+        if not row_lens:
+            raise ValueError("paged cache requires row_lens=True "
+                             "(per-row frontiers address the block table)")
+        if max_len % block_size != 0:
+            raise ValueError(f"max_len={max_len} must be a multiple of "
+                             f"block_size={block_size}")
+        max_blocks = max_len // block_size
+        if n_blocks is None:
+            n_blocks = batch * max_blocks
+        kv = ((mcfg.n_scan, n_blocks, block_size, hkv, hd), dtype)
+    else:
+        kv = ((mcfg.n_scan, batch, max_len, hkv, hd), dtype)
+    out = {"stack": {"l0": {"k": kv, "v": kv}},
+           "len": (((batch,), torch.int32) if row_lens
+                   else ((), torch.int64))}
+    if paged:
+        out["pages"] = ((batch, max_blocks), torch.int32)
+    return out
 
 
 def init_cache(mcfg: ModelConfig, batch: int, max_len: int, dtype=None, *,
-               device=None):
-    shapes = cache_shapes(mcfg, batch, max_len, dtype)
+               row_lens: bool = False, block_size: int | None = None,
+               n_blocks: int | None = None, device=None):
+    """A zeroed cache of :func:`cache_shapes` on ``device``. A scalar
+    "len" is the Python int 0; per-row lengths are a zeroed tensor, and
+    the block table starts all -1 (a zeroed table would alias every row to
+    block 0)."""
+    shapes = cache_shapes(mcfg, batch, max_len, dtype, row_lens=row_lens,
+                          block_size=block_size, n_blocks=n_blocks)
     unit = {li: {name: torch.zeros(shape, dtype=dt, device=device)
                  for name, (shape, dt) in layer.items()}
             for li, layer in shapes["stack"].items()}
-    return {"stack": unit, "len": 0}
+    cache = {"stack": unit, "len": 0}
+    if row_lens:
+        shape, dt = shapes["len"]
+        cache["len"] = torch.zeros(shape, dtype=dt, device=device)
+    if "pages" in shapes:
+        shape, dt = shapes["pages"]
+        cache["pages"] = torch.full(shape, -1, dtype=dt, device=device)
+    return cache
 
 
-def _layer_apply(x, p, a, c, mcfg, dcfg, *, positions, length, training):
+def _layer_apply(x, p, a, c, mcfg, dcfg, *, positions, length, training,
+                 pages=None):
     """Pre-norm attention + pre-norm SwiGLU, residual adds. ``c`` is this
-    layer's cache slice (written in place) or None."""
+    layer's cache slice (written in place) or None; ``pages`` the block
+    table of a paged cache."""
     h = L.rms_norm(x, p["ln1"]["scale"], mcfg.norm_eps)
-    attn_cache = None if c is None else {"k": c["k"], "v": c["v"],
-                                         "len": length}
+    attn_cache = None
+    if c is not None:
+        attn_cache = {"k": c["k"], "v": c["v"], "len": length}
+        if pages is not None:
+            attn_cache["pages"] = pages
     y, _ = L.attention(h, p["mixer"], (a or {}).get("mixer"), mcfg, dcfg,
                        positions=positions, cache=attn_cache,
                        training=training)
@@ -207,8 +258,10 @@ def forward(mcfg: ModelConfig, params, adapters, dcfg: DoRAConfig | None,
     ``training``: the DoRA layers run their training route (norm
     recomputed from the current A/B, g differentiable); with grad enabled
     and ``mcfg.remat == "layer"`` each layer is checkpointed.
-    ``cache``: the decode cache or None. Its K/V buffers are updated IN
-    PLACE; the returned cache holds the same buffers with "len" advanced.
+    ``cache``: the decode cache or None. Its K/V buffers (or block pools)
+    are updated IN PLACE; the returned cache holds the same buffers with
+    "len" advanced by S. A [B] "len" tensor (``row_lens=True``) positions
+    each row's tokens at its own depth, len[b] + arange(S).
     ``loss_slice``: keep only the last N positions before the LM head.
     ``gather_position``: keep ONLY this position before the final norm and
     the head (logits [B, 1, V]); overrides ``loss_slice``.
@@ -218,9 +271,17 @@ def forward(mcfg: ModelConfig, params, adapters, dcfg: DoRAConfig | None,
     x = params["embed"].detach()[tokens]
     B, S = x.shape[:2]
     length = cache["len"] if cache is not None else None
+    row_lens = isinstance(length, torch.Tensor) and length.ndim == 1
     if positions is None:
-        base = 0 if length is None else int(length)
-        positions = (base + torch.arange(S, device=x.device)).expand(B, S)
+        steps = torch.arange(S, device=x.device)
+        if row_lens:
+            positions = length[:, None].long() + steps
+        else:
+            base = 0 if length is None else int(length)
+            positions = (base + steps).expand(B, S)
+    # The block table of a paged cache rides beside "len": one table
+    # addresses every layer's pool, read-only inside the forward.
+    pages = cache.get("pages") if cache is not None else None
 
     stack_p = params["stack"]
     stack_a = adapters.get("stack", {})
@@ -238,15 +299,19 @@ def forward(mcfg: ModelConfig, params, adapters, dcfg: DoRAConfig | None,
                 a = attach_weight_norms(unit_p[li], a, dcfg)
             c = unit_c[li] if unit_c is not None else None
             kw = dict(mcfg=mcfg, dcfg=dcfg, positions=positions,
-                      length=length, training=training)
+                      length=length, training=training, pages=pages)
             if remat:
                 x = checkpoint(_layer_apply, x, unit_p[li], a, c,
                                use_reentrant=False, preserve_rng_state=False,
                                **kw)
             else:
                 x = _layer_apply(x, unit_p[li], a, c, **kw)
-    new_cache = (None if cache is None
-                 else {"stack": stack_c, "len": int(length) + S})
+    new_cache = None
+    if cache is not None:
+        new_cache = {"stack": stack_c,
+                     "len": length + S if row_lens else int(length) + S}
+        if pages is not None:
+            new_cache["pages"] = pages
 
     if gather_position is not None:
         x = x[:, gather_position:gather_position + 1]

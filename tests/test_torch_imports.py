@@ -30,6 +30,9 @@ TRAINING_MODULES = {"repro_torch.tree", "repro_torch.optim.adamw",
                     "repro_torch.checkpoint.store",
                     "repro_torch.checkpoint.fault",
                     "repro_torch.launch.train"}
+# The engine slice's modules.
+ENGINE_MODULES = {"repro_torch.launch.engine",
+                  "repro_torch.kernels.paged_gather"}
 
 
 def _env():
@@ -47,7 +50,8 @@ def test_every_port_module_imports_without_jax_or_repro():
     assert out.returncode == 0, out.stderr
     names, bad = out.stdout.strip().splitlines()
     names = set(names.split())
-    assert len(names) >= 26 and TRAINING_MODULES <= names, names
+    assert len(names) >= 28 and TRAINING_MODULES | ENGINE_MODULES <= names, \
+        names
     assert bad == "[]", f"the port imported {bad}"
 
 
@@ -63,7 +67,7 @@ def _imported_roots(path: Path) -> set[str]:
 
 def test_no_source_names_jax_or_repro():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-    assert len(files) >= 26
+    assert len(files) >= 28
     for path in files:
         roots = _imported_roots(path)
         assert not roots & {"jax", "jaxlib", "repro"}, (path, roots)

@@ -22,13 +22,17 @@ import torch
 from repro.kernels import dora_compose as jk_compose
 from repro.kernels import ops as jops
 from repro.kernels.factored_norm import norm_terms_pallas
+from repro.kernels.paged_gather import paged_gather as j_paged_gather
+from repro.kernels.paged_gather import paged_gather_ref as j_paged_ref
+from repro.kernels.paged_gather import paged_scatter as j_paged_scatter
 from repro.kernels.norm_assembly import assemble_norm_pallas
 from repro_torch import kernels as tkernels
-from repro_torch.bridge import tensor_from_numpy
+from repro_torch.bridge import tensor_from_numpy, tensor_to_numpy
 from repro_torch.kernels import _build
 from repro_torch.kernels import dora_compose as tk_compose
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels.factored_norm import norm_terms
+from repro_torch.kernels import paged_gather as tk_paged
 from repro_torch.kernels.norm_assembly import (assemble_norm,
                                                assemble_norm_plain)
 
@@ -415,7 +419,7 @@ def test_build_needs_nvcc_and_names_library_by_source_hash(monkeypatch,
     assert _build.source_hash() in _build.library_path().name
     assert {p.name for p in _build.sources()} == {
         "norm_terms.cu", "assemble_norm.cu", "compose.cu", "compose_bwd.cu",
-        "compose_mm.cu", "compose_mm_bwd.cu"}
+        "compose_mm.cu", "compose_mm_bwd.cu", "paged_gather.cu"}
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
     monkeypatch.setattr(_build.probes, "nvcc_path", lambda: None)
     with pytest.raises(RuntimeError, match="nvcc not found"):
@@ -429,9 +433,99 @@ def test_kernel_sources_name_the_tpu_kernel_they_replace():
               "compose.cu": "dora_compose.py:106",
               "compose_bwd.cu": "dora_compose.py:136",
               "compose_mm.cu": "dora_compose.py:211",
-              "compose_mm_bwd.cu": "dora_compose.py:239"}
+              "compose_mm_bwd.cu": "dora_compose.py:239",
+              "paged_gather.cu": "paged_gather.py:90"}
     for name, ref in expect.items():
         text = (_build.SRC_DIR / name).read_text()
         assert ref in text and "Bound on the H100" in text, name
     assert "--use_fast_math" not in " ".join(_build.NVCC_FLAGS)
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+
+
+def _paged_case(rng, dtype, n_blocks, bs, hkv, hd, b, mb):
+    """A pool of random values and a table of distinct, out-of-order
+    block ids with -1 holes (every third entry, and row 0's tail)."""
+    pool = _np(rng, (n_blocks, bs, hkv, hd), dtype)
+    ids = rng.permutation(n_blocks)[:b * mb].astype(np.int32)
+    pages = ids.reshape(b, mb).copy()
+    pages.reshape(-1)[::3] = -1
+    pages[0, mb // 2:] = -1
+    return pool, pages
+
+
+def _bits(x):
+    """Raw bits of a tensor or an array, for bitwise comparisons."""
+    a = tensor_to_numpy(x) if isinstance(x, torch.Tensor) else np.asarray(x)
+    return a.view(np.uint16 if a.dtype.itemsize == 2 else np.uint32)
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("n_blocks,bs,hkv,hd,b,mb",
+                         [(12, 4, 1, 128, 2, 5), (20, 8, 2, 64, 3, 4)])
+def test_paged_gather_plain_matches_pallas_bitwise(dtype, n_blocks, bs, hkv,
+                                                   hd, b, mb):
+    """K8's plain version (what the wrapper runs on CPU tensors) is a copy
+    with a zero fill: bitwise the reference's Pallas kernel in interpret
+    mode and its jnp reference, unallocated blocks reading as zeros."""
+    rng = np.random.default_rng(b * mb)
+    pool, pages = _paged_case(rng, DTYPES[dtype][0], n_blocks, bs, hkv, hd,
+                              b, mb)
+    tkernels.reset_launch_counts()
+    got = tk_paged.paged_gather(tensor_from_numpy(pool),
+                                tensor_from_numpy(pages))
+    assert tkernels.launch_counts()["paged_gather"] == 0
+    want = j_paged_gather(jnp.asarray(pool), jnp.asarray(pages),
+                          interpret=True)
+    ref = j_paged_ref(jnp.asarray(pool), jnp.asarray(pages))
+    assert tuple(got.shape) == (b, mb * bs, hkv, hd)
+    np.testing.assert_array_equal(_bits(got), _bits(want))
+    np.testing.assert_array_equal(_bits(got), _bits(ref))
+    holes = np.repeat(pages < 0, bs, axis=1)
+    assert not _f32(got)[holes].any()
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("all_holes", [False, True])
+def test_paged_scatter_matches_reference_bitwise(dtype, all_holes):
+    """The scatter writes the view back into the pool in place and drops
+    the slices of -1 entries, bitwise as the reference's
+    ``.at[].set(mode="drop")``, also when no entry is allocated."""
+    rng = np.random.default_rng(7)
+    n_blocks, bs, hkv, hd, b, mb = 16, 4, 2, 64, 3, 4
+    pool, pages = _paged_case(rng, DTYPES[dtype][0], n_blocks, bs, hkv, hd,
+                              b, mb)
+    if all_holes:
+        pages[...] = -1
+    values = _np(rng, (b, mb * bs, hkv, hd), DTYPES[dtype][0])
+    want = j_paged_scatter(jnp.asarray(pool), jnp.asarray(pages),
+                           jnp.asarray(values))
+    t_pool = tensor_from_numpy(pool.copy())
+    out = tk_paged.paged_scatter(t_pool, tensor_from_numpy(pages),
+                                 tensor_from_numpy(values))
+    assert out is t_pool
+    np.testing.assert_array_equal(_bits(t_pool), _bits(want))
+    if all_holes:
+        np.testing.assert_array_equal(_bits(t_pool), _bits(pool))
+
+
+def test_paged_gather_then_scatter_round_trips():
+    """Gathering a view and scattering it back leaves the pool as it was
+    (the attention's read-modify-write, with nothing modified)."""
+    rng = np.random.default_rng(3)
+    pool, pages = _paged_case(rng, np.float32, 10, 4, 1, 128, 2, 4)
+    t_pool, t_pages = tensor_from_numpy(pool.copy()), tensor_from_numpy(pages)
+    view = tk_paged.paged_gather(t_pool, t_pages)
+    tk_paged.paged_scatter(t_pool, t_pages, view)
+    np.testing.assert_array_equal(t_pool.numpy(), pool)
+
+
+def test_paged_gather_off_cpu_launches_or_raises():
+    """A tensor off the CPU never runs the plain gather: here, with no
+    card, the wrapper raises."""
+    pool = torch.empty(4, 2, 1, 128, device="meta")
+    pages = torch.empty(1, 2, dtype=torch.int32, device="meta")
+    with pytest.raises(RuntimeError, match="CUDA unavailable"):
+        tk_paged.paged_gather(pool, pages)
+    with pytest.raises(ValueError, match="pool"):
+        tk_paged.paged_gather(torch.zeros(4, 2, 128), torch.zeros(
+            1, 2, dtype=torch.int32))
