@@ -61,6 +61,19 @@ the last 1024 tokens, layer remat, AdamW defaults:
   8. a 2-layer fp32 model trained 2 steps on the card and on the CPU, on
      both compose routes: losses and adapters within 1e-4 x max|value|.
 
+Last, with qwen2-7b's state freed, it serves full-width falcon-mamba-7b
+(64 Mamba-1 layers, random weights from a seed) with r=384 DoRA on
+in_proj and out_proj (see mamba_checks):
+
+  M1. auto mode in bf16 (the Mamba main path): precompute, exact-length
+      prefill of 4 x 960, 32 greedy tokens; K1 = K2 = 128, K6 = 128,
+      K9 = 64 and nothing else (decode launches no kernel);
+  M2. kernel route (K6 + K9) vs eager route on the fp32 upcast at 4
+      layers: prefill logit cosine >= 0.9999, final state h within
+      1e-4 x max|h|, equal greedy tokens;
+  M3. a 2-layer fp32 model on the card and on the CPU: prefill logits
+      within 1e-4 x max|logit|, equal greedy tokens.
+
 Any failed check raises, so the exit code is non-zero. The card's name
 and power limit (as nvidia-smi gives them) are printed first and again
 two lines before the last; the line before the last is the kernels' JSON
@@ -85,6 +98,9 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float16: 989e12,
             torch.float32: 67e12}  # dense; fp32 on CUDA cores (no TF32)
 F32_OPS = 67e12
+# exp on the special-function units: 16 per clock per SM, 132 SMs, boost
+# clock 1.98 GHz (Hopper architecture white paper).
+SFU_EXP_PER_S = 16 * 132 * 1.98e9
 
 ARCH, BATCH, PROMPT, GEN, MAX_LEN = "qwen2-7b", 4, 960, 32, 1024
 RANK, ALPHA, SEED = 384, 192.0, 0
@@ -103,6 +119,11 @@ ENGINE_BLOCKS = 512
 ENGINE_REQUESTS, ENGINE_PROMPT, ENGINE_NEW, ENGINE_ARRIVAL = (
     24, (256, 1024), 64, 3.0)
 
+# falcon-mamba-7b served at full width: exact-length prefill of the same
+# prompts, the route comparison in fp32 at 4 layers, card vs CPU at 2.
+MAMBA_ARCH, MAMBA_AGREE_LAYERS, MAMBA_AGREE_GEN = "falcon-mamba-7b", 4, 8
+SCAN_TOL = 1e-5
+
 SOURCES = {
     "norm_terms": ("src/repro_torch/kernels/csrc/norm_terms.cu",
                    "src/repro/kernels/factored_norm.py:49"),
@@ -120,10 +141,12 @@ SOURCES = {
                        "src/repro/kernels/dora_compose.py:239"),
     "paged_gather": ("src/repro_torch/kernels/csrc/paged_gather.cu",
                      "src/repro/kernels/paged_gather.py:90"),
+    "selective_scan": ("src/repro_torch/kernels/csrc/selective_scan.cu",
+                       "src/repro/kernels/selective_scan.py:60"),
 }
 # The path whose launch count each kernel's record carries, and the index
 # of the shape its top-level numbers are read at (w_gate, or the forced
-# decode rows on w_gate for K3).
+# decode rows on w_gate for K3; the prefill shape for K9).
 RECORD_PATH = {"norm_terms": ("serve_auto", 2),
                "assemble_norm": ("serve_auto", 2),
                "compose_fwd": ("serve_fused", 1),
@@ -131,7 +154,8 @@ RECORD_PATH = {"norm_terms": ("serve_auto", 2),
                "compose_bwd": ("train_elementwise", 0),
                "compose_mm_fwd": ("serve_auto", 1),
                "compose_mm_bwd": ("train_auto", 0),
-               "paged_gather": ("engine_paged", 0)}
+               "paged_gather": ("engine_paged", 0),
+               "selective_scan": ("serve_mamba", 0)}
 
 
 def check(cond: bool, msg: str) -> None:
@@ -388,6 +412,47 @@ def kernel_checks(dev) -> dict:
             mine[0]["ms"] / mine[0]["launches"] if mine else None)
         del out, ref
     del pool
+
+    # K9 at the falcon-mamba-7b prefill shape, a ragged shape (S and di no
+    # multiple of anything) and the SMOKE width (n = 4). dt spans the
+    # Mamba init's range [1e-3, 1e-1], A = -(1..n) with noise, as the
+    # model's A = -exp(A_log).
+    from repro_torch.kernels import selective_scan as ks
+    f32 = torch.float32
+    for b, seq, di, n in ((BATCH, PROMPT, 8192, 16), (1, 37, 8192 + 64, 16),
+                          (2, 64, 128, 4)):
+        u = torch.rand((b, seq, di), generator=gen, device=dev)
+        dt = torch.exp(math.log(1e-3) + u * math.log(100.0))
+        dtx = dt * randn(b, seq, di, dtype=f32)
+        Bm, Cm = randn(b, seq, n, dtype=f32), randn(b, seq, n, dtype=f32)
+        A_t = -(torch.arange(1, n + 1, device=dev, dtype=f32)[:, None]
+                * (1.0 + 0.1 * torch.rand((n, di), generator=gen,
+                                          device=dev)))
+        h0_t = randn(b, n, di, scale=0.5, dtype=f32)
+        args = (dt, dtx, Bm, Cm, A_t, h0_t)
+        y, h_f = ks.selective_scan(*args)
+        ref_y, ref_h = ks.selective_scan_plain(*args)
+        e1, m1 = max_err(y, ref_y)
+        e2, m2 = max_err(h_f, ref_h)
+        # fp32 recurrences whose products nvcc contracts into FMAs and
+        # whose sum over n runs in another order than the plain version's:
+        # 1e-5 of the largest |y|, and of the largest |h_f| for h_f.
+        check(e2 <= SCAN_TOL * m2, f"selective_scan [{b}, {seq}, {di}, {n}]:"
+              f" h_f err {e2} > tol {SCAN_TOL * m2}")
+        # Bytes: dt, dtx read and y written once, B, C, A, h0 and h_f.
+        # Operations: b*seq*di*n exps on the SFUs, and 6 fp32 flops per
+        # exp on the FMA pipes, which issue beside them: the larger time.
+        nbytes = 4 * (3 * b * seq * di + 2 * b * seq * n + n * di
+                      + 2 * b * n * di)
+        n_exp = b * seq * di * n
+        record("selective_scan", [b, seq, di, n], e1, m1, SCAN_TOL,
+               time_ms(lambda: ks.selective_scan(*args)),
+               time_ms(lambda: ks.selective_scan_plain(*args)), nbytes,
+               max(n_exp / SFU_EXP_PER_S, 6 * n_exp / F32_OPS),
+               h_f_err=e2, h_f_tol=SCAN_TOL * m2,
+               bound_bytes_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+               bound_sfu_ms=n_exp / SFU_EXP_PER_S * 1e3)
+        del args, dt, dtx, y, h_f, ref_y, ref_h
     torch.cuda.empty_cache()
     return rows
 
@@ -1352,6 +1417,173 @@ def small_parity(dev) -> None:
     check(torch.equal(t_dev.cpu(), t_cpu), "small parity greedy tokens")
 
 
+# ---------------------------------------------------------------------------
+# falcon-mamba-7b served at full width.
+# ---------------------------------------------------------------------------
+
+def mamba_checks(dev) -> dict:
+    """M1-M3: full-width falcon-mamba-7b (64 Mamba-1 layers) with r=384
+    DoRA on in_proj and out_proj, served by ``generate``.
+
+      M1. the main path (bf16, auto mode): precompute, exact-length
+          prefill of 4 x 960, 32 greedy tokens; K1 = K2 = 128 and K6 = 128
+          (in_proj and out_proj of 64 layers) and K9 = 64, nothing else;
+          then one prefill and one decode step under the profiler;
+      M2. the same weights upcast to fp32 at 4 layers: the kernel route
+          (K6 + K9) against the eager route: prefill logit cosine >=
+          0.9999, final h within 1e-4 x max|h|, equal greedy tokens;
+      M3. the same weights at 2 layers in fp32, on the card (kernels,
+          forced mode) and on the CPU (their plain versions): prefill
+          logits within 1e-4 x max|logit|, equal greedy tokens."""
+    import dataclasses
+
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.core.config import DoRAConfig
+    from repro_torch.launch import serve
+    from repro_torch.launch.steps import (StepConfig, make_decode_step,
+                                          make_precompute_step,
+                                          make_prefill_step)
+
+    mcfg = get_config(MAMBA_ARCH)
+    L = mcfg.num_layers
+    cfg = {mode: StepConfig(dora=DoRAConfig(rank=RANK, alpha=ALPHA,
+                                            mode=mode))
+           for mode in ("auto", "fused", "eager")}
+    t0 = time.perf_counter()
+    params, adapters = serve.build_state(mcfg, cfg["auto"].dora, SEED, dev)
+    adapters = perturb_adapters(
+        adapters, torch.Generator(device=dev).manual_seed(SEED + 1))
+    torch.cuda.synchronize()
+    print(f"mamba: built {MAMBA_ARCH} ({L} layers, d_model {mcfg.d_model}, "
+          f"d_inner {mcfg.d_inner}, n {mcfg.ssm_state}, dt_rank "
+          f"{mcfg.dt_rank}, vocab {mcfg.vocab_size}, {mcfg.dtype}) with "
+          f"r={RANK} DoRA on in_proj and out_proj in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    prompts = np.random.default_rng(SEED).integers(
+        0, mcfg.vocab_size, (BATCH, PROMPT))
+    max_len = PROMPT + GEN
+
+    # --- M1: the main path, auto mode, bf16 (warmed once, uncounted) ---
+    serve.generate(mcfg, params, adapters, cfg["auto"], prompts, gen_len=1,
+                   max_len=max_len, device=dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    stats: dict = {}
+    kernels.reset_launch_counts()
+    toks, logits = serve.generate(
+        mcfg, params, adapters, cfg["auto"], prompts, gen_len=GEN,
+        max_len=max_len, device=dev, return_logits=True, stats=stats)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    check(counts == counts_of(norm_terms=2 * L, assemble_norm=2 * L,
+                              compose_mm_fwd=2 * L, selective_scan=L),
+          f"mamba auto-mode launch counts {counts}")
+    check(tuple(toks.shape) == (BATCH, PROMPT + GEN), f"tokens {toks.shape}")
+    check(all(torch.isfinite(lg.float()).all().item() for lg in logits),
+          "non-finite logits in the mamba run")
+    check(((toks >= 0) & (toks < mcfg.vocab_size)).all().item(),
+          "mamba token ids out of range")
+    serve_mamba = {
+        "precompute_ms": stats["precompute_s"] * 1e3,
+        "prefill_ms": stats["prefill_s"] * 1e3,
+        "decode_ms_per_token": stats["decode_s"] * 1e3 / GEN,
+        "decode_tok_per_s": BATCH * GEN / stats["decode_s"],
+        "max_memory_allocated_bytes": peak, "launches": counts}
+    print("serve mamba (bf16, auto): " + json.dumps(serve_mamba), flush=True)
+    del logits
+
+    # One prefill and one decode step under the profiler (uncounted).
+    state = make_precompute_step(mcfg, cfg["auto"])(params, adapters)
+    tok_in = torch.as_tensor(prompts, device=dev)
+    prefill = make_prefill_step(mcfg, cfg["auto"], batch=BATCH, seq=max_len)
+    decode = make_decode_step(mcfg, cfg["auto"], batch=BATCH)
+    held = {}
+
+    def run_prefill():
+        held["logits"], held["cache"] = prefill(params, state,
+                                                {"tokens": tok_in})
+
+    serve_mamba["prefill_profile"] = profile(run_prefill,
+                                             "serve mamba prefill (bf16)")
+    nxt = held["logits"].argmax(-1)[:, None]
+    serve_mamba["decode_profile"] = profile(
+        lambda: decode(params, state, held["cache"], {"tokens": nxt}),
+        "serve mamba decode step (bf16)")
+    del state, held
+
+    # --- M2: kernel route vs eager route, fp32, 4 layers ---
+    mcfg32 = dataclasses.replace(mcfg, num_layers=MAMBA_AGREE_LAYERS,
+                                 dtype=torch.float32)
+    p32 = _upcast_layers(params, MAMBA_AGREE_LAYERS)
+    a32 = _upcast_layers(adapters, MAMBA_AGREE_LAYERS)
+    del params, adapters
+    torch.cuda.empty_cache()
+    routes = {}
+    for mode in ("auto", "eager"):
+        kernels.reset_launch_counts()
+        st = make_precompute_step(mcfg32, cfg[mode])(p32, a32)
+        lg, cache = make_prefill_step(mcfg32, cfg[mode], batch=BATCH,
+                                      seq=max_len)(p32, st,
+                                                   {"tokens": tok_in})
+        launched = kernels.launch_counts()
+        gen_toks = serve.generate(mcfg32, p32, a32, cfg[mode], prompts,
+                                  gen_len=MAMBA_AGREE_GEN,
+                                  max_len=PROMPT + MAMBA_AGREE_GEN,
+                                  device=dev)
+        routes[mode] = (lg.float(), cache["stack"]["l0"]["h"], gen_toks,
+                        launched)
+        del st
+    (lk, hk, tk, ck), (le, he, te, ce) = routes["auto"], routes["eager"]
+    n_mod = 2 * MAMBA_AGREE_LAYERS
+    check(ck == counts_of(norm_terms=n_mod, assemble_norm=n_mod,
+                          compose_mm_fwd=n_mod,
+                          selective_scan=MAMBA_AGREE_LAYERS),
+          f"fp32 mamba kernel route launched {ck}")
+    check(sum(ce.values()) == 0, f"fp32 mamba eager route launched {ce}")
+    h_err, h_max = max_err(hk, he)
+    agree = {"prefill_logit_cosine": cosine(lk, le), "h_err": h_err,
+             "h_tol": 1e-4 * h_max,
+             "tokens_equal": bool(torch.equal(tk, te)),
+             "kernel_route_launches": ck}
+    print(f"mamba fp32 routes ({MAMBA_AGREE_LAYERS} layers, kernel vs "
+          f"eager): " + json.dumps(agree), flush=True)
+    check(agree["prefill_logit_cosine"] >= COSINE_MIN,
+          f"mamba fp32 kernel vs eager cosine "
+          f"{agree['prefill_logit_cosine']}")
+    check(h_err <= 1e-4 * h_max, f"mamba fp32 final h err {h_err}")
+    check(agree["tokens_equal"], "mamba fp32 routes' greedy tokens differ")
+    del routes, lk, hk, le, he
+
+    # --- M3: 2 layers, fp32, the card's kernels vs the CPU's plain ---
+    mcfg2 = dataclasses.replace(mcfg32, num_layers=2)
+    p2 = {**p32, "stack": _tree_map(lambda t: t[:2], p32["stack"])}
+    a2 = {"stack": _tree_map(lambda t: t[:2], a32["stack"])}
+    del p32, a32
+    small = np.random.default_rng(SEED + 2).integers(
+        0, mcfg.vocab_size, (2, 20))
+    out = {}
+    for where in ("cuda", "cpu"):
+        on = (lambda t: t) if where == "cuda" else (lambda t: t.cpu())
+        out[where] = serve.generate(mcfg2, _tree_map(on, p2),
+                                    _tree_map(on, a2), cfg["fused"], small,
+                                    gen_len=6, max_len=26,
+                                    device=dev if where == "cuda" else "cpu",
+                                    return_logits=True)
+    (t_dev, l_dev), (t_cpu, l_cpu) = out["cuda"], out["cpu"]
+    err, mx = max_err(l_dev[0].cpu(), l_cpu[0])
+    parity = {"prefill_logit_err": err, "tol": 1e-4 * mx,
+              "tokens_equal": bool(torch.equal(t_dev.cpu(), t_cpu))}
+    print("mamba parity (2 layers, fp32, card vs CPU plain): "
+          + json.dumps(parity), flush=True)
+    check(err <= 1e-4 * mx, f"mamba parity logits err {err}")
+    check(parity["tokens_equal"], "mamba parity greedy tokens")
+    del p2, a2, out
+    torch.cuda.empty_cache()
+    return {"serve_mamba": serve_mamba, "fp32_routes": agree,
+            "parity": parity}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -1397,12 +1629,16 @@ def main() -> int:
     torch.cuda.empty_cache()
     parity = train_parity(dev)
     print(f"train phases: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    mamba = mamba_checks(dev)
+    print(f"mamba phases: {time.perf_counter() - t0:.1f} s", flush=True)
 
     by_path = {"serve_auto": served["auto"], "serve_fused": served["fused"],
                "train_auto": trained["train_auto"]["launches"],
                "train_elementwise": trained["train_elementwise"]["launches"],
                "engine_paged": engine["engine_paged"]["launches"],
-               "engine_trace_paged": engine["traces"]["paged"]["launches"]}
+               "engine_trace_paged": engine["traces"]["paged"]["launches"],
+               "serve_mamba": mamba["serve_mamba"]["launches"]}
     record = []
     for name, (src, replaces) in SOURCES.items():
         path, at = RECORD_PATH[name]
@@ -1435,7 +1671,7 @@ def main() -> int:
         "engine": engine,
         "train": {k: trained[k] for k in ("train_auto", "train_elementwise",
                                           "fp32_agreement")},
-        "train_parity": parity}, indent=1))
+        "train_parity": parity, "mamba": mamba}, indent=1))
     print(f"details: {detail.relative_to(root)}")
     print(smi)
     print(json.dumps({"kernels": record, "card": smi,
@@ -1444,7 +1680,9 @@ def main() -> int:
                       "engine": {k: v for k, v in engine["engine_paged"].items()
                                  if k not in ("trace", "launches",
                                               "decode_tick_profile")},
-                      "train": train_summary}))
+                      "train": train_summary,
+                      "mamba": {k: v for k, v in mamba["serve_mamba"].items()
+                                if not k.endswith("_profile")}}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -2,7 +2,8 @@
 the port's trees.
 
 The reference's ``params`` / ``adapters`` / AdamW state (``mu``, ``nu``,
-``count``) trees, given as nested dicts of numpy arrays (``np.asarray``
+``count``) / decode cache trees (K/V, or the Mamba ``h`` and ``conv``
+states, and ``len``), given as nested dicts of numpy arrays (``np.asarray``
 of each JAX leaf), become the port's trees of tensors on a chosen device
 (:func:`tree_from_numpy`), and back (:func:`tree_to_numpy`). Leaves are
 keyed by the same "/"-joined paths that the reference's checkpoints write
@@ -47,10 +48,13 @@ def tree_from_numpy(tree: Mapping[str, Any], device=None) -> dict:
                             for name, leaf in flatten_paths(tree).items()})
 
 
-def tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
+def tensor_to_numpy(t) -> np.ndarray:
     """One tensor → a numpy array on the host, exactly. bf16 becomes
     numpy ``bfloat16`` (``ml_dtypes``, imported only here) through a
-    uint16 view."""
+    uint16 view. A Python scalar (a decode cache's scalar "len") becomes
+    a 0-d array."""
+    if not isinstance(t, torch.Tensor):
+        return np.asarray(t)
     t = t.detach().cpu()
     if t.dtype == torch.bfloat16:
         import ml_dtypes

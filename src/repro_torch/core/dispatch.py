@@ -97,15 +97,20 @@ def plan_compose(cfg: DoRAConfig, *, training: bool, rows: int,
                       matmul_fused=mm_fused_eligible(rank, cfg, rows))
 
 
+def _plan_fwd_only(cfg: DoRAConfig, device) -> KernelPlan:
+    """A forward-only call site (Tier 2) on the kernel route, or eager."""
+    backend = resolve_backend(cfg, device)
+    if backend == "eager":
+        return KernelPlan(Tier.EAGER, "eager")
+    return KernelPlan(Tier.FUSED_FWD, backend)
+
+
 def plan_norm(cfg: DoRAConfig, *, d_out: int, device="cuda") -> KernelPlan:
     """Resolve the factored-norm call site: forward-only (Tier 2) with no
     crossover guard (paper §2.3)."""
     if not shape_supported(d_out):
         return KernelPlan(Tier.EAGER, "eager")
-    backend = resolve_backend(cfg, device)
-    if backend == "eager":
-        return KernelPlan(Tier.EAGER, "eager")
-    return KernelPlan(Tier.FUSED_FWD, backend)
+    return _plan_fwd_only(cfg, device)
 
 
 def plan_gather(cfg: DoRAConfig | None, *, head_elems: int,
@@ -119,7 +124,16 @@ def plan_gather(cfg: DoRAConfig | None, *, head_elems: int,
     the kernel (both are copies with a zero fill)."""
     if cfg is None or not shape_supported(head_elems):
         return KernelPlan(Tier.EAGER, "eager")
-    backend = resolve_backend(cfg, device)
-    if backend == "eager":
-        return KernelPlan(Tier.EAGER, "eager")
-    return KernelPlan(Tier.FUSED_FWD, backend)
+    return _plan_fwd_only(cfg, device)
+
+
+def plan_scan(cfg: DoRAConfig | None, *, device="cuda") -> KernelPlan:
+    """Resolve the selective-scan call site of a Mamba layer (K9).
+    Forward-only (no backward kernel exists for it), so the kernel choice
+    is Tier 2. Auto mode and a forced kernel mode take the ``cuda``
+    backend, whose wrapper launches K9 on CUDA tensors and runs its plain
+    version on CPU tensors; the eager mode (``mode`` or
+    ``REPRO_TORCH_FORCE_TIER``) takes the plain scan. ``cfg=None`` (a base
+    model served without an adapter config) is auto mode: the device
+    decides. Nothing switches on failure."""
+    return _plan_fwd_only(cfg if cfg is not None else DoRAConfig(), device)

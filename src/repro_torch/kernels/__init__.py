@@ -13,15 +13,18 @@ from repro_torch.kernels.dora_compose import (compose_bwd, compose_fwd,
                                               compose_mm_bwd, compose_mm_fwd)
 from repro_torch.kernels.factored_norm import norm_terms
 from repro_torch.kernels.norm_assembly import assemble_norm
-# The module, not its wrapper, keeps the name ``kernels.paged_gather``.
+# The modules, not their wrappers, keep the names ``kernels.paged_gather``
+# and ``kernels.selective_scan``.
 from repro_torch.kernels import paged_gather as _paged
+from repro_torch.kernels import selective_scan as _scan
 
-# name → wrapper, in the order of the TPU kernel table (K1–K8).
+# name → wrapper, in the order of the TPU kernel table (K1–K9).
 KERNELS = {"norm_terms": norm_terms, "assemble_norm": assemble_norm,
            "compose_fwd": compose_fwd, "compose_fwd_dual": compose_fwd_dual,
            "compose_bwd": compose_bwd, "compose_mm_fwd": compose_mm_fwd,
            "compose_mm_bwd": compose_mm_bwd,
-           "paged_gather": _paged.paged_gather}
+           "paged_gather": _paged.paged_gather,
+           "selective_scan": _scan.selective_scan}
 
 
 def launch_counts() -> dict[str, int]:

@@ -1,6 +1,7 @@
 """Serving driver (counterpart of ``repro/launch/serve.py``): precompute the
-frozen-adapter state once, prefill the prompt padded to ``max_len``, then
-decode token by token against the in-place KV cache.
+frozen-adapter state once, prefill the prompt (padded to ``max_len`` for
+attention stacks, at its exact length for Mamba stacks), then decode token
+by token against the in-place cache.
 
 Runs on the card unless the CPU is asked for explicitly::
 
@@ -10,6 +11,10 @@ Runs on the card unless the CPU is asked for explicitly::
         --smoke --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-7b \\
         --smoke --device cpu --continuous --paged
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon-mamba-7b \\
+        --batch 4 --prompt-len 960 --gen-len 32 --rank 384 --alpha 192
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon-mamba-7b \\
+        --smoke --device cpu
 
 ``--continuous`` serves 2 x ``--batch`` mixed-length requests through the
 continuous-batching engine (``--batch`` slots; ``launch/engine.py``),
@@ -120,9 +125,12 @@ def generate(mcfg, params, adapters, scfg: StepConfig, prompts, *,
     B, P = toks.shape
     if max_len < P + gen_len:
         raise ValueError(f"max_len={max_len} < P+gen_len={P + gen_len}")
-    # Padded prefill: one prefill shape per (batch, max_len) serves every
-    # prompt length; the step rewinds the cache length to P.
-    pad = max_len - P
+    # Padded prefill (attention-only stacks): one prefill shape per (batch,
+    # max_len) serves every prompt length; the step rewinds the cache
+    # length to P. A Mamba state integrates every token it sees and cannot
+    # rewind, so stacks with Mamba layers prefill at the exact P.
+    can_pad = all(k == "attn" for k in mcfg.layer_kinds())
+    pad = max_len - P if can_pad else 0
     prefill = make_prefill_step(mcfg, scfg, batch=B, seq=max_len,
                                 padded=bool(pad))
     decode = make_decode_step(mcfg, scfg, batch=B)

@@ -190,19 +190,32 @@ def make_prefill_step(mcfg: ModelConfig, scfg: StepConfig, *, batch: int,
                       seq: int, padded: bool = False):
     """(params, adapters, batch_in) -> (last_logits [B, V], cache).
 
-    Runs the prompt and fills a fresh K/V cache of ``seq`` positions on
-    the tokens' device. ``padded=True``: the prompt arrives right-padded
-    to ``seq`` with the true length P in ``batch_in["prompt_len"]``; the
-    logits are gathered at P-1 and the cache length is rewound to P, so
-    the first decode token overwrites the first padded row (the padded
-    rows beyond it are masked by causality)."""
+    Runs the prompt and fills a fresh cache of ``seq`` positions on the
+    tokens' device. Unpadded: the prompt is ``batch_in["tokens"]``
+    [batch, P] with P ≤ ``seq`` and the cache ends at P.
+    ``padded=True``: the prompt arrives right-padded to ``seq`` with the
+    true length P in ``batch_in["prompt_len"]``; the logits are gathered
+    at P-1 and the cache length is rewound to P, so the first decode token
+    overwrites the first padded row (the padded rows beyond it are masked
+    by causality). Only attention caches can rewind: a Mamba state has
+    integrated the padded tokens, so a stack with Mamba layers refuses
+    ``padded=True``."""
+    if padded and any(k != "attn" for k in mcfg.layer_kinds()):
+        raise ValueError(
+            "padded prefill requires attention-only caches: SSM layer "
+            "states integrate the padded tokens and cannot be rewound "
+            f"(arch {mcfg.name!r} has {mcfg.layer_kinds()})")
 
     @torch.no_grad()
     def prefill_step(params, adapters, batch_in):
         tokens = batch_in["tokens"]
-        if tuple(tokens.shape) != (batch, seq):
-            raise ValueError(f"prefill built for tokens [{batch}, {seq}], "
-                             f"got {tuple(tokens.shape)}")
+        shape = tuple(tokens.shape)
+        p_max = shape[1] if len(shape) == 2 else -1
+        fits = p_max == seq if padded else 0 < p_max <= seq
+        if shape[:1] != (batch,) or not fits:
+            want = seq if padded else f"P <= {seq}"
+            raise ValueError(f"prefill built for tokens [{batch}, {want}], "
+                             f"got {shape}")
         cache = init_cache(mcfg, batch, seq, device=tokens.device)
         kw = {}
         if padded:

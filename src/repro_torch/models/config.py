@@ -1,10 +1,10 @@
 """Model configuration (counterpart of ``repro/models/config.py``) with
 torch dtypes.
 
-The dataclass keeps the reference's field names for what this slice runs:
-the dense attention archs. The flags that mark the other archs (MoE, SSM,
-hybrid, modality frontends) stay so that :func:`check_supported` can
-refuse them.
+The dataclass keeps the reference's field names for what the port runs:
+the dense attention archs and the pure Mamba-1 stacks. The flags that
+mark the other archs (MoE, hybrid, modality frontends) stay so that
+:func:`check_supported` can refuse them.
 """
 from __future__ import annotations
 
@@ -35,10 +35,23 @@ class ModelConfig:
     # --- mlp ---
     mlp_kind: str = "swiglu"
     norm_kind: str = "rms"
-    # --- MoE / SSM / hybrid (not ported yet; see check_supported) ---
+    # --- MoE (not ported yet; see check_supported) ---
     moe: bool = False
+    moe_period: int = 1             # MoE FFN every k-th layer
+    # --- SSM (Mamba-1) ---
     ssm: bool = False
-    attn_period: int = 0
+    ssm_state: int = 16
+    ssm_conv: int = 4
+    ssm_expand: int = 2
+    dt_rank: int = 0                # 0 → ceil(d_model / 16)
+    ssm_chunk: int = 256            # the reference's assoc scan chunk
+    # The reference's XLA lowering of the scan ("fused_chunk" | "assoc");
+    # both compute one recurrence, which the port runs as K9 either way.
+    ssm_impl: str = "fused_chunk"
+    ssm_unroll: int = 16            # the reference's fused_chunk unroll
+    # --- hybrid interleave (not ported yet; see check_supported) ---
+    attn_period: int = 0            # 0 = not hybrid
+    attn_index: int = 4
     # --- misc ---
     norm_eps: float = 1e-5
     frontend: str | None = None
@@ -51,6 +64,12 @@ class ModelConfig:
         if self.head_dim == 0 and self.num_heads:
             object.__setattr__(self, "head_dim",
                                self.d_model // self.num_heads)
+        if self.dt_rank == 0 and self.ssm:
+            object.__setattr__(self, "dt_rank", -(-self.d_model // 16))
+
+    @property
+    def d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
 
     @property
     def q_dim(self) -> int:
@@ -60,10 +79,31 @@ class ModelConfig:
     def kv_dim(self) -> int:
         return self.num_kv_heads * self.head_dim
 
+    def layer_kinds(self) -> list[str]:
+        """Sequence-mixer kind per layer: 'attn' or 'mamba'."""
+        if self.ssm and not self.attn_period:
+            return ["mamba"] * self.num_layers
+        if self.attn_period:
+            return ["attn" if i % self.attn_period == self.attn_index
+                    else "mamba" for i in range(self.num_layers)]
+        return ["attn"] * self.num_layers
+
+    def ffn_kinds(self) -> list[str]:
+        """FFN kind per layer: 'moe' | 'mlp' | 'none'."""
+        out = []
+        for i in range(self.num_layers):
+            if self.moe and i % self.moe_period == self.moe_period - 1:
+                out.append("moe")
+            elif self.d_ff > 0:
+                out.append("mlp")
+            else:
+                out.append("none")
+        return out
+
     @property
     def period(self) -> int:
         """Length of the repeating layer pattern (the stacked unit): 1 for
-        the dense archs this slice runs."""
+        the uniform stacks the port runs (dense, pure Mamba)."""
         return 1
 
     @property
@@ -73,10 +113,18 @@ class ModelConfig:
 
 def check_supported(mcfg: ModelConfig) -> None:
     """Raise NotImplementedError for the archs later slices port."""
-    if mcfg.moe or mcfg.ssm or mcfg.attn_period:
+    if mcfg.moe:
         raise NotImplementedError(
-            f"{mcfg.name}: MoE and Mamba/hybrid stacks come with a later "
-            f"slice of the port (with the selective-scan kernel)")
+            f"{mcfg.name}: MoE stacks are not ported yet; they come with "
+            f"the later slice that ports models/moe.py")
+    if mcfg.attn_period:
+        raise NotImplementedError(
+            f"{mcfg.name}: hybrid Mamba + attention stacks are not ported "
+            f"yet; they come with the later slice that ports jamba "
+            f"(with models/moe.py)")
+    if mcfg.ssm and mcfg.ssm_impl not in ("fused_chunk", "assoc"):
+        raise ValueError(f"{mcfg.name}: unknown ssm_impl {mcfg.ssm_impl!r} "
+                         f"(expected 'fused_chunk' or 'assoc')")
     if mcfg.frontend is not None:
         raise NotImplementedError(
             f"{mcfg.name}: modality frontends ({mcfg.frontend}) are not "

@@ -1,5 +1,6 @@
 """LM assembly (counterpart of ``repro/models/lm.py``): parameter specs and
-init, DoRA adapter trees, the rectangular and block-paged KV caches and
+init, DoRA adapter trees, the decode caches (rectangular or block-paged
+K/V for attention layers, the ``h``/``conv`` states of Mamba layers) and
 the forward pass.
 
 Trees are plain dicts that mirror the reference's pytrees: the layer
@@ -27,6 +28,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.core.adapter import attach_weight_norms, init_dora_params
 from repro_torch.core.config import DoRAConfig
 from repro_torch.models import layers as L
+from repro_torch.models import mamba as M
 from repro_torch.models.config import ModelConfig, check_supported
 
 _F32 = torch.float32
@@ -57,10 +59,32 @@ def _mlp_spec(mcfg: ModelConfig):
             "w_down": ("linear", (D, ff))}
 
 
+def _mamba_spec(mcfg: ModelConfig):
+    D, di, n = mcfg.d_model, mcfg.d_inner, mcfg.ssm_state
+    dtr, k = mcfg.dt_rank, mcfg.ssm_conv
+    return {"in_proj": ("linear", (2 * di, D)),
+            "conv_w": ("conv", (k, di)), "conv_b": ("zeros", (di,)),
+            "x_proj": ("linear", (dtr + 2 * n, di)),
+            "dt_proj": ("linear", (di, dtr)), "dt_bias": ("dt_bias", (di,)),
+            "A_log": ("a_log", (di, n)), "skip_d": ("ones", (di,)),
+            "out_proj": ("linear", (D, di))}
+
+
+def _layer_spec(mcfg: ModelConfig, kind: str, ffn: str):
+    s: dict[str, Any] = {"ln1": _norm_spec(mcfg)}
+    s["mixer"] = _attn_spec(mcfg) if kind == "attn" else _mamba_spec(mcfg)
+    if ffn != "none":
+        s["ln2"] = _norm_spec(mcfg)
+        s["ffn"] = _mlp_spec(mcfg)
+    return s
+
+
 def unit_spec(mcfg: ModelConfig):
-    """The repeating stack unit: one attention + SwiGLU layer, "l0"."""
-    return {"l0": {"ln1": _norm_spec(mcfg), "mixer": _attn_spec(mcfg),
-                   "ln2": _norm_spec(mcfg), "ffn": _mlp_spec(mcfg)}}
+    """The repeating stack unit {"l0": layer, ...}: one attention + SwiGLU
+    layer (dense) or one Mamba layer with no FFN (falcon-mamba)."""
+    kinds, ffns = mcfg.layer_kinds(), mcfg.ffn_kinds()
+    return {f"l{i}": _layer_spec(mcfg, kinds[i], ffns[i])
+            for i in range(mcfg.period)}
 
 
 def model_spec(mcfg: ModelConfig):
@@ -93,12 +117,31 @@ def _set_path(tree: dict, path, value) -> None:
     tree[path[-1]] = value
 
 
+def _uniform(generator, shape, lo: float, hi: float):
+    u = torch.rand(shape, generator=generator, dtype=_F32,
+                   device=generator.device)
+    return u * (hi - lo) + lo
+
+
 def _init_leaf(generator, kind, shape, dtype):
+    """The reference's init distributions, drawn from ``generator``."""
     device = generator.device
     if kind == "zeros":
         return torch.zeros(shape, dtype=dtype, device=device)
     if kind == "ones":
         return torch.ones(shape, dtype=dtype, device=device)
+    if kind == "dt_bias":
+        # softplus(dt_bias) = dt ∈ [1e-3, 1e-1], log-uniform (Mamba init)
+        dt = torch.exp(_uniform(generator, shape, math.log(1e-3),
+                                math.log(1e-1)))
+        return (dt + torch.log(-torch.expm1(-dt))).to(dtype)
+    if kind == "a_log":
+        di, n = shape
+        a = torch.log(torch.arange(1, n + 1, dtype=_F32, device=device))
+        return a.repeat(di, 1).to(dtype)
+    if kind == "conv":
+        bound = 1.0 / math.sqrt(shape[0])
+        return _uniform(generator, shape, -bound, bound).to(dtype)
     w = torch.randn(shape, generator=generator, dtype=_F32, device=device)
     if kind == "embed":
         return (0.02 * w).to(dtype)
@@ -153,22 +196,29 @@ def init_adapters(generator: torch.Generator, mcfg: ModelConfig, params,
 def cache_shapes(mcfg: ModelConfig, batch: int, max_len: int, dtype=None,
                  *, row_lens: bool = False, block_size: int | None = None,
                  n_blocks: int | None = None):
-    """{"stack": {"l0": {"k", "v"}}, "len": ...} as (shape, dtype) pairs.
+    """{"stack": {"l0": {...}}, "len": ...} as (shape, dtype) pairs.
 
-    Rectangular (the default): K/V are [n_scan, batch, max_len, Hkv, hd]
-    and "len" is a scalar int. ``row_lens=True``: the continuous-batching
-    cache, whose "len" is a [batch] int32 tensor of per-row lengths, so
-    every row stands at its own position (``launch/engine.py``).
+    An attention layer holds "k" and "v". Rectangular (the default): K/V
+    are [n_scan, batch, max_len, Hkv, hd] and "len" is a scalar int.
+    ``row_lens=True``: the continuous-batching cache, whose "len" is a
+    [batch] int32 tensor of per-row lengths, so every row stands at its
+    own position (``launch/engine.py``).
 
     ``block_size``: the block-PAGED cache. K/V become a block pool
     [n_scan, n_blocks, block_size, Hkv, hd] shared by all rows, addressed
     through the block table "pages" [batch, max_len // block_size] int32
     (-1 = unallocated, reads as zeros). ``n_blocks`` defaults to
     batch * max_len // block_size (the rectangular cache's bytes). Needs
-    ``row_lens=True`` and ``max_len`` a multiple of ``block_size``."""
+    ``row_lens=True``, ``max_len`` a multiple of ``block_size`` and an
+    attention-only stack.
+
+    A Mamba layer holds its recurrent state "h" [n_scan, batch, d_inner,
+    ssm_state] fp32 and the conv window "conv" [n_scan, batch, ssm_conv -
+    1, d_inner], whatever ``max_len``."""
     check_supported(mcfg)
     dtype = dtype or mcfg.dtype
     hkv, hd = mcfg.num_kv_heads, mcfg.head_dim
+    kinds = mcfg.layer_kinds()
     paged = block_size is not None
     if paged:
         if not row_lens:
@@ -177,13 +227,26 @@ def cache_shapes(mcfg: ModelConfig, batch: int, max_len: int, dtype=None,
         if max_len % block_size != 0:
             raise ValueError(f"max_len={max_len} must be a multiple of "
                              f"block_size={block_size}")
+        if any(k != "attn" for k in kinds):
+            raise ValueError(f"paged cache requires an attention-only "
+                             f"arch; {mcfg.name!r} has {kinds}")
         max_blocks = max_len // block_size
         if n_blocks is None:
             n_blocks = batch * max_blocks
         kv = ((mcfg.n_scan, n_blocks, block_size, hkv, hd), dtype)
     else:
         kv = ((mcfg.n_scan, batch, max_len, hkv, hd), dtype)
-    out = {"stack": {"l0": {"k": kv, "v": kv}},
+    unit = {}
+    for i in range(mcfg.period):
+        if kinds[i] == "attn":
+            unit[f"l{i}"] = {"k": kv, "v": kv}
+        else:
+            unit[f"l{i}"] = {
+                "h": ((mcfg.n_scan, batch, mcfg.d_inner, mcfg.ssm_state),
+                      _F32),
+                "conv": ((mcfg.n_scan, batch, mcfg.ssm_conv - 1,
+                          mcfg.d_inner), dtype)}
+    out = {"stack": unit,
            "len": (((batch,), torch.int32) if row_lens
                    else ((), torch.int64))}
     if paged:
@@ -213,23 +276,34 @@ def init_cache(mcfg: ModelConfig, batch: int, max_len: int, dtype=None, *,
     return cache
 
 
-def _layer_apply(x, p, a, c, mcfg, dcfg, *, positions, length, training,
-                 pages=None):
-    """Pre-norm attention + pre-norm SwiGLU, residual adds. ``c`` is this
-    layer's cache slice (written in place) or None; ``pages`` the block
-    table of a paged cache."""
+def _layer_apply(x, p, a, c, mcfg, dcfg, *, kind, ffn, positions, length,
+                 training, pages=None):
+    """Pre-norm mixer (attention or Mamba) + pre-norm SwiGLU (when the
+    layer has one), residual adds. ``c`` is this layer's cache slice,
+    written in place, or None; ``pages`` the block table of a paged
+    cache."""
     h = L.rms_norm(x, p["ln1"]["scale"], mcfg.norm_eps)
-    attn_cache = None
-    if c is not None:
-        attn_cache = {"k": c["k"], "v": c["v"], "len": length}
-        if pages is not None:
-            attn_cache["pages"] = pages
-    y, _ = L.attention(h, p["mixer"], (a or {}).get("mixer"), mcfg, dcfg,
-                       positions=positions, cache=attn_cache,
-                       training=training)
+    a = a or {}
+    if kind == "attn":
+        attn_cache = None
+        if c is not None:
+            attn_cache = {"k": c["k"], "v": c["v"], "len": length}
+            if pages is not None:
+                attn_cache["pages"] = pages
+        y, _ = L.attention(h, p["mixer"], a.get("mixer"), mcfg, dcfg,
+                           positions=positions, cache=attn_cache,
+                           training=training)
+    else:
+        y, new_c = M.mamba_block(h, p["mixer"], a.get("mixer"), mcfg, dcfg,
+                                 cache=c, training=training)
+        if c is not None:
+            c["h"].copy_(new_c["h"])
+            c["conv"].copy_(new_c["conv"])
     x = x + y
+    if ffn == "none":
+        return x
     h = L.rms_norm(x, p["ln2"]["scale"], mcfg.norm_eps)
-    return x + L.mlp_swiglu(h, p["ffn"], (a or {}).get("ffn"), dcfg,
+    return x + L.mlp_swiglu(h, p["ffn"], a.get("ffn"), dcfg,
                             training=training)
 
 
@@ -259,7 +333,7 @@ def forward(mcfg: ModelConfig, params, adapters, dcfg: DoRAConfig | None,
     recomputed from the current A/B, g differentiable); with grad enabled
     and ``mcfg.remat == "layer"`` each layer is checkpointed.
     ``cache``: the decode cache or None. Its K/V buffers (or block pools)
-    are updated IN PLACE; the returned cache holds the same buffers with
+    and Mamba states are updated IN PLACE; the returned cache holds the same buffers with
     "len" advanced by S. A [B] "len" tensor (``row_lens=True``) positions
     each row's tokens at its own depth, len[b] + arange(S).
     ``loss_slice``: keep only the last N positions before the LM head.
@@ -287,6 +361,7 @@ def forward(mcfg: ModelConfig, params, adapters, dcfg: DoRAConfig | None,
     stack_a = adapters.get("stack", {})
     stack_c = cache["stack"] if cache is not None else None
     units_a = _unstack_tree(stack_a, mcfg.n_scan)
+    kinds, ffns = mcfg.layer_kinds(), mcfg.ffn_kinds()
     remat = (training and mcfg.remat == "layer" and cache is None
              and torch.is_grad_enabled())
     for i in range(mcfg.n_scan):
@@ -298,8 +373,10 @@ def forward(mcfg: ModelConfig, params, adapters, dcfg: DoRAConfig | None,
             if training and a is not None:
                 a = attach_weight_norms(unit_p[li], a, dcfg)
             c = unit_c[li] if unit_c is not None else None
-            kw = dict(mcfg=mcfg, dcfg=dcfg, positions=positions,
-                      length=length, training=training, pages=pages)
+            j = int(li[1:])
+            kw = dict(mcfg=mcfg, dcfg=dcfg, kind=kinds[j], ffn=ffns[j],
+                      positions=positions, length=length, training=training,
+                      pages=pages)
             if remat:
                 x = checkpoint(_layer_apply, x, unit_p[li], a, c,
                                use_reentrant=False, preserve_rng_state=False,

@@ -33,6 +33,10 @@ TRAINING_MODULES = {"repro_torch.tree", "repro_torch.optim.adamw",
 # The engine slice's modules.
 ENGINE_MODULES = {"repro_torch.launch.engine",
                   "repro_torch.kernels.paged_gather"}
+# The Mamba serving slice's modules.
+MAMBA_MODULES = {"repro_torch.models.mamba",
+                 "repro_torch.kernels.selective_scan",
+                 "repro_torch.configs.falcon_mamba_7b"}
 
 
 def _env():
@@ -50,8 +54,8 @@ def test_every_port_module_imports_without_jax_or_repro():
     assert out.returncode == 0, out.stderr
     names, bad = out.stdout.strip().splitlines()
     names = set(names.split())
-    assert len(names) >= 28 and TRAINING_MODULES | ENGINE_MODULES <= names, \
-        names
+    assert len(names) >= 31 and (TRAINING_MODULES | ENGINE_MODULES
+                                 | MAMBA_MODULES) <= names, names
     assert bad == "[]", f"the port imported {bad}"
 
 

@@ -419,7 +419,8 @@ def test_build_needs_nvcc_and_names_library_by_source_hash(monkeypatch,
     assert _build.source_hash() in _build.library_path().name
     assert {p.name for p in _build.sources()} == {
         "norm_terms.cu", "assemble_norm.cu", "compose.cu", "compose_bwd.cu",
-        "compose_mm.cu", "compose_mm_bwd.cu", "paged_gather.cu"}
+        "compose_mm.cu", "compose_mm_bwd.cu", "paged_gather.cu",
+        "selective_scan.cu"}
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
     monkeypatch.setattr(_build.probes, "nvcc_path", lambda: None)
     with pytest.raises(RuntimeError, match="nvcc not found"):
@@ -434,7 +435,8 @@ def test_kernel_sources_name_the_tpu_kernel_they_replace():
               "compose_bwd.cu": "dora_compose.py:136",
               "compose_mm.cu": "dora_compose.py:211",
               "compose_mm_bwd.cu": "dora_compose.py:239",
-              "paged_gather.cu": "paged_gather.py:90"}
+              "paged_gather.cu": "paged_gather.py:90",
+              "selective_scan.cu": "selective_scan.py:60"}
     for name, ref in expect.items():
         text = (_build.SRC_DIR / name).read_text()
         assert ref in text and "Bound on the H100" in text, name

@@ -183,7 +183,8 @@ def test_unported_archs_are_refused():
         get_config("jamba-v0.1-52b")
     with pytest.raises(KeyError):
         get_config("nope")
-    for flags in ({"moe": True}, {"ssm": True}, {"frontend": "patches"}):
+    for flags in ({"moe": True}, {"ssm": True, "attn_period": 8},
+                  {"frontend": "patches"}):
         mcfg = ModelConfig(**WIDTHS, **flags)
         with pytest.raises(NotImplementedError):
             tlm.model_spec(mcfg)
