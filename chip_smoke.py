@@ -5,9 +5,12 @@ Run from the repository root on a machine with the card:
 
     python3 chip_smoke.py
 
-It builds the hand-written kernels from ``src/repro_torch/kernels/csrc``,
-holds each kernel against its plain PyTorch version at the shapes the
-serving and training paths give it, then serves full-width qwen2-7b (28
+It builds the hand-written kernels from ``src/repro_torch/kernels/csrc``
+(printing each kernel's ptxas registers, static shared memory and
+spills), holds each kernel against its plain PyTorch version at the
+shapes the serving and training paths give it (K1 also at
+falcon-mamba-7b's in_proj and out_proj, and the tensor-core routes of K1
+and K7 also at ragged shapes), then serves full-width qwen2-7b (28
 layers, random weights from a seed) with r=384 DoRA adapters on all seven
 projections through ``repro_torch.launch.serve.generate``:
 
@@ -86,6 +89,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -197,6 +201,56 @@ def bound_ms(nbytes: float, ops_s: float) -> tuple[float, str]:
             "bytes" if t_bytes >= ops_s else "operations")
 
 
+def ptxas_report(log: str) -> list[str]:
+    """One line per compiled kernel from the build log's ``ptxas -v``
+    output: its name (and element type), registers, static shared
+    memory and spill bytes; and ptxas's performance warnings (a wgmma
+    serialised, for one)."""
+    types = {"If": "fp32", "I13__nv_bfloat16": "bf16", "I6__half": "fp16"}
+    out, name, spill = [], None, ""
+    for line in log.splitlines():
+        entry = re.search(r"entry function '_ZN([^']+)'", line)
+        if entry:
+            # A nested mangled name: <length><identifier> parts up to the
+            # kernel's own, then its template arguments, if any.
+            rest, parts = entry.group(1), []
+            while (part := re.match(r"(\d+)", rest)):
+                n = int(part.group(1))
+                parts.append(rest[len(part.group(1)):len(part.group(1)) + n])
+                rest = rest[len(part.group(1)) + n:]
+            tag = next((t for k, t in types.items()
+                        if rest.startswith(k + "E")), None)
+            name = (parts[-1] if parts else entry.group(1)) + (
+                f"<{tag}>" if tag else "")
+        elif "spill" in line:
+            spill = line.strip()
+        elif "Performance Loss" in line:
+            out.append(line.strip())
+        elif "registers" in line and name:
+            used = line.split(":", 1)[1].strip()
+            out.append(f"{name}: {used}; {spill}")
+            name = None
+    return out
+
+
+def split_sweep(module, plan_name: str, call, tiles: int, k: int,
+                tile_k: int) -> dict:
+    """ms of ``call()`` with the wrapper's split plan forced to 1-4 splits
+    of ``k`` (the evidence behind ``_build.split_plan``'s cost model);
+    keys are "splits/blocks"."""
+    plan = getattr(module, plan_name)
+    out = {}
+    try:
+        for want in (1, 2, 3, 4):
+            per = math.ceil(math.ceil(k / tile_k) / want) * tile_k
+            forced = (math.ceil(k / per), per)
+            setattr(module, plan_name, lambda *_: forced)
+            out[f"{forced[0]}/{forced[0] * tiles}"] = time_ms(call)
+    finally:
+        setattr(module, plan_name, plan)
+    return out
+
+
 def max_err(got, want) -> tuple[float, float]:
     """(max |got - want|, max |want|) in fp32."""
     g, w = got.float(), want.float()
@@ -229,23 +283,25 @@ def kernel_checks(dev) -> dict:
     rows = {name: [] for name in SOURCES}
 
     def record(name, shape, err, ref_max, rel, ms, plain, nbytes, ops_s,
-               lib_ms=None, lib_call=None, **extra):
+               lib_ms=None, lib_call=None, grid=None, **extra):
         tol = rel * ref_max
         b_ms, b_by = bound_ms(nbytes, ops_s)
         row = {"shape": shape, "max_abs_err": err, "tol": tol,
                "ms": ms, "plain_ms": plain, "bound_ms": b_ms,
                "bound_by": b_by, "library_ms": lib_ms,
-               "library_call": lib_call, **extra}
+               "library_call": lib_call, "grid": grid, **extra}
         rows[name].append(row)
         print(f"  {name} {shape}: err {err:.3g} (tol {tol:.3g}), "
               f"{ms:.4f} ms vs plain {plain:.4f} ms, bound {b_ms:.4f} ms "
               f"({b_by})" + (f", {lib_call} {lib_ms:.4f} ms"
-                             if lib_ms is not None else ""), flush=True)
+                             if lib_ms is not None else "")
+              + (f"; grid {grid}" if grid else ""), flush=True)
         check(err <= tol, f"{name} {shape}: max err {err} > tol {tol}")
 
-    # K1 and K2 on the wq, wk, w_gate and w_down weight shapes.
+    # K1 and K2 on the wq, wk, w_gate and w_down weight shapes, then on
+    # falcon-mamba-7b's in_proj and out_proj.
     for d_out, d_in in ((3584, 3584), (512, 3584), (18944, 3584),
-                        (3584, 18944)):
+                        (3584, 18944), (16384, 4096), (4096, 8192)):
         W = randn(d_out, d_in, scale=d_in ** -0.5)
         A = ((torch.rand((RANK, d_in), generator=gen, device=dev) * 2 - 1)
              * d_in ** -0.5).to(bf)
@@ -261,11 +317,24 @@ def kernel_checks(dev) -> dict:
             + 2 * d_out * 4
         ops_s = (2 * d_out * d_in * RANK) / PEAK_OPS[bf] \
             + (2 * d_out * d_in + 2 * d_out * RANK) / F32_OPS
+        splits, split_k = kn.norm_terms_split(d_out, d_in, RANK)
+        tiles = math.ceil(RANK / kn.TILE_RANK) * math.ceil(d_out /
+                                                            kn.TILE_ROWS)
+        grid = (f"{math.ceil(RANK / kn.TILE_RANK)} rank x "
+                f"{math.ceil(d_out / kn.TILE_ROWS)} row tiles x {splits} "
+                f"d_in splits of {split_k} = {tiles * splits} blocks")
+        sweep = split_sweep(kn, "norm_terms_split",
+                            lambda: kn.norm_terms(W, A, B), tiles, d_in,
+                            kn.TILE_K)
+        print(f"  norm_terms [{d_out}, {d_in}] ms by splits/blocks: {sweep}")
         record("norm_terms", [d_out, d_in, RANK], max(e1, e2), max(m1, m2),
                1e-4, time_ms(lambda: kn.norm_terms(W, A, B)),
                time_ms(lambda: kn.norm_terms_plain(W, A, B)), nbytes, ops_s,
-               time_ms(lambda: W @ A.T), "W @ A.T",
-               base_sq_rel_err=e1 / m1, cross_rel_err=e2 / m2)
+               time_ms(lambda: W @ A.T), "W @ A.T", grid,
+               base_sq_rel_err=e1 / m1, cross_rel_err=e2 / m2,
+               splits=splits, split_sweep_ms=sweep,
+               deterministic=bool(all(torch.equal(x, y) for x, y in zip(
+                   (base, cross), kn.norm_terms(W, A, B)))))
         A32, B32 = A.float(), B.float()
         ba = ((B32 @ (A32 @ A32.T)) * B32).sum(dim=1)
         out = ka.assemble_norm(pb, pc, ba, s)
@@ -357,17 +426,58 @@ def kernel_checks(dev) -> dict:
         e2, m2 = max_err(d_h, ref_h)
         check(torch.equal(d_base, ref_b), f"compose_mm_bwd [{m}, {n}]: "
               f"d_base differs from the plain version (err {e1})")
-        # d_h: fp32 sums of N products in another order than cuBLAS's,
-        # 1e-4 of the largest |d_h|; d_base must be bitwise equal.
+        # d_h: fp32 sums of N products (of t's bf16 hi and lo parts) in
+        # another order than cuBLAS's, 1e-4 of the largest |d_h|; d_base
+        # must be bitwise equal. The kernel runs two bf16 products (hi·B
+        # and lo·B), so its bound counts both.
         dys = (dy.float() * gs).to(dy.dtype)
+        splits, split_n = kc.compose_mm_bwd_split(m, n, RANK)
+        tiles = (math.ceil(RANK / kc.MM_BWD_TILE_RANK)
+                 * math.ceil(m / kc.MM_BWD_TILE_ROWS))
+        grid = (f"{math.ceil(RANK / kc.MM_BWD_TILE_RANK)} rank x "
+                f"{math.ceil(m / kc.MM_BWD_TILE_ROWS)} row tiles x {splits} "
+                f"N splits of {split_n} = {tiles * splits} blocks")
+        sweep = split_sweep(kc, "compose_mm_bwd_split",
+                            lambda: kc.compose_mm_bwd(dy, B, gm1, gs), tiles,
+                            n, kc.MM_BWD_TILE_K)
+        print(f"  compose_mm_bwd [{m}, {n}] ms by splits/blocks: {sweep}")
         record("compose_mm_bwd", [m, n, RANK], e2, m2, 1e-4,
                time_ms(lambda: kc.compose_mm_bwd(dy, B, gm1, gs)),
                time_ms(lambda: kc.compose_mm_bwd_plain(dy, B, gm1, gs)),
                2 * m * n * esz + n * RANK * esz + m * RANK * 4 + 2 * n * 4,
-               2 * m * n * RANK / PEAK_OPS[bf] + 2 * m * n / F32_OPS,
+               2 * 2 * m * n * RANK / PEAK_OPS[bf] + 3 * m * n / F32_OPS,
                time_ms(lambda: dys @ B), "(dY*gs) @ B, bf16 product only",
-               d_base_bitwise_equal_plain=True)
+               grid, d_base_bitwise_equal_plain=True, splits=splits,
+               split_sweep_ms=sweep,
+               deterministic=bool(torch.equal(
+                   d_h, kc.compose_mm_bwd(dy, B, gm1, gs)[1])))
         del dy, base, B, d_base, d_h, ref_b, ref_h, dys
+
+    # The tensor-core routes of K1 and K7 at ragged shapes (row, rank and
+    # k edges inside a tile, many splits), against the plain versions.
+    for d_out, d_in, r in ((1000, 1064, 40), (130, 200, 136)):
+        W = randn(d_out, d_in, scale=d_in ** -0.5)
+        A = randn(r, d_in, scale=d_in ** -0.5)
+        B = randn(d_out, r, scale=0.02)
+        got, want = kn.norm_terms(W, A, B), kn.norm_terms_plain(W, A, B)
+        for g, w in zip(got, want):
+            e, mx = max_err(g, w)
+            check(e <= 1e-4 * mx, f"norm_terms ragged [{d_out}, {d_in}, "
+                  f"{r}]: err {e} > {1e-4 * mx}")
+    for m, n, r in ((100, 1064, 40), (130, 3584, 200)):
+        dy = randn(m, n)
+        B = randn(n, r, scale=0.02)
+        gm1 = randn(n, scale=0.05, dtype=torch.float32)
+        gs = (gm1 + 1.0) * s
+        (d_base, d_h), (ref_b, ref_h) = (kc.compose_mm_bwd(dy, B, gm1, gs),
+                                         kc.compose_mm_bwd_plain(dy, B, gm1,
+                                                                 gs))
+        e, mx = max_err(d_h, ref_h)
+        check(torch.equal(d_base, ref_b) and e <= 1e-4 * mx,
+              f"compose_mm_bwd ragged [{m}, {n}, {r}]: d_h err {e} "
+              f"(tol {1e-4 * mx}), d_base bitwise "
+              f"{torch.equal(d_base, ref_b)}")
+    print("  norm_terms, compose_mm_bwd at ragged shapes: ok", flush=True)
 
     # K8 at the paged engine's decode and chunk-step shapes: a pool of
     # 512 blocks of [16, 4 KV heads x 128] and tables of max_len / 16 = 128
@@ -1167,7 +1277,9 @@ def _steps_on(dev, mcfg, params, adapters, dcfg, batches, name):
 def _kernel_family(name: str) -> str:
     """A coarse class of a device kernel's name, for the step profile."""
     for ours in SOURCES:
-        if ours + "_kernel" in name:
+        # A kernel's main and tensor-core launches, and its split sum.
+        if any(f"{ours}{part}_kernel" in name
+               for part in ("", "_mma", "_sum")):
             return ours
     low = name.lower()
     for family, keys in (("gemm", ("gemm", "xmma", "cutlass", "matmul")),
@@ -1609,9 +1721,8 @@ def main() -> int:
     _build.library()
     print(f"build: {time.perf_counter() - t0:.1f} s -> "
           f"{lib.relative_to(root)}", flush=True)
-    for line in lib.with_suffix(".log").read_text().splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"  {line.strip()}")
+    for line in ptxas_report(lib.with_suffix(".log").read_text()):
+        print(f"  {line}")
 
     print("kernels vs plain versions:", flush=True)
     rows = kernel_checks(dev)

@@ -39,18 +39,61 @@ _F = ctypes.c_float
 _L = ctypes.c_longlong
 # C signatures of the entry points: (argtypes, restype).
 _SIGNATURES = {
-    "norm_terms": ((_P, _P, _P, _P, _P, _I, _I, _I, _I, _P), _I),
+    "norm_terms": ((_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P), _I),
     "assemble_norm": ((_P, _P, _P, _P, _I, _F, _F, _P), _I),
     "compose_fwd": ((_P, _P, _P, _P, _L, _I, _F, _I, _I, _P), _I),
     "compose_fwd_dual": ((_P, _P, _P, _P, _P, _L, _I, _F, _I, _I, _P), _I),
     "compose_bwd": ((_P, _P, _P, _P, _P, _L, _I, _I, _I, _P), _I),
     "compose_mm_fwd": ((_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P), _I),
-    "compose_mm_bwd": ((_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P), _I),
+    "compose_mm_bwd": ((_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+                       _I),
     "paged_gather": ((_P, _P, _P, _L, _L, _L, _P), _I),
     "selective_scan": ((_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
                        _I),
     "runtime_error_string": ((_I,), ctypes.c_char_p),
 }
+
+
+# SMs a split grid fills: the H100's 132, one resident block each (the
+# tensor-core kernels' shared memory allows no second).
+SMS = 132
+# A block's fixed cost in k-tiles of work (filling its pipeline, folding
+# or writing its output tile, writing its partials), fitted to the split
+# sweep that chip_smoke.py times on the H100.
+BLOCK_COST = 16
+
+
+def cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@functools.cache
+def split_plan(tiles: int, k: int, tile_k: int) -> tuple[int, int]:
+    """(splits, split_len) for a grid of ``tiles`` output tiles that sums
+    over an axis of length ``k`` > 0, cut into contiguous ranges of
+    ``split_len``, a multiple of ``tile_k`` (the last range may be
+    shorter). Among the cuts that put a block on each of the :data:`SMS`
+    SMs (or, where none can, among all), it takes the one whose grid ends
+    soonest when blocks run in waves of :data:`SMS`: waves x (k-tiles a
+    block + :data:`BLOCK_COST`), fewer splits on a tie."""
+    k_tiles = cdiv(k, tile_k)
+
+    def rank(per):                      # per: k-tiles a split
+        blocks = tiles * cdiv(k_tiles, per)
+        return (blocks < SMS, cdiv(blocks, SMS) * (per + BLOCK_COST),
+                -per)
+
+    per = min(range(1, k_tiles + 1), key=rank)
+    return cdiv(k_tiles, per), per * tile_k
+
+
+def tensor_cores(*tensors: torch.Tensor, dims=()) -> bool:
+    """Whether operands can take a bf16 tensor-core kernel: bf16, every
+    pointer 16-byte aligned and every dimension in ``dims`` (the
+    contiguous ones, copied in 16-byte chunks) a multiple of 8."""
+    return (tensors[0].dtype == torch.bfloat16
+            and all(t.data_ptr() % 16 == 0 for t in tensors)
+            and all(d % 8 == 0 for d in dims))
 
 
 def sources() -> list[Path]:

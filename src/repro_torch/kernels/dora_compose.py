@@ -15,7 +15,10 @@
     ``csrc/compose_mm.cu``). r is taken as given, without padding.
   - K7 :func:`compose_mm_bwd` replaces ``dora_compose.py:239
     compose_mm_bwd_pallas``: d_base = gm1⊙dY and the fp32
-    d_h = (gs⊙dY)·B in one pass over dY (kernel: ``csrc/compose_mm_bwd.cu``).
+    d_h = (gs⊙dY)·B in one pass over dY (kernel: ``csrc/compose_mm_bwd.cu``;
+    bf16 runs on the tensor cores with N split across blocks,
+    :func:`compose_mm_bwd_split`, and the partials summed in a fixed
+    order).
 
 gm1 = g − 1 and gs = g·s are fp32 [N] vectors formed outside the kernels.
 CUDA tensors launch the kernel or raise; CPU tensors run the plain
@@ -29,6 +32,10 @@ from repro_torch.core.compose import f32
 from repro_torch.kernels import _build
 
 _F32 = torch.float32
+
+# K7's tensor-core block tile (csrc/compose_mm_bwd.cu, namespace k7): rows
+# of dY, rank columns, and the depth (columns of dY) of one staged tile.
+MM_BWD_TILE_ROWS, MM_BWD_TILE_RANK, MM_BWD_TILE_K = 128, 192, 64
 
 
 def _compose_plain(base, lora32, gm1, s: float, *, inner: bool = False):
@@ -66,6 +73,13 @@ def compose_mm_bwd_plain(dy, B, gm1, gs):
     dy32 = dy.to(_F32)
     return ((gm1.to(_F32) * dy32).to(dy.dtype),
             (gs.to(_F32) * dy32) @ B.to(_F32))
+
+
+def compose_mm_bwd_split(m: int, n: int, r: int) -> tuple[int, int]:
+    """(splits, split_n) of N for K7's tensor-core kernel."""
+    tiles = (_build.cdiv(m, MM_BWD_TILE_ROWS)
+             * _build.cdiv(r, MM_BWD_TILE_RANK))
+    return _build.split_plan(tiles, n, MM_BWD_TILE_K)
 
 
 def _check_vec(kernel, v, n, name="gm1"):
@@ -236,10 +250,17 @@ def compose_mm_bwd(dy, B, gm1, gs):
     d_h = torch.empty((m, r), dtype=_F32, device=dy.device)
     if dy.numel() == 0:
         return d_base, d_h.zero_()
+    split_n, scratch = 0, None
+    if _build.tensor_cores(dy, B, gm1, gs, d_base, dims=(n, r)):
+        splits, split_n = compose_mm_bwd_split(m, n, r)
+        if splits > 1:
+            scratch = torch.empty((splits, m, r), dtype=_F32,
+                                  device=dy.device)
     rc = _build.library().compose_mm_bwd(
         dy.data_ptr(), B.data_ptr(), gm1.data_ptr(), gs.data_ptr(),
-        d_base.data_ptr(), d_h.data_ptr(), m, n, r, code,
-        _build.stream_of(dy))
+        d_base.data_ptr(), d_h.data_ptr(),
+        None if scratch is None else scratch.data_ptr(), m, n, r, split_n,
+        code, _build.stream_of(dy))
     _build.check(rc, "compose_mm_bwd")
     compose_mm_bwd.launches += 1
     return d_base, d_h

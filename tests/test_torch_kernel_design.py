@@ -1,0 +1,161 @@
+"""The numerical design of the tensor-core K1 and K7, checked on the CPU.
+
+The CUDA kernels run only on the card (chip_smoke.py holds them against
+their plain versions there). What can be held here is the plan and the
+arithmetic they carry out:
+
+- the split of the long reduction axis fills the H100's 132 SMs at the
+  shapes the main paths give each kernel, in ranges of whole k-tiles;
+- K1's decomposition, bf16 products summed in fp32 per d_in split and per
+  rank tile, the partials then summed in a fixed order, stays within
+  1e-4 of max of the reference's Pallas kernel (interpret mode);
+- K7's hi/lo split of the fp32 operand t = gs⊙dY keeps d_h within 1e-5 of
+  max |d_h| of the reference's Pallas kernel, with gs spanning 1e-3–1e1,
+  where rounding t to bf16 alone lands near 1e-3.
+
+The emulations below repeat the kernels' arithmetic in torch on the CPU;
+they are not part of the package.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import dora_compose as jk_compose
+from repro.kernels.factored_norm import norm_terms_pallas
+from repro_torch.kernels import _build
+from repro_torch.kernels import dora_compose as tk_compose
+from repro_torch.kernels import factored_norm as tk_norm
+
+SMS = _build.SMS
+BF16 = torch.bfloat16
+
+
+@pytest.mark.parametrize("d_out,d_in", [
+    (3584, 3584), (512, 3584), (18944, 3584), (3584, 18944),   # qwen2-7b
+    (16384, 4096), (4096, 8192)])                 # falcon-mamba-7b in/out
+def test_norm_terms_split_fills_the_card(d_out, d_in):
+    r = 384
+    splits, split_k = tk_norm.norm_terms_split(d_out, d_in, r)
+    tiles = (_build.cdiv(d_out, tk_norm.TILE_ROWS)
+             * _build.cdiv(r, tk_norm.TILE_RANK))
+    assert split_k % tk_norm.TILE_K == 0
+    assert splits == _build.cdiv(d_in, split_k)
+    assert (splits - 1) * split_k < d_in <= splits * split_k
+    assert tiles * splits >= SMS or split_k == tk_norm.TILE_K
+
+
+@pytest.mark.parametrize("m,n", [(4096, 18944), (4096, 3584)])
+def test_compose_mm_bwd_split_fills_the_card(m, n):
+    r = 384
+    splits, split_n = tk_compose.compose_mm_bwd_split(m, n, r)
+    tiles = (_build.cdiv(m, tk_compose.MM_BWD_TILE_ROWS)
+             * _build.cdiv(r, tk_compose.MM_BWD_TILE_RANK))
+    assert split_n % tk_compose.MM_BWD_TILE_K == 0
+    assert splits == _build.cdiv(n, split_n) > 1
+    assert tiles * splits >= SMS
+
+
+def test_split_plan_avoids_a_ragged_second_wave():
+    # Two full waves of whole-axis blocks beat four waves of halves.
+    assert _build.split_plan(2 * SMS, 4096, 64) == (1, 4096)
+    # 56 tiles: 3 splits (168 blocks) would leave a second wave of 36
+    # blocks; 4 splits give two waves of 112.
+    assert _build.split_plan(56, 3584, 64) == (4, 896)
+    # One tile and a short axis: one k-tile a split, the last ragged.
+    assert _build.split_plan(1, 72, 32) == (3, 32)
+
+
+def _bf16_np(rng, shape, scale):
+    x = (rng.standard_normal(shape) * scale).astype(np.float32)
+    return torch.from_numpy(x).to(BF16)
+
+
+def _emulate_norm_terms(W, A, B):
+    """K1's arithmetic: per d_in split and per rank tile, exact bf16
+    products summed in fp32 (U never leaves the block) and folded with B;
+    then the partials summed in (split, rank tile) order."""
+    d_out, d_in = W.shape
+    r = A.shape[0]
+    splits, split_k = tk_norm.norm_terms_split(d_out, d_in, r)
+    W32, A32, B32 = W.float(), A.float(), B.float()
+    base = torch.zeros(d_out)
+    cross = torch.zeros(d_out)
+    for s in range(splits):
+        ks = slice(s * split_k, min(d_in, (s + 1) * split_k))
+        base = base + (W32[:, ks] * W32[:, ks]).sum(dim=1)
+        for c0 in range(0, r, tk_norm.TILE_RANK):
+            cs = slice(c0, min(r, c0 + tk_norm.TILE_RANK))
+            U = W32[:, ks] @ A32[cs, ks].T
+            cross = cross + (B32[:, cs] * U).sum(dim=1)
+    return base, cross, splits
+
+
+@pytest.mark.parametrize("d_out,d_in,r", [(256, 1024, 136), (384, 512, 64)])
+def test_norm_terms_split_arithmetic_matches_pallas(d_out, d_in, r):
+    rng = np.random.default_rng(d_in + r)
+    W = _bf16_np(rng, (d_out, d_in), d_in ** -0.5)
+    A = _bf16_np(rng, (r, d_in), d_in ** -0.5)
+    B = _bf16_np(rng, (d_out, r), 0.1)
+    base, cross, splits = _emulate_norm_terms(W, A, B)
+    assert splits > 1
+    # The Pallas kernel takes r padded to the sublane size (zeros).
+    rp = -(-r // 8) * 8
+    f32 = lambda t: t.float().numpy()
+    jb, jc = norm_terms_pallas(
+        jnp.asarray(f32(W), jnp.bfloat16),
+        jnp.asarray(np.pad(f32(A), ((0, rp - r), (0, 0))), jnp.bfloat16),
+        jnp.asarray(np.pad(f32(B), ((0, 0), (0, rp - r))), jnp.bfloat16),
+        block_rows=128, block_k=128, interpret=True)
+    for got, want in ((base, jb), (cross, jc)):
+        want = np.asarray(want, np.float32)
+        err = np.abs(got.numpy() - want).max()
+        assert err <= 1e-4 * np.abs(want).max(), err
+
+
+def _emulate_compose_mm_bwd(dy, B, gs, *, lo: bool = True):
+    """K7's arithmetic for d_h: t = gs·dY rounded in fp32, hi = bf16(t),
+    lo = bf16(t − hi), exact bf16 products of hi and lo with B summed in
+    fp32 per N split, the splits summed in order."""
+    m, n = dy.shape
+    r = B.shape[1]
+    splits, split_n = tk_compose.compose_mm_bwd_split(m, n, r)
+    t = gs * dy.float()
+    hi = t.to(BF16).float()
+    lo_part = (t - hi).to(BF16).float()
+    B32 = B.float()
+    d_h = torch.zeros(m, r)
+    for s in range(splits):
+        ks = slice(s * split_n, min(n, (s + 1) * split_n))
+        part = hi[:, ks] @ B32[ks]
+        if lo:
+            part = part + lo_part[:, ks] @ B32[ks]
+        d_h = d_h + part
+    return d_h, splits
+
+
+@pytest.mark.parametrize("m,n,r", [(64, 1024, 64), (40, 512, 136)])
+def test_compose_mm_bwd_hi_lo_matches_pallas(m, n, r):
+    rng = np.random.default_rng(m + n)
+    dy = _bf16_np(rng, (m, n), 1.0)
+    B = _bf16_np(rng, (n, r), 0.1)
+    # gs from 1e-3 to 1e1, log-uniform.
+    gs = (10.0 ** rng.uniform(-3.0, 1.0, n)).astype(np.float32)
+    gm1 = (0.05 * rng.standard_normal(n)).astype(np.float32)
+    rp = -(-r // 128) * 128
+    B_np = B.float().numpy()
+    _, want = jk_compose.compose_mm_bwd_pallas(
+        jnp.asarray(dy.float().numpy(), jnp.bfloat16),
+        jnp.asarray(np.pad(B_np, ((0, 0), (0, rp - r))), jnp.bfloat16),
+        jnp.asarray(gm1[None]), jnp.asarray(gs[None]), block_m=8,
+        block_n=128, interpret=True)
+    want = np.asarray(want, np.float32)[:, :r]
+    scale = np.abs(want).max()
+    got, splits = _emulate_compose_mm_bwd(dy, B, torch.from_numpy(gs))
+    assert splits > 1
+    err = np.abs(got.numpy() - want).max()
+    assert err <= 1e-5 * scale, err / scale
+    hi_only, _ = _emulate_compose_mm_bwd(dy, B, torch.from_numpy(gs),
+                                         lo=False)
+    print(f"hi only: {np.abs(hi_only.numpy() - want).max() / scale:.3g} "
+          f"of max |d_h|; hi + lo: {err / scale:.3g}")
