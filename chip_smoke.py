@@ -7,16 +7,20 @@ Run from the repository root on a machine with the card:
 
 It builds the hand-written kernels from ``src/repro_torch/kernels/csrc``
 (printing each kernel's ptxas registers, static shared memory and
-spills), holds each kernel against its plain PyTorch version at the
-shapes the serving and training paths give it (K1 also at
-falcon-mamba-7b's in_proj and out_proj, and the tensor-core routes of K1
-and K7 also at ragged shapes), then serves full-width qwen2-7b (28
-layers, random weights from a seed) with r=384 DoRA adapters on all seven
-projections through ``repro_torch.launch.serve.generate``:
+spills; K6's tensor-core kernel must spill nothing), holds each kernel
+against its plain PyTorch version at the shapes the serving and training
+paths give it (K1 and K6 also at falcon-mamba-7b's in_proj and out_proj,
+every K6 shape on the tensor-core route with the same bits on a second
+call and its device time from the profiler, and the tensor-core routes
+of K1, K6 and K7 also at ragged shapes), printing each row's achieved
+GB/s beside its bound and library time, then serves full-width qwen2-7b
+(28 layers, random weights from a seed) with r=384 DoRA adapters on all
+seven projections through ``repro_torch.launch.serve.generate``:
 
   1. auto mode in bf16 (the main path): precompute, padded prefill of
      4 x 1024, 32 decode tokens; the kernel launch counts must be
-     K1 = K2 = 196, K6 = 140, K3 = 0;
+     K1 = K2 = 196, K6 = 140, K3 = 0, every K6 launch on the tensor-core
+     route (as on the training and Mamba main paths, 5 and M1);
   2. forced kernel mode (``mode="fused"``), a few decode tokens: K6 = 196
      per prefill and K3 = 196 per decode token;
   3. the paper's criterion, prefill logit cosine >= 0.9999, between the
@@ -167,6 +171,18 @@ def check(cond: bool, msg: str) -> None:
         raise RuntimeError(f"chip smoke check failed: {msg}")
 
 
+def check_k6_on_tensor_cores(mma_before: int, counts: dict,
+                             path: str) -> None:
+    """Every K6 launch of a main path since ``mma_before`` (the wrapper's
+    tensor-core count then) took the tensor-core kernel."""
+    from repro_torch.kernels import compose_mm_fwd
+
+    took = compose_mm_fwd.mma_launches - mma_before
+    check(took == counts["compose_mm_fwd"] > 0,
+          f"{path}: {took} of {counts['compose_mm_fwd']} K6 launches took "
+          f"the tensor-core route")
+
+
 def counts_of(**launched) -> dict:
     """Every kernel's expected launch count: the named ones, 0 for the
     rest."""
@@ -267,6 +283,7 @@ def cosine(a, b) -> float:
 # ---------------------------------------------------------------------------
 
 def kernel_checks(dev) -> dict:
+    from repro_torch.kernels import _build
     from repro_torch.kernels import dora_compose as kc
     from repro_torch.kernels import factored_norm as kn
     from repro_torch.kernels import norm_assembly as ka
@@ -286,15 +303,19 @@ def kernel_checks(dev) -> dict:
                lib_ms=None, lib_call=None, grid=None, **extra):
         tol = rel * ref_max
         b_ms, b_by = bound_ms(nbytes, ops_s)
+        # The bytes the function must move over the kernel's time.
+        gb_s = nbytes / ms / 1e6
         row = {"shape": shape, "max_abs_err": err, "tol": tol,
                "ms": ms, "plain_ms": plain, "bound_ms": b_ms,
                "bound_by": b_by, "library_ms": lib_ms,
-               "library_call": lib_call, "grid": grid, **extra}
+               "library_call": lib_call, "gb_s": gb_s, "grid": grid,
+               **extra}
         rows[name].append(row)
         print(f"  {name} {shape}: err {err:.3g} (tol {tol:.3g}), "
-              f"{ms:.4f} ms vs plain {plain:.4f} ms, bound {b_ms:.4f} ms "
-              f"({b_by})" + (f", {lib_call} {lib_ms:.4f} ms"
-                             if lib_ms is not None else "")
+              f"{ms:.4f} ms ({gb_s:.0f} GB/s) vs plain {plain:.4f} ms, "
+              f"bound {b_ms:.4f} ms ({b_by})"
+              + (f", {lib_call} {lib_ms:.4f} ms"
+                 if lib_ms is not None else "")
               + (f"; grid {grid}" if grid else ""), flush=True)
         check(err <= tol, f"{name} {shape}: max err {err} > tol {tol}")
 
@@ -365,15 +386,48 @@ def kernel_checks(dev) -> dict:
                bitwise_equal_plain=bool(torch.equal(out, ref)))
         del base, lora
 
-    # K6 at prefill rows on the d_out of wq/wo/w_down and of w_gate/w_up.
-    for m, n in ((4096, 3584), (4096, 18944)):
+    # K6 at prefill and training rows on the d_out of wq/wo/w_down and of
+    # w_gate/w_up, then at falcon-mamba-7b's prefill rows (4 x 960) on
+    # in_proj and out_proj: every main-path shape, each on the tensor-core
+    # route.
+    mm = kc.compose_mm_fwd
+    for m, n in ((4096, 3584), (4096, 18944), (BATCH * PROMPT, 16384),
+                 (BATCH * PROMPT, 4096)):
         base = randn(m, n)
         h = randn(m, RANK, scale=0.5)
         B = randn(n, RANK, scale=0.02)
         gm1 = randn(n, scale=0.05, dtype=torch.float32)
+        mma0 = mm.mma_launches
         out = kc.compose_mm_fwd(base, h, B, gm1, s)
+        check(mm.mma_launches == mma0 + 1,
+              f"compose_mm_fwd [{m}, {n}, {RANK}] did not take the "
+              f"tensor-core route")
         ref = kc.compose_mm_fwd_plain(base, h, B, gm1, s)
         e, mx = max_err(out, ref)
+        blocks = kc.compose_mm_fwd_blocks(m, n)
+        tiles = (math.ceil(m / kc.MM_FWD_TILE_ROWS)
+                 * math.ceil(n / kc.MM_FWD_TILE_COLS))
+        # The device time alone (the events above also time the wrapper's
+        # host side where the kernel is short), and the rate at which the
+        # tiles read h and B tiles from L2.
+        prof = profile(lambda: [kc.compose_mm_fwd(base, h, B, gm1, s)
+                                for _ in range(20)],
+                       f"compose_mm_fwd [{m}, {n}] x 20")
+        mine = [k for k in prof.get("top_kernels_ms", [])
+                if "compose_mm_fwd_mma_kernel" in k["name"]]
+        device_ms = mine[0]["ms"] / mine[0]["launches"] if mine else None
+        l2_bytes = tiles * (kc.MM_FWD_TILE_ROWS + kc.MM_FWD_TILE_COLS) \
+            * RANK * esz
+        # The first version's FMA kernel on the same inputs, in this call
+        # (the C entry point with blocks = 0; no wrapper, so uncounted).
+        fma_out = torch.empty_like(base)
+
+        def fma():
+            _build.check(_build.library().compose_mm_fwd(
+                base.data_ptr(), h.data_ptr(), B.data_ptr(), gm1.data_ptr(),
+                fma_out.data_ptr(), m, n, RANK, s, 0,
+                _build.DTYPE_CODE[bf], _build.stream_of(base)),
+                "compose_mm_fwd (FMA)")
         # lora is an fp32 sum in another order than cuBLAS's, then one
         # bf16 rounding: two bf16 ulps of the largest value.
         record("compose_mm_fwd", [m, n, RANK], e, mx, 2.0 ** -7,
@@ -381,8 +435,38 @@ def kernel_checks(dev) -> dict:
                time_ms(lambda: kc.compose_mm_fwd_plain(base, h, B, gm1, s)),
                2 * m * n * esz + (m + n) * RANK * esz + n * 4,
                2 * m * n * RANK / PEAK_OPS[bf] + 5 * m * n / F32_OPS,
-               time_ms(lambda: h @ B.T), "h @ B.T")
-        del base, h, B
+               time_ms(lambda: h @ B.T), "h @ B.T",
+               f"{blocks} persistent blocks over {tiles} tiles of "
+               f"[{kc.MM_FWD_TILE_ROWS} x {kc.MM_FWD_TILE_COLS}]",
+               route="wgmma", device_ms=device_ms, fma_ms=time_ms(fma),
+               l2_operand_gb_s=(l2_bytes / device_ms / 1e6
+                                if device_ms else None),
+               deterministic=bool(torch.equal(
+                   out, kc.compose_mm_fwd(base, h, B, gm1, s))))
+        row = rows["compose_mm_fwd"][-1]
+        print(f"    device {device_ms} ms, h and B tiles from L2 at "
+              f"{row['l2_operand_gb_s']} GB/s, first version (FMA) "
+              f"{row['fma_ms']:.4f} ms, deterministic "
+              f"{row['deterministic']}", flush=True)
+        del base, h, B, out, ref, fma_out
+
+    # The tensor-core route of K6 at ragged shapes: M and N inside a tile,
+    # r ending inside a k-tile (136) and below one (40).
+    for m, n, r in ((1000, 1000, 136), (130, 200, 40)):
+        base = randn(m, n)
+        h = randn(m, r, scale=0.5)
+        B = randn(n, r, scale=0.02)
+        gm1 = randn(n, scale=0.05, dtype=torch.float32)
+        mma0 = mm.mma_launches
+        out = kc.compose_mm_fwd(base, h, B, gm1, s)
+        took_mma = mm.mma_launches == mma0 + 1
+        e, mx = max_err(out, kc.compose_mm_fwd_plain(base, h, B, gm1, s))
+        same = torch.equal(out, kc.compose_mm_fwd(base, h, B, gm1, s))
+        check(took_mma and e <= 2.0 ** -7 * mx and same,
+              f"compose_mm_fwd ragged [{m}, {n}, {r}]: tensor-core route "
+              f"{took_mma}, err {e} (tol {2.0 ** -7 * mx}), deterministic "
+              f"{same}")
+    print("  compose_mm_fwd at ragged shapes: ok", flush=True)
 
     # K4, K5 and K7 at training rows (batch 2 x seq 2048) on the d_out of
     # w_gate/w_up and of wq/wo/w_down.
@@ -645,6 +729,7 @@ def serve_checks(dev) -> dict:
     torch.cuda.reset_peak_memory_stats(dev)
     stats: dict = {}
     kernels.reset_launch_counts()
+    mma0 = kernels.compose_mm_fwd.mma_launches
     toks, logits = serve.generate(
         mcfg, params, adapters, cfg["auto"], prompts, gen_len=GEN,
         max_len=MAX_LEN, device=dev, return_logits=True, stats=stats)
@@ -656,6 +741,7 @@ def serve_checks(dev) -> dict:
                                    assemble_norm=n_adapted,
                                    compose_mm_fwd=5 * mcfg.num_layers),
           f"auto-mode launch counts {auto_counts}")
+    check_k6_on_tensor_cores(mma0, auto_counts, "serve auto")
     check(tuple(toks.shape) == (BATCH, PROMPT + GEN), f"tokens {toks.shape}")
     check(all(torch.isfinite(lg.float()).all().item() for lg in logits),
           "non-finite logits in the auto run")
@@ -1383,7 +1469,9 @@ def train_checks(dev, mcfg, params, adapters) -> dict:
     elem = dataclasses.replace(auto, compose_matmul_fused=False)
 
     # --- 5: the training main path (auto mode, bf16) ---
+    mma0 = kernels.compose_mm_fwd.mma_launches
     t_auto = _steps_on(dev, mcfg, params, adapters, auto, batches, "auto")
+    check_k6_on_tensor_cores(mma0, t_auto["launches"], "train auto")
     want = counts_of(norm_terms=n_adapted, assemble_norm=n_adapted,
                      compose_mm_fwd=2 * 5 * L, compose_mm_bwd=5 * L)
     for i, got in enumerate(t_auto["launches_per_step"]):
@@ -1582,6 +1670,7 @@ def mamba_checks(dev) -> dict:
     torch.cuda.reset_peak_memory_stats(dev)
     stats: dict = {}
     kernels.reset_launch_counts()
+    mma0 = kernels.compose_mm_fwd.mma_launches
     toks, logits = serve.generate(
         mcfg, params, adapters, cfg["auto"], prompts, gen_len=GEN,
         max_len=max_len, device=dev, return_logits=True, stats=stats)
@@ -1591,6 +1680,7 @@ def mamba_checks(dev) -> dict:
     check(counts == counts_of(norm_terms=2 * L, assemble_norm=2 * L,
                               compose_mm_fwd=2 * L, selective_scan=L),
           f"mamba auto-mode launch counts {counts}")
+    check_k6_on_tensor_cores(mma0, counts, "serve mamba")
     check(tuple(toks.shape) == (BATCH, PROMPT + GEN), f"tokens {toks.shape}")
     check(all(torch.isfinite(lg.float()).all().item() for lg in logits),
           "non-finite logits in the mamba run")
@@ -1721,8 +1811,13 @@ def main() -> int:
     _build.library()
     print(f"build: {time.perf_counter() - t0:.1f} s -> "
           f"{lib.relative_to(root)}", flush=True)
-    for line in ptxas_report(lib.with_suffix(".log").read_text()):
+    ptxas = ptxas_report(lib.with_suffix(".log").read_text())
+    for line in ptxas:
         print(f"  {line}")
+    k6_ptxas = [ln for ln in ptxas
+                if ln.startswith("compose_mm_fwd_mma_kernel:")]
+    check(len(k6_ptxas) == 1 and " 0 bytes spill stores" in k6_ptxas[0],
+          f"compose_mm_fwd_mma_kernel's ptxas report: {k6_ptxas}")
 
     print("kernels vs plain versions:", flush=True)
     rows = kernel_checks(dev)
@@ -1764,7 +1859,11 @@ def main() -> int:
             "tol": top["tol"], "ms": top["ms"], "plain_ms": top["plain_ms"],
             "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
             "library_ms": top["library_ms"],
-            "library_call": top["library_call"], "at_shape": top["shape"]})
+            "library_call": top["library_call"], "at_shape": top["shape"],
+            "gb_s": top["gb_s"],
+            **({"device_ms": top["device_ms"], "fma_ms": top["fma_ms"],
+                "deterministic": top["deterministic"], "ptxas": k6_ptxas[0]}
+               if name == "compose_mm_fwd" else {})})
     train_summary = {
         k: {f: trained[k][f] for f in ("step_ms", "grad_ms", "optim_ms",
                                        "tokens_per_s",

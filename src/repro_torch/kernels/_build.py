@@ -44,7 +44,8 @@ _SIGNATURES = {
     "compose_fwd": ((_P, _P, _P, _P, _L, _I, _F, _I, _I, _P), _I),
     "compose_fwd_dual": ((_P, _P, _P, _P, _P, _L, _I, _F, _I, _I, _P), _I),
     "compose_bwd": ((_P, _P, _P, _P, _P, _L, _I, _I, _I, _P), _I),
-    "compose_mm_fwd": ((_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P), _I),
+    "compose_mm_fwd": ((_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _P),
+                       _I),
     "compose_mm_bwd": ((_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
                        _I),
     "paged_gather": ((_P, _P, _P, _L, _L, _L, _P), _I),

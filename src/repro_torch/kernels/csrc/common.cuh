@@ -1,7 +1,9 @@
 // Shared pieces of the port's hand-written Hopper kernels: dtype
 // conversion, the pinned-order compose epilogue, and the FMA tile product
-// that the factored-norm kernel (norm_terms.cu) and the matmul-fused
-// compose (compose_mm.cu) both run.
+// that only the fp32/fp16 routes (and bf16 operands the tensor-core
+// routes do not take) of the factored-norm kernel (norm_terms.cu) and the
+// matmul-fused compose (compose_mm.cu) still run; their bf16 products
+// are warpgroup MMAs (wgmma.cuh).
 //
 // Built with nvcc for sm_90a into one shared library with a plain C
 // interface (see ../_build.py). Every entry point launches on the stream it

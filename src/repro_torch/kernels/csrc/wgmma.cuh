@@ -1,9 +1,10 @@
 // Hopper tensor-core building blocks of the bf16 kernels (norm_terms.cu,
-// compose_mm_bwd.cu): 16-byte cp.async copies into shared memory, the
-// 128-byte swizzle of a shared-memory tile, its wgmma matrix descriptor,
-// and the warpgroup MMA m64n192k16 with bf16 operands and fp32
+// compose_mm.cu, compose_mm_bwd.cu): 16-byte cp.async copies into shared
+// memory, the 128-byte swizzle of a shared-memory tile, its wgmma matrix
+// descriptor, the warpgroup MMA m64n192k16 with bf16 operands and fp32
 // accumulators (PTX ISA 8, "Asynchronous warpgroup level matrix
-// instructions"; sm_90a only).
+// instructions"; sm_90a only), and the TMA copies and mbarriers that
+// compose_mm.cu's pipeline runs on.
 //
 // A warpgroup (4 warps) runs one wgmma for a 64 x 192 product over 16 k,
 // both operands read by the tensor cores from shared memory. Its fp32
@@ -14,7 +15,9 @@
 // Shared-memory tiles use the 128-byte swizzle: a row of the tile is 128
 // bytes (64 bf16), 8 rows form a 1 KB atom, and the 16-byte chunk c of row
 // `row` sits at chunk c ^ (row % 8), so 8 lanes reading one chunk column
-// hit 8 different banks. An atom must start on a 1 KB boundary.
+// hit 8 different banks. An atom must start on a 1 KB boundary. A TMA
+// copy through a tensor map made with CU_TENSOR_MAP_SWIZZLE_128B writes
+// (and a TMA store reads) a box of 64 columns in exactly this layout.
 // - K-major operand (rows along M or N, 64 k per row): 8-row groups are
 //   1 KB apart (the descriptor's stride offset); the next 16 k start 32
 //   bytes further.
@@ -124,6 +127,107 @@ __device__ __forceinline__ void wgmma_m64n192k16(float (&d)[96], uint64_t da,
         "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
         "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
       : "l"(da), "l"(db), "r"(1), "n"(TRANS_B));
+}
+
+// ---------------------------------------------------------------------------
+// TMA copies and mbarriers. A TMA load copies one 2-D box of a tensor map
+// (a __grid_constant__ kernel parameter) into shared memory and counts its
+// bytes on an mbarrier; a TMA store copies a box back and joins the
+// issuing thread's bulk group. Boxes reaching past the tensor's edge load
+// zeros there and store nothing there. Each copy carries an L2 eviction
+// priority (the createpolicy encodings that CUTLASS's CacheHintSm90
+// names): data read once goes first, operands read by many blocks last.
+// ---------------------------------------------------------------------------
+
+constexpr uint64_t L2_EVICT_FIRST = 0x12F0000000000000ull;
+constexpr uint64_t L2_EVICT_LAST = 0x14F0000000000000ull;
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+
+// Make initialised mbarriers visible to the async proxy; a barrier after
+// it covers the other threads.
+__device__ __forceinline__ void fence_mbar_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
+// Arrive and add `bytes` to the transaction count the current phase waits
+// for (the TMA loads then count them down).
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// Wait until the phase of parity `parity` has completed (a fresh barrier
+// is in phase 0, so waiting on parity 1 passes at once). A wait that lasts
+// about 10 s (2e10 cycles) traps, so a lost arrival fails the launch
+// instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  long long start = -1;
+  for (;;) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (start < 0) start = clock64();
+    else if (clock64() - start > 20000000000LL) __trap();
+  }
+}
+
+// Box (x = column, y = row) of tensor map `map` into shared memory at
+// `dst`, counted on `bar`.
+__device__ __forceinline__ void tma_load_2d(void* dst, const void* map,
+                                            uint64_t* bar, int x, int y,
+                                            uint64_t l2_policy) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes.L2::cache_hint [%0], [%1, {%3, %4}], [%2], %5;\n" ::"r"(
+          smem_addr(dst)),
+      "l"(map), "r"(smem_addr(bar)), "r"(x), "r"(y), "l"(l2_policy)
+      : "memory");
+}
+
+// Shared memory at `src` to box (x, y) of tensor map `map`.
+__device__ __forceinline__ void tma_store_2d(const void* map,
+                                             const void* src, int x, int y,
+                                             uint64_t l2_policy) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group.L2::cache_hint"
+      " [%0, {%2, %3}], [%1], %4;\n" ::"l"(map),
+      "r"(smem_addr(src)), "r"(x), "r"(y), "l"(l2_policy)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N of this thread's bulk groups still read shared
+// memory (READ) or are still in flight at all.
+template <int N, bool READ>
+__device__ __forceinline__ void bulk_wait() {
+  if (READ)
+    asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+  else
+    asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 }  // namespace tc

@@ -12,7 +12,10 @@
   - K6 :func:`compose_mm_fwd` replaces ``dora_compose.py:211
     compose_mm_fwd_pallas``: the compose with lora = h·Bᵀ computed inside
     the kernel, so the [M, N] y_lora is never written (kernel:
-    ``csrc/compose_mm.cu``). r is taken as given, without padding.
+    ``csrc/compose_mm.cu``). r is taken as given, without padding. bf16
+    runs on the tensor cores: a persistent grid
+    (:func:`compose_mm_fwd_blocks`) of [128 x 192] output tiles, fed and
+    drained by TMA, each tile written by one block.
   - K7 :func:`compose_mm_bwd` replaces ``dora_compose.py:239
     compose_mm_bwd_pallas``: d_base = gm1⊙dY and the fp32
     d_h = (gs⊙dY)·B in one pass over dY (kernel: ``csrc/compose_mm_bwd.cu``;
@@ -32,6 +35,10 @@ from repro_torch.core.compose import f32
 from repro_torch.kernels import _build
 
 _F32 = torch.float32
+
+# K6's tensor-core output tile (csrc/compose_mm.cu, namespace k6): rows
+# and columns of delta.
+MM_FWD_TILE_ROWS, MM_FWD_TILE_COLS = 128, 192
 
 # K7's tensor-core block tile (csrc/compose_mm_bwd.cu, namespace k7): rows
 # of dY, rank columns, and the depth (columns of dY) of one staged tile.
@@ -73,6 +80,15 @@ def compose_mm_bwd_plain(dy, B, gm1, gs):
     dy32 = dy.to(_F32)
     return ((gm1.to(_F32) * dy32).to(dy.dtype),
             (gs.to(_F32) * dy32) @ B.to(_F32))
+
+
+def compose_mm_fwd_blocks(m: int, n: int) -> int:
+    """Blocks of K6's persistent tensor-core grid: one per SM, at most one
+    per output tile. Block b writes tiles b, b + blocks, b + 2·blocks, ...
+    of the row-major [128 x 192] tiling of [M, N]."""
+    tiles = _build.cdiv(m, MM_FWD_TILE_ROWS) * _build.cdiv(n,
+                                                            MM_FWD_TILE_COLS)
+    return min(_build.SMS, tiles)
 
 
 def compose_mm_bwd_split(m: int, n: int, r: int) -> tuple[int, int]:
@@ -223,15 +239,23 @@ def compose_mm_fwd(base, h, B, gm1, s: float):
     out = torch.empty_like(base)
     if base.numel() == 0:
         return out
+    blocks = 0
+    if _build.tensor_cores(base, h, B, gm1, out, dims=(n, r)):
+        blocks = compose_mm_fwd_blocks(m, n)
     rc = _build.library().compose_mm_fwd(
         base.data_ptr(), h.data_ptr(), B.data_ptr(), gm1.data_ptr(),
-        out.data_ptr(), m, n, r, f32(s), code, _build.stream_of(base))
+        out.data_ptr(), m, n, r, f32(s), blocks, code,
+        _build.stream_of(base))
     _build.check(rc, "compose_mm_fwd")
     compose_mm_fwd.launches += 1
+    if blocks:
+        compose_mm_fwd.mma_launches += 1
     return out
 
 
 compose_mm_fwd.launches = 0
+# Of those launches, the ones that took the tensor-core kernel.
+compose_mm_fwd.mma_launches = 0
 
 
 @torch.no_grad()

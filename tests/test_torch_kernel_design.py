@@ -1,4 +1,5 @@
-"""The numerical design of the tensor-core K1 and K7, checked on the CPU.
+"""The numerical design of the tensor-core K1, K6 and K7, checked on the
+CPU.
 
 The CUDA kernels run only on the card (chip_smoke.py holds them against
 their plain versions there). What can be held here is the plan and the
@@ -11,7 +12,14 @@ arithmetic they carry out:
   1e-4 of max of the reference's Pallas kernel (interpret mode);
 - K7's hi/lo split of the fp32 operand t = gs⊙dY keeps d_h within 1e-5 of
   max |d_h| of the reference's Pallas kernel, with gs spanning 1e-3–1e1,
-  where rounding t to bf16 alone lands near 1e-3.
+  where rounding t to bf16 alone lands near 1e-3;
+- K6's persistent grid writes every [128 x 192] output tile exactly once
+  and gives every SM work at the main paths' shapes; its arithmetic, bf16
+  products summed in fp32 per 64-deep k-tile, then the compose in
+  compose_elem's order rounded to bf16 once, stays within 2^-7 of max
+  |delta| of the reference's Pallas kernel at ragged shapes; and the
+  operands the autograd Function hands it on the main paths qualify for
+  the tensor-core route.
 
 The emulations below repeat the kernels' arithmetic in torch on the CPU;
 they are not part of the package.
@@ -22,10 +30,12 @@ import pytest
 import torch
 
 from repro.kernels import dora_compose as jk_compose
+from repro.kernels import ops as jops
 from repro.kernels.factored_norm import norm_terms_pallas
 from repro_torch.kernels import _build
 from repro_torch.kernels import dora_compose as tk_compose
 from repro_torch.kernels import factored_norm as tk_norm
+from repro_torch.kernels import ops as tk_ops
 
 SMS = _build.SMS
 BF16 = torch.bfloat16
@@ -159,3 +169,101 @@ def test_compose_mm_bwd_hi_lo_matches_pallas(m, n, r):
                                          lo=False)
     print(f"hi only: {np.abs(hi_only.numpy() - want).max() / scale:.3g} "
           f"of max |d_h|; hi + lo: {err / scale:.3g}")
+
+
+# The main paths' K6 shapes: prefill and training rows on qwen2-7b's
+# w_gate/w_up and wq/wo/w_down, falcon-mamba-7b's prefill rows on in_proj
+# and out_proj.
+MM_FWD_SHAPES = [(4096, 18944), (4096, 3584), (3840, 16384), (3840, 4096)]
+
+
+@pytest.mark.parametrize("m,n", MM_FWD_SHAPES + [(200, 640), (5, 8)])
+def test_compose_mm_fwd_schedule_writes_every_tile_once(m, n):
+    """The kernel's walk, block b over tiles b, b + blocks, ...: each tile
+    of the row-major tiling once, every block (one per SM where there are
+    enough tiles) at least one."""
+    rows = _build.cdiv(m, tk_compose.MM_FWD_TILE_ROWS)
+    cols = _build.cdiv(n, tk_compose.MM_FWD_TILE_COLS)
+    tiles = rows * cols
+    blocks = tk_compose.compose_mm_fwd_blocks(m, n)
+    assert blocks == min(SMS, tiles)
+    seen = np.zeros((rows, cols), np.int64)
+    for b in range(blocks):
+        mine = range(b, tiles, blocks)
+        assert len(mine) >= 1
+        for t in mine:
+            seen[t // cols, t % cols] += 1
+    assert (seen == 1).all()
+    if (m, n) in MM_FWD_SHAPES:
+        assert blocks == SMS
+
+
+def _emulate_compose_mm_fwd(base, h, B, gm1, s):
+    """K6's tensor-core arithmetic: exact bf16 products summed in fp32 per
+    64-deep k-tile, the k-tiles added in order; then t = s·lora and
+    gm1·base + (gm1 + 1)·t in fp32 (no FMA), rounded to bf16 once."""
+    r = h.shape[1]
+    lora = torch.zeros(base.shape)
+    for k0 in range(0, r, 64):
+        ks = slice(k0, min(r, k0 + 64))
+        lora = lora + h[:, ks].float() @ B[:, ks].float().T
+    t = torch.tensor(s, dtype=torch.float32) * lora
+    return (gm1 * base.float() + (gm1 + 1.0) * t).to(BF16)
+
+
+@pytest.mark.parametrize("m,n,r", [(200, 640, 136), (130, 512, 384),
+                                   (64, 384, 72)])
+def test_compose_mm_fwd_mma_arithmetic_matches_pallas(m, n, r):
+    """Ragged shapes: M no multiple of 128, N no multiple of 192 (but of
+    the reference's 128 lanes), r = 136 ending inside a k-tile."""
+    rng = np.random.default_rng(m + n + r)
+    base = _bf16_np(rng, (m, n), 1.0)
+    h = _bf16_np(rng, (m, r), 0.5)
+    B = _bf16_np(rng, (n, r), 0.1)
+    g = (1.0 + 0.05 * rng.standard_normal(n)).astype(np.float32)
+    s = 1.25
+    gm1 = torch.from_numpy(g) - 1.0
+    got = _emulate_compose_mm_fwd(base, h, B, gm1, s)
+    want = jops.fused_compose_mm(
+        *(jnp.asarray(x.float().numpy(), jnp.bfloat16) for x in (base, h, B)),
+        jnp.asarray(g), s, mag_grad=False, block_m=64, block_n=128,
+        interpret=True)
+    want = np.asarray(want, np.float32)
+    err = np.abs(got.float().numpy() - want).max()
+    assert err <= 2.0 ** -7 * np.abs(want).max(), err
+    plain = tk_compose.compose_mm_fwd_plain(base, h, B, gm1, s)
+    err = (got.float() - plain.float()).abs().max().item()
+    assert err <= 2.0 ** -7 * plain.float().abs().max().item(), err
+
+
+@pytest.mark.parametrize("n", [3584, 512, 18944, 16384, 4096])
+def test_main_path_operands_qualify_for_the_mma_route(monkeypatch, n):
+    """The operands the autograd Function builds for K6 (base and h from
+    the layer's matmuls through ``_rows``, B one layer's slice of the
+    stacked adapters, gm1 from g) at r = 384: bf16, 16-byte aligned, N
+    and r multiples of 8."""
+    r, d_in = 384, 64
+    rng = np.random.default_rng(n)
+    x = _bf16_np(rng, (2, 3, d_in), 1.0)
+    A = _bf16_np(rng, (r, d_in), d_in ** -0.5)
+    W = _bf16_np(rng, (n, d_in), d_in ** -0.5)
+    B = _bf16_np(rng, (2, n, r), 0.02)[1]          # layer 1 of a stack
+    g = torch.ones(n, dtype=torch.float32)
+    seen = []
+
+    def capture(base, h, B_, gm1, s):
+        seen.append((base, h, B_, gm1, torch.empty_like(base)))
+        return tk_compose.compose_mm_fwd_plain(base, h, B_, gm1, s)
+
+    monkeypatch.setattr(tk_ops, "compose_mm_fwd", capture)
+    tk_ops.fused_compose_mm(x @ W.T, x @ A.T, B, g, 2.0, mag_grad=False)
+    (base, h, B_, gm1, out), = seen
+    assert tuple(h.shape) == (6, r) and tuple(base.shape) == (6, n)
+    assert _build.tensor_cores(base, h, B_, gm1, out, dims=(n, r))
+    # What the route refuses: r not a multiple of 8, fp32 operands, an
+    # operand off a 16-byte boundary.
+    assert not _build.tensor_cores(base, h, B_, gm1, out, dims=(n, 36))
+    assert not _build.tensor_cores(base.float(), h, B_, gm1, out,
+                                   dims=(n, r))
+    odd = torch.empty(base.numel() + 1, dtype=BF16)[1:].view(base.shape)
+    assert not _build.tensor_cores(odd, h, B_, gm1, out, dims=(n, r))
