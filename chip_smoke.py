@@ -12,8 +12,11 @@ against its plain PyTorch version at the shapes the serving and training
 paths give it (K1 and K6 also at falcon-mamba-7b's in_proj and out_proj,
 every K6 shape on the tensor-core route with the same bits on a second
 call and its device time from the profiler, and the tensor-core routes
-of K1, K6 and K7 also at ragged shapes), printing each row's achieved
-GB/s beside its bound and library time, then serves full-width qwen2-7b
+of K1, K6 and K7 also at ragged shapes; K9 at each of its shapes the same
+bits on a second call, with a sweep of its lane count and its device
+time), printing each row's achieved GB/s beside its bound and library
+time, and prints each wrapper's host time per call at a small shape
+beside one PyTorch op's (``index_select``), then serves full-width qwen2-7b
 (28 layers, random weights from a seed) with r=384 DoRA adapters on all
 seven projections through ``repro_torch.launch.serve.generate``:
 
@@ -80,6 +83,10 @@ in_proj and out_proj (see mamba_checks):
       1e-4 x max|h|, equal greedy tokens;
   M3. a 2-layer fp32 model on the card and on the CPU: prefill logits
       within 1e-4 x max|logit|, equal greedy tokens.
+
+With ``--kernel-phase-vs DIR`` it runs only the kernel phase, of the
+checkout at DIR (a ``git archive`` of another commit) and of this one, in
+turns (DIR, this, this, DIR), and prints K8's and K9's rows of each.
 
 Any failed check raises, so the exit code is non-zero. The card's name
 and power limit (as nvidia-smi gives them) are printed first and again
@@ -207,6 +214,30 @@ def time_ms(fn, *, target_ms: float = 150.0) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def paged_table(b: int, table_rng, device) -> tuple[torch.Tensor, int]:
+    """A block table of the paged engine's shape, b rows x max_len / 16
+    slots over a pool of ENGINE_BLOCKS: three quarters of the slots (at
+    most the pool) hold distinct ids out of order, the rest -1. Returns
+    the int32 table and the number of allocated slots."""
+    mb = ENGINE_MAX_LEN // ENGINE_BLOCK
+    table = np.full(b * mb, -1, np.int32)
+    n_valid = min(ENGINE_BLOCKS, b * mb * 3 // 4)
+    table[table_rng.permutation(b * mb)[:n_valid]] = \
+        table_rng.permutation(ENGINE_BLOCKS)[:n_valid]
+    return torch.as_tensor(table.reshape(b, mb), device=device), n_valid
+
+
+def alternating_ms(a, b, windows: int = 5) -> tuple[list, list]:
+    """time_ms of ``a()`` and of ``b()`` in alternating windows (a, b, a,
+    b, ...). Launches paced by the host vary between windows, so a short
+    kernel is compared with its yardstick by the medians."""
+    ta, tb = [], []
+    for _ in range(windows):
+        ta.append(time_ms(a))
+        tb.append(time_ms(b))
+    return ta, tb
 
 
 def bound_ms(nbytes: float, ops_s: float) -> tuple[float, str]:
@@ -573,11 +604,7 @@ def kernel_checks(dev) -> dict:
     block_bytes = bs * hkv * hd * esz
     table_rng = np.random.default_rng(SEED + 8)
     for b in (ENGINE_SLOTS, 1):
-        table = np.full(b * mb, -1, np.int32)
-        n_valid = min(ENGINE_BLOCKS, b * mb * 3 // 4)
-        table[table_rng.permutation(b * mb)[:n_valid]] = \
-            table_rng.permutation(ENGINE_BLOCKS)[:n_valid]
-        pages = torch.as_tensor(table.reshape(b, mb), device=dev)
+        pages, n_valid = paged_table(b, table_rng, dev)
         out = kp.paged_gather(pool, pages)
         ref = kp.paged_gather_plain(pool, pages)
         torch.cuda.synchronize()
@@ -586,15 +613,21 @@ def kernel_checks(dev) -> dict:
               f"version")
         e, mx = max_err(out, ref)
         ids = pages.clamp_min(0).long().reshape(-1)
+        # The kernel and index_select are both paced by the host here:
+        # medians of 5 alternating windows.
+        ms_k8, ms_lib = alternating_ms(
+            lambda: kp.paged_gather(pool, pages),
+            lambda: pool.index_select(0, ids))
         # A copy: bitwise, tolerance 0. Bytes: the output written once,
         # the allocated blocks and the table read once.
         record("paged_gather", [b, mb * bs, hkv, hd], e, mx, 0.0,
-               time_ms(lambda: kp.paged_gather(pool, pages)),
+               float(np.median(ms_k8)),
                time_ms(lambda: kp.paged_gather_plain(pool, pages)),
                (b * mb + n_valid) * block_bytes + b * mb * 4, 0.0,
-               time_ms(lambda: pool.index_select(0, ids)),
+               float(np.median(ms_lib)),
                "pool.index_select(0, clamped ids), no zero fill",
-               bitwise_equal_plain=bitwise, valid_entries=n_valid)
+               bitwise_equal_plain=bitwise, valid_entries=n_valid,
+               ms_windows=ms_k8, library_ms_windows=ms_lib)
         # The events above time the wrapper's host side as much as the
         # copy; the profiler reads the kernel's own device time.
         prof = profile(lambda: [kp.paged_gather(pool, pages)
@@ -613,6 +646,7 @@ def kernel_checks(dev) -> dict:
     # model's A = -exp(A_log).
     from repro_torch.kernels import selective_scan as ks
     f32 = torch.float32
+    chosen = ks.LANES
     for b, seq, di, n in ((BATCH, PROMPT, 8192, 16), (1, 37, 8192 + 64, 16),
                           (2, 64, 128, 4)):
         u = torch.rand((b, seq, di), generator=gen, device=dev)
@@ -639,16 +673,105 @@ def kernel_checks(dev) -> dict:
         nbytes = 4 * (3 * b * seq * di + 2 * b * seq * n + n * di
                       + 2 * b * n * di)
         n_exp = b * seq * di * n
+        y2, h_f2 = ks.selective_scan(*args)
+        same = bool(torch.equal(y, y2) and torch.equal(h_f, h_f2))
+        check(same, f"selective_scan [{b}, {seq}, {di}, {n}]: a second call "
+              f"gave other bits")
+        extra = {}
+        if b == BATCH:
+            # The lane sweep behind ks.LANES (the fastest), and the kernel's
+            # own device time at the prefill shape.
+            sweep = {}
+            try:
+                for lanes in (1, 2, 4):
+                    ks.LANES = lanes
+                    sweep[lanes] = time_ms(lambda: ks.selective_scan(*args))
+            finally:
+                ks.LANES = chosen
+            print(f"  selective_scan [{b}, {seq}, {di}, {n}] ms by lanes: "
+                  f"{sweep}", flush=True)
+            prof = profile(lambda: [ks.selective_scan(*args)
+                                    for _ in range(10)],
+                           f"selective_scan [{b}, {seq}, {di}, {n}] x 10")
+            mine = [k for k in prof.get("top_kernels_ms", [])
+                    if "selective_scan_kernel" in k["name"]]
+            extra = {"lane_sweep_ms": sweep, "lanes": chosen,
+                     "device_ms": (mine[0]["ms"] / mine[0]["launches"]
+                                   if mine else None)}
+        blocks, _, channels = ks.scan_schedule(b, di, chosen)
         record("selective_scan", [b, seq, di, n], e1, m1, SCAN_TOL,
                time_ms(lambda: ks.selective_scan(*args)),
                time_ms(lambda: ks.selective_scan_plain(*args)), nbytes,
                max(n_exp / SFU_EXP_PER_S, 6 * n_exp / F32_OPS),
+               grid=f"{blocks} x {b} blocks of {channels} channels x "
+                    f"{chosen} lanes",
                h_f_err=e2, h_f_tol=SCAN_TOL * m2,
                bound_bytes_ms=nbytes / HBM_BYTES_PER_S * 1e3,
-               bound_sfu_ms=n_exp / SFU_EXP_PER_S * 1e3)
-        del args, dt, dtx, y, h_f, ref_y, ref_h
+               bound_sfu_ms=n_exp / SFU_EXP_PER_S * 1e3,
+               deterministic=same, **extra)
+        del args, dt, dtx, y, h_f, ref_y, ref_h, y2, h_f2
     torch.cuda.empty_cache()
     return rows
+
+
+def host_us(fn, calls: int = 200) -> float:
+    """Host time per call of ``fn()`` in microseconds: time.perf_counter
+    over ``calls`` calls, with one synchronize at the end."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / calls * 1e6
+
+
+def host_checks(dev) -> dict:
+    """Each wrapper's host time per call at a small shape, where the
+    device's part is a few microseconds, under torch.no_grad() as the
+    serving paths and the autograd Functions' passes call them; and, for
+    scale, one PyTorch op (``index_select``, K8's yardstick)."""
+    from repro_torch.kernels import dora_compose as kc
+    from repro_torch.kernels import factored_norm as kn
+    from repro_torch.kernels import norm_assembly as ka
+    from repro_torch.kernels import paged_gather as kp
+    from repro_torch.kernels import selective_scan as ks
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    bf, f32 = torch.bfloat16, torch.float32
+
+    def randn(*shape, dtype=bf):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    m, n, r = 64, 512, 64
+    W, A, B = randn(512, 512), randn(r, 512), randn(512, r)
+    mat, h = randn(m, n), randn(m, r)
+    vec = randn(n, dtype=f32)
+    pool = randn(64, ENGINE_BLOCK, 4, 128)
+    pages = torch.arange(16, device=dev, dtype=torch.int32).reshape(2, 8)
+    ids = pages.reshape(-1).long()
+    scan = (randn(1, 16, 128, dtype=f32).abs() * 0.01,
+            randn(1, 16, 128, dtype=f32), randn(1, 16, 16, dtype=f32),
+            randn(1, 16, 16, dtype=f32), -randn(16, 128, dtype=f32).abs(),
+            randn(1, 16, 128, dtype=f32))
+    calls = {
+        "norm_terms": lambda: kn.norm_terms(W, A, B),
+        "assemble_norm": lambda: ka.assemble_norm(vec, vec, vec, 0.5),
+        "compose_fwd": lambda: kc.compose_fwd(mat, mat, vec, 0.5),
+        "compose_fwd_dual": lambda: kc.compose_fwd_dual(mat, mat, vec, 0.5),
+        "compose_bwd": lambda: kc.compose_bwd(mat, vec, vec),
+        "compose_mm_fwd": lambda: kc.compose_mm_fwd(mat, h, B, vec, 0.5),
+        "compose_mm_bwd": lambda: kc.compose_mm_bwd(mat, B, vec, vec),
+        "paged_gather": lambda: kp.paged_gather(pool, pages),
+        "selective_scan": lambda: ks.selective_scan(*scan)}
+    with torch.no_grad():
+        out = {name: host_us(fn) for name, fn in calls.items()}
+        out["index_select (PyTorch op)"] = host_us(
+            lambda: pool.index_select(0, ids))
+    print("host us per call (small shapes, 200 calls, one synchronize): "
+          + json.dumps({k: round(v, 2) for k, v in out.items()}),
+          flush=True)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1786,10 +1909,77 @@ def mamba_checks(dev) -> dict:
             "parity": parity}
 
 
+def paged_gather_ab(dev) -> dict:
+    """K8 against index_select at the engine's decode shape, measured as
+    kernel_checks measures it (medians of alternating windows), with
+    whichever ``repro_torch`` is importable: for kernel_phase_vs."""
+    from repro_torch.kernels import paged_gather as kp
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    pool = torch.randn((ENGINE_BLOCKS, ENGINE_BLOCK, 4, 128), generator=gen,
+                       device=dev).to(torch.bfloat16)
+    pages, _ = paged_table(ENGINE_SLOTS, np.random.default_rng(SEED + 8),
+                           dev)
+    ids = pages.clamp_min(0).long().reshape(-1)
+    ms_k8, ms_lib = alternating_ms(lambda: kp.paged_gather(pool, pages),
+                                   lambda: pool.index_select(0, ids))
+    return {"ms": float(np.median(ms_k8)), "ms_windows": ms_k8,
+            "index_select_ms": float(np.median(ms_lib)),
+            "index_select_ms_windows": ms_lib}
+
+
+def kernel_phase_vs(other: Path) -> int:
+    """The kernel phase (kernel_checks) of the checkout at ``other`` and of
+    this one, in the order other, this, this, other, each in a process of
+    its own on this card; then, with this script's own methods on each
+    checkout's package, K8 against index_select (paged_gather_ab) and each
+    wrapper's host time (host_checks). Prints K8's and K9's rows of each
+    run and writes them to build/kernel_phase_vs.json."""
+    here = Path(__file__).resolve().parent
+    code = ("import importlib.util, json, sys, torch; "
+            "sys.path[:0] = [sys.argv[1] + '/src', sys.argv[1]]; "
+            "import chip_smoke as c; "
+            "spec = importlib.util.spec_from_file_location('this_smoke', "
+            "sys.argv[2]); t = importlib.util.module_from_spec(spec); "
+            "spec.loader.exec_module(t); "
+            "torch.backends.cuda.matmul.allow_tf32 = False; "
+            "dev = torch.device('cuda', 0); "
+            "rows = c.kernel_checks(dev); "
+            "out = {k: rows[k] for k in ('paged_gather', 'selective_scan')}; "
+            "out['paged_gather_ab'] = t.paged_gather_ab(dev); "
+            "out['host_us'] = t.host_checks(dev); "
+            "print('ROWS ' + json.dumps(out))")
+    runs = []
+    for label, root in (("other", other), ("this", here), ("this", here),
+                        ("other", other)):
+        run = subprocess.run([sys.executable, "-c", code,
+                              str(root.resolve()),
+                              str(Path(__file__).resolve())],
+                             capture_output=True, text=True, timeout=900)
+        if run.returncode != 0:
+            print(run.stdout[-4000:], run.stderr[-4000:], file=sys.stderr)
+            return run.returncode
+        rows = json.loads(run.stdout.split("ROWS ", 1)[1])
+        runs.append({"label": label, "root": str(root), **rows})
+        for name in ("paged_gather", "selective_scan"):
+            for row in rows[name]:
+                print(f"{label}: {name} {row['shape']} {row['ms']:.4f} ms, "
+                      f"device {row.get('device_ms')}, library "
+                      f"{row['library_ms']}", flush=True)
+        print(f"{label}: paged_gather_ab {rows['paged_gather_ab']}")
+        print(f"{label}: host us {rows['host_us']}", flush=True)
+    out = here / "build" / "kernel_phase_vs.json"
+    out.parent.mkdir(exist_ok=True)
+    out.write_text(json.dumps(runs, indent=1))
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--kernel-phase-vs"]:
+        return kernel_phase_vs(Path(sys.argv[2]))
     root = Path(__file__).resolve().parent
     sys.path.insert(0, str(root / "src"))
     from repro_torch import probes
@@ -1818,9 +2008,15 @@ def main() -> int:
                 if ln.startswith("compose_mm_fwd_mma_kernel:")]
     check(len(k6_ptxas) == 1 and " 0 bytes spill stores" in k6_ptxas[0],
           f"compose_mm_fwd_mma_kernel's ptxas report: {k6_ptxas}")
+    k9_ptxas = [ln for ln in ptxas if ln.startswith("selective_scan_kernel")]
+    check(len(k9_ptxas) == 3 and all(" 0 bytes spill stores" in ln
+                                     for ln in k9_ptxas),
+          f"selective_scan_kernel's ptxas report (one per lane count): "
+          f"{k9_ptxas}")
 
     print("kernels vs plain versions:", flush=True)
     rows = kernel_checks(dev)
+    host = host_checks(dev)
     small_parity(dev)
     t0 = time.perf_counter()
     served, mcfg, params, adapters = serve_checks(dev)
@@ -1860,10 +2056,16 @@ def main() -> int:
             "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
             "library_ms": top["library_ms"],
             "library_call": top["library_call"], "at_shape": top["shape"],
-            "gb_s": top["gb_s"],
+            "gb_s": top["gb_s"], "host_us": host[name],
             **({"device_ms": top["device_ms"], "fma_ms": top["fma_ms"],
                 "deterministic": top["deterministic"], "ptxas": k6_ptxas[0]}
-               if name == "compose_mm_fwd" else {})})
+               if name == "compose_mm_fwd" else {}),
+            **({"device_ms": top["device_ms"],
+                "index_select_host_us": host["index_select (PyTorch op)"]}
+               if name == "paged_gather" else {}),
+            **({k: top[k] for k in ("device_ms", "lanes", "lane_sweep_ms",
+                                    "deterministic")}
+               if name == "selective_scan" else {})})
     train_summary = {
         k: {f: trained[k][f] for f in ("step_ms", "grad_ms", "optim_ms",
                                        "tokens_per_s",

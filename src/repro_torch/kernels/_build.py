@@ -9,6 +9,12 @@ hash of the sources and flags, so a stale library is never loaded.
 
 Every C entry point returns ``cudaGetLastError()``; :func:`check` raises
 when it is not 0.
+
+A launch is paced by the host where the kernel is short, so the helpers
+every wrapper calls keep its host path near one PyTorch op's: the card is
+probed once per device index (a probe that fails is never remembered),
+the stream handle is read raw, and :func:`no_grad` costs nothing where
+grad mode is already off (serving, and autograd Functions' passes).
 """
 from __future__ import annotations
 
@@ -49,8 +55,8 @@ _SIGNATURES = {
     "compose_mm_bwd": ((_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
                        _I),
     "paged_gather": ((_P, _P, _P, _L, _L, _L, _P), _I),
-    "selective_scan": ((_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
-                       _I),
+    "selective_scan": ((_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                        _P), _I),
     "runtime_error_string": ((_I,), ctypes.c_char_p),
 }
 
@@ -175,16 +181,43 @@ def check(rc: int, kernel: str) -> None:
                            f"({msg})")
 
 
+def no_grad(fn):
+    """``torch.no_grad()`` as a decorator, at the cost of one grad-mode
+    read where grad mode is already off (``torch.no_grad()`` itself costs
+    a few microseconds a call, as much as a short kernel)."""
+    @functools.wraps(fn)
+    def run(*args, **kwargs):
+        if not torch.is_grad_enabled():
+            return fn(*args, **kwargs)
+        with torch.no_grad():
+            return fn(*args, **kwargs)
+    return run
+
+
 def stream_of(t: torch.Tensor) -> int:
-    """The handle of PyTorch's current stream on ``t``'s device."""
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The raw handle of PyTorch's current stream on ``t``'s device, read
+    on every call (it follows ``torch.cuda.stream`` contexts) without
+    building a ``torch.cuda.Stream`` object."""
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
+
+
+# Device indices whose probe passed. A probe that fails is not kept, so it
+# runs and raises again on every call.
+_probed: set[int] = set()
+
+
+def require_card(index: int) -> None:
+    """:func:`probes.require_cuda` once per device index that passes it."""
+    if index not in _probed:
+        probes.require_cuda(index)
+        _probed.add(index)
 
 
 def check_operands(kernel: str, *tensors: torch.Tensor, dtype=None) -> None:
     """Every operand on one CUDA device, contiguous, and (where ``dtype``
     is given) of that dtype; raise naming what is wrong."""
-    probes.require_cuda(tensors[0].device.index or 0)
     dev = tensors[0].device
+    require_card(dev.index or 0)
     for i, t in enumerate(tensors):
         if t.device != dev:
             raise ValueError(f"{kernel}: operand {i} is on {t.device}, "

@@ -1,6 +1,7 @@
 // Hopper tensor-core building blocks of the bf16 kernels (norm_terms.cu,
 // compose_mm.cu, compose_mm_bwd.cu): 16-byte cp.async copies into shared
-// memory, the 128-byte swizzle of a shared-memory tile, its wgmma matrix
+// memory (selective_scan.cu stages its fp32 tiles with them too), the
+// 128-byte swizzle of a shared-memory tile, its wgmma matrix
 // descriptor, the warpgroup MMA m64n192k16 with bf16 operands and fp32
 // accumulators (PTX ISA 8, "Asynchronous warpgroup level matrix
 // instructions"; sm_90a only), and the TMA copies and mbarriers that

@@ -134,7 +134,7 @@ def _vec_width(n: int, *tensors) -> int:
     return vec
 
 
-@torch.no_grad()
+@_build.no_grad
 def compose_fwd(base, lora, gm1, s: float):
     """delta [M, N] in base's dtype from base, lora [M, N] and fp32 gm1
     [N]."""
@@ -159,7 +159,7 @@ def compose_fwd(base, lora, gm1, s: float):
 compose_fwd.launches = 0
 
 
-@torch.no_grad()
+@_build.no_grad
 def compose_fwd_dual(base, lora, gm1, s: float):
     """(delta, inner) [M, N] in base's dtype from base, lora [M, N] and
     fp32 gm1 [N]; inner = base + s·lora."""
@@ -185,7 +185,7 @@ def compose_fwd_dual(base, lora, gm1, s: float):
 compose_fwd_dual.launches = 0
 
 
-@torch.no_grad()
+@_build.no_grad
 def compose_bwd(dy, gm1, gs):
     """(d_base, d_lora) [M, N] in dY's dtype from dY [M, N] and fp32 gm1,
     gs [N]."""
@@ -225,7 +225,7 @@ def _check_mm(kernel, mat, h_or_none, B):
     return m, n, r
 
 
-@torch.no_grad()
+@_build.no_grad
 def compose_mm_fwd(base, h, B, gm1, s: float):
     """delta [M, N] in base's dtype from base [M, N], h [M, r], B [N, r]
     and fp32 gm1 [N]."""
@@ -258,7 +258,7 @@ compose_mm_fwd.launches = 0
 compose_mm_fwd.mma_launches = 0
 
 
-@torch.no_grad()
+@_build.no_grad
 def compose_mm_bwd(dy, B, gm1, gs):
     """(d_base [M, N] in dY's dtype, fp32 d_h [M, r]) from dY [M, N],
     B [N, r] and fp32 gm1, gs [N]."""

@@ -37,7 +37,7 @@ def norm_terms_plain(W, A, B):
     return (W32 * W32).sum(dim=1), (B.to(_F32) * U).sum(dim=1)
 
 
-@torch.no_grad()
+@_build.no_grad
 def norm_terms(W, A, B):
     """(base_sq, cross) fp32 [d_out] for W [d_out, d_in], A [r, d_in],
     B [d_out, r], all of one dtype (fp32, bf16 or fp16)."""

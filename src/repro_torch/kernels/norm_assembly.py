@@ -32,7 +32,7 @@ def assemble_norm_plain(base_sq, cross, ba_sq, s: float):
     return torch.sqrt(torch.clamp_min(acc, 0.0))
 
 
-@torch.no_grad()
+@_build.no_grad
 def assemble_norm(base_sq, cross, ba_sq, s: float):
     """base_sq, cross, ba_sq: fp32 [d_out] → w_norm fp32 [d_out]."""
     if base_sq.ndim != 1 or cross.shape != base_sq.shape \

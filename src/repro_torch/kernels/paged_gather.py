@@ -49,26 +49,34 @@ def paged_gather_plain(pool, pages):
     return blocks.reshape(b, mb * bs, hkv, hd)
 
 
-@torch.no_grad()
+# The kernel's C entry point, bound at the first launch (the build runs
+# then, never at import).
+_gather_entry = None
+
+
 def paged_gather(pool, pages):
     """pool [n_blocks, bs, Hkv, hd] (any dtype), pages int32
-    [B, max_blocks] → [B, max_blocks * bs, Hkv, hd]."""
+    [B, max_blocks] → [B, max_blocks * bs, Hkv, hd]. The kernel's output
+    never carries a graph, so only the plain route needs grad mode off."""
+    global _gather_entry
     _check(pool, pages)
     if pool.device.type == "cpu":
-        return paged_gather_plain(pool, pages)
+        with torch.no_grad():
+            return paged_gather_plain(pool, pages)
     _build.check_operands("paged_gather", pool, pages)
     if pages.dtype != torch.int32:
         raise TypeError(f"paged_gather: pages has dtype {pages.dtype}, "
                         f"expected torch.int32")
     n_blocks, bs, hkv, hd = pool.shape
     b, mb = pages.shape
-    out = torch.empty((b, mb * bs, hkv, hd), dtype=pool.dtype,
-                      device=pool.device)
+    out = pool.new_empty((b, mb * bs, hkv, hd))
     if out.numel() == 0:
         return out
-    rc = _build.library().paged_gather(
-        pool.data_ptr(), pages.data_ptr(), out.data_ptr(), n_blocks, b * mb,
-        bs * hkv * hd * pool.element_size(), _build.stream_of(pool))
+    if _gather_entry is None:
+        _gather_entry = _build.library().paged_gather
+    rc = _gather_entry(pool.data_ptr(), pages.data_ptr(), out.data_ptr(),
+                       n_blocks, b * mb, bs * hkv * hd * pool.element_size(),
+                       _build.stream_of(pool))
     _build.check(rc, "paged_gather")
     paged_gather.launches += 1
     return out
@@ -77,7 +85,7 @@ def paged_gather(pool, pages):
 paged_gather.launches = 0
 
 
-@torch.no_grad()
+@_build.no_grad
 def paged_scatter(pool, pages, values):
     """Write the logical view ``values [B, max_blocks * bs, Hkv, hd]`` back
     into ``pool`` IN PLACE through ``pages`` and return it; the slices of

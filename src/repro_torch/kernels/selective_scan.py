@@ -9,6 +9,11 @@ in the Pallas function's layout (kernel: ``csrc/selective_scan.cu``). It
 takes any S (no ``S % chunk`` rule: the model prefills at the exact
 prompt length), any di, and n ≤ :data:`MAX_STATE`. CUDA tensors launch the
 kernel or raise; CPU tensors run :func:`selective_scan_plain`.
+
+The kernel splits each (batch, channel) pair's :data:`MAX_STATE` states
+over :data:`LANES` lanes of a warp (:func:`scan_schedule`), computes each
+exp as ``exp2(dt · A·log2(e))`` in one SFU op, and sums y over the lanes
+in a fixed xor tree.
 """
 from __future__ import annotations
 
@@ -19,6 +24,22 @@ from repro_torch.kernels import _build
 _F32 = torch.float32
 
 MAX_STATE = 16          # the largest n the kernel holds in registers
+SCAN_THREADS = 128      # threads a block
+# Lanes that share one (batch, channel) pair, MAX_STATE / LANES states
+# each: 1, 2 or 4 (the fastest of chip_smoke.py's sweep on the H100).
+LANES = 2
+
+
+def scan_schedule(batch: int, di: int, lanes: int) -> tuple[int, int, int]:
+    """(blocks along di, blocks along the batch, channels a block) of the
+    kernel's grid: thread t of block (x, b) holds channel
+    x * channels + t // lanes of batch row b, and states
+    (t % lanes) * MAX_STATE / lanes onward; channels >= di are masked."""
+    if lanes not in (1, 2, 4):
+        raise ValueError(f"selective_scan: lanes = {lanes}, expected 1, 2 "
+                         f"or 4")
+    channels = SCAN_THREADS // lanes
+    return _build.cdiv(di, channels), batch, channels
 
 
 def _check(dt, dtx, Bm, Cm, A_t, h0_t) -> None:
@@ -54,7 +75,7 @@ def selective_scan_plain(dt, dtx, Bm, Cm, A_t, h0_t):
     return torch.stack(ys, dim=1), h
 
 
-@torch.no_grad()
+@_build.no_grad
 def selective_scan(dt, dtx, Bm, Cm, A_t, h0_t):
     """dt, dtx [B, S, di]; Bm, Cm [B, S, n]; A_t [n, di]; h0_t [B, n, di],
     all fp32 → (y [B, S, di], h_f [B, n, di]) fp32."""
@@ -75,7 +96,7 @@ def selective_scan(dt, dtx, Bm, Cm, A_t, h0_t):
     rc = _build.library().selective_scan(
         dt.data_ptr(), dtx.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
         A_t.data_ptr(), h0_t.data_ptr(), y.data_ptr(), h_f.data_ptr(), b, s,
-        di, n, _build.stream_of(dt))
+        di, n, LANES, _build.stream_of(dt))
     _build.check(rc, "selective_scan")
     selective_scan.launches += 1
     return y, h_f

@@ -33,10 +33,11 @@ from repro_torch.launch.steps import StepConfig, make_train_step
 from repro_torch.optim import OptimizerConfig, adamw_init
 
 
-def build_state(mcfg, dcfg: DoRAConfig, seed: int = 0, device="cpu"):
+def build_state(mcfg, dcfg: DoRAConfig, seed: int = 0, device=None):
     """Random params, DoRA-initialized adapters and zero AdamW state, on
-    ``device``."""
-    params, adapters = serve.build_state(mcfg, dcfg, seed, device)
+    ``device``: the card when it is None (``"cpu"`` must be asked for)."""
+    params, adapters = serve.build_state(mcfg, dcfg, seed,
+                                         serve.resolve_device(device))
     return params, adapters, adamw_init(adapters)
 
 

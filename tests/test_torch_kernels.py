@@ -531,3 +531,50 @@ def test_paged_gather_off_cpu_launches_or_raises():
     with pytest.raises(ValueError, match="pool"):
         tk_paged.paged_gather(torch.zeros(4, 2, 128), torch.zeros(
             1, 2, dtype=torch.int32))
+
+
+def test_launch_path_probes_each_card_once_and_keeps_every_check(
+        monkeypatch):
+    """The wrappers' shared host path: a probe that passes is run once per
+    device index, a probe that fails runs (and raises) on every call and
+    is never kept, and the operand checks still run on every call."""
+    calls = []
+
+    def passing(index=0):
+        calls.append(index)
+        return None
+
+    monkeypatch.setattr(_build, "_probed", set())
+    monkeypatch.setattr(_build.probes, "why_unavailable", passing)
+    meta = torch.empty(8, 128, device="meta")
+    for _ in range(4):
+        _build.check_operands("k", meta, meta, dtype=torch.float32)
+    _build.require_card(1)
+    _build.require_card(1)
+    assert calls == [0, 1]
+    with pytest.raises(ValueError, match="operand 1 is not contiguous"):
+        _build.check_operands("k", meta, meta.t())
+    with pytest.raises(ValueError, match="operand 1 is on cpu"):
+        _build.check_operands("k", meta, torch.empty(8, 128))
+    with pytest.raises(TypeError, match="operand 1 has dtype"):
+        _build.check_operands("k", meta, meta.to(torch.bfloat16),
+                              dtype=torch.float32)
+    assert calls == [0, 1]
+
+    failed = []
+
+    def failing(index=0):
+        failed.append(index)
+        return "no card in this test"
+
+    monkeypatch.setattr(_build, "_probed", set())
+    monkeypatch.setattr(_build.probes, "why_unavailable", failing)
+    for _ in range(3):
+        with pytest.raises(RuntimeError,
+                           match="CUDA unavailable: no card in this test"):
+            _build.check_operands("k", meta)
+    with pytest.raises(RuntimeError, match="CUDA unavailable"):
+        tk_paged.paged_gather(torch.empty(4, 2, 1, 128, device="meta"),
+                              torch.empty(1, 2, dtype=torch.int32,
+                                          device="meta"))
+    assert failed == [0, 0, 0, 0] and _build._probed == set()

@@ -456,3 +456,16 @@ def test_serving_state_is_refused_and_stacked_config_fields():
     with pytest.raises(ValueError, match="precomputed serving state"):
         tadapter.dora_linear(torch.zeros(2, 32), W, state,
                              DoRAConfig(rank=4), training=True)
+
+
+def test_build_state_defaults_to_the_card_not_the_cpu():
+    """``build_state`` without a device means the card: with no card here
+    it raises, and the CPU is built only when it is asked for."""
+    mcfg, dcfg = ModelConfig(**WIDTHS), DoRAConfig(rank=RANK, alpha=ALPHA)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA unavailable"):
+            ttrain.build_state(mcfg, dcfg, 0)
+    state = ttrain.build_state(mcfg, dcfg, 0, device="cpu")
+    leaves = [v for tree in state for v in flatten_paths(tree).values()
+              if isinstance(v, torch.Tensor)]
+    assert leaves and all(t.device.type == "cpu" for t in leaves)
