@@ -14,7 +14,12 @@ every K6 shape on the tensor-core route with the same bits on a second
 call and its device time from the profiler, and the tensor-core routes
 of K1, K6 and K7 also at ragged shapes; K9 at each of its shapes the same
 bits on a second call, with a sweep of its lane count and its device
-time), printing each row's achieved GB/s beside its bound and library
+time; K1 with its epilogue, the norm assembly that replaced K2's launch
+on the main paths, at every K1 shape and on both of K1's routes, within
+1e-6 of max |w_norm| of K1's terms → the plain Gram row sum → K2's plain
+version, bitwise the same with the Gram sum in the epilogue's lane order,
+the same bits twice, and the per-module norm timed against the chain it
+replaced), printing each row's achieved GB/s beside its bound and library
 time, and prints each wrapper's host time per call at a small shape
 beside one PyTorch op's (``index_select``), then serves full-width qwen2-7b
 (28 layers, random weights from a seed) with r=384 DoRA adapters on all
@@ -22,8 +27,10 @@ seven projections through ``repro_torch.launch.serve.generate``:
 
   1. auto mode in bf16 (the main path): precompute, padded prefill of
      4 x 1024, 32 decode tokens; the kernel launch counts must be
-     K1 = K2 = 196, K6 = 140, K3 = 0, every K6 launch on the tensor-core
-     route (as on the training and Mamba main paths, 5 and M1);
+     K1 = 196, every one ending in its epilogue (K2's assembly,
+     ``assembled`` = 196), K2 = 0, K6 = 140, K3 = 0, every K6 launch on
+     the tensor-core route (as on the training and Mamba main paths, 5
+     and M1);
   2. forced kernel mode (``mode="fused"``), a few decode tokens: K6 = 196
      per prefill and K3 = 196 per decode token;
   3. the paper's criterion, prefill logit cosine >= 0.9999, between the
@@ -41,8 +48,9 @@ the same bf16 weights, with one folded serving tree (g and g·s·B):
   E1. the engine's main path: the precompute and the paged engine (8
       slots, max_len 2048, blocks of 16, chunks of 256, 512 blocks) over
       24 requests with prompts uniform in 256-1024 and 64 new tokens,
-      exponential arrivals of mean 3 ticks; K1 = K2 = 196 and K8 = 2 x 28
-      per decode and chunk step, nothing else; the pool drains;
+      exponential arrivals of mean 3 ticks; K1 = assembled = 196 and
+      K8 = 2 x 28 per decode and chunk step, nothing else; the pool
+      drains;
   E2. the same engine with the plain gather: the same greedy streams,
       bitwise, and no kernel launched;
   E3. the committed ``BENCH_serve.json`` traces: the rectangular engine's
@@ -57,10 +65,10 @@ Then it trains the same bf16 weights (the serving cache freed) through
 ``repro_torch.launch.steps.make_train_step``: batch 2 x seq 2048, loss on
 the last 1024 tokens, layer remat, AdamW defaults:
 
-  5. auto mode, 3 steps (the training main path): per step K1 = K2 = 196,
-     K6 = 280 (the layers' forward and their recompute), K7 = 140 and no
-     element-wise compose kernel; the loss finite, the gradient norm
-     finite and non-zero;
+  5. auto mode, 3 steps (the training main path): per step
+     K1 = assembled = 196, K6 = 280 (the layers' forward and their
+     recompute), K7 = 140 and no element-wise compose kernel; the loss
+     finite, the gradient norm finite and non-zero;
   6. the element-wise route (``compose_matmul_fused=False``, the route of
      every rank that pads above 512), 3 steps: per step K4 = 280,
      K5 = 140, K6 = K7 = 0;
@@ -76,8 +84,8 @@ Last, with qwen2-7b's state freed, it serves full-width falcon-mamba-7b
 in_proj and out_proj (see mamba_checks):
 
   M1. auto mode in bf16 (the Mamba main path): precompute, exact-length
-      prefill of 4 x 960, 32 greedy tokens; K1 = K2 = 128, K6 = 128,
-      K9 = 64 and nothing else (decode launches no kernel);
+      prefill of 4 x 960, 32 greedy tokens; K1 = assembled = 128,
+      K6 = 128, K9 = 64 and nothing else (decode launches no kernel);
   M2. kernel route (K6 + K9) vs eager route on the fp32 upcast at 4
       layers: prefill logit cosine >= 0.9999, final state h within
       1e-4 x max|h|, equal greedy tokens;
@@ -86,7 +94,9 @@ in_proj and out_proj (see mamba_checks):
 
 With ``--kernel-phase-vs DIR`` it runs only the kernel phase, of the
 checkout at DIR (a ``git archive`` of another commit) and of this one, in
-turns (DIR, this, this, DIR), and prints K8's and K9's rows of each.
+turns (DIR, this, this, DIR), and prints K1's and K2's rows of each, with
+the per-module norm (``ops.fused_norm``) and the qwen2-7b precompute
+timed by this script on each checkout's package.
 
 Any failed check raises, so the exit code is non-zero. The card's name
 and power limit (as nvidia-smi gives them) are printed first and again
@@ -138,6 +148,10 @@ ENGINE_REQUESTS, ENGINE_PROMPT, ENGINE_NEW, ENGINE_ARRIVAL = (
 # prompts, the route comparison in fp32 at 4 layers, card vs CPU at 2.
 MAMBA_ARCH, MAMBA_AGREE_LAYERS, MAMBA_AGREE_GEN = "falcon-mamba-7b", 4, 8
 SCAN_TOL = 1e-5
+# K1's (d_out, d_in): qwen2-7b's wq, wk, w_gate, w_down, then
+# falcon-mamba-7b's in_proj and out_proj.
+K1_SHAPES = ((3584, 3584), (512, 3584), (18944, 3584), (3584, 18944),
+             (16384, 4096), (4096, 8192))
 
 SOURCES = {
     "norm_terms": ("src/repro_torch/kernels/csrc/norm_terms.cu",
@@ -159,9 +173,10 @@ SOURCES = {
     "selective_scan": ("src/repro_torch/kernels/csrc/selective_scan.cu",
                        "src/repro/kernels/selective_scan.py:60"),
 }
-# The path whose launch count each kernel's record carries, and the index
-# of the shape its top-level numbers are read at (w_gate, or the forced
-# decode rows on w_gate for K3; the prefill shape for K9).
+# The path whose launch count each kernel's record carries (for K2, the
+# launches of its arithmetic as K1's epilogue), and the index of the shape
+# its top-level numbers are read at (w_gate, or the forced decode rows on
+# w_gate for K3; the prefill shape for K9).
 RECORD_PATH = {"norm_terms": ("serve_auto", 2),
                "assemble_norm": ("serve_auto", 2),
                "compose_fwd": ("serve_fused", 1),
@@ -191,9 +206,20 @@ def check_k6_on_tensor_cores(mma_before: int, counts: dict,
 
 
 def counts_of(**launched) -> dict:
-    """Every kernel's expected launch count: the named ones, 0 for the
+    """Every kernel's expected launch count, and "assembled" (K1's
+    launches that ended in its epilogue): the named ones, 0 for the
     rest."""
-    return {name: launched.get(name, 0) for name in SOURCES}
+    return {name: launched.get(name, 0) for name in (*SOURCES, "assembled")}
+
+
+def launch_counts() -> dict:
+    """Every kernel's launch count, and "assembled": K1's launches that
+    ended in its epilogue, the norm assembly that replaced K2's launch on
+    the main paths (``norm_terms.assembled_launches``)."""
+    from repro_torch import kernels
+
+    return {**kernels.launch_counts(),
+            "assembled": kernels.norm_terms.assembled_launches}
 
 
 def time_ms(fn, *, target_ms: float = 150.0) -> float:
@@ -304,6 +330,61 @@ def max_err(got, want) -> tuple[float, float]:
     return (g - w).abs().max().item(), w.abs().max().item()
 
 
+def gram_lane_sum(BG, B):
+    """ba_sq = Σ_l BG_jl·B_jl in the order of K1's epilogue
+    (csrc/norm_terms.cu gram_row_sum), in torch: lane l of a row's warp
+    sums columns l, l + 32, ... in index order (each product rounded, then
+    added), then the xor tree of offsets 16, 8, 4, 2, 1 adds the lanes."""
+    from repro_torch.kernels.factored_norm import GRAM_LANES as lanes
+
+    prod = BG * B.float()
+    part = torch.zeros(BG.shape[0], lanes, device=BG.device)
+    for c0 in range(0, BG.shape[1], lanes):
+        chunk = prod[:, c0:c0 + lanes]
+        part[:, :chunk.shape[1]] = part[:, :chunk.shape[1]] + chunk
+    idx = torch.arange(lanes, device=BG.device)
+    off = lanes // 2
+    while off:
+        part = part + part[:, idx ^ off]
+        off //= 2
+    return part[:, 0]
+
+
+def check_epilogue(W, A, B, s: float, label: str) -> dict:
+    """K1 with its epilogue at one shape. w_norm against K1's terms →
+    the plain Gram row sum → assemble_norm_plain, within 1e-6 of max
+    |w_norm| (only the order of ba_sq's sum differs); bitwise against
+    K1's terms → the epilogue's lane-order Gram sum → assemble_norm_plain,
+    without and with a base_sq override (so base_sq and cross are K1's
+    bits, and ba_sq is summed in the designed order); the same bits on a
+    second call."""
+    from repro_torch.kernels import factored_norm as kn
+    from repro_torch.kernels import norm_assembly as ka
+
+    base, cross = kn.norm_terms(W, A, B)
+    A32 = A.float()
+    BG = B.float() @ (A32 @ A32.T)
+    asm = kn.Assembly(BG, s)
+    w = kn.norm_terms(W, A, B, asm)
+    plain = ka.assemble_norm_plain(base, cross, (BG * B.float()).sum(dim=1),
+                                   s)
+    e, mx = max_err(w, plain)
+    ba_lane = gram_lane_sum(BG, B)
+    cache = base * 1.01
+    wc = kn.norm_terms(W, A, B, kn.Assembly(BG, s, cache))
+    out = {"w_norm_err": e, "w_norm_tol": 1e-6 * mx,
+           "bitwise_lane_order": bool(torch.equal(
+               w, ka.assemble_norm_plain(base, cross, ba_lane, s))),
+           "bitwise_lane_order_base_override": bool(torch.equal(
+               wc, ka.assemble_norm_plain(cache, cross, ba_lane, s))),
+           "deterministic": bool(torch.equal(w, kn.norm_terms(W, A, B,
+                                                              asm)))}
+    check(e <= 1e-6 * mx and out["bitwise_lane_order"]
+          and out["bitwise_lane_order_base_override"]
+          and out["deterministic"], f"norm_terms epilogue {label}: {out}")
+    return out
+
+
 def cosine(a, b) -> float:
     a, b = a.double().flatten(), b.double().flatten()
     return (a @ b / (a.norm() * b.norm())).item()
@@ -318,6 +399,7 @@ def kernel_checks(dev) -> dict:
     from repro_torch.kernels import dora_compose as kc
     from repro_torch.kernels import factored_norm as kn
     from repro_torch.kernels import norm_assembly as ka
+    from repro_torch.kernels import ops
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 7)
     bf = torch.bfloat16
@@ -352,8 +434,7 @@ def kernel_checks(dev) -> dict:
 
     # K1 and K2 on the wq, wk, w_gate and w_down weight shapes, then on
     # falcon-mamba-7b's in_proj and out_proj.
-    for d_out, d_in in ((3584, 3584), (512, 3584), (18944, 3584),
-                        (3584, 18944), (16384, 4096), (4096, 8192)):
+    for d_out, d_in in K1_SHAPES:
         W = randn(d_out, d_in, scale=d_in ** -0.5)
         A = ((torch.rand((RANK, d_in), generator=gen, device=dev) * 2 - 1)
              * d_in ** -0.5).to(bf)
@@ -387,18 +468,63 @@ def kernel_checks(dev) -> dict:
                splits=splits, split_sweep_ms=sweep,
                deterministic=bool(all(torch.equal(x, y) for x, y in zip(
                    (base, cross), kn.norm_terms(W, A, B)))))
+        # K1 with its epilogue (the main paths' norm), held against K1's
+        # terms → the Gram row sum → K2's plain version; the per-module
+        # norm (ops.fused_norm) against the chain it replaced, K1's terms
+        # → the Gram row sum in torch → K2, in this call; and the device
+        # time of K1's kernels with and without the epilogue.
+        ep = check_epilogue(W, A, B, s, f"[{d_out}, {d_in}, {RANK}]")
         A32, B32 = A.float(), B.float()
-        ba = ((B32 @ (A32 @ A32.T)) * B32).sum(dim=1)
+        G = A32 @ A32.T
+        BG = B32 @ G
+        asm = kn.Assembly(BG, s)
+
+        def chain():
+            b, c = kn.norm_terms(W, A, B)
+            a32, b32 = A.float(), B.float()
+            return ka.assemble_norm(
+                b, c, ((b32 @ (a32 @ a32.T)) * b32).sum(dim=1), s)
+        prof = profile(lambda: [(kn.norm_terms(W, A, B),
+                                 kn.norm_terms(W, A, B, asm))
+                                for _ in range(10)],
+                       f"norm_terms [{d_out}, {d_in}] x 10, without and "
+                       f"with the epilogue")
+        dev_ms = {m.group(0): k["ms"] / k["launches"]
+                  for k in prof.get("top_kernels_ms", [])
+                  if (m := re.search(r"norm_terms\w*_kernel", k["name"]))}
+        rows["norm_terms"][-1].update(
+            epilogue=ep, fused_norm_ms=time_ms(
+                lambda: ops.fused_norm(W, A, B, s)),
+            chain_ms=time_ms(chain),
+            assembled_ms=time_ms(lambda: kn.norm_terms(W, A, B, asm)),
+            epilogue_bound_ms=(d_out * RANK * (4 + esz) + 12 * d_out)
+            / HBM_BYTES_PER_S * 1e3,
+            device_ms_by_kernel=dev_ms)
+        print(f"  norm_terms [{d_out}, {d_in}] epilogue: {ep}; fused_norm "
+              f"{rows['norm_terms'][-1]['fused_norm_ms']:.4f} ms vs the "
+              f"K1 + torch + K2 chain "
+              f"{rows['norm_terms'][-1]['chain_ms']:.4f} ms; device ms "
+              f"{dev_ms}", flush=True)
+        ba = (BG * B32).sum(dim=1)
         out = ka.assemble_norm(pb, pc, ba, s)
         ref = ka.assemble_norm_plain(pb, pc, ba, s)
         e, mx = max_err(out, ref)
+        # K2's own device time (its events time is the wrapper's host
+        # side).
+        prof = profile(lambda: [ka.assemble_norm(pb, pc, ba, s)
+                                for _ in range(20)],
+                       f"assemble_norm [{d_out}] x 20")
+        mine = [k for k in prof.get("top_kernels_ms", [])
+                if "assemble_norm_kernel" in k["name"]]
         # Same pinned fp32 operations on both sides: within 1e-6.
         record("assemble_norm", [d_out], e, mx, 1e-6,
                time_ms(lambda: ka.assemble_norm(pb, pc, ba, s)),
                time_ms(lambda: ka.assemble_norm_plain(pb, pc, ba, s)),
                4 * d_out * 4, 5 * d_out / F32_OPS,
-               bitwise_equal_plain=bool(torch.equal(out, ref)))
-        del W, A, B
+               bitwise_equal_plain=bool(torch.equal(out, ref)),
+               device_ms=(mine[0]["ms"] / mine[0]["launches"] if mine
+                          else None))
+        del W, A, B, BG, G
 
     # K3 at decode (M = 4) and prefill-sized rows.
     for m, n in ((4, 3584), (4, 18944), (4096, 18944)):
@@ -579,6 +705,15 @@ def kernel_checks(dev) -> dict:
             e, mx = max_err(g, w)
             check(e <= 1e-4 * mx, f"norm_terms ragged [{d_out}, {d_in}, "
                   f"{r}]: err {e} > {1e-4 * mx}")
+        check_epilogue(W, A, B, s, f"ragged [{d_out}, {d_in}, {r}]")
+    # The epilogue on the FMA route: fp32 operands, and bf16 ones whose
+    # d_in is no multiple of 8.
+    for d_out, d_in, r, dtype in ((130, 200, 136, torch.float32),
+                                  (1000, 203, 40, bf)):
+        check_epilogue(randn(d_out, d_in, scale=d_in ** -0.5, dtype=dtype),
+                       randn(r, d_in, scale=d_in ** -0.5, dtype=dtype),
+                       randn(d_out, r, scale=0.02, dtype=dtype), s,
+                       f"FMA route [{d_out}, {d_in}, {r}] {dtype}")
     for m, n, r in ((100, 1064, 40), (130, 3584, 200)):
         dy = randn(m, n)
         B = randn(n, r, scale=0.02)
@@ -592,7 +727,8 @@ def kernel_checks(dev) -> dict:
               f"compose_mm_bwd ragged [{m}, {n}, {r}]: d_h err {e} "
               f"(tol {1e-4 * mx}), d_base bitwise "
               f"{torch.equal(d_base, ref_b)}")
-    print("  norm_terms, compose_mm_bwd at ragged shapes: ok", flush=True)
+    print("  norm_terms (and its epilogue on both routes), compose_mm_bwd "
+          "at ragged shapes: ok", flush=True)
 
     # K8 at the paged engine's decode and chunk-step shapes: a pool of
     # 512 blocks of [16, 4 KV heads x 128] and tables of max_len / 16 = 128
@@ -857,11 +993,11 @@ def serve_checks(dev) -> dict:
         mcfg, params, adapters, cfg["auto"], prompts, gen_len=GEN,
         max_len=MAX_LEN, device=dev, return_logits=True, stats=stats)
     torch.cuda.synchronize()
-    auto_counts = kernels.launch_counts()
+    auto_counts = launch_counts()
     peak = torch.cuda.max_memory_allocated(dev)
     n_adapted = 7 * mcfg.num_layers
     check(auto_counts == counts_of(norm_terms=n_adapted,
-                                   assemble_norm=n_adapted,
+                                   assembled=n_adapted,
                                    compose_mm_fwd=5 * mcfg.num_layers),
           f"auto-mode launch counts {auto_counts}")
     check_k6_on_tensor_cores(mma0, auto_counts, "serve auto")
@@ -886,9 +1022,9 @@ def serve_checks(dev) -> dict:
         mcfg, params, adapters, cfg["fused"], prompts, gen_len=FORCED_GEN,
         max_len=MAX_LEN, device=dev, return_logits=True, stats=fstats)
     torch.cuda.synchronize()
-    fused_counts = kernels.launch_counts()
+    fused_counts = launch_counts()
     check(fused_counts == counts_of(norm_terms=n_adapted,
-                                    assemble_norm=n_adapted,
+                                    assembled=n_adapted,
                                     compose_fwd=n_adapted * FORCED_GEN,
                                     compose_mm_fwd=n_adapted),
           f"forced-mode launch counts {fused_counts}")
@@ -900,7 +1036,7 @@ def serve_checks(dev) -> dict:
     # --- eager route, bf16: no kernel may launch ---
     kernels.reset_launch_counts()
     eager_bf16 = prefill_logits(mcfg, params, adapters, "eager")
-    check(sum(kernels.launch_counts().values()) == 0,
+    check(sum(launch_counts().values()) == 0,
           "the eager route launched a kernel")
 
     # --- the same weights in fp32: the paper's cosine criterion ---
@@ -909,7 +1045,7 @@ def serve_checks(dev) -> dict:
     a32 = _tree_map(lambda t: t.float(), adapters)
     kernels.reset_launch_counts()
     auto32 = prefill_logits(mcfg32, p32, a32, "auto")
-    check(kernels.launch_counts()["compose_mm_fwd"] == 5 * mcfg.num_layers,
+    check(launch_counts()["compose_mm_fwd"] == 5 * mcfg.num_layers,
           "fp32 auto run did not take the matmul-fused kernel")
     fused32 = prefill_logits(mcfg32, p32, a32, "fused")
     eager32 = prefill_logits(mcfg32, p32, a32, "eager")
@@ -1219,7 +1355,8 @@ def _mean(xs):
 def engine_checks(dev, mcfg, params, adapters) -> dict:
     """The engine phases at the model's full width (bf16, r = 384 DoRA):
 
-    - the main path: the serving precompute (K1, K2) and the paged engine
+    - the main path: the serving precompute (K1 with its epilogue) and
+      the paged engine
       on the realistic trace, launch counts exact, the pool drained;
     - the same engine with the plain gather (``mode="eager"``, the only
       route the engine's dispatch decides with a folded serving tree):
@@ -1253,11 +1390,11 @@ def engine_checks(dev, mcfg, params, adapters) -> dict:
     precompute_ms = (time.perf_counter() - t0) * 1e3
     engine = DecodeEngine(mcfg, auto, params, adapters=state, **paged_kw)
     run = drive_engine(engine, trace, mcfg.vocab_size, timed=True)
-    counts = kernels.launch_counts()
+    counts = launch_counts()
     peak = _peak(dev)
     steps = engine.device_steps()
     st, ps = engine.stats(), engine.pool_stats()
-    check(counts == counts_of(norm_terms=n_adapted, assemble_norm=n_adapted,
+    check(counts == counts_of(norm_terms=n_adapted, assembled=n_adapted,
                               paged_gather=2 * L * (steps["decode"]
                                                     + steps["prefill_chunk"])),
           f"engine main-path launch counts {counts} (device steps {steps})")
@@ -1309,8 +1446,8 @@ def engine_checks(dev, mcfg, params, adapters) -> dict:
     kernels.reset_launch_counts()
     plain = DecodeEngine(mcfg, eager, params, adapters=state, **paged_kw)
     plain_run = drive_engine(plain, trace, mcfg.vocab_size)
-    check(sum(kernels.launch_counts().values()) == 0,
-          f"the plain-gather engine launched {kernels.launch_counts()}")
+    check(sum(launch_counts().values()) == 0,
+          f"the plain-gather engine launched {launch_counts()}")
     check(plain_run["streams"] == run["streams"],
           "K8 engine streams differ from the plain-gather engine's")
     check(plain.stats() == st, "the plain-gather engine ran another schedule")
@@ -1326,7 +1463,7 @@ def engine_checks(dev, mcfg, params, adapters) -> dict:
                               **kw)
         run_c = drive_engine(engine, trace_c, mcfg.vocab_size)
         st_c, steps_c = engine.stats(), engine.device_steps()
-        counts_c = kernels.launch_counts()
+        counts_c = launch_counts()
         rec = {"stats": st_c.as_dict(), "device_steps": steps_c,
                "wall_s": run_c["wall_s"], "launches": counts_c}
         for field in ("steps", "decode_steps", "prefills",
@@ -1451,17 +1588,17 @@ def _steps_on(dev, mcfg, params, adapters, dcfg, batches, name):
     per_step, steps = [], []
     kernels.reset_launch_counts()
     for batch in batches:
-        before = kernels.launch_counts()
+        before = launch_counts()
         stats: dict = {}
         bt = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
         adapters, opt, met = step(params, adapters, opt, bt, stats=stats)
-        after = kernels.launch_counts()
+        after = launch_counts()
         per_step.append({k: after[k] - before[k] for k in after})
         steps.append({"loss": float(met["loss"]),
                       "grad_norm": float(met["grad_norm"]),
                       "lr": met["lr"], "grad_ms": stats["grad_s"] * 1e3,
                       "optim_ms": stats["optim_s"] * 1e3})
-    launches = kernels.launch_counts()
+    launches = launch_counts()
     peak = torch.cuda.max_memory_allocated(dev)
     del opt
     torch.cuda.empty_cache()
@@ -1486,9 +1623,10 @@ def _steps_on(dev, mcfg, params, adapters, dcfg, batches, name):
 def _kernel_family(name: str) -> str:
     """A coarse class of a device kernel's name, for the step profile."""
     for ours in SOURCES:
-        # A kernel's main and tensor-core launches, and its split sum.
+        # A kernel's main and tensor-core launches, its split sum and
+        # K1's epilogue.
         if any(f"{ours}{part}_kernel" in name
-               for part in ("", "_mma", "_sum")):
+               for part in ("", "_mma", "_sum", "_assemble")):
             return ours
     low = name.lower()
     for family, keys in (("gemm", ("gemm", "xmma", "cutlass", "matmul")),
@@ -1595,7 +1733,7 @@ def train_checks(dev, mcfg, params, adapters) -> dict:
     mma0 = kernels.compose_mm_fwd.mma_launches
     t_auto = _steps_on(dev, mcfg, params, adapters, auto, batches, "auto")
     check_k6_on_tensor_cores(mma0, t_auto["launches"], "train auto")
-    want = counts_of(norm_terms=n_adapted, assemble_norm=n_adapted,
+    want = counts_of(norm_terms=n_adapted, assembled=n_adapted,
                      compose_mm_fwd=2 * 5 * L, compose_mm_bwd=5 * L)
     for i, got in enumerate(t_auto["launches_per_step"]):
         check(got == want, f"train auto step {i} launch counts {got}")
@@ -1605,7 +1743,7 @@ def train_checks(dev, mcfg, params, adapters) -> dict:
     # --- 6: the element-wise route on the same state ---
     t_elem = _steps_on(dev, mcfg, params, adapters, elem, batches,
                        "elementwise")
-    want = counts_of(norm_terms=n_adapted, assemble_norm=n_adapted,
+    want = counts_of(norm_terms=n_adapted, assembled=n_adapted,
                      compose_fwd_dual=2 * 5 * L, compose_bwd=5 * L)
     for i, got in enumerate(t_elem["launches_per_step"]):
         check(got == want, f"train elementwise step {i} launch counts {got}")
@@ -1623,7 +1761,7 @@ def train_checks(dev, mcfg, params, adapters) -> dict:
         loss, g = make_grad_step(mcfg32, StepConfig(
             dora=dcfg, loss_tokens=LOSS_TOKENS), batch=TRAIN_BATCH,
             seq=TRAIN_SEQ)(p32, a32, bt)
-        counts = kernels.launch_counts()
+        counts = launch_counts()
         grads[name] = torch.cat([t.flatten() for t in
                                  _leaves_sorted(g)]).double()
         agree[name] = {"loss": float(loss), "launches": counts}
@@ -1749,8 +1887,9 @@ def mamba_checks(dev) -> dict:
     DoRA on in_proj and out_proj, served by ``generate``.
 
       M1. the main path (bf16, auto mode): precompute, exact-length
-          prefill of 4 x 960, 32 greedy tokens; K1 = K2 = 128 and K6 = 128
-          (in_proj and out_proj of 64 layers) and K9 = 64, nothing else;
+          prefill of 4 x 960, 32 greedy tokens; K1 = assembled = 128 and
+          K6 = 128 (in_proj and out_proj of 64 layers) and K9 = 64,
+          nothing else;
           then one prefill and one decode step under the profiler;
       M2. the same weights upcast to fp32 at 4 layers: the kernel route
           (K6 + K9) against the eager route: prefill logit cosine >=
@@ -1798,9 +1937,9 @@ def mamba_checks(dev) -> dict:
         mcfg, params, adapters, cfg["auto"], prompts, gen_len=GEN,
         max_len=max_len, device=dev, return_logits=True, stats=stats)
     torch.cuda.synchronize()
-    counts = kernels.launch_counts()
+    counts = launch_counts()
     peak = torch.cuda.max_memory_allocated(dev)
-    check(counts == counts_of(norm_terms=2 * L, assemble_norm=2 * L,
+    check(counts == counts_of(norm_terms=2 * L, assembled=2 * L,
                               compose_mm_fwd=2 * L, selective_scan=L),
           f"mamba auto-mode launch counts {counts}")
     check_k6_on_tensor_cores(mma0, counts, "serve mamba")
@@ -1851,7 +1990,7 @@ def mamba_checks(dev) -> dict:
         lg, cache = make_prefill_step(mcfg32, cfg[mode], batch=BATCH,
                                       seq=max_len)(p32, st,
                                                    {"tokens": tok_in})
-        launched = kernels.launch_counts()
+        launched = launch_counts()
         gen_toks = serve.generate(mcfg32, p32, a32, cfg[mode], prompts,
                                   gen_len=MAMBA_AGREE_GEN,
                                   max_len=PROMPT + MAMBA_AGREE_GEN,
@@ -1861,7 +2000,7 @@ def mamba_checks(dev) -> dict:
         del st
     (lk, hk, tk, ck), (le, he, te, ce) = routes["auto"], routes["eager"]
     n_mod = 2 * MAMBA_AGREE_LAYERS
-    check(ck == counts_of(norm_terms=n_mod, assemble_norm=n_mod,
+    check(ck == counts_of(norm_terms=n_mod, assembled=n_mod,
                           compose_mm_fwd=n_mod,
                           selective_scan=MAMBA_AGREE_LAYERS),
           f"fp32 mamba kernel route launched {ck}")
@@ -1909,32 +2048,69 @@ def mamba_checks(dev) -> dict:
             "parity": parity}
 
 
-def paged_gather_ab(dev) -> dict:
-    """K8 against index_select at the engine's decode shape, measured as
-    kernel_checks measures it (medians of alternating windows), with
-    whichever ``repro_torch`` is importable: for kernel_phase_vs."""
-    from repro_torch.kernels import paged_gather as kp
+def fused_norm_ab(dev) -> dict:
+    """With whichever ``repro_torch`` is importable (for kernel_phase_vs):
+    ``kernels.ops.fused_norm``, the norm of one adapted module, in ms by
+    events at qwen2-7b's wq, wk, w_gate and w_down (bf16, r = 384) and
+    in host µs a call at a small shape; and the qwen2-7b serving
+    precompute (the norms of all 196 adapted modules), ms on the host
+    clock, 5 runs after a warm-up."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.config import DoRAConfig
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.launch.steps import StepConfig, make_precompute_step
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 7)
-    pool = torch.randn((ENGINE_BLOCKS, ENGINE_BLOCK, 4, 128), generator=gen,
-                       device=dev).to(torch.bfloat16)
-    pages, _ = paged_table(ENGINE_SLOTS, np.random.default_rng(SEED + 8),
-                           dev)
-    ids = pages.clamp_min(0).long().reshape(-1)
-    ms_k8, ms_lib = alternating_ms(lambda: kp.paged_gather(pool, pages),
-                                   lambda: pool.index_select(0, ids))
-    return {"ms": float(np.median(ms_k8)), "ms_windows": ms_k8,
-            "index_select_ms": float(np.median(ms_lib)),
-            "index_select_ms_windows": ms_lib}
+    s = ALPHA / math.sqrt(RANK)
+
+    def randn(*shape, scale):
+        return (torch.randn(shape, generator=gen, device=dev)
+                * scale).to(torch.bfloat16)
+
+    out = {}
+    for d_out, d_in in K1_SHAPES[:4]:
+        W = randn(d_out, d_in, scale=d_in ** -0.5)
+        A = randn(RANK, d_in, scale=d_in ** -0.5)
+        B = randn(d_out, RANK, scale=0.02)
+        out[f"fused_norm [{d_out}, {d_in}, {RANK}] ms"] = time_ms(
+            lambda: ops.fused_norm(W, A, B, s))
+    W, A, B = randn(512, 512, scale=0.05), randn(64, 512, scale=0.05), \
+        randn(512, 64, scale=0.02)
+    with torch.no_grad():
+        out["fused_norm [512, 512, 64] host us"] = host_us(
+            lambda: ops.fused_norm(W, A, B, s))
+    del W, A, B
+    mcfg = get_config(ARCH)
+    scfg = StepConfig(dora=DoRAConfig(rank=RANK, alpha=ALPHA, mode="auto"))
+    params, adapters = serve.build_state(mcfg, scfg.dora, SEED, dev)
+    adapters = perturb_adapters(
+        adapters, torch.Generator(device=dev).manual_seed(SEED + 1))
+    precompute = make_precompute_step(mcfg, scfg)
+    precompute(params, adapters)
+    runs = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = precompute(params, adapters)
+        torch.cuda.synchronize()
+        runs.append((time.perf_counter() - t0) * 1e3)
+        del state
+    out["precompute_ms_runs"] = runs
+    out["precompute_ms"] = float(np.median(runs))
+    del params, adapters
+    torch.cuda.empty_cache()
+    return out
 
 
 def kernel_phase_vs(other: Path) -> int:
     """The kernel phase (kernel_checks) of the checkout at ``other`` and of
     this one, in the order other, this, this, other, each in a process of
     its own on this card; then, with this script's own methods on each
-    checkout's package, K8 against index_select (paged_gather_ab) and each
-    wrapper's host time (host_checks). Prints K8's and K9's rows of each
-    run and writes them to build/kernel_phase_vs.json."""
+    checkout's package, the per-module norm and the qwen2-7b precompute
+    (fused_norm_ab) and each wrapper's host time (host_checks). Prints
+    K1's and K2's rows of each run and writes them to
+    build/kernel_phase_vs.json."""
     here = Path(__file__).resolve().parent
     code = ("import importlib.util, json, sys, torch; "
             "sys.path[:0] = [sys.argv[1] + '/src', sys.argv[1]]; "
@@ -1945,8 +2121,8 @@ def kernel_phase_vs(other: Path) -> int:
             "torch.backends.cuda.matmul.allow_tf32 = False; "
             "dev = torch.device('cuda', 0); "
             "rows = c.kernel_checks(dev); "
-            "out = {k: rows[k] for k in ('paged_gather', 'selective_scan')}; "
-            "out['paged_gather_ab'] = t.paged_gather_ab(dev); "
+            "out = {k: rows[k] for k in ('norm_terms', 'assemble_norm')}; "
+            "out['fused_norm_ab'] = t.fused_norm_ab(dev); "
             "out['host_us'] = t.host_checks(dev); "
             "print('ROWS ' + json.dumps(out))")
     runs = []
@@ -1961,12 +2137,12 @@ def kernel_phase_vs(other: Path) -> int:
             return run.returncode
         rows = json.loads(run.stdout.split("ROWS ", 1)[1])
         runs.append({"label": label, "root": str(root), **rows})
-        for name in ("paged_gather", "selective_scan"):
+        for name in ("norm_terms", "assemble_norm"):
             for row in rows[name]:
                 print(f"{label}: {name} {row['shape']} {row['ms']:.4f} ms, "
                       f"device {row.get('device_ms')}, library "
                       f"{row['library_ms']}", flush=True)
-        print(f"{label}: paged_gather_ab {rows['paged_gather_ab']}")
+        print(f"{label}: fused_norm_ab {rows['fused_norm_ab']}")
         print(f"{label}: host us {rows['host_us']}", flush=True)
     out = here / "build" / "kernel_phase_vs.json"
     out.parent.mkdir(exist_ok=True)
@@ -2045,12 +2221,26 @@ def main() -> int:
     for name, (src, replaces) in SOURCES.items():
         path, at = RECORD_PATH[name]
         top = rows[name][at]
-        check(by_path[path][name] > 0, f"{name} never launched on {path}")
+        # K2's arithmetic runs on the main paths as K1's epilogue: its
+        # count there is K1's launches that ended in it.
+        key = "assembled" if name == "assemble_norm" else name
+        check(by_path[path][key] > 0, f"{name} never launched on {path}")
         record.append({
             "name": name, "route": "cuda", "source": src,
-            "replaces": replaces, "launches": by_path[path][name],
+            "replaces": replaces, "launches": by_path[path][key],
             "path": path,
-            "launches_by_path": {p: c[name] for p, c in by_path.items()},
+            "launches_by_path": {p: c[key] for p, c in by_path.items()},
+            **({"launched_as": "the epilogue of norm_terms "
+                               "(csrc/norm_terms.cu; counted by "
+                               "norm_terms.assembled_launches)",
+                "standalone_launches_by_path": {
+                    p: c[name] for p, c in by_path.items()},
+                "device_ms": top["device_ms"]}
+               if name == "assemble_norm" else {}),
+            **({k: top[k] for k in ("assembled_ms", "fused_norm_ms",
+                                    "chain_ms", "epilogue_bound_ms",
+                                    "device_ms_by_kernel")}
+               if name == "norm_terms" else {}),
             "max_abs_err": max(r["max_abs_err"] for r in rows[name]),
             "tol": top["tol"], "ms": top["ms"], "plain_ms": top["plain_ms"],
             "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],

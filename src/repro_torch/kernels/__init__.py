@@ -3,8 +3,9 @@ version, and the wrappers the model calls (:mod:`.ops`).
 
 Every kernel wrapper keeps a plain integer ``launches`` that it increments
 where it launches its kernel and nowhere else; :func:`launch_counts` reads
-them and :func:`reset_launch_counts` zeroes them, so a run can show which
-kernels its path went through.
+them and :func:`reset_launch_counts` zeroes them (and K1's
+``norm_terms.assembled_launches``, its launches that ended in the norm
+assembly), so a run can show which kernels its path went through.
 """
 from __future__ import annotations
 
@@ -34,3 +35,4 @@ def launch_counts() -> dict[str, int]:
 def reset_launch_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
+    norm_terms.assembled_launches = 0

@@ -46,6 +46,8 @@ _L = ctypes.c_longlong
 # C signatures of the entry points: (argtypes, restype).
 _SIGNATURES = {
     "norm_terms": ((_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P), _I),
+    "norm_terms_assemble": ((_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                             _F, _F, _P), _I),
     "assemble_norm": ((_P, _P, _P, _P, _I, _F, _F, _P), _I),
     "compose_fwd": ((_P, _P, _P, _P, _L, _I, _F, _I, _I, _P), _I),
     "compose_fwd_dual": ((_P, _P, _P, _P, _P, _L, _I, _F, _I, _I, _P), _I),

@@ -5,17 +5,22 @@
 //
 //   w_norm = sqrt(max(base_sq + two_s*cross + s2*ba_sq, 0))
 //
+// The main paths no longer launch this kernel: their counterpart of
+// assemble_norm_pallas is the epilogue of K1 (norm_terms.cu), which sums
+// ba_sq = rowsum((B·G) ⊙ B) and assembles the norm with the same
+// assemble_norm_elem (common.cuh), so a norm costs no launch of its own.
+// This kernel stays as the standalone wrapper's, held bitwise against its
+// plain version.
+//
 // Bound on the H100: 16 bytes a row (three reads, one write) and a few
 // operations; at d_out <= 18944 that is under 0.1 us of memory time, so
 // the kernel is bound by its launch. Design: one thread per row, nothing
 // else.
 //
 // Numerics, as the reference pins them: two_s = 2s and s2 = s^2 are
-// formed in fp64 by the caller and rounded to fp32; the adds run in the
-// order (base + two_s*cross) + s2*ba with round-to-nearest intrinsics, so
-// nvcc cannot contract them into FMAs; the max propagates NaN (fmaxf
-// would turn NaN into 0); the sqrt is the correctly rounded __fsqrt_rn
-// (the library is built without --use_fast_math).
+// formed in fp64 by the caller and rounded to fp32; assemble_norm_elem
+// keeps the order (base + two_s*cross) + s2*ba, the NaN-propagating max
+// and the correctly rounded sqrt.
 #include "common.cuh"
 
 namespace {
@@ -27,10 +32,7 @@ __global__ void assemble_norm_kernel(const float* __restrict__ base_sq,
                                      float two_s, float s2) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  float acc = __fadd_rn(base_sq[i], __fmul_rn(two_s, cross[i]));
-  acc = __fadd_rn(acc, __fmul_rn(s2, ba_sq[i]));
-  const float clamped = (acc != acc) ? acc : (acc > 0.0f ? acc : 0.0f);
-  out[i] = __fsqrt_rn(clamped);
+  out[i] = assemble_norm_elem(base_sq[i], cross[i], ba_sq[i], two_s, s2);
 }
 
 }  // namespace

@@ -1,9 +1,9 @@
 // Shared pieces of the port's hand-written Hopper kernels: dtype
-// conversion, the pinned-order compose epilogue, and the FMA tile product
-// that only the fp32/fp16 routes (and bf16 operands the tensor-core
-// routes do not take) of the factored-norm kernel (norm_terms.cu) and the
-// matmul-fused compose (compose_mm.cu) still run; their bf16 products
-// are warpgroup MMAs (wgmma.cuh).
+// conversion, the pinned-order compose epilogue and norm assembly, and the
+// FMA tile product that only the fp32/fp16 routes (and bf16 operands the
+// tensor-core routes do not take) of the factored-norm kernel
+// (norm_terms.cu) and the matmul-fused compose (compose_mm.cu) still run;
+// their bf16 products are warpgroup MMAs (wgmma.cuh).
 //
 // Built with nvcc for sm_90a into one shared library with a plain C
 // interface (see ../_build.py). Every entry point launches on the stream it
@@ -52,6 +52,21 @@ __device__ __forceinline__ float compose_elem_t(float gm1, float base,
 __device__ __forceinline__ float compose_elem(float gm1, float base,
                                               float lora, float s) {
   return compose_elem_t(gm1, base, __fmul_rn(s, lora));
+}
+
+// Norm assembly of one row (paper Eq. 5), in the reference's pinned order:
+// sqrt(max((base_sq + two_s*cross) + s2*ba_sq, 0)). The round-to-nearest
+// intrinsics keep nvcc from contracting the adds into FMAs; the max
+// propagates NaN (fmaxf would turn NaN into 0); the sqrt is the correctly
+// rounded __fsqrt_rn (the library is built without --use_fast_math). K2
+// (assemble_norm.cu) and K1's epilogue (norm_terms.cu) both call it.
+__device__ __forceinline__ float assemble_norm_elem(float base_sq,
+                                                    float cross, float ba_sq,
+                                                    float two_s, float s2) {
+  float acc = __fadd_rn(base_sq, __fmul_rn(two_s, cross));
+  acc = __fadd_rn(acc, __fmul_rn(s2, ba_sq));
+  const float clamped = (acc != acc) ? acc : (acc > 0.0f ? acc : 0.0f);
+  return __fsqrt_rn(clamped);
 }
 
 // VEC elements of T moved as one aligned vector (16 bytes when

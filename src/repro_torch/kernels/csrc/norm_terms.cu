@@ -38,16 +38,65 @@
 // 16 x 16-thread tile product of common.cuh. fp32 must not go through
 // TF32 (about 1e-3 relative in the norm), and the card's fp32 route
 // checks run K1 on fp32 weights.
+//
+// The epilogue (entry point norm_terms_assemble) is the main paths'
+// counterpart of repro/kernels/norm_assembly.py:37 assemble_norm_pallas:
+// given BG = B32 · (A32 · A32ᵀ) (fp32 [d_out, r], two torch.matmul calls
+// in the wrapper, where the reference leaves them to XLA) it takes the
+// Gram term ba_sq[j] = sum_l BG[j,l] * B[j,l] and writes
+// w_norm[j] = assemble_norm_elem(base_sq[j], cross[j], ba_sq[j]) (the
+// arithmetic of K2, common.cuh), so neither K2, nor the [d_out, r] product
+// BG ⊙ B, nor its row sum is launched, and base_sq and cross never reach
+// memory. An optional base_sq vector (the serving cache) replaces the
+// summed base term. Bound on the H100: d_out·r·(4 + 2) bytes of BG and B
+// at bf16 plus 12 bytes a row (two sums' partials read, the norm written):
+// at w_gate (d_out 18944, r 384) 43.7 MB, 13 us; its operations are
+// negligible. Design: a warp per row, because a row's r values are
+// contiguous and one thread a row would read them uncoalesced. Lane l sums
+// columns l, l + 32, ... in index order (each product rounded, then
+// added), a __shfl_xor_sync tree of offsets 16, 8, 4, 2, 1 adds the 32
+// lane sums in that fixed order, and lane 0 assembles; base_sq and cross
+// are summed exactly as without the epilogue (same code, same order, same
+// bits). No atomics: the same bits on every call. On the tensor-core route
+// the epilogue replaces the partials' sum kernel (a warp a row instead of
+// a thread); on the FMA route the block's 8 warps take its 64 rows after
+// the tile loop.
 #include "common.cuh"
 #include "wgmma.cuh"
 
 namespace {
 
+// K1's optional epilogue; w_norm == nullptr means none.
+struct Assembly {
+  const float* BG;       // fp32 [d_out, r]: B32 · (A32 · A32ᵀ)
+  const float* base_sq;  // fp32 [d_out] override of the base term, or null
+  float* w_norm;         // fp32 [d_out] output
+  float two_s, s2;
+};
+
+// ba_sq of row `row` by the 32 lanes of a warp: lane l sums columns
+// l, l + 32, ... in index order, then the xor tree combines the lanes; every
+// lane ends with the same bits.
+template <typename T>
+__device__ __forceinline__ float gram_row_sum(const float* __restrict__ BG,
+                                              const T* __restrict__ B,
+                                              int row, int r, int lane) {
+  const size_t off = static_cast<size_t>(row) * r;
+  float p = 0.0f;
+  for (int c = lane; c < r; c += 32)
+    p = __fadd_rn(p, __fmul_rn(BG[off + c], to_f32(B[off + c])));
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    p = __fadd_rn(p, __shfl_xor_sync(0xffffffffu, p, o));
+  return p;
+}
+
 template <typename T>
 __global__ void __launch_bounds__(tile::THREADS)
     norm_terms_kernel(const T* __restrict__ W, const T* __restrict__ A,
                       const T* __restrict__ B, float* __restrict__ base_sq,
-                      float* __restrict__ cross, int d_out, int d_in, int r) {
+                      float* __restrict__ cross, int d_out, int d_in, int r,
+                      Assembly ep) {
   using namespace tile;
   __shared__ __align__(16) float sX[BK][BM + 4];
   __shared__ __align__(16) float sY[BK][BN + 4];
@@ -91,7 +140,18 @@ __global__ void __launch_bounds__(tile::THREADS)
     }
   }
   __syncthreads();
-  if (tid < BM && row0 + tid < d_out) {
+  if (ep.w_norm != nullptr) {
+    // The epilogue: warp w takes rows w, w + 8, ... of the tile.
+    const int lane = tid % 32;
+    for (int i = tid / 32; i < BM && row0 + i < d_out; i += THREADS / 32) {
+      const int gr = row0 + i;
+      const float ba = gram_row_sum(ep.BG, B, gr, r, lane);
+      if (lane == 0)
+        ep.w_norm[gr] = assemble_norm_elem(
+            ep.base_sq != nullptr ? ep.base_sq[gr] : s_base[i], s_cross[i],
+            ba, ep.two_s, ep.s2);
+    }
+  } else if (tid < BM && row0 + tid < d_out) {
     base_sq[row0 + tid] = s_base[tid];
     cross[row0 + tid] = s_cross[tid];
   }
@@ -255,9 +315,37 @@ __global__ void norm_terms_sum_kernel(const float* __restrict__ part_base,
   cross[j] = c;
 }
 
+// The same sums, a warp a row, ending in the epilogue: lane 0 sums
+// base_sq (unless ep.base_sq replaces it) and cross as
+// norm_terms_sum_kernel does and assembles the norm.
+constexpr int kAssembleRows = 8;  // rows (warps) a block
+
+__global__ void __launch_bounds__(32 * kAssembleRows)
+    norm_terms_assemble_kernel(const float* __restrict__ part_base,
+                               const float* __restrict__ part_cross,
+                               const bf16* __restrict__ B, Assembly ep,
+                               int d_out, int r, int splits, int n_rt) {
+  const int lane = threadIdx.x % 32;
+  const int j = blockIdx.x * kAssembleRows + threadIdx.x / 32;
+  if (j >= d_out) return;
+  const float ba = gram_row_sum(ep.BG, B, j, r, lane);
+  if (lane != 0) return;
+  float b = 0.0f, c = 0.0f;
+  if (ep.base_sq != nullptr) {
+    b = ep.base_sq[j];
+  } else {
+    for (int s = 0; s < splits; ++s)
+      b += part_base[static_cast<size_t>(s) * d_out + j];
+  }
+  for (int p = 0; p < splits * n_rt; ++p)
+    c += part_cross[static_cast<size_t>(p) * d_out + j];
+  ep.w_norm[j] = assemble_norm_elem(b, c, ba, ep.two_s, ep.s2);
+}
+
 int norm_terms_bf16(const bf16* W, const bf16* A, const bf16* B,
                     float* base_sq, float* cross, float* scratch, int d_out,
-                    int d_in, int r, int split_k, cudaStream_t st) {
+                    int d_in, int r, int split_k, const Assembly& ep,
+                    cudaStream_t st) {
   using namespace k1;
   const int splits = (d_in + split_k - 1) / split_k;
   const int n_rt = (r + BN - 1) / BN;
@@ -275,8 +363,33 @@ int norm_terms_bf16(const bf16* W, const bf16* A, const bf16* B,
       W, A, B, part_base, part_cross, d_out, d_in, r, split_k);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  norm_terms_sum_kernel<<<(d_out + 255) / 256, 256, 0, st>>>(
-      part_base, part_cross, base_sq, cross, d_out, splits, n_rt);
+  if (ep.w_norm != nullptr)
+    norm_terms_assemble_kernel<<<(d_out + kAssembleRows - 1) / kAssembleRows,
+                                 32 * kAssembleRows, 0, st>>>(
+        part_base, part_cross, B, ep, d_out, r, splits, n_rt);
+  else
+    norm_terms_sum_kernel<<<(d_out + 255) / 256, 256, 0, st>>>(
+        part_base, part_cross, base_sq, cross, d_out, splits, n_rt);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_norm_terms(const void* W, const void* A, const void* B,
+                      void* base_sq, void* cross, void* scratch, int d_out,
+                      int d_in, int r, int split_k, int dtype,
+                      const Assembly& ep, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == DT_BF16 && split_k > 0)
+    return norm_terms_bf16(
+        static_cast<const bf16*>(W), static_cast<const bf16*>(A),
+        static_cast<const bf16*>(B), static_cast<float*>(base_sq),
+        static_cast<float*>(cross), static_cast<float*>(scratch), d_out, d_in,
+        r, split_k, ep, st);
+  const dim3 grid((d_out + tile::BM - 1) / tile::BM);
+  DISPATCH_DTYPE(dtype, T,
+                 norm_terms_kernel<T><<<grid, tile::THREADS, 0, st>>>(
+                     static_cast<const T*>(W), static_cast<const T*>(A),
+                     static_cast<const T*>(B), static_cast<float*>(base_sq),
+                     static_cast<float*>(cross), d_out, d_in, r, ep));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -290,20 +403,25 @@ extern "C" int norm_terms(const void* W, const void* A, const void* B,
                           void* base_sq, void* cross, void* scratch,
                           int d_out, int d_in, int r, int split_k, int dtype,
                           void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == DT_BF16 && split_k > 0)
-    return norm_terms_bf16(
-        static_cast<const bf16*>(W), static_cast<const bf16*>(A),
-        static_cast<const bf16*>(B), static_cast<float*>(base_sq),
-        static_cast<float*>(cross), static_cast<float*>(scratch), d_out, d_in,
-        r, split_k, st);
-  const dim3 grid((d_out + tile::BM - 1) / tile::BM);
-  DISPATCH_DTYPE(dtype, T,
-                 norm_terms_kernel<T><<<grid, tile::THREADS, 0, st>>>(
-                     static_cast<const T*>(W), static_cast<const T*>(A),
-                     static_cast<const T*>(B), static_cast<float*>(base_sq),
-                     static_cast<float*>(cross), d_out, d_in, r));
-  return static_cast<int>(cudaGetLastError());
+  return launch_norm_terms(W, A, B, base_sq, cross, scratch, d_out, d_in, r,
+                           split_k, dtype, Assembly{}, stream);
+}
+
+// The same, ending in the epilogue: w_norm [d_out] from BG [d_out, r]
+// (fp32) and, where base_sq is not null, that base term.
+extern "C" int norm_terms_assemble(const void* W, const void* A,
+                                   const void* B, const void* BG,
+                                   const void* base_sq, void* w_norm,
+                                   void* scratch, int d_out, int d_in, int r,
+                                   int split_k, int dtype, float two_s,
+                                   float s2, void* stream) {
+  if (w_norm == nullptr || BG == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Assembly ep{static_cast<const float*>(BG),
+                    static_cast<const float*>(base_sq),
+                    static_cast<float*>(w_norm), two_s, s2};
+  return launch_norm_terms(W, A, B, nullptr, nullptr, scratch, d_out, d_in,
+                           r, split_k, dtype, ep, stream);
 }
 
 // The error text for a code an entry point returned (defined once, here,

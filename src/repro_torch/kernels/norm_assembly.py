@@ -7,7 +7,9 @@ Replaces ``repro/kernels/norm_assembly.py:37 assemble_norm_pallas``:
 with two_s = 2s and s2 = s² formed in fp64 and rounded to fp32, the adds
 in that order, a NaN-propagating max and a correctly rounded sqrt
 (kernel: ``csrc/assemble_norm.cu``). CUDA tensors launch the kernel or
-raise; CPU tensors run :func:`assemble_norm_plain`.
+raise; CPU tensors run :func:`assemble_norm_plain`. The main paths run the
+same arithmetic as K1's epilogue (``factored_norm.Assembly``), not this
+kernel.
 """
 from __future__ import annotations
 
@@ -19,14 +21,14 @@ from repro_torch.kernels import _build
 _F32 = torch.float32
 
 
-def _scalars(s: float) -> tuple[float, float]:
+def scalars(s: float) -> tuple[float, float]:
     s64 = float(s)
     return f32(2.0 * s64), f32(s64 * s64)
 
 
 def assemble_norm_plain(base_sq, cross, ba_sq, s: float):
     """Plain PyTorch version of the kernel's function, in its order."""
-    two_s, s2 = _scalars(s)
+    two_s, s2 = scalars(s)
     acc = base_sq + two_s * cross
     acc = acc + s2 * ba_sq
     return torch.sqrt(torch.clamp_min(acc, 0.0))
@@ -46,7 +48,7 @@ def assemble_norm(base_sq, cross, ba_sq, s: float):
     out = torch.empty(n, dtype=_F32, device=base_sq.device)
     if n == 0:
         return out
-    two_s, s2 = _scalars(s)
+    two_s, s2 = scalars(s)
     rc = _build.library().assemble_norm(
         base_sq.data_ptr(), cross.data_ptr(), ba_sq.data_ptr(),
         out.data_ptr(), n, two_s, s2, _build.stream_of(base_sq))

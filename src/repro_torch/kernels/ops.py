@@ -1,8 +1,9 @@
 """Wrappers the adapter calls around the kernels (counterpart of
 ``repro/kernels/ops.py``).
 
-  - :func:`fused_norm`: K1 (terms) + the Gram term in plain matmuls + K2
-    (assembly); detached.
+  - :func:`fused_norm`: the Gram product in plain matmuls, then one K1
+    launch whose epilogue takes the Gram row sum and assembles the norm
+    (K2's function); detached.
   - :func:`fused_compose`: a ``torch.autograd.Function`` on a materialized
     y_lora. Forward K4 (delta and the saved inner) when the magnitude
     gradient wants inner, else K3; backward K5 for d_base and d_lora, and
@@ -25,8 +26,7 @@ from repro_torch.core.compose import f32
 from repro_torch.kernels.dora_compose import (compose_bwd, compose_fwd,
                                               compose_fwd_dual,
                                               compose_mm_bwd, compose_mm_fwd)
-from repro_torch.kernels.factored_norm import norm_terms
-from repro_torch.kernels.norm_assembly import assemble_norm
+from repro_torch.kernels.factored_norm import Assembly, norm_terms
 
 _F32 = torch.float32
 
@@ -138,18 +138,17 @@ def fused_compose_mm(base, h, B, g, s: float, *, mag_grad: bool = True):
 
 @torch.no_grad()
 def fused_norm(W, A, B, s: float, *, base_sq_cache=None):
-    """Detached fp32 row-wise norm of W + s·B·A through K1 and K2."""
+    """Detached fp32 row-wise norm of W + s·B·A through K1 and its
+    epilogue (K2's assembly)."""
     if s == 0.0:
         if base_sq_cache is not None:
             return torch.sqrt(torch.clamp_min(base_sq_cache, 0.0))
         w32 = W.to(_F32)
         return torch.sqrt(torch.clamp_min((w32 * w32).sum(dim=1), 0.0))
-    base_sq, cross = norm_terms(W.contiguous(), A.contiguous(),
-                                B.contiguous())
-    if base_sq_cache is not None:
-        base_sq = base_sq_cache.to(_F32).contiguous()
     A32 = A.to(_F32)
-    B32 = B.to(_F32)
     G = A32 @ A32.T                                   # [r, r]
-    ba_sq = ((B32 @ G) * B32).sum(dim=1)
-    return assemble_norm(base_sq, cross, ba_sq, s)
+    BG = B.to(_F32) @ G                               # [d_out, r]
+    if base_sq_cache is not None:
+        base_sq_cache = base_sq_cache.to(_F32).contiguous()
+    return norm_terms(W.contiguous(), A.contiguous(), B.contiguous(),
+                      Assembly(BG, s, base_sq_cache))

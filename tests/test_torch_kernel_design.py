@@ -10,6 +10,11 @@ arithmetic they carry out:
 - K1's decomposition, bf16 products summed in fp32 per d_in split and per
   rank tile, the partials then summed in a fixed order, stays within
   1e-4 of max of the reference's Pallas kernel (interpret mode);
+- K1's epilogue, those partials summed in index order, the Gram row sum
+  split over a warp's 32 lanes and combined by an xor tree, then K2's
+  assembly order, stays within 1e-6 of max |w_norm| of the reference's
+  fused_norm (interpret mode), at a ragged d_out, ranks no multiple of
+  32, with and without a cached base term, and propagates a NaN row;
 - K7's hi/lo split of the fp32 operand t = gs⊙dY keeps d_h within 1e-5 of
   max |d_h| of the reference's Pallas kernel, with gs spanning 1e-3–1e1,
   where rounding t to bf16 alone lands near 1e-3;
@@ -41,6 +46,7 @@ from repro.kernels.selective_scan import selective_scan_pallas
 from repro_torch.kernels import _build
 from repro_torch.kernels import dora_compose as tk_compose
 from repro_torch.kernels import factored_norm as tk_norm
+from repro_torch.kernels import norm_assembly as tk_assembly
 from repro_torch.kernels import ops as tk_ops
 from repro_torch.kernels import selective_scan as tk_scan
 
@@ -128,6 +134,71 @@ def test_norm_terms_split_arithmetic_matches_pallas(d_out, d_in, r):
         want = np.asarray(want, np.float32)
         err = np.abs(got.numpy() - want).max()
         assert err <= 1e-4 * np.abs(want).max(), err
+
+
+def _emulate_gram_row_sum(BG, B):
+    """The epilogue's ba_sq = Σ_l BG_jl·B_jl: lane l of a row's warp sums
+    columns l, l + 32, ... in index order (each product rounded, then
+    added); the xor tree of offsets 16, 8, 4, 2, 1 adds the lane sums,
+    leaving every lane with the same bits."""
+    lanes = tk_norm.GRAM_LANES
+    d_out, r = BG.shape
+    prod = BG * B.float()
+    part = torch.zeros(d_out, lanes)
+    for c0 in range(0, r, lanes):
+        chunk = prod[:, c0:c0 + lanes]
+        part[:, :chunk.shape[1]] = part[:, :chunk.shape[1]] + chunk
+    idx = torch.arange(lanes)
+    off = lanes // 2
+    while off:
+        part = part + part[:, idx ^ off]
+        off //= 2
+    assert ((part == part[:, :1]) | part.isnan()).all()
+    return part[:, 0]
+
+
+def _pad_rows(x, rows):
+    return np.pad(x, ((0, rows - x.shape[0]),) + ((0, 0),) * (x.ndim - 1))
+
+
+@pytest.mark.parametrize("cached", [False, True])
+@pytest.mark.parametrize("s", [0.5, 2.0])
+@pytest.mark.parametrize("d_out,d_in,r", [(200, 512, 40), (256, 1024, 136)])
+def test_norm_epilogue_arithmetic_matches_pallas(d_out, d_in, r, s, cached):
+    """K1 → epilogue on the tensor-core route, emulated: the partials
+    summed in index order, the lane-split Gram row sum, K2's order; a NaN
+    in row 3 of W stays NaN in w_norm. The reference pads d_out to a
+    multiple of 128 with zero rows, which perturb no other row."""
+    rng = np.random.default_rng(d_out + r)
+    W = _bf16_np(rng, (d_out, d_in), d_in ** -0.5)
+    W[3, 5] = float("nan")
+    A = _bf16_np(rng, (r, d_in), d_in ** -0.5)
+    B = _bf16_np(rng, (d_out, r), 0.1)
+    cache = None
+    if cached:
+        cache = ((W.double() ** 2).sum(dim=1) * 1.01).float()
+        cache[3] = 1.0
+    base, cross, splits = _emulate_norm_terms(W, A, B)
+    assert splits > 1
+    if cache is not None:
+        base = cache
+    A32 = A.float()
+    ba_sq = _emulate_gram_row_sum(B.float() @ (A32 @ A32.T), B)
+    got = tk_assembly.assemble_norm_plain(base, cross, ba_sq, s).numpy()
+    rows = -(-d_out // 128) * 128
+    f32 = lambda t: _pad_rows(t.float().numpy(), rows)
+    want = jops.fused_norm(
+        jnp.asarray(f32(W), jnp.bfloat16),
+        jnp.asarray(A.float().numpy(), jnp.bfloat16),
+        jnp.asarray(f32(B), jnp.bfloat16), s, block_rows=128, block_k=128,
+        interpret=True,
+        base_sq_cache=None if cache is None else jnp.asarray(f32(cache)))
+    want = np.asarray(want, np.float32)[:d_out]
+    nan = np.isnan(want)
+    assert nan[3] and (np.isnan(got) == nan).all()
+    scale = np.abs(want[~nan]).max()
+    err = np.abs(got[~nan] - want[~nan]).max()
+    assert err <= 1e-6 * scale, err / scale
 
 
 def _emulate_compose_mm_bwd(dy, B, gs, *, lo: bool = True):

@@ -30,6 +30,8 @@ from repro_torch import kernels as tkernels
 from repro_torch.bridge import tensor_from_numpy, tensor_to_numpy
 from repro_torch.kernels import _build
 from repro_torch.kernels import dora_compose as tk_compose
+from repro_torch.kernels import factored_norm as tk_factored
+from repro_torch.kernels import norm_assembly as tk_assembly
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels.factored_norm import norm_terms
 from repro_torch.kernels import paged_gather as tk_paged
@@ -410,6 +412,59 @@ def test_non_cpu_tensor_never_falls_back():
                      meta, torch.empty(128, 4, device="meta"), v, v)):
         with pytest.raises(RuntimeError, match="CUDA unavailable"):
             call()
+
+
+@pytest.mark.parametrize("cached", [False, True])
+def test_fused_norm_on_cpu_runs_each_plain_version_once(monkeypatch, cached):
+    """On CPU tensors the epilogue's path runs K1's plain version, the Gram
+    row sum and K2's plain version, once each, gives the values of the
+    two-wrapper chain (K1 terms, the Gram row sum, K2) and launches
+    nothing."""
+    rng = np.random.default_rng(9)
+    W, A, B = (torch.from_numpy(_np(rng, shape, scale=0.1))
+               for shape in ((200, 96), (12, 96), (200, 12)))
+    s = 1.5
+    base, cross = tk_factored.norm_terms_plain(W, A, B)
+    cache = base * 1.01 if cached else None
+    G = A @ A.T
+    want = tk_assembly.assemble_norm_plain(
+        base if cache is None else cache, cross, ((B @ G) * B).sum(dim=1), s)
+    calls = {}
+    for mod, name in ((tk_factored, "norm_terms_plain"),
+                      (tk_assembly, "assemble_norm_plain")):
+        fn = getattr(mod, name)
+
+        def wrapped(*a, _fn=fn, _name=name, **k):
+            calls[_name] = calls.get(_name, 0) + 1
+            return _fn(*a, **k)
+        monkeypatch.setattr(mod, name, wrapped)
+    tkernels.reset_launch_counts()
+    got = tops.fused_norm(W, A, B, s, base_sq_cache=cache)
+    assert calls == {"norm_terms_plain": 1, "assemble_norm_plain": 1}
+    assert torch.equal(got, want)
+    assert tkernels.launch_counts() == dict.fromkeys(tkernels.KERNELS, 0)
+    assert tk_factored.norm_terms.assembled_launches == 0
+
+
+def test_norm_terms_assembly_never_falls_back():
+    """K1 with its epilogue refuses a tensor off the CPU without a card
+    like every wrapper, and refuses an assembly of the wrong shape."""
+    meta = {name: torch.empty(shape, device="meta") for name, shape in
+            (("W", (8, 128)), ("A", (4, 128)), ("B", (8, 4)),
+             ("BG", (8, 4)), ("base_sq", (8,)))}
+    W, A, B = meta["W"], meta["A"], meta["B"]
+    for base_sq in (None, meta["base_sq"]):
+        with pytest.raises(RuntimeError, match="CUDA unavailable"):
+            norm_terms(W, A, B, tk_factored.Assembly(meta["BG"], 1.0,
+                                                     base_sq))
+    x = torch.ones(8, 128)
+    with pytest.raises(ValueError, match="assembly"):
+        norm_terms(x, torch.ones(4, 128), torch.ones(8, 4),
+                   tk_factored.Assembly(torch.ones(8, 5), 1.0))
+    with pytest.raises(ValueError, match="assembly"):
+        norm_terms(x, torch.ones(4, 128), torch.ones(8, 4),
+                   tk_factored.Assembly(torch.ones(8, 4), 1.0,
+                                        torch.ones(7)))
 
 
 def test_build_needs_nvcc_and_names_library_by_source_hash(monkeypatch,
