@@ -92,6 +92,21 @@ in_proj and out_proj (see mamba_checks):
   M3. a 2-layer fp32 model on the card and on the CPU: prefill logits
       within 1e-4 x max|logit|, equal greedy tokens.
 
+Then the rest of the dense family (see vl_checks and arch_checks), after
+the kernel phase has held K1 with its epilogue at each of their 20 new
+weight shapes and K6 and K7 at 4096 rows x each of their 8 new d_out
+(arch_kernel_checks; K3 also gets its device time there):
+
+  V1-V4. qwen2-vl-7b, the paper's backbone, at full width and depth:
+      3 training steps from bf16 patch embeddings with exactly
+      K1 = assembled = 196, K6 = 280, K7 = 140 a step; the routes in fp32
+      at 2 layers from embeddings; ``generate`` with K1 = 196, K6 = 140;
+      an embeddings prefill, kernel vs eager route in fp32 at full depth;
+  A1-A5. phi4-mini-3.8b, chatglm3-6b, musicgen-medium, qwen3-32b and
+      qwen2-vl-72b at their published widths, depth cut as ARCH_DEPTH
+      says (printed), served with the launch counts the port's dispatch
+      plans give, kernel vs eager route in fp32 at 4 layers.
+
 With ``--kernel-phase-vs DIR`` it runs only the kernel phase, of the
 checkout at DIR (a ``git archive`` of another commit) and of this one, in
 turns (DIR, this, this, DIR), and prints K1's and K2's rows of each, with
@@ -390,6 +405,45 @@ def cosine(a, b) -> float:
     return (a @ b / (a.norm() * b.norm())).item()
 
 
+def record_row(rows, name, shape, err, ref_max, rel, ms, plain, nbytes,
+               ops_s, lib_ms=None, lib_call=None, grid=None, **extra):
+    """Append one kernel row to ``rows[name]`` (error against the plain
+    version and its tolerance ``rel`` x max |plain|, ms by events, the
+    plain version's ms, the bound from ``nbytes`` and ``ops_s``, the
+    PyTorch call's ms), print it, and fail if the error is above the
+    tolerance."""
+    tol = rel * ref_max
+    b_ms, b_by = bound_ms(nbytes, ops_s)
+    # The bytes the function must move over the kernel's time.
+    gb_s = nbytes / ms / 1e6
+    row = {"shape": shape, "max_abs_err": err, "tol": tol,
+           "ms": ms, "plain_ms": plain, "bound_ms": b_ms,
+           "bound_by": b_by, "library_ms": lib_ms,
+           "library_call": lib_call, "gb_s": gb_s, "grid": grid,
+           **extra}
+    rows[name].append(row)
+    print(f"  {name} {shape}: err {err:.3g} (tol {tol:.3g}), "
+          f"{ms:.4f} ms ({gb_s:.0f} GB/s) vs plain {plain:.4f} ms, "
+          f"bound {b_ms:.4f} ms ({b_by})"
+          + (f", {lib_call} {lib_ms:.4f} ms"
+             if lib_ms is not None else "")
+          + (f"; grid {grid}" if grid else "")
+          + (f"; device {extra['device_ms']:.4f} ms"
+             if extra.get("device_ms") is not None else ""), flush=True)
+    check(err <= tol, f"{name} {shape}: max err {err} > tol {tol}")
+
+
+def profiled_ms(run, kernel: str, calls: int, label: str):
+    """The profiler's device time of one wrapper call over ``run()``
+    (``calls`` calls): the time of every kernel whose name contains
+    ``kernel`` (a main kernel and its split sum or epilogue together),
+    over ``calls``; None where the profiler shows none."""
+    prof = profile(run, label, echo=False)
+    mine = [k["ms"] for k in prof.get("top_kernels_ms", [])
+            if kernel in k["name"]]
+    return sum(mine) / calls if mine else None
+
+
 # ---------------------------------------------------------------------------
 # Kernel-by-kernel checks at the serving path's shapes.
 # ---------------------------------------------------------------------------
@@ -412,25 +466,8 @@ def kernel_checks(dev) -> dict:
 
     rows = {name: [] for name in SOURCES}
 
-    def record(name, shape, err, ref_max, rel, ms, plain, nbytes, ops_s,
-               lib_ms=None, lib_call=None, grid=None, **extra):
-        tol = rel * ref_max
-        b_ms, b_by = bound_ms(nbytes, ops_s)
-        # The bytes the function must move over the kernel's time.
-        gb_s = nbytes / ms / 1e6
-        row = {"shape": shape, "max_abs_err": err, "tol": tol,
-               "ms": ms, "plain_ms": plain, "bound_ms": b_ms,
-               "bound_by": b_by, "library_ms": lib_ms,
-               "library_call": lib_call, "gb_s": gb_s, "grid": grid,
-               **extra}
-        rows[name].append(row)
-        print(f"  {name} {shape}: err {err:.3g} (tol {tol:.3g}), "
-              f"{ms:.4f} ms ({gb_s:.0f} GB/s) vs plain {plain:.4f} ms, "
-              f"bound {b_ms:.4f} ms ({b_by})"
-              + (f", {lib_call} {lib_ms:.4f} ms"
-                 if lib_ms is not None else "")
-              + (f"; grid {grid}" if grid else ""), flush=True)
-        check(err <= tol, f"{name} {shape}: max err {err} > tol {tol}")
+    def record(*args, **kw):
+        record_row(rows, *args, **kw)
 
     # K1 and K2 on the wq, wk, w_gate and w_down weight shapes, then on
     # falcon-mamba-7b's in_proj and out_proj.
@@ -526,8 +563,11 @@ def kernel_checks(dev) -> dict:
                           else None))
         del W, A, B, BG, G
 
-    # K3 at decode (M = 4) and prefill-sized rows.
-    for m, n in ((4, 3584), (4, 18944), (4096, 18944)):
+    # K3 at decode (M = 4) and prefill-sized rows: 4096, and the 3840
+    # rows of a 4 x 960 prefill on the element-wise route (a rank that
+    # pads above 512, as 768 does, materializes y_lora and composes it
+    # here), each with its device time.
+    for m, n in ((4, 3584), (4, 18944), (4096, 18944), (3840, 18944)):
         base = randn(m, n)
         lora = randn(m, n, scale=2.0)
         gm1 = randn(n, scale=0.05, dtype=torch.float32)
@@ -540,7 +580,11 @@ def kernel_checks(dev) -> dict:
                time_ms(lambda: kc.compose_fwd(base, lora, gm1, s)),
                time_ms(lambda: kc.compose_fwd_plain(base, lora, gm1, s)),
                3 * m * n * esz + n * 4, 5 * m * n / F32_OPS,
-               bitwise_equal_plain=bool(torch.equal(out, ref)))
+               bitwise_equal_plain=bool(torch.equal(out, ref)),
+               device_ms=profiled_ms(
+                   lambda: [kc.compose_fwd(base, lora, gm1, s)
+                            for _ in range(20)], "compose_fwd_kernel", 20,
+                   f"compose_fwd [{m}, {n}] x 20"))
         del base, lora
 
     # K6 at prefill and training rows on the d_out of wq/wo/w_down and of
@@ -848,6 +892,152 @@ def kernel_checks(dev) -> dict:
         del args, dt, dtx, y, h_f, ref_y, ref_h, y2, h_f2
     torch.cuda.empty_cache()
     return rows
+
+
+# The weight shapes [d_out, d_in] of the adapted modules of the archs
+# this script serves beside qwen2-7b (qwen2-vl-7b has qwen2-7b's), and
+# the d_out of every one that the auto prefill of 4 x 1024 rows sends to
+# K6 (and a training step to K6 and K7).
+ARCH_K1_SHAPES = (
+    (3072, 8192), (8192, 3072), (1024, 3072), (3072, 3072),   # phi4-mini
+    (4096, 13696), (13696, 4096), (256, 4096), (4096, 4096),  # chatglm3
+    (5120, 25600), (25600, 5120), (1024, 5120), (5120, 8192),  # qwen3-32b
+    (8192, 5120),
+    (1536, 6144), (6144, 1536), (1536, 1536),                 # musicgen
+    (8192, 29568), (29568, 8192), (1024, 8192), (8192, 8192))  # qwen2-vl-72b
+ARCH_MM_N = (3072, 8192, 4096, 13696, 5120, 25600, 6144, 29568)
+ARCH_MM_ROWS = BATCH * MAX_LEN
+
+
+def arch_kernel_checks(dev, rows) -> None:
+    """K1 with its epilogue at every ARCH_K1_SHAPES weight, and K6 and K7
+    at ARCH_MM_ROWS x every ARCH_MM_N, against their plain versions to
+    the tolerances of kernel_checks; each timed by events and by the
+    profiler's device time beside its bound and the PyTorch call for the
+    same product. Rows go into ``rows`` with ``"arch_shape": True``."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import dora_compose as kc
+    from repro_torch.kernels import factored_norm as kn
+    from repro_torch.kernels import norm_assembly as ka
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 10)
+    bf = torch.bfloat16
+    esz = 2
+    s = ALPHA / math.sqrt(RANK)
+
+    def randn(*shape, scale=1.0, dtype=bf):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(
+            dtype)
+
+    def record(*args, **kw):
+        record_row(rows, *args, arch_shape=True, **kw)
+
+    for d_out, d_in in ARCH_K1_SHAPES:
+        W = randn(d_out, d_in, scale=d_in ** -0.5)
+        A = ((torch.rand((RANK, d_in), generator=gen, device=dev) * 2 - 1)
+             * d_in ** -0.5).to(bf)
+        B = randn(d_out, RANK, scale=0.02)
+        base, cross = kn.norm_terms(W, A, B)
+        pb, pc = kn.norm_terms_plain(W, A, B)
+        e1, m1 = max_err(base, pb)
+        e2, m2 = max_err(cross, pc)
+        ep = check_epilogue(W, A, B, s, f"[{d_out}, {d_in}, {RANK}]")
+        A32, B32 = A.float(), B.float()
+        BG = B32 @ (A32 @ A32.T)
+        asm = kn.Assembly(BG, s)
+        splits, split_k = kn.norm_terms_split(d_out, d_in, RANK)
+        tiles = math.ceil(RANK / kn.TILE_RANK) * math.ceil(d_out /
+                                                            kn.TILE_ROWS)
+        # The main paths' call, K1 with its epilogue: W, A, B and BG read
+        # once, w_norm written; the bf16 product on the tensor cores, the
+        # squares, the cross and Gram row sums in fp32.
+        nbytes = (d_out * d_in + RANK * d_in + d_out * RANK) * esz \
+            + d_out * RANK * 4 + d_out * 4
+        ops_s = (2 * d_out * d_in * RANK) / PEAK_OPS[bf] \
+            + (2 * d_out * d_in + 4 * d_out * RANK) / F32_OPS
+        record("norm_terms", [d_out, d_in, RANK], max(e1, e2), max(m1, m2),
+               1e-4, time_ms(lambda: kn.norm_terms(W, A, B, asm)),
+               time_ms(lambda: ka.assemble_norm_plain(
+                   *kn.norm_terms_plain(W, A, B),
+                   (BG * B.float()).sum(dim=1), s)),
+               nbytes, ops_s, time_ms(lambda: W @ A.T), "W @ A.T",
+               f"{tiles} tiles x {splits} d_in splits of {split_k} = "
+               f"{tiles * splits} blocks",
+               with_epilogue=True, epilogue=ep, splits=splits,
+               terms_ms=time_ms(lambda: kn.norm_terms(W, A, B)),
+               device_ms=profiled_ms(
+                   lambda: [kn.norm_terms(W, A, B, asm) for _ in range(10)],
+                   "norm_terms", 10, f"norm_terms [{d_out}, {d_in}] x 10"),
+               deterministic=bool(torch.equal(
+                   kn.norm_terms(W, A, B, asm),
+                   kn.norm_terms(W, A, B, asm))))
+        del W, A, B, BG, asm, pb, pc, base, cross
+    print("  norm_terms with its epilogue at every new arch shape: ok",
+          flush=True)
+
+    m = ARCH_MM_ROWS
+    for n in ARCH_MM_N:
+        base = randn(m, n)
+        h = randn(m, RANK, scale=0.5)
+        B = randn(n, RANK, scale=0.02)
+        gm1 = randn(n, scale=0.05, dtype=torch.float32)
+        gs = (gm1 + 1.0) * s
+        mma0 = kc.compose_mm_fwd.mma_launches
+        out = kc.compose_mm_fwd(base, h, B, gm1, s)
+        check(kc.compose_mm_fwd.mma_launches == mma0 + 1,
+              f"compose_mm_fwd [{m}, {n}, {RANK}] did not take the "
+              f"tensor-core route")
+        e, mx = max_err(out, kc.compose_mm_fwd_plain(base, h, B, gm1, s))
+        tiles = (math.ceil(m / kc.MM_FWD_TILE_ROWS)
+                 * math.ceil(n / kc.MM_FWD_TILE_COLS))
+        record("compose_mm_fwd", [m, n, RANK], e, mx, 2.0 ** -7,
+               time_ms(lambda: kc.compose_mm_fwd(base, h, B, gm1, s)),
+               time_ms(lambda: kc.compose_mm_fwd_plain(base, h, B, gm1, s)),
+               2 * m * n * esz + (m + n) * RANK * esz + n * 4,
+               2 * m * n * RANK / PEAK_OPS[bf] + 5 * m * n / F32_OPS,
+               time_ms(lambda: h @ B.T), "h @ B.T",
+               f"{kc.compose_mm_fwd_blocks(m, n)} persistent blocks over "
+               f"{tiles} tiles of [{kc.MM_FWD_TILE_ROWS} x "
+               f"{kc.MM_FWD_TILE_COLS}] (last column tile "
+               f"{n - (n - 1) // kc.MM_FWD_TILE_COLS * kc.MM_FWD_TILE_COLS}"
+               f" wide)",
+               route="wgmma",
+               device_ms=profiled_ms(
+                   lambda: [kc.compose_mm_fwd(base, h, B, gm1, s)
+                            for _ in range(10)],
+                   "compose_mm_fwd_mma_kernel", 10,
+                   f"compose_mm_fwd [{m}, {n}] x 10"),
+               deterministic=bool(torch.equal(
+                   out, kc.compose_mm_fwd(base, h, B, gm1, s))))
+        del out, h
+        dy = base
+        d_base, d_h = kc.compose_mm_bwd(dy, B, gm1, gs)
+        ref_b, ref_h = kc.compose_mm_bwd_plain(dy, B, gm1, gs)
+        e, mx = max_err(d_h, ref_h)
+        check(torch.equal(d_base, ref_b), f"compose_mm_bwd [{m}, {n}]: "
+              f"d_base differs from the plain version")
+        dys = (dy.float() * gs).to(dy.dtype)
+        splits, split_n = kc.compose_mm_bwd_split(m, n, RANK)
+        record("compose_mm_bwd", [m, n, RANK], e, mx, 1e-4,
+               time_ms(lambda: kc.compose_mm_bwd(dy, B, gm1, gs)),
+               time_ms(lambda: kc.compose_mm_bwd_plain(dy, B, gm1, gs)),
+               2 * m * n * esz + n * RANK * esz + m * RANK * 4 + 2 * n * 4,
+               2 * 2 * m * n * RANK / PEAK_OPS[bf] + 3 * m * n / F32_OPS,
+               time_ms(lambda: dys @ B), "(dY*gs) @ B, bf16 product only",
+               f"{splits} N splits of {split_n}",
+               route=("wgmma" if _build.tensor_cores(
+                   dy, B, gm1, gs, d_base, dims=(n, RANK)) else "fma"),
+               d_base_bitwise_equal_plain=True,
+               device_ms=profiled_ms(
+                   lambda: [kc.compose_mm_bwd(dy, B, gm1, gs)
+                            for _ in range(10)],
+                   "compose_mm_bwd", 10, f"compose_mm_bwd [{m}, {n}] x 10"),
+               deterministic=bool(torch.equal(
+                   d_h, kc.compose_mm_bwd(dy, B, gm1, gs)[1])))
+        del base, dy, B, d_base, d_h, ref_b, ref_h, dys
+    torch.cuda.empty_cache()
+    print("  compose_mm_fwd and compose_mm_bwd at every new arch d_out: ok",
+          flush=True)
 
 
 def host_us(fn, calls: int = 200) -> float:
@@ -1639,10 +1829,10 @@ def _kernel_family(name: str) -> str:
     return "other"
 
 
-def profile(run, label: str) -> dict:
+def profile(run, label: str, echo: bool = True) -> dict:
     """``run()`` under torch.profiler, outside every launch count: device
     time by kernel family and by kernel, and the device's idle share of
-    the wall time."""
+    the wall time; printed unless ``echo`` is False."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
@@ -1679,7 +1869,8 @@ def profile(run, label: str) -> dict:
                                families.items(), key=lambda kv: -kv[1][1])},
            "top_kernels_ms": [{"name": k[:100], "launches": n, "ms": t / 1e3}
                               for k, (n, t) in top]}
-    print(f"{label} profile: " + json.dumps(rec), flush=True)
+    if echo:
+        print(f"{label} profile: " + json.dumps(rec), flush=True)
     return rec
 
 
@@ -2048,6 +2239,384 @@ def mamba_checks(dev) -> dict:
             "parity": parity}
 
 
+# ---------------------------------------------------------------------------
+# The rest of the dense family: qwen2-vl-7b trained and served at full
+# width and depth from patch embeddings, five more archs served at their
+# published widths with the depth cut.
+# ---------------------------------------------------------------------------
+
+VL_ARCH = "qwen2-vl-7b"
+# Layers each arch is served at (of its published depth), and the depth
+# of its fp32 route comparison. qwen3-32b (65.5 GB of bf16 weights) and
+# qwen2-vl-72b (145.4 GB) are cut to fit one card beside their fp32
+# copies; the three that fit whole run whole.
+ARCH_DEPTH = {"phi4-mini-3.8b": 32, "chatglm3-6b": 28, "musicgen-medium": 48,
+              "qwen3-32b": 24, "qwen2-vl-72b": 16}
+ARCH_GEN, ARCH_AGREE_LAYERS = 8, 4
+
+
+def serve_counts(mcfg, dcfg, *, prefill_rows: int, decode_rows: int,
+                 decode_steps: int) -> dict:
+    """The launch counts of a precompute, one prefill of ``prefill_rows``
+    and ``decode_steps`` decode steps of ``decode_rows`` in auto mode on
+    the card, from the port's dispatch plans (plan_norm, plan_compose) at
+    every adapted module's d_out."""
+    from repro_torch.core import dispatch
+    from repro_torch.models import lm
+
+    norms = mm = elem = 0
+    for _, (d_out, _) in lm._adapted_paths(mcfg, lm.DEFAULT_DORA_TARGETS):
+        norms += dispatch.plan_norm(dcfg, d_out=d_out).fused
+        for rows, times in ((prefill_rows, 1), (decode_rows, decode_steps)):
+            plan = dispatch.plan_compose(dcfg, training=False, rows=rows,
+                                         d_out=d_out, rank=dcfg.rank)
+            mm += times * plan.matmul_fused
+            elem += times * (plan.fused and not plan.matmul_fused)
+    n = mcfg.n_scan
+    return counts_of(norm_terms=n * norms, assembled=n * norms,
+                     compose_mm_fwd=n * mm, compose_fwd=n * elem)
+
+
+def train_counts(mcfg, dcfg, *, rows: int) -> dict:
+    """One train step's launch counts from the port's dispatch plans: the
+    norm once per adapted module, the compose forward twice (the layer and
+    its remat recompute) and its backward once."""
+    from repro_torch.core import dispatch
+    from repro_torch.models import lm
+
+    norms = mm = elem = 0
+    for _, (d_out, _) in lm._adapted_paths(mcfg, lm.DEFAULT_DORA_TARGETS):
+        norms += dispatch.plan_norm(dcfg, d_out=d_out).fused
+        plan = dispatch.plan_compose(dcfg, training=True, rows=rows,
+                                     d_out=d_out, rank=dcfg.rank)
+        mm += plan.matmul_fused
+        elem += plan.fused and not plan.matmul_fused
+    n = mcfg.n_scan
+    return counts_of(norm_terms=n * norms, assembled=n * norms,
+                     compose_mm_fwd=2 * n * mm, compose_mm_bwd=n * mm,
+                     compose_fwd_dual=2 * n * elem, compose_bwd=n * elem)
+
+
+def embeds_stream(mcfg, params, adapters, scfg, embeds, *, gen_len: int,
+                  max_len: int):
+    """Precompute, the unpadded prefill of ``embeds`` through
+    make_prefill_step, then ``gen_len`` greedy tokens, each fed back as a
+    token. Returns (prefill logits fp32 [B, V], tokens [B, gen_len])."""
+    from repro_torch.launch.steps import (make_decode_step,
+                                          make_precompute_step,
+                                          make_prefill_step)
+
+    b = embeds.shape[0]
+    state = make_precompute_step(mcfg, scfg)(params, adapters)
+    logits, cache = make_prefill_step(mcfg, scfg, batch=b, seq=max_len)(
+        params, state, {"embeds": embeds})
+    decode = make_decode_step(mcfg, scfg, batch=b)
+    first = logits.float()
+    toks = torch.empty((b, 0), dtype=torch.long, device=embeds.device)
+    for _ in range(gen_len):
+        nxt = logits.argmax(dim=-1)[:, None]
+        toks = torch.cat([toks, nxt], dim=1)
+        logits, cache = decode(params, state, cache, {"tokens": nxt})
+    return first, toks
+
+
+def _check_shapes_held(mcfg) -> None:
+    """Every adapted weight of ``mcfg`` is a shape the kernel phase held
+    K1 at, and every d_out it sends to K6 one it held K6 and K7 at."""
+    from repro_torch.models import lm
+
+    k1 = set(K1_SHAPES) | set(ARCH_K1_SHAPES)
+    mm = set(ARCH_MM_N) | {3584, 18944}
+    for path, shape in lm._adapted_paths(mcfg, lm.DEFAULT_DORA_TARGETS):
+        check(tuple(shape) in k1, f"{mcfg.name} {path} {shape}: K1 was not "
+              f"held at this shape")
+        check(shape[0] < 3072 or shape[0] in mm,
+              f"{mcfg.name} {path}: K6 was not held at d_out {shape[0]}")
+
+
+def vl_checks(dev) -> dict:
+    """V1-V4: qwen2-vl-7b (the paper's backbone; qwen2-7b's widths with
+    M-RoPE and the patch frontend) at full width and depth, DoRA r=384 on
+    all seven projections.
+
+      V1. 3 training steps (bf16, auto) on patch embeddings [2, 2048,
+          3584] drawn from a seed at the token table's scale (0.02), loss
+          on the last 1024 tokens: per step exactly K1 = assembled = 196,
+          K6 = 280, K7 = 140, no element-wise compose kernel;
+      V2. the route parity on 2 layers in fp32 from the same embeddings:
+          kernel and eager loss within 1e-5 relative, gradient cosine >=
+          0.99999;
+      V3. ``generate`` (bf16, auto), batch 4, prompt 960, 32 greedy
+          tokens: K1 = assembled = 196 at precompute and K6 = 140 at the
+          prefill, nothing at decode; and a prefill of patch embeddings
+          [4, 960, 3584] through make_prefill_step;
+      V4. that embeddings prefill and 8 greedy tokens after it on the
+          weights upcast to fp32 at full depth, kernel route against
+          eager route: prefill logit cosine >= 0.9999, equal tokens."""
+    import dataclasses
+
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.core.config import DoRAConfig
+    from repro_torch.launch import serve
+    from repro_torch.launch.steps import StepConfig, make_grad_step
+
+    mcfg = get_config(VL_ARCH)
+    L = mcfg.num_layers
+    _check_shapes_held(mcfg)
+    cfg = {mode: StepConfig(dora=DoRAConfig(rank=RANK, alpha=ALPHA,
+                                            mode=mode))
+           for mode in ("auto", "eager")}
+    auto = cfg["auto"].dora
+    t0 = time.perf_counter()
+    params, adapters = serve.build_state(mcfg, auto, SEED, dev)
+    adapters = perturb_adapters(
+        adapters, torch.Generator(device=dev).manual_seed(SEED + 1))
+    torch.cuda.synchronize()
+    print(f"vl: built {VL_ARCH} ({L} layers, d_model {mcfg.d_model}, "
+          f"M-RoPE sections {mcfg.mrope_sections}, frontend "
+          f"{mcfg.frontend}, {mcfg.dtype}) with r={RANK} DoRA on 7 targets "
+          f"in {time.perf_counter() - t0:.1f} s", flush=True)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+
+    def patches(b, seq):
+        return (torch.randn((b, seq, mcfg.d_model), generator=gen,
+                            device=dev) * 0.02).to(mcfg.dtype)
+
+    # --- V1: training from patch embeddings, bf16, auto ---
+    batches = [{"embeds": patches(TRAIN_BATCH, TRAIN_SEQ),
+                "labels": torch.randint(0, mcfg.vocab_size,
+                                        (TRAIN_BATCH, TRAIN_SEQ),
+                                        generator=gen, device=dev)}
+               for _ in range(TRAIN_STEPS)]
+    want = train_counts(mcfg, auto, rows=TRAIN_BATCH * TRAIN_SEQ)
+    check(want == counts_of(norm_terms=7 * L, assembled=7 * L,
+                            compose_mm_fwd=2 * 5 * L,
+                            compose_mm_bwd=5 * L),
+          f"{VL_ARCH} train: the dispatch plans give {want}")
+    mma0 = kernels.compose_mm_fwd.mma_launches
+    train = _steps_on(dev, mcfg, params, adapters, auto, batches,
+                      f"{VL_ARCH} auto, patch embeddings")
+    check_k6_on_tensor_cores(mma0, train["launches"], f"{VL_ARCH} train")
+    for i, got in enumerate(train["launches_per_step"]):
+        check(got == want, f"{VL_ARCH} train step {i} launch counts {got}")
+
+    # --- V2: route parity in fp32 from embeddings, 2 layers ---
+    m2 = dataclasses.replace(mcfg, num_layers=2, dtype=torch.float32)
+    p2, a2 = _upcast_layers(params, 2), _upcast_layers(adapters, 2)
+    bt = {"embeds": batches[0]["embeds"].float(),
+          "labels": batches[0]["labels"]}
+    agree, grads = {}, {}
+    for mode in ("auto", "eager"):
+        kernels.reset_launch_counts()
+        loss, g = make_grad_step(m2, StepConfig(
+            dora=cfg[mode].dora, loss_tokens=LOSS_TOKENS),
+            batch=TRAIN_BATCH, seq=TRAIN_SEQ)(p2, a2, bt)
+        agree[mode] = {"loss": float(loss), "launches": launch_counts()}
+        grads[mode] = torch.cat([t.flatten() for t in
+                                 _leaves_sorted(g)]).double()
+        del g
+    check(agree["auto"]["launches"] == train_counts(
+        m2, auto, rows=TRAIN_BATCH * TRAIN_SEQ)
+        and sum(agree["eager"]["launches"].values()) == 0,
+        f"{VL_ARCH} fp32 train routes launched {agree}")
+    agree["loss_rel"] = abs(agree["auto"]["loss"] / agree["eager"]["loss"]
+                            - 1)
+    agree["grad_cosine"] = cosine(grads["auto"], grads["eager"])
+    print(f"{VL_ARCH} train fp32 routes (2 layers, from embeddings): "
+          + json.dumps(agree), flush=True)
+    check(agree["loss_rel"] <= 1e-5,
+          f"{VL_ARCH} fp32 kernel loss differs by {agree['loss_rel']}")
+    check(agree["grad_cosine"] >= GRAD_COSINE_MIN,
+          f"{VL_ARCH} fp32 gradient cosine {agree['grad_cosine']}")
+    del p2, a2, grads, batches, bt
+    torch.cuda.empty_cache()
+
+    # --- V3: serving, bf16, auto ---
+    prompts = np.random.default_rng(SEED).integers(
+        0, mcfg.vocab_size, (BATCH, PROMPT))
+    serve.generate(mcfg, params, adapters, cfg["auto"], prompts, gen_len=1,
+                   max_len=MAX_LEN, device=dev)
+    want = serve_counts(mcfg, auto, prefill_rows=BATCH * MAX_LEN,
+                        decode_rows=BATCH, decode_steps=GEN)
+    check(want == counts_of(norm_terms=7 * L, assembled=7 * L,
+                            compose_mm_fwd=5 * L),
+          f"{VL_ARCH} serve: the dispatch plans give {want}")
+    torch.cuda.reset_peak_memory_stats(dev)
+    stats: dict = {}
+    kernels.reset_launch_counts()
+    mma0 = kernels.compose_mm_fwd.mma_launches
+    toks, logits = serve.generate(
+        mcfg, params, adapters, cfg["auto"], prompts, gen_len=GEN,
+        max_len=MAX_LEN, device=dev, return_logits=True, stats=stats)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    check(counts == want, f"{VL_ARCH} serve launch counts {counts}")
+    check_k6_on_tensor_cores(mma0, counts, f"{VL_ARCH} serve")
+    check(all(torch.isfinite(lg.float()).all().item() for lg in logits)
+          and ((toks >= 0) & (toks < mcfg.vocab_size)).all().item(),
+          f"{VL_ARCH} serve: non-finite logits or tokens out of range")
+    served = {
+        "precompute_ms": stats["precompute_s"] * 1e3,
+        "prefill_ms": stats["prefill_s"] * 1e3,
+        "decode_ms_per_token": stats["decode_s"] * 1e3 / GEN,
+        "decode_tok_per_s": BATCH * GEN / stats["decode_s"],
+        "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(dev),
+        "launches": counts}
+    del logits
+    embeds = patches(BATCH, PROMPT)
+    kernels.reset_launch_counts()
+    _sync(dev)
+    t1 = time.perf_counter()
+    first, _ = embeds_stream(mcfg, params, adapters, cfg["auto"], embeds,
+                             gen_len=0, max_len=MAX_LEN)
+    _sync(dev)
+    served["embeds_precompute_and_prefill_ms"] = \
+        (time.perf_counter() - t1) * 1e3
+    served["embeds_launches"] = launch_counts()
+    check(served["embeds_launches"] == serve_counts(
+        mcfg, auto, prefill_rows=BATCH * PROMPT, decode_rows=BATCH,
+        decode_steps=0) and torch.isfinite(first).all().item(),
+        f"{VL_ARCH} embeddings prefill: {served['embeds_launches']}")
+    print(f"serve {VL_ARCH} (bf16, auto): " + json.dumps(served), flush=True)
+
+    # --- V4: kernel vs eager route from embeddings, fp32, full depth ---
+    m32 = dataclasses.replace(mcfg, dtype=torch.float32)
+    p32, a32 = _upcast_layers(params, L), _upcast_layers(adapters, L)
+    del params, adapters
+    torch.cuda.empty_cache()
+    routes = {}
+    for mode in ("auto", "eager"):
+        kernels.reset_launch_counts()
+        lg, tk = embeds_stream(m32, p32, a32, cfg[mode], embeds.float(),
+                               gen_len=ARCH_GEN, max_len=MAX_LEN)
+        routes[mode] = (lg, tk, launch_counts())
+    (lk, tk, ck), (le, te, ce) = routes["auto"], routes["eager"]
+    check(ck == serve_counts(m32, auto, prefill_rows=BATCH * PROMPT,
+                             decode_rows=BATCH, decode_steps=ARCH_GEN)
+          and sum(ce.values()) == 0,
+          f"{VL_ARCH} fp32 routes launched {ck} and {ce}")
+    routes_out = {"prefill_logit_cosine": cosine(lk, le),
+                  "tokens_equal": bool(torch.equal(tk, te)),
+                  "kernel_route_launches": ck}
+    print(f"{VL_ARCH} fp32 routes (full depth, from embeddings, kernel vs "
+          f"eager): " + json.dumps(routes_out), flush=True)
+    check(routes_out["prefill_logit_cosine"] >= COSINE_MIN,
+          f"{VL_ARCH} fp32 kernel vs eager cosine "
+          f"{routes_out['prefill_logit_cosine']}")
+    check(routes_out["tokens_equal"], f"{VL_ARCH} fp32 routes' tokens")
+    del p32, a32, routes
+    torch.cuda.empty_cache()
+    return {"train": train, "train_fp32_routes": agree, "serve": served,
+            "fp32_routes": routes_out}
+
+
+def arch_checks(dev) -> dict:
+    """A1-A5: phi4-mini-3.8b, chatglm3-6b, musicgen-medium, qwen3-32b and
+    qwen2-vl-72b at their published widths, each at the depth of
+    ARCH_DEPTH (printed with its published depth), random weights from a
+    seed, DoRA r=384 on every projection: ``generate`` (bf16, auto),
+    batch 4, prompt 960 padded to 1024, 8 greedy tokens, with the launch
+    counts the port's dispatch gives before the run; then the weights'
+    first ARCH_AGREE_LAYERS layers upcast to fp32, kernel route against
+    eager route: prefill logit cosine >= 0.9999, equal tokens."""
+    import dataclasses
+
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.core.config import DoRAConfig
+    from repro_torch.launch import serve
+    from repro_torch.launch.steps import StepConfig
+
+    cfg = {mode: StepConfig(dora=DoRAConfig(rank=RANK, alpha=ALPHA,
+                                            mode=mode))
+           for mode in ("auto", "eager")}
+    auto = cfg["auto"].dora
+    out = {}
+    for arch, depth in ARCH_DEPTH.items():
+        full = get_config(arch)
+        mcfg = dataclasses.replace(full, num_layers=depth)
+        _check_shapes_held(mcfg)
+        t0 = time.perf_counter()
+        params, adapters = serve.build_state(mcfg, auto, SEED, dev)
+        adapters = perturb_adapters(
+            adapters, torch.Generator(device=dev).manual_seed(SEED + 1))
+        torch.cuda.synchronize()
+        cut = (f"depth cut to {depth} of {full.num_layers} layers"
+               if depth < full.num_layers else
+               f"full depth, {depth} layers")
+        print(f"{arch}: published widths (d_model {mcfg.d_model}, "
+              f"{mcfg.num_heads} heads of {mcfg.head_dim}, "
+              f"{mcfg.num_kv_heads} KV heads, d_ff {mcfg.d_ff} "
+              f"{mcfg.mlp_kind}, vocab "
+              f"{mcfg.vocab_size}, {mcfg.pos_mode}, {mcfg.norm_kind} norm"
+              f"{', qk-norm' if mcfg.qk_norm else ''}), {cut}; built with "
+              f"r={RANK} DoRA in {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        prompts = np.random.default_rng(SEED).integers(
+            0, mcfg.vocab_size, (BATCH, PROMPT))
+        serve.generate(mcfg, params, adapters, cfg["auto"], prompts,
+                       gen_len=1, max_len=MAX_LEN, device=dev)
+        want = serve_counts(mcfg, auto, prefill_rows=BATCH * MAX_LEN,
+                            decode_rows=BATCH, decode_steps=ARCH_GEN)
+        torch.cuda.reset_peak_memory_stats(dev)
+        stats: dict = {}
+        kernels.reset_launch_counts()
+        mma0 = kernels.compose_mm_fwd.mma_launches
+        toks, logits = serve.generate(
+            mcfg, params, adapters, cfg["auto"], prompts, gen_len=ARCH_GEN,
+            max_len=MAX_LEN, device=dev, return_logits=True, stats=stats)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        check(counts == want, f"{arch} serve launch counts {counts}, the "
+              f"dispatch plans give {want}")
+        check_k6_on_tensor_cores(mma0, counts, f"{arch} serve")
+        check(all(torch.isfinite(lg.float()).all().item() for lg in logits)
+              and ((toks >= 0) & (toks < mcfg.vocab_size)).all().item(),
+              f"{arch} serve: non-finite logits or tokens out of range")
+        rec = {"layers": depth, "published_layers": full.num_layers,
+               "precompute_ms": stats["precompute_s"] * 1e3,
+               "prefill_ms": stats["prefill_s"] * 1e3,
+               "decode_ms_per_token": stats["decode_s"] * 1e3 / ARCH_GEN,
+               "max_memory_allocated_bytes":
+                   torch.cuda.max_memory_allocated(dev),
+               "launches": counts}
+        del logits
+        m32 = dataclasses.replace(mcfg, num_layers=ARCH_AGREE_LAYERS,
+                                  dtype=torch.float32)
+        p32 = _upcast_layers(params, ARCH_AGREE_LAYERS)
+        a32 = _upcast_layers(adapters, ARCH_AGREE_LAYERS)
+        del params, adapters
+        torch.cuda.empty_cache()
+        routes = {}
+        for mode in ("auto", "eager"):
+            kernels.reset_launch_counts()
+            tk, lg = serve.generate(m32, p32, a32, cfg[mode], prompts,
+                                    gen_len=ARCH_GEN, max_len=MAX_LEN,
+                                    device=dev, return_logits=True)
+            routes[mode] = (lg[0].float(), tk, launch_counts())
+        (lk, tk, ck), (le, te, ce) = routes["auto"], routes["eager"]
+        check(ck == serve_counts(m32, auto, prefill_rows=BATCH * MAX_LEN,
+                                 decode_rows=BATCH, decode_steps=ARCH_GEN)
+              and sum(ce.values()) == 0,
+              f"{arch} fp32 routes launched {ck} and {ce}")
+        rec["fp32_routes"] = {
+            "layers": ARCH_AGREE_LAYERS,
+            "prefill_logit_cosine": cosine(lk, le),
+            "tokens_equal": bool(torch.equal(tk, te))}
+        print(f"serve {arch} (bf16, auto; fp32 routes at "
+              f"{ARCH_AGREE_LAYERS} layers): " + json.dumps(rec),
+              flush=True)
+        check(rec["fp32_routes"]["prefill_logit_cosine"] >= COSINE_MIN,
+              f"{arch} fp32 kernel vs eager cosine {rec['fp32_routes']}")
+        check(rec["fp32_routes"]["tokens_equal"],
+              f"{arch} fp32 routes' greedy tokens differ")
+        out[arch] = rec
+        del p32, a32, routes
+        torch.cuda.empty_cache()
+    return out
+
+
 def fused_norm_ab(dev) -> dict:
     """With whichever ``repro_torch`` is importable (for kernel_phase_vs):
     ``kernels.ops.fused_norm``, the norm of one adapted module, in ms by
@@ -2192,6 +2761,9 @@ def main() -> int:
 
     print("kernels vs plain versions:", flush=True)
     rows = kernel_checks(dev)
+    print("kernels vs plain versions at the other archs' shapes:",
+          flush=True)
+    arch_kernel_checks(dev, rows)
     host = host_checks(dev)
     small_parity(dev)
     t0 = time.perf_counter()
@@ -2210,13 +2782,22 @@ def main() -> int:
     t0 = time.perf_counter()
     mamba = mamba_checks(dev)
     print(f"mamba phases: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    vl = vl_checks(dev)
+    print(f"{VL_ARCH} phases: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    archs = arch_checks(dev)
+    print(f"arch phases: {time.perf_counter() - t0:.1f} s", flush=True)
 
     by_path = {"serve_auto": served["auto"], "serve_fused": served["fused"],
                "train_auto": trained["train_auto"]["launches"],
                "train_elementwise": trained["train_elementwise"]["launches"],
                "engine_paged": engine["engine_paged"]["launches"],
                "engine_trace_paged": engine["traces"]["paged"]["launches"],
-               "serve_mamba": mamba["serve_mamba"]["launches"]}
+               "serve_mamba": mamba["serve_mamba"]["launches"],
+               "train_vl": vl["train"]["launches"],
+               "serve_vl": vl["serve"]["launches"],
+               **{f"serve_{a}": r["launches"] for a, r in archs.items()}}
     record = []
     for name, (src, replaces) in SOURCES.items():
         path, at = RECORD_PATH[name]
@@ -2273,7 +2854,8 @@ def main() -> int:
         "engine": engine,
         "train": {k: trained[k] for k in ("train_auto", "train_elementwise",
                                           "fp32_agreement")},
-        "train_parity": parity, "mamba": mamba}, indent=1))
+        "train_parity": parity, "mamba": mamba, "vl": vl, "archs": archs},
+        indent=1))
     print(f"details: {detail.relative_to(root)}")
     print(smi)
     print(json.dumps({"kernels": record, "card": smi,
@@ -2284,7 +2866,15 @@ def main() -> int:
                                               "decode_tick_profile")},
                       "train": train_summary,
                       "mamba": {k: v for k, v in mamba["serve_mamba"].items()
-                                if not k.endswith("_profile")}}))
+                                if not k.endswith("_profile")},
+                      "vl": {"train": {f: vl["train"][f] for f in (
+                          "step_ms", "tokens_per_s",
+                          "max_memory_allocated_bytes")},
+                          "serve": {k: v for k, v in vl["serve"].items()
+                                    if "launches" not in k}},
+                      "archs": {a: {k: v for k, v in r.items()
+                                    if k != "launches"}
+                                for a, r in archs.items()}}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,17 +1,21 @@
 """Architecture registry of the port: each arch has a FULL config (the
 published numbers) and a SMOKE config (reduced, runs on CPU). The
-reference registers more archs; the port runs the dense qwen2-7b and the
-pure Mamba-1 falcon-mamba-7b."""
+reference registers more archs; the port runs its dense ones (qwen2-7b,
+phi4-mini-3.8b, chatglm3-6b, qwen3-32b, the paper's qwen2-vl-7b, qwen2-vl-72b
+and musicgen-medium, whose frontends are stubs that take precomputed
+embeddings) and the pure Mamba-1 falcon-mamba-7b."""
 from __future__ import annotations
 
 import importlib
 
-_MODULES = {"qwen2-7b": "qwen2_7b", "falcon-mamba-7b": "falcon_mamba_7b"}
+_MODULES = {"qwen2-7b": "qwen2_7b", "falcon-mamba-7b": "falcon_mamba_7b",
+            "phi4-mini-3.8b": "phi4_mini_3_8b", "qwen2-vl-7b": "qwen2_vl_7b",
+            "chatglm3-6b": "chatglm3_6b", "qwen3-32b": "qwen3_32b",
+            "musicgen-medium": "musicgen_medium",
+            "qwen2-vl-72b": "qwen2_vl_72b"}
 
-# Archs the reference registers that later slices port.
-NOT_PORTED = ("jamba-v0.1-52b", "qwen2-moe-a2.7b", "llama4-scout-17b-a16e",
-              "chatglm3-6b", "phi4-mini-3.8b",
-              "qwen3-32b", "qwen2-vl-72b", "musicgen-medium", "qwen2-vl-7b")
+# Archs the reference registers that later slices port (MoE and hybrid).
+NOT_PORTED = ("jamba-v0.1-52b", "qwen2-moe-a2.7b", "llama4-scout-17b-a16e")
 
 
 def get_config(arch: str, smoke: bool = False):

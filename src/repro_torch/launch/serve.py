@@ -15,6 +15,16 @@ Runs on the card unless the CPU is asked for explicitly::
         --batch 4 --prompt-len 960 --gen-len 32 --rank 384 --alpha 192
     PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon-mamba-7b \\
         --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-vl-7b \\
+        --batch 4 --prompt-len 960 --gen-len 32 --rank 384 --alpha 192
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch musicgen-medium \\
+        --smoke --device cpu
+
+``--arch`` takes every arch of ``repro_torch.configs``: qwen2-7b,
+falcon-mamba-7b, phi4-mini-3.8b, qwen2-vl-7b, chatglm3-6b, qwen3-32b,
+musicgen-medium and qwen2-vl-72b. The prompts are token ids, for the
+frontend archs too (their frontends are stubs; precomputed embeddings go
+through ``launch/steps.py``'s prefill and decode steps).
 
 ``--continuous`` serves 2 x ``--batch`` mixed-length requests through the
 continuous-batching engine (``--batch`` slots; ``launch/engine.py``),

@@ -74,12 +74,22 @@ def cross_entropy(logits, labels):
     return (lse - gold).mean()
 
 
+def _inputs(batch_in) -> dict:
+    """The forward's input from a batch: {"embeds": ...} when the batch
+    carries a frontend's precomputed embeddings, else {"tokens": ...}."""
+    if "embeds" in batch_in:
+        return {"embeds": batch_in["embeds"]}
+    return {"tokens": batch_in["tokens"]}
+
+
 def make_grad_step(mcfg: ModelConfig, scfg: StepConfig, *, batch: int,
                    seq: int):
     """(params, adapters, batch_in) -> (loss, grads): the train step
     without its optimizer update.
 
-    ``batch_in``: {"tokens", "labels"} int [batch, seq]. ``grads`` has the
+    ``batch_in``: {"tokens", "labels"} int [batch, seq], or {"embeds",
+    "labels"} with a frontend's embeddings [batch, seq, d_model] in place
+    of the tokens. ``grads`` has the
     adapter tree's structure; the frozen base params get no gradient.
     ``scfg.loss_tokens``: the loss reads only the last N positions (the
     head runs on those alone). ``scfg.grad_accum`` = ga: the batch is
@@ -91,21 +101,21 @@ def make_grad_step(mcfg: ModelConfig, scfg: StepConfig, *, batch: int,
         raise ValueError(f"batch {batch} is not divisible by grad_accum "
                          f"{ga}")
 
-    def loss_fn(params, adapters, tokens, labels):
-        logits, _ = forward(mcfg, params, adapters, scfg.dora, tokens=tokens,
+    def loss_fn(params, adapters, inputs, labels):
+        logits, _ = forward(mcfg, params, adapters, scfg.dora, **inputs,
                             training=True, loss_slice=lt)
         lbl = labels if lt is None or lt >= labels.shape[1] \
             else labels[:, -lt:]
         return cross_entropy(logits, lbl)
 
-    def value_and_grad(params, adapters, tokens, labels):
+    def value_and_grad(params, adapters, inputs, labels):
         leaves = flatten_paths(adapters)
         was = {name: leaf.requires_grad for name, leaf in leaves.items()}
         try:
             for leaf in leaves.values():
                 leaf.requires_grad_(True)
             with torch.enable_grad():
-                loss = loss_fn(params, adapters, tokens, labels)
+                loss = loss_fn(params, adapters, inputs, labels)
                 grads = torch.autograd.grad(loss, list(leaves.values()),
                                             allow_unused=True)
         finally:
@@ -118,22 +128,23 @@ def make_grad_step(mcfg: ModelConfig, scfg: StepConfig, *, batch: int,
             for (name, leaf), g in zip(leaves.items(), grads)})
 
     def grad_step(params, adapters, batch_in):
-        tokens, labels = batch_in["tokens"], batch_in["labels"]
-        if tuple(tokens.shape) != (batch, seq) \
+        inputs, labels = _inputs(batch_in), batch_in["labels"]
+        (name, x), = inputs.items()
+        if tuple(x.shape[:2]) != (batch, seq) \
                 or tuple(labels.shape) != (batch, seq):
-            raise ValueError(f"step built for [{batch}, {seq}] tokens and "
-                             f"labels, got {tuple(tokens.shape)} and "
+            raise ValueError(f"step built for [{batch}, {seq}] {name} and "
+                             f"labels, got {tuple(x.shape)} and "
                              f"{tuple(labels.shape)}")
         if ga == 1:
-            return value_and_grad(params, adapters, tokens, labels)
+            return value_and_grad(params, adapters, inputs, labels)
         mb = batch // ga
-        loss = torch.zeros((), dtype=_F32, device=tokens.device)
+        loss = torch.zeros((), dtype=_F32, device=x.device)
         grads = tree_map(lambda a: torch.zeros(a.shape, dtype=_F32,
                                                device=a.device), adapters)
         for i in range(ga):
             rows = slice(i * mb, (i + 1) * mb)
-            loss_i, g_i = value_and_grad(params, adapters, tokens[rows],
-                                         labels[rows])
+            loss_i, g_i = value_and_grad(params, adapters,
+                                         {name: x[rows]}, labels[rows])
             loss = loss + loss_i
             tree_map(lambda acc, g: acc.add_(g), grads, g_i)
         return loss / ga, tree_map(lambda g: g / ga, grads)
@@ -154,7 +165,7 @@ def make_train_step(mcfg: ModelConfig, scfg: StepConfig, *, batch: int,
     grad_step = make_grad_step(mcfg, scfg, batch=batch, seq=seq)
 
     def train_step(params, adapters, opt_state, batch_in, stats=None):
-        clock = PhaseClock(stats, batch_in["tokens"].device)
+        clock = PhaseClock(stats, batch_in["labels"].device)
         clock.start()
         loss, grads = grad_step(params, adapters, batch_in)
         clock.stop("grad_s")
@@ -191,8 +202,9 @@ def make_prefill_step(mcfg: ModelConfig, scfg: StepConfig, *, batch: int,
     """(params, adapters, batch_in) -> (last_logits [B, V], cache).
 
     Runs the prompt and fills a fresh cache of ``seq`` positions on the
-    tokens' device. Unpadded: the prompt is ``batch_in["tokens"]``
-    [batch, P] with P ≤ ``seq`` and the cache ends at P.
+    prompt's device. Unpadded: the prompt is ``batch_in["tokens"]``
+    [batch, P] (or a frontend's ``batch_in["embeds"]`` [batch, P,
+    d_model]) with P ≤ ``seq`` and the cache ends at P.
     ``padded=True``: the prompt arrives right-padded to ``seq`` with the
     true length P in ``batch_in["prompt_len"]``; the logits are gathered
     at P-1 and the cache length is rewound to P, so the first decode token
@@ -208,15 +220,17 @@ def make_prefill_step(mcfg: ModelConfig, scfg: StepConfig, *, batch: int,
 
     @torch.no_grad()
     def prefill_step(params, adapters, batch_in):
-        tokens = batch_in["tokens"]
-        shape = tuple(tokens.shape)
-        p_max = shape[1] if len(shape) == 2 else -1
+        inputs = _inputs(batch_in)
+        (name, x), = inputs.items()
+        shape = tuple(x.shape)
+        p_max = shape[1] if len(shape) == (2 if name == "tokens" else 3) \
+            else -1
         fits = p_max == seq if padded else 0 < p_max <= seq
         if shape[:1] != (batch,) or not fits:
             want = seq if padded else f"P <= {seq}"
-            raise ValueError(f"prefill built for tokens [{batch}, {want}], "
+            raise ValueError(f"prefill built for {name} [{batch}, {want}], "
                              f"got {shape}")
-        cache = init_cache(mcfg, batch, seq, device=tokens.device)
+        cache = init_cache(mcfg, batch, seq, device=x.device)
         kw = {}
         if padded:
             p_len = int(batch_in["prompt_len"])
@@ -224,8 +238,8 @@ def make_prefill_step(mcfg: ModelConfig, scfg: StepConfig, *, batch: int,
         else:
             kw["loss_slice"] = 1
         logits, new_cache = forward(mcfg, params, adapters, scfg.dora,
-                                    tokens=tokens, cache=cache,
-                                    training=False, **kw)
+                                    **inputs, cache=cache, training=False,
+                                    **kw)
         if padded:
             new_cache["len"] = p_len
         return logits[:, -1], new_cache
@@ -311,20 +325,21 @@ def make_prefill_chunk_step(mcfg: ModelConfig, scfg: StepConfig, *,
 
 def make_decode_step(mcfg: ModelConfig, scfg: StepConfig, *, batch: int):
     """(params, adapters, cache, batch_in) -> (logits [B, V], cache'): one
-    new token ``batch_in["tokens"]`` [B, 1] against the cache, written in
+    new token ``batch_in["tokens"]`` [B, 1] (or a frontend's
+    ``batch_in["embeds"]`` [B, 1, d_model]) against the cache, written in
     place at position ``cache["len"]``: one int for the whole batch, or a
     [B] tensor of per-row lengths (continuous batching), where each row
     writes and attends at its own position."""
 
     @torch.no_grad()
     def decode_step(params, adapters, cache, batch_in):
-        tokens = batch_in["tokens"]
-        if tuple(tokens.shape) != (batch, 1):
-            raise ValueError(f"decode built for tokens [{batch}, 1], got "
-                             f"{tuple(tokens.shape)}")
+        inputs = _inputs(batch_in)
+        (name, x), = inputs.items()
+        if tuple(x.shape[:2]) != (batch, 1):
+            raise ValueError(f"decode built for {name} [{batch}, 1], got "
+                             f"{tuple(x.shape)}")
         logits, new_cache = forward(mcfg, params, adapters, scfg.dora,
-                                    tokens=tokens, cache=cache,
-                                    training=False)
+                                    **inputs, cache=cache, training=False)
         return logits[:, -1], new_cache
 
     return decode_step

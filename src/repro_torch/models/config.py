@@ -2,8 +2,10 @@
 torch dtypes.
 
 The dataclass keeps the reference's field names for what the port runs:
-the dense attention archs and the pure Mamba-1 stacks. The flags that
-mark the other archs (MoE, hybrid, modality frontends) stay so that
+the dense attention archs (RoPE, partial RoPE, M-RoPE or sinusoidal
+positions, qk-norm, RMS or LayerNorm, SwiGLU or GELU MLP, the patch and
+audio-frame embedding frontends) and the pure Mamba-1 stacks. The flags
+that mark the other archs (MoE, hybrid) stay so that
 :func:`check_supported` can refuse them.
 """
 from __future__ import annotations
@@ -27,14 +29,16 @@ class ModelConfig:
 
     head_dim: int = 0               # 0 → d_model // num_heads
     # --- attention ---
-    qk_norm: bool = False           # not ported yet (see check_supported)
+    qk_norm: bool = False           # RMS norm of q and k over head_dim
     qkv_bias: bool = False
-    pos_mode: str = "rope"          # rope (this slice)
+    pos_mode: str = "rope"          # rope | rope_partial | mrope | sinusoidal
     rope_theta: float = 10000.0
+    rotary_dim: int = 0             # for rope_partial (ChatGLM 2d-RoPE)
+    mrope_sections: tuple[int, int, int] = (16, 24, 24)
     attn_chunk: int | None = None   # online-softmax KV chunk (None = dense)
     # --- mlp ---
-    mlp_kind: str = "swiglu"
-    norm_kind: str = "rms"
+    mlp_kind: str = "swiglu"        # swiglu | gelu (plain 2-matrix MLP)
+    norm_kind: str = "rms"          # rms | layer
     # --- MoE (not ported yet; see check_supported) ---
     moe: bool = False
     moe_period: int = 1             # MoE FFN every k-th layer
@@ -54,6 +58,8 @@ class ModelConfig:
     attn_index: int = 4
     # --- misc ---
     norm_eps: float = 1e-5
+    # None | "patches" | "audio_tokens": stubs whose precomputed
+    # embeddings [B, S, d_model] ``forward(embeds=...)`` takes
     frontend: str | None = None
     dtype: Any = torch.bfloat16
     # remat: "none" | "layer" (training recomputes each layer's internals
@@ -111,8 +117,13 @@ class ModelConfig:
         return self.num_layers // self.period
 
 
+POS_MODES = ("rope", "rope_partial", "mrope", "sinusoidal")
+FRONTENDS = (None, "patches", "audio_tokens")
+
+
 def check_supported(mcfg: ModelConfig) -> None:
-    """Raise NotImplementedError for the archs later slices port."""
+    """Raise NotImplementedError for the archs later slices port, and
+    ValueError for values no package knows."""
     if mcfg.moe:
         raise NotImplementedError(
             f"{mcfg.name}: MoE stacks are not ported yet; they come with "
@@ -125,20 +136,24 @@ def check_supported(mcfg: ModelConfig) -> None:
     if mcfg.ssm and mcfg.ssm_impl not in ("fused_chunk", "assoc"):
         raise ValueError(f"{mcfg.name}: unknown ssm_impl {mcfg.ssm_impl!r} "
                          f"(expected 'fused_chunk' or 'assoc')")
-    if mcfg.frontend is not None:
-        raise NotImplementedError(
-            f"{mcfg.name}: modality frontends ({mcfg.frontend}) are not "
-            f"ported yet")
-    if mcfg.pos_mode != "rope":
-        raise NotImplementedError(
-            f"{mcfg.name}: pos_mode {mcfg.pos_mode!r} is not ported yet "
-            f"(this slice has standard RoPE)")
     if mcfg.remat not in ("none", "layer"):
         raise ValueError(f"{mcfg.name}: unknown remat {mcfg.remat!r} "
                          f"(expected 'none' or 'layer')")
-    for field, ported in (("mlp_kind", "swiglu"), ("norm_kind", "rms"),
-                          ("qk_norm", False)):
-        if getattr(mcfg, field) != ported:
-            raise NotImplementedError(
-                f"{mcfg.name}: {field}={getattr(mcfg, field)!r} is not "
-                f"ported yet")
+    for field, known in (("pos_mode", POS_MODES), ("frontend", FRONTENDS),
+                         ("mlp_kind", ("swiglu", "gelu")),
+                         ("norm_kind", ("rms", "layer"))):
+        if getattr(mcfg, field) not in known:
+            raise ValueError(f"{mcfg.name}: unknown {field} "
+                             f"{getattr(mcfg, field)!r} (expected one of "
+                             f"{known})")
+    if mcfg.pos_mode == "rope_partial" and not (
+            0 < mcfg.rotary_dim <= mcfg.head_dim
+            and mcfg.rotary_dim % 2 == 0):
+        raise ValueError(f"{mcfg.name}: rope_partial needs an even "
+                         f"rotary_dim in (0, head_dim], got "
+                         f"{mcfg.rotary_dim}")
+    if mcfg.pos_mode == "mrope" and sum(mcfg.mrope_sections) \
+            != mcfg.head_dim // 2:
+        raise ValueError(f"{mcfg.name}: mrope_sections "
+                         f"{mcfg.mrope_sections} must sum to head_dim // 2 "
+                         f"= {mcfg.head_dim // 2}")

@@ -1,5 +1,6 @@
 """Shared NN layers (counterpart of ``repro/models/layers.py``): RMSNorm,
-RoPE, GQA attention with a rectangular or block-paged KV cache, SwiGLU
+RoPE (standard, partial, M-RoPE) and sinusoidal positions, GQA attention
+(qk-norm, QKV bias) with a rectangular or block-paged KV cache, SwiGLU
 MLP, with DoRA adaptation of every linear through ``maybe_dora``.
 
 Weights follow the paper's [d_out, d_in] convention, y = x @ Wᵀ.
@@ -71,6 +72,63 @@ def apply_rope(x, cos, sin):
     o1 = x1 * c - x2 * s
     o2 = x2 * c + x1 * s
     return torch.stack([o1, o2], dim=-1).reshape(x.shape).to(x.dtype)
+
+
+def apply_rope_partial(x, cos, sin, rotary_dim: int):
+    """ChatGLM-style partial RoPE: rotate the interleaved pairs of only the
+    first ``rotary_dim`` channels of each head (cos/sin [..., S,
+    rotary_dim//2]) and pass the rest through."""
+    rot = apply_rope(x[..., :rotary_dim], cos, sin)
+    return torch.cat([rot, x[..., rotary_dim:]], dim=-1)
+
+
+def mrope_cos_sin(positions3, dim: int, theta: float,
+                  sections: tuple[int, int, int]):
+    """M-RoPE (Qwen2-VL): three position streams (t, h, w), [3, B, S],
+    each rotating one section of the dim//2 pairs: pairs [0, s0) take the
+    t stream's angles, [s0, s0 + s1) the h stream's and the rest the w
+    stream's. Where the three streams are equal (text, and the stub
+    frontends' embeddings) it is standard RoPE."""
+    assert sum(sections) == dim // 2, (sections, dim)
+    (cos_t, sin_t), (cos_h, sin_h), (cos_w, sin_w) = (
+        rope_cos_sin(positions3[i], dim, theta) for i in range(3))
+    s0, s1, _ = sections
+
+    def pick(t, h, w):
+        return torch.cat([t[..., :s0], h[..., s0:s0 + s1],
+                          w[..., s0 + s1:]], dim=-1)
+    return pick(cos_t, cos_h, cos_w), pick(sin_t, sin_h, sin_w)
+
+
+def sinusoidal_embedding(positions, dim: int):
+    """MusicGen's fixed absolute embeddings, fp32 [..., S, dim]:
+    concat([cos, sin]) (not interleaved) of positions x exp(-ln(1e4) ·
+    i / half), i < half = dim // 2."""
+    half = dim // 2
+    freqs = torch.exp(-math.log(10000.0) * torch.arange(
+        half, dtype=_F32, device=positions.device) / half)
+    angles = positions.to(_F32)[..., None] * freqs
+    return torch.cat([torch.cos(angles), torch.sin(angles)], dim=-1)
+
+
+def position_rotation(q, k, positions, mcfg):
+    """q and k after the config's rotary position mode; "sinusoidal"
+    rotates nothing (its embeddings are added at the input)."""
+    hd = mcfg.head_dim
+    if mcfg.pos_mode == "rope":
+        cos, sin = rope_cos_sin(positions, hd, mcfg.rope_theta)
+    elif mcfg.pos_mode == "rope_partial":
+        rd = mcfg.rotary_dim
+        cos, sin = rope_cos_sin(positions, rd, mcfg.rope_theta)
+        return (apply_rope_partial(q, cos, sin, rd),
+                apply_rope_partial(k, cos, sin, rd))
+    elif mcfg.pos_mode == "mrope":
+        pos3 = positions[None].expand((3,) + tuple(positions.shape))
+        cos, sin = mrope_cos_sin(pos3, hd, mcfg.rope_theta,
+                                 mcfg.mrope_sections)
+    else:
+        return q, k
+    return apply_rope(q, cos, sin), apply_rope(k, cos, sin)
 
 
 def _per_row(offset) -> bool:
@@ -169,7 +227,9 @@ def _write_rows(buf, new, pos):
 
 def attention(x, params, dora, mcfg, dcfg: DoRAConfig | None, *,
               positions, cache=None, training: bool = True):
-    """Attention block: QKV (DoRA-adapted), RoPE, core, O-proj.
+    """Attention block: QKV (DoRA-adapted), qk-norm (an RMS norm of each
+    head of q and k, before the rotation), the position rotation, core,
+    O-proj.
 
     Returns (out, new_cache). ``cache`` = {"k", "v", "len"} and, for the
     block-paged cache, "pages".
@@ -201,9 +261,10 @@ def attention(x, params, dora, mcfg, dcfg: DoRAConfig | None, *,
     q = proj("wq").reshape(b, s, hq, hd)
     k = proj("wk").reshape(b, s, hkv, hd)
     v = proj("wv").reshape(b, s, hkv, hd)
-    cos, sin = rope_cos_sin(positions, hd, mcfg.rope_theta)
-    q = apply_rope(q, cos, sin)
-    k = apply_rope(k, cos, sin)
+    if mcfg.qk_norm:
+        q = rms_norm(q, params["q_norm"], mcfg.norm_eps)
+        k = rms_norm(k, params["k_norm"], mcfg.norm_eps)
+    q, k = position_rotation(q, k, positions, mcfg)
 
     if cache is None:
         out = attention_core(q, k, v, offset=0, chunk=mcfg.attn_chunk)
@@ -256,3 +317,15 @@ def mlp_swiglu(x, params, dora, dcfg: DoRAConfig | None, *,
                     training=training)
     return maybe_dora(F.silu(gate) * up, params["w_down"], d.get("w_down"),
                       dcfg, training=training)
+
+
+def mlp_gelu(x, params, dora, dcfg: DoRAConfig | None, *,
+             training: bool = True):
+    """The plain 2-matrix MLP (MusicGen): up with bias, GELU in its tanh
+    form (``jax.nn.gelu``'s default), down with bias."""
+    d = dora or {}
+    y = maybe_dora(x, params["w_up"], d.get("w_up"), dcfg,
+                   bias=params["w_up_bias"], training=training)
+    return maybe_dora(F.gelu(y, approximate="tanh"), params["w_down"],
+                      d.get("w_down"), dcfg, bias=params["w_down_bias"],
+                      training=training)

@@ -39,7 +39,10 @@ DEFAULT_DORA_TARGETS = ("wq", "wk", "wv", "wo",
 
 
 def _norm_spec(mcfg: ModelConfig):
-    return {"scale": ("ones", (mcfg.d_model,))}
+    s = {"scale": ("ones", (mcfg.d_model,))}
+    if mcfg.norm_kind == "layer":
+        s["bias"] = ("zeros", (mcfg.d_model,))
+    return s
 
 
 def _attn_spec(mcfg: ModelConfig):
@@ -50,13 +53,19 @@ def _attn_spec(mcfg: ModelConfig):
         s["wq_bias"] = ("zeros", (qd,))
         s["wk_bias"] = ("zeros", (kvd,))
         s["wv_bias"] = ("zeros", (kvd,))
+    if mcfg.qk_norm:
+        s["q_norm"] = ("ones", (mcfg.head_dim,))
+        s["k_norm"] = ("ones", (mcfg.head_dim,))
     return s
 
 
 def _mlp_spec(mcfg: ModelConfig):
     D, ff = mcfg.d_model, mcfg.d_ff
-    return {"w_gate": ("linear", (ff, D)), "w_up": ("linear", (ff, D)),
-            "w_down": ("linear", (D, ff))}
+    if mcfg.mlp_kind == "swiglu":
+        return {"w_gate": ("linear", (ff, D)), "w_up": ("linear", (ff, D)),
+                "w_down": ("linear", (D, ff))}
+    return {"w_up": ("linear", (ff, D)), "w_up_bias": ("zeros", (ff,)),
+            "w_down": ("linear", (D, ff)), "w_down_bias": ("zeros", (D,))}
 
 
 def _mamba_spec(mcfg: ModelConfig):
@@ -80,7 +89,7 @@ def _layer_spec(mcfg: ModelConfig, kind: str, ffn: str):
 
 
 def unit_spec(mcfg: ModelConfig):
-    """The repeating stack unit {"l0": layer, ...}: one attention + SwiGLU
+    """The repeating stack unit {"l0": layer, ...}: one attention + MLP
     layer (dense) or one Mamba layer with no FFN (falcon-mamba)."""
     kinds, ffns = mcfg.layer_kinds(), mcfg.ffn_kinds()
     return {f"l{i}": _layer_spec(mcfg, kinds[i], ffns[i])
@@ -276,13 +285,25 @@ def init_cache(mcfg: ModelConfig, batch: int, max_len: int, dtype=None, *,
     return cache
 
 
+def _apply_norm(x, p, mcfg: ModelConfig):
+    """RMS norm, or LayerNorm (population variance, fp32, with bias), cast
+    back to x's dtype."""
+    if mcfg.norm_kind == "layer":
+        x32 = x.to(_F32)
+        mu = x32.mean(dim=-1, keepdim=True)
+        var = x32.var(dim=-1, keepdim=True, correction=0)
+        y = (x32 - mu) * torch.rsqrt(var + mcfg.norm_eps)
+        y = y * p["scale"].to(_F32) + p["bias"].to(_F32)
+        return y.to(x.dtype)
+    return L.rms_norm(x, p["scale"], mcfg.norm_eps)
+
+
 def _layer_apply(x, p, a, c, mcfg, dcfg, *, kind, ffn, positions, length,
                  training, pages=None):
-    """Pre-norm mixer (attention or Mamba) + pre-norm SwiGLU (when the
-    layer has one), residual adds. ``c`` is this layer's cache slice,
-    written in place, or None; ``pages`` the block table of a paged
-    cache."""
-    h = L.rms_norm(x, p["ln1"]["scale"], mcfg.norm_eps)
+    """Pre-norm mixer (attention or Mamba) + pre-norm MLP (when the layer
+    has one), residual adds. ``c`` is this layer's cache slice, written in
+    place, or None; ``pages`` the block table of a paged cache."""
+    h = _apply_norm(x, p["ln1"], mcfg)
     a = a or {}
     if kind == "attn":
         attn_cache = None
@@ -302,9 +323,9 @@ def _layer_apply(x, p, a, c, mcfg, dcfg, *, kind, ffn, positions, length,
     x = x + y
     if ffn == "none":
         return x
-    h = L.rms_norm(x, p["ln2"]["scale"], mcfg.norm_eps)
-    return x + L.mlp_swiglu(h, p["ffn"], a.get("ffn"), dcfg,
-                            training=training)
+    h = _apply_norm(x, p["ln2"], mcfg)
+    mlp = L.mlp_swiglu if mcfg.mlp_kind == "swiglu" else L.mlp_gelu
+    return x + mlp(h, p["ffn"], a.get("ffn"), dcfg, training=training)
 
 
 def _slice_tree(tree, i: int):
@@ -324,11 +345,15 @@ def _unstack_tree(tree, n: int) -> list:
 
 
 def forward(mcfg: ModelConfig, params, adapters, dcfg: DoRAConfig | None,
-            *, tokens, cache=None, positions=None, training: bool = True,
-            loss_slice: int | None = None,
+            *, tokens=None, embeds=None, cache=None, positions=None,
+            training: bool = True, loss_slice: int | None = None,
             gather_position: int | None = None):
     """Returns (logits [B, S, V], new_cache).
 
+    ``tokens`` int [B, S], or ``embeds`` [B, S, d_model]: the precomputed
+    patch or frame embeddings of a frontend stub, cast to the model's
+    dtype. Exactly one is given. A "sinusoidal" config adds its fixed
+    position embeddings to either.
     ``training``: the DoRA layers run their training route (norm
     recomputed from the current A/B, g differentiable); with grad enabled
     and ``mcfg.remat == "layer"`` each layer is checkpointed.
@@ -341,8 +366,13 @@ def forward(mcfg: ModelConfig, params, adapters, dcfg: DoRAConfig | None,
     the head (logits [B, 1, V]); overrides ``loss_slice``.
     """
     check_supported(mcfg)
+    if (tokens is None) == (embeds is None):
+        raise ValueError("forward takes exactly one of tokens and embeds")
     adapters = adapters or {}
-    x = params["embed"].detach()[tokens]
+    if embeds is None:
+        x = params["embed"].detach()[tokens]
+    else:
+        x = embeds.detach().to(mcfg.dtype)
     B, S = x.shape[:2]
     length = cache["len"] if cache is not None else None
     row_lens = isinstance(length, torch.Tensor) and length.ndim == 1
@@ -353,6 +383,8 @@ def forward(mcfg: ModelConfig, params, adapters, dcfg: DoRAConfig | None,
         else:
             base = 0 if length is None else int(length)
             positions = (base + steps).expand(B, S)
+    if mcfg.pos_mode == "sinusoidal":
+        x = x + L.sinusoidal_embedding(positions, mcfg.d_model).to(x.dtype)
     # The block table of a paged cache rides beside "len": one table
     # addresses every layer's pool, read-only inside the forward.
     pages = cache.get("pages") if cache is not None else None
@@ -394,6 +426,6 @@ def forward(mcfg: ModelConfig, params, adapters, dcfg: DoRAConfig | None,
         x = x[:, gather_position:gather_position + 1]
     elif loss_slice is not None and loss_slice < x.shape[1]:
         x = x[:, -loss_slice:]
-    x = L.rms_norm(x, params["final_norm"]["scale"], mcfg.norm_eps)
+    x = _apply_norm(x, params["final_norm"], mcfg)
     logits = x @ params["head"].detach().T
     return logits, new_cache

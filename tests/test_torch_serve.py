@@ -184,7 +184,7 @@ def test_unported_archs_are_refused():
     with pytest.raises(KeyError):
         get_config("nope")
     for flags in ({"moe": True}, {"ssm": True, "attn_period": 8},
-                  {"frontend": "patches"}):
+                  {"moe": True, "moe_period": 2}):
         mcfg = ModelConfig(**WIDTHS, **flags)
         with pytest.raises(NotImplementedError):
             tlm.model_spec(mcfg)
