@@ -61,6 +61,25 @@ the same bf16 weights, with one folded serving tree (g and g·s·B):
       committed paged trace, and a 2-layer fp32 engine on the card and on
       the CPU with the same streams.
 
+Then, on the same weights, multi-tenant serving (see serve_mt_checks):
+
+  T1. three r=384 tenants (each perturbed from its own seed) in one batch
+      of 6 (two rows each, interleaved; rows 0-2 share a prompt), prompt
+      960 padded to 1024, 32 greedy tokens, through ``MultiTenantServer``
+      over an ``AdapterStateCache``: a cold call (3 misses, K1 =
+      assembled = 3 x 196 = 588, nothing else) and a warm call (3 hits,
+      no kernel at all: the grouped prefill and decode launch no K1, K3
+      or K6), the same tokens both times and pairwise different on the
+      shared prompt; the single-tenant cached + gsB baseline at batch 6;
+  T2. the host tier (two states on the card, three on the host): a spill,
+      a reload bitwise leaf for leaf, reload ms against precompute ms;
+  T3. in fp32 at 2 layers: the mixed batch against each tenant served
+      alone by ``generate`` (equal tokens, logits within 1e-5 of max),
+      w_gate's grouped delta bitwise the homogeneous gsB path's at the
+      decode and prefill shapes, the dynamic grouping within 1e-6 of max
+      of the static one at [6, 1, 3584];
+  T4. the ``--tenants 3`` CLI at full width (K1 = 588).
+
 Then it trains the same bf16 weights (the serving cache freed) through
 ``repro_torch.launch.steps.make_train_step``: batch 2 x seq 2048, loss on
 the last 1024 tokens, layer remat, AdamW defaults:
@@ -1263,6 +1282,273 @@ def serve_checks(dev) -> dict:
     return ({"auto": auto_counts, "fused": fused_counts,
              "serve_auto": serve_auto, "serve_fused": serve_fused,
              "cosines": cos}, mcfg, params, adapters)
+
+
+# ---------------------------------------------------------------------------
+# Multi-tenant serving at full width.
+# ---------------------------------------------------------------------------
+
+# Three tenants, two rows each (BENCH_serve.json multi_tenant.rows), the
+# serve phase's prompt length, max_len and token count; the fp32 parities
+# at MT_PARITY_LAYERS layers over MT_PARITY_GEN tokens.
+MT_TENANTS, MT_ROWS = 3, 2
+MT_PARITY_LAYERS, MT_PARITY_GEN, MT_CLI_GEN = 2, 4, 8
+
+
+def _tenant_adapters(mcfg, params, dcfg, t: int, dev):
+    """Tenant t's adapters: the DoRA init, then perturbed (B != 0, g != 1)
+    from its own seeded generator."""
+    from repro_torch.models.lm import init_adapters
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 100 + t)
+    return perturb_adapters(init_adapters(gen, mcfg, params, dcfg), gen)
+
+
+def _held_bytes(state, raw) -> int:
+    """Bytes of ``state``'s leaves whose storage the raw (registry) tree
+    does not already hold: what the state adds on the card."""
+    shared = {t.untyped_storage().data_ptr() for t in _leaves_sorted(raw)}
+    return sum(t.numel() * t.element_size() for t in _leaves_sorted(state)
+               if t.untyped_storage().data_ptr() not in shared)
+
+
+def serve_mt_checks(dev, mcfg, params) -> dict:
+    """qwen2-7b at full width and depth serving three r=384 tenants in one
+    batch through ``MultiTenantServer`` (the grouped gsB compose over an
+    ``AdapterStateCache``): a cold call (3 misses: K1 with its epilogue
+    3 x 196 times), a warm call (3 hits: no kernel), the single-tenant
+    cached + gsB baseline at the same batch of 6, the host tier (spill,
+    bitwise reload, reload ms against precompute ms), the fp32 parities
+    at 2 layers (mixed batch against each tenant alone, a module's grouped
+    delta bitwise the homogeneous path's, dynamic against static
+    grouping) and the ``--tenants`` CLI."""
+    import dataclasses
+
+    from repro_torch import kernels
+    from repro_torch.core.adapter import (dora_linear_grouped, gsb_delta,
+                                          stack_adapter_states)
+    from repro_torch.core.adapter_cache import (AdapterStateCache,
+                                                serving_state_nbytes)
+    from repro_torch.core.config import DoRAConfig
+    from repro_torch.launch import serve
+    from repro_torch.launch.steps import StepConfig, make_precompute_step
+
+    scfg = StepConfig(dora=DoRAConfig(rank=RANK, alpha=ALPHA, mode="auto"))
+    n_adapted = 7 * mcfg.num_layers
+    batch = MT_TENANTS * MT_ROWS
+    tenants = [_tenant_adapters(mcfg, params, scfg.dora, t, dev)
+               for t in range(MT_TENANTS)]
+    # Rows 0-2 share one prompt under the three tenants; owners interleave,
+    # so the server's sort permutes the batch.
+    prompts = np.random.default_rng(SEED + 7).integers(
+        0, mcfg.vocab_size, (batch, PROMPT))
+    prompts[1:MT_TENANTS] = prompts[0]
+    owners = [i % MT_TENANTS for i in range(batch)]
+    requests = [serve.Request(p, f"tenant-{t}")
+                for p, t in zip(prompts, owners)]
+    out: dict = {"tenants": MT_TENANTS, "batch": batch, "prompt": PROMPT,
+                 "max_len": MAX_LEN, "gen": GEN}
+
+    def run_record(stats, toks, peak, launched):
+        rec = {"prefill_ms": stats["prefill_s"] * 1e3,
+               "decode_ms_per_step": stats["decode_s"] * 1e3 / GEN,
+               "decode_tok_per_s": batch * GEN / stats["decode_s"],
+               "max_memory_allocated_bytes": peak, "launches": launched}
+        for k in ("precompute_s", "stack_s"):
+            if k in stats:
+                rec[k.replace("_s", "_ms")] = stats[k] * 1e3
+        check(tuple(toks.shape) == (batch, PROMPT + GEN),
+              f"tokens {tuple(toks.shape)}")
+        check(((toks >= 0) & (toks < mcfg.vocab_size)).all().item(),
+              "token ids out of range")
+        return rec
+
+    # --- the single-tenant cached + gsB baseline, same batch of 6, after
+    # one untimed call at these shapes (cuBLAS handles, the allocator) ---
+    folded = make_precompute_step(mcfg, scfg, fold_gsb=True)(params,
+                                                             tenants[0])
+    serve.generate(mcfg, params, folded, scfg, prompts, gen_len=1,
+                   max_len=MAX_LEN, cache_adapters=False, device=dev)
+    _reset_peak(dev)
+    kernels.reset_launch_counts()
+    stats: dict = {}
+    toks = serve.generate(mcfg, params, folded, scfg, prompts, gen_len=GEN,
+                          max_len=MAX_LEN, cache_adapters=False, device=dev,
+                          stats=stats)
+    _sync(dev)
+    launched = launch_counts()
+    check(launched == counts_of(), f"single-tenant gsB launches {launched}")
+    out["single_tenant_gsb"] = run_record(stats, toks, _peak(dev), launched)
+    out["single_tenant_gsb"]["profile"] = profile(
+        lambda: serve.generate(mcfg, params, folded, scfg, prompts,
+                               gen_len=1, max_len=MAX_LEN,
+                               cache_adapters=False, device=dev),
+        "serve_mt single-tenant gsB (prefill + 1 step)")
+    del folded, toks
+
+    # --- cold: three misses, one batch; then warm: three hits ---
+    cache = AdapterStateCache.for_serving(mcfg, scfg, device=dev)
+    for t, ad in enumerate(tenants):
+        cache.register(f"tenant-{t}", ad)
+    server = serve.MultiTenantServer(mcfg, scfg, params, cache=cache,
+                                     device=dev)
+    toks = {}
+    for run, want in (("cold", counts_of(norm_terms=MT_TENANTS * n_adapted,
+                                         assembled=MT_TENANTS * n_adapted)),
+                      ("warm", counts_of())):
+        _reset_peak(dev)
+        kernels.reset_launch_counts()
+        stats = {}
+        toks[run] = server.serve(requests, gen_len=GEN, max_len=MAX_LEN,
+                                 stats=stats)
+        _sync(dev)
+        launched = launch_counts()
+        check(launched == want, f"serve_mt {run} launches {launched}")
+        out[run] = run_record(stats, toks[run], _peak(dev), launched)
+        out[run]["cache"] = cache.stats().as_dict()
+    check(out["cold"]["cache"]["misses"] == MT_TENANTS
+          and out["warm"]["cache"]["hits"] == MT_TENANTS,
+          f"cache counters {out['warm']['cache']}")
+    check(torch.equal(toks["cold"], toks["warm"]),
+          "cold and warm calls served different tokens")
+    out["warm"]["profile"] = profile(
+        lambda: server.serve(requests, gen_len=1, max_len=MAX_LEN),
+        "serve_mt warm (prefill + 1 step)")
+    gen_part = toks["warm"][:MT_TENANTS, PROMPT:]
+    for a in range(MT_TENANTS):
+        for b in range(a + 1, MT_TENANTS):
+            check(not torch.equal(gen_part[a], gen_part[b]),
+                  f"tenants {a} and {b} greedy tokens are equal on the "
+                  f"shared prompt")
+    state0 = cache.get_state(params, cache.current_handle("tenant-0"))
+    nbytes = serving_state_nbytes(state0)
+    out["state_nbytes"] = nbytes
+    out["state_held_bytes"] = _held_bytes(state0,
+                                          cache.adapters("tenant-0"))
+    print("serve_mt: " + json.dumps(out), flush=True)
+    del server, cache, state0, toks
+    _empty_cache(dev)
+
+    # --- the host tier: two states on the card, three on the host ---
+    tier = AdapterStateCache.for_serving(mcfg, scfg, device=dev,
+                                         max_bytes=2 * nbytes,
+                                         host_max_bytes=3 * nbytes)
+    handles = [tier.register(f"tenant-{t}", ad)
+               for t, ad in enumerate(tenants)]
+    marks: dict = {}
+
+    def on_event(kind, key):
+        _sync(dev)
+        marks.setdefault(kind, time.perf_counter())
+
+    tier.on_event = on_event
+    t0 = time.perf_counter()
+    first = tier.get_state(params, handles[0])
+    _sync(dev)
+    precompute_ms = (time.perf_counter() - t0) * 1e3
+    for h in handles[1:]:
+        tier.get_state(params, h)       # the third spills tenant 0
+    check(tier.is_spilled(handles[0]), "tenant 0 was not spilled")
+    t0 = time.perf_counter()
+    reloaded = tier.get_state(params, handles[0])
+    _sync(dev)
+    t1 = time.perf_counter()
+    st = tier.stats()
+    check(st.spills == 2 and st.reloads == 1 and st.misses == MT_TENANTS,
+          f"host tier counters {st}")
+    flat_a, flat_b = _leaves_sorted(first), _leaves_sorted(reloaded)
+    check(len(flat_a) == len(flat_b) and all(
+        a.device == b.device and torch.equal(a, b)
+        for a, b in zip(flat_a, flat_b)),
+        "a reloaded state is not bitwise the precomputed one")
+    out["host_tier"] = {
+        "precompute_ms": precompute_ms,
+        "reload_ms": (marks["reload"] - t0) * 1e3,
+        "spill_ms": (t1 - marks["reload"]) * 1e3,
+        "state_nbytes": nbytes, "cache": st.as_dict()}
+    print("serve_mt host tier: " + json.dumps(out["host_tier"]), flush=True)
+    del tier, first, reloaded, flat_a, flat_b
+    _empty_cache(dev)
+
+    # --- fp32 at 2 layers: mixed batch vs each tenant alone ---
+    n = MT_PARITY_LAYERS
+    m32 = dataclasses.replace(mcfg, num_layers=n, dtype=torch.float32)
+    p32 = _upcast_layers(params, n)
+    cache32 = AdapterStateCache.for_serving(m32, scfg, device=dev)
+    for t, ad in enumerate(tenants):
+        cache32.register(f"tenant-{t}", _upcast_layers(ad, n))
+    server32 = serve.MultiTenantServer(m32, scfg, p32, cache=cache32,
+                                       device=dev)
+    mtoks, mlogits = server32.serve(requests, gen_len=MT_PARITY_GEN,
+                                    max_len=MAX_LEN, return_logits=True)
+    parity = {"tokens_equal": True, "max_rel_logit_err": 0.0}
+    for t in range(MT_TENANTS):
+        rows = [i for i, o in enumerate(owners) if o == t]
+        stoks, slogits = serve.generate(
+            m32, p32, cache32.current_handle(f"tenant-{t}"), scfg,
+            prompts[rows], gen_len=MT_PARITY_GEN, max_len=MAX_LEN,
+            adapter_cache=cache32, return_logits=True, device=dev)
+        parity["tokens_equal"] &= torch.equal(stoks, mtoks[rows])
+        for s in range(MT_PARITY_GEN):
+            err, mx = max_err(mlogits[s][rows], slogits[s])
+            parity["max_rel_logit_err"] = max(parity["max_rel_logit_err"],
+                                              err / mx)
+    check(parity["tokens_equal"], "fp32 mixed batch tokens differ from "
+          "each tenant served alone")
+    check(parity["max_rel_logit_err"] <= 1e-5,
+          f"fp32 mixed batch logits {parity['max_rel_logit_err']} of max "
+          f"from each tenant served alone")
+
+    # one module, w_gate of layer 0: the grouped delta against the
+    # homogeneous gsB path, and the dynamic form against the static one
+    states = [cache32.get_state(p32, cache32.current_handle(f"tenant-{t}"))
+              ["stack"]["l0"]["ffn"]["w_gate"] for t in range(MT_TENANTS)]
+    mods = [{k: v[0] for k, v in st.items()} for st in states]
+    stacked = stack_adapter_states(mods, axis=0)
+    W = p32["stack"]["l0"]["ffn"]["w_gate"][0]
+    groups = tuple((k * MT_ROWS, MT_ROWS) for k in range(MT_TENANTS))
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    for seq in (1, MAX_LEN):
+        x = torch.randn((batch, seq, mcfg.d_model), generator=gen,
+                        device=dev)
+        yg = dora_linear_grouped(x, W, stacked, scfg.dora, groups)
+        y_base = x @ W.T
+        for k, (s, r) in enumerate(groups):
+            rows = slice(s, s + r)
+            delta = gsb_delta(y_base[rows], x[rows] @ mods[k]["A"].T,
+                              mods[k]["g"], mods[k]["gsB"])
+            check(torch.equal(yg[rows], y_base[rows] + delta),
+                  f"grouped delta of tenant {k} at seq {seq} is not the "
+                  f"homogeneous gsB path's")
+        if seq == 1:
+            idx = torch.arange(MT_TENANTS, device=dev).repeat_interleave(
+                MT_ROWS)
+            yd = dora_linear_grouped(x, W, stacked, scfg.dora, idx)
+            err, mx = max_err(yd, yg)
+            parity["dynamic_vs_static_rel_err"] = err / mx
+            check(err <= 1e-6 * mx, f"dynamic vs static grouped w_gate "
+                  f"{err / mx} of max")
+    out["fp32_parity"] = parity
+    print(f"serve_mt fp32 parity ({n} layers): " + json.dumps(parity),
+          flush=True)
+    del cache32, server32, p32, states, mods, stacked, tenants, W, x, yg
+    _empty_cache(dev)
+
+    # --- the --tenants CLI at full width (its own params and tenants) ---
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    serve.main(["--arch", ARCH, "--tenants", str(MT_TENANTS),
+                "--batch", str(MT_ROWS), "--prompt-len", str(PROMPT),
+                "--gen-len", str(MT_CLI_GEN), "--rank", str(RANK),
+                "--alpha", str(ALPHA), "--seed", str(SEED)])
+    _sync(dev)
+    launched = launch_counts()
+    check(launched == counts_of(norm_terms=MT_TENANTS * n_adapted,
+                                assembled=MT_TENANTS * n_adapted),
+          f"--tenants CLI launches {launched}")
+    out["cli_s"] = time.perf_counter() - t0
+    _empty_cache(dev)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2774,6 +3060,9 @@ def main() -> int:
     engine["parity"] = engine_parity(dev, mcfg, params, adapters)
     print(f"engine phases: {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
+    mt = serve_mt_checks(dev, mcfg, params)
+    print(f"serve_mt phases: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
     trained = train_checks(dev, mcfg, params, adapters)
     del params, adapters
     torch.cuda.empty_cache()
@@ -2794,6 +3083,7 @@ def main() -> int:
                "train_elementwise": trained["train_elementwise"]["launches"],
                "engine_paged": engine["engine_paged"]["launches"],
                "engine_trace_paged": engine["traces"]["paged"]["launches"],
+               "serve_mt": mt["cold"]["launches"],
                "serve_mamba": mamba["serve_mamba"]["launches"],
                "train_vl": vl["train"]["launches"],
                "serve_vl": vl["serve"]["launches"],
@@ -2851,7 +3141,7 @@ def main() -> int:
     detail.parent.mkdir(exist_ok=True)
     detail.write_text(json.dumps({
         "card": smi, "kernel_rows": rows, "serve": served,
-        "engine": engine,
+        "engine": engine, "serve_mt": mt,
         "train": {k: trained[k] for k in ("train_auto", "train_elementwise",
                                           "fp32_agreement")},
         "train_parity": parity, "mamba": mamba, "vl": vl, "archs": archs},
@@ -2865,6 +3155,16 @@ def main() -> int:
                                  if k not in ("trace", "launches",
                                               "decode_tick_profile")},
                       "train": train_summary,
+                      "mt": {**{run: {k: v for k, v in mt[run].items()
+                                      if k not in ("launches", "cache",
+                                                   "profile")}
+                                for run in ("cold", "warm",
+                                            "single_tenant_gsb")},
+                             "host_tier": {k: mt["host_tier"][k] for k in (
+                                 "precompute_ms", "reload_ms", "spill_ms")},
+                             "state_nbytes": mt["state_nbytes"],
+                             "state_held_bytes": mt["state_held_bytes"],
+                             "fp32_parity": mt["fp32_parity"]},
                       "mamba": {k: v for k, v in mamba["serve_mamba"].items()
                                 if not k.endswith("_profile")},
                       "vl": {"train": {f: vl["train"][f] for f in (

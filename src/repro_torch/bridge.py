@@ -8,7 +8,9 @@ of each JAX leaf), become the port's trees of tensors on a chosen device
 (:func:`tree_from_numpy`), and back (:func:`tree_to_numpy`). Leaves are
 keyed by the same "/"-joined paths that the reference's checkpoints write
 (``repro/checkpoint/store.py``), so :func:`flatten_paths` of either tree
-names the same leaves.
+names the same leaves. Leaf shapes are carried as they are, so the
+K-stacked serving trees of multi-tenant serving (leaves [n_scan, K, ...],
+``stack_adapter_states(..., axis=1)`` in either package) cross both ways.
 
 bf16 arrays (numpy dtype ``bfloat16`` from ``ml_dtypes``, which
 ``torch.from_numpy`` refuses) are carried bit for bit as uint16 and

@@ -16,6 +16,12 @@ Frozen-adapter serving state (:func:`precompute_adapter_state`): during
 generation A/B/m are frozen, so g is computed once per adapter set and
 carried as a ``"g"`` leaf; a tree carrying it is refused under
 ``training=True``.
+
+Multi-tenant serving (:func:`dora_linear_grouped`): one call serves a batch
+whose rows use different adapters, out of K folded serving states stacked
+leaf-wise (:func:`stack_adapter_states`). The base projection is one
+product over the whole batch; each tenant's rows then take the
+homogeneous serving path's delta (:func:`gsb_delta`).
 """
 from __future__ import annotations
 
@@ -28,6 +34,7 @@ from repro_torch.core import dispatch as _dispatch
 from repro_torch.core import factored_norm as _norm
 from repro_torch.core.config import DoRAConfig
 from repro_torch.kernels import ops as _kops
+from repro_torch.tree import tree_map
 
 _F32 = torch.float32
 
@@ -121,8 +128,16 @@ def compose_delta_factored(y_base, h, B, g, cfg: DoRAConfig, *,
     return compose_delta(y_base, y_lora, g, cfg, training=training)
 
 
+def gsb_delta(y_base, h, g, gsB):
+    """The serving fast path's delta from a folded state: g·s pre-folded
+    into B, so the compose is the fp32 product h·gsBᵀ and one fused
+    multiply-add, (g − 1)·y_base + t, in the activation dtype."""
+    t = h.to(_F32) @ gsB.detach().to(_F32).T
+    return ((g - 1.0) * y_base.to(_F32) + t).to(y_base.dtype)
+
+
 def dora_linear(x, W, adapter: dict[str, Any], cfg: DoRAConfig, *,
-                bias=None, training: bool = True):
+                bias=None, training: bool = True, tenant_groups=None):
     """Adapted linear: x [..., d_in] → y [..., d_out].
 
     W: frozen [d_out, d_in]; adapter: {"A": [r, d_in], "B": [d_out, r],
@@ -133,7 +148,15 @@ def dora_linear(x, W, adapter: dict[str, Any], cfg: DoRAConfig, *,
     this step's A and B, computed by the caller: the layer-remat training
     forward computes it before the checkpointed layer so that the
     recompute in the backward does no norm work (the reference's remat
-    policy saves it under the name "dora_wnorm")."""
+    policy saves it under the name "dora_wnorm").
+
+    ``tenant_groups``: multi-tenant serving, a tuple of ``(start, size)``
+    row blocks or an int [B] tensor of per-row tenant positions, over an
+    adapter tree whose leaves carry a leading tenant dim K (see
+    :func:`dora_linear_grouped`)."""
+    if tenant_groups is not None:
+        return dora_linear_grouped(x, W, adapter, cfg, tenant_groups,
+                                   bias=bias, training=training)
     A, B, m = adapter["A"], adapter["B"], adapter["m"]
     if "g" in adapter:
         if training:
@@ -158,10 +181,7 @@ def dora_linear(x, W, adapter: dict[str, Any], cfg: DoRAConfig, *,
     y_base = x @ W.T
     h = x @ A.T
     if "gsB" in adapter and not training:
-        # Serving fast path: g·s pre-folded into B, so the compose is two
-        # matmuls and one fused multiply-add.
-        t = h.to(_F32) @ adapter["gsB"].detach().to(_F32).T
-        delta = ((g - 1.0) * y_base.to(_F32) + t).to(y_base.dtype)
+        delta = gsb_delta(y_base, h, g, adapter["gsB"])
     else:
         delta = compose_delta_factored(y_base, h, B, g, cfg,
                                        training=training)
@@ -169,6 +189,132 @@ def dora_linear(x, W, adapter: dict[str, Any], cfg: DoRAConfig, *,
     if bias is not None:
         y = y + bias                 # re-added after the compose
     return y
+
+
+def check_tenant_groups(tenant_groups, batch: int) -> tuple:
+    """Validate a multi-tenant grouping: a tuple of ``(start, size)`` row
+    blocks that tile ``[0, batch)`` contiguously in order (the server sorts
+    request rows by adapter before building the step)."""
+    groups = tuple((int(s), int(n)) for s, n in tenant_groups)
+    if not groups:
+        raise ValueError("tenant_groups must name at least one group")
+    expect = 0
+    for k, (start, size) in enumerate(groups):
+        if start != expect or size < 1:
+            raise ValueError(
+                f"tenant_groups must tile the batch contiguously: group "
+                f"{k} is (start={start}, size={size}) but rows 0..{expect} "
+                f"are covered so far (groups={groups})")
+        expect = start + size
+    if expect != batch:
+        raise ValueError(
+            f"tenant_groups {groups} cover {expect} rows, batch has {batch}")
+    return groups
+
+
+@torch.no_grad()
+def dora_linear_grouped(x, W, adapter: dict[str, Any], cfg: DoRAConfig,
+                        tenant_groups, *, bias=None, training: bool = False):
+    """Multi-tenant adapted linear: one call serves a batch whose rows use
+    per-row adapters out of a K-stacked serving tree (x [B, ..., d_in]).
+
+    ``adapter`` leaves carry a leading tenant dim K
+    (:func:`stack_adapter_states`) and must be a folded serving tree, with
+    ``"g"`` and ``"gsB"`` from ``precompute_adapter_state(fold_gsb=True)``,
+    so no tenant does norm work per token. ``cfg`` is unused: the folded
+    state carries s, and no kernel route applies.
+
+    ``tenant_groups`` selects one of two grouping contracts:
+
+    - **Static** (a tuple of ``(start, size)`` row blocks): the base
+      projection x·Wᵀ is one product over the whole batch, then each
+      group's rows take exactly the ops of the homogeneous serving path
+      (h = x_k·A_kᵀ, then :func:`gsb_delta`), so a group's delta is
+      bitwise the homogeneous path's on the same rows and the same
+      y_base rows.
+    - **Dynamic** (an int [B] tensor of per-row stack positions): every
+      tenant's contribution is computed by one K-batched contraction and
+      each row's result is then a pure gather
+      (:func:`repro_torch.core.compose.select_tenant`), at K times the
+      adapter FLOPs; see :func:`_dora_linear_dyn`.
+    """
+    del cfg
+    if training:
+        raise ValueError(
+            "dora_linear_grouped is a serving-only path: the grouped "
+            "compose consumes precomputed per-tenant state ('g'/'gsB') "
+            "that is stale the moment A/B/m change. Train per-tenant on "
+            "the raw adapter trees.")
+    missing = [k for k in ("g", "gsB") if k not in adapter]
+    if missing:
+        raise ValueError(
+            f"multi-tenant grouped serving needs the FOLDED per-tenant "
+            f"state (missing {missing!r} leaves): precompute each "
+            f"tenant with precompute_adapter_state(..., fold_gsb=True) "
+            f"(AdapterStateCache.for_serving does) and stack with "
+            f"stack_adapter_states before building the grouped step.")
+    A, g, gsB = adapter["A"], adapter["g"], adapter["gsB"]
+    if W.ndim > 2:
+        raise NotImplementedError(
+            "grouped multi-tenant serving of stacked/expert weights "
+            f"(W rank {W.ndim}) is not supported")
+    if not isinstance(tenant_groups, (tuple, list)):
+        return _dora_linear_dyn(x, W, A, g, gsB, tenant_groups, bias=bias)
+    groups = check_tenant_groups(tenant_groups, x.shape[0])
+    K = A.shape[0]
+    if len(groups) != K:
+        raise ValueError(
+            f"{len(groups)} tenant groups but the stacked adapter tree "
+            f"carries K={K} tenants")
+    y_base = x @ W.T
+    deltas = [gsb_delta(y_base[start:start + size],
+                        x[start:start + size] @ A[k].T,
+                        g[k].to(_F32), gsB[k])
+              for k, (start, size) in enumerate(groups)]
+    y = y_base + torch.cat(deltas, dim=0)
+    if bias is not None:
+        y = y + bias                 # re-added after the compose
+    return y
+
+
+def _dora_linear_dyn(x, W, A, g, gsB, idx, *, bias=None):
+    """Dynamic grouped compose: per-row adapters selected by the int [B]
+    stack position ``idx``. The K-batched products below reduce over the
+    same axes as the homogeneous path's ``x @ Aᵀ`` and fp32 ``h·gsBᵀ``, and
+    the per-row select is a pure gather; the g term is row-local,
+    applied from the gathered ``g[idx]``."""
+    if x.ndim != 3:
+        raise NotImplementedError(
+            f"dynamic grouped serving expects [B, S, d_in] activations "
+            f"(got ndim={x.ndim}); the serving steps always run the "
+            f"model's batched token layout")
+    idx = torch.as_tensor(idx, device=x.device).long()
+    y_base = x @ W.T
+    # All-K down-projection, then the gather: [B, S, K, r].
+    h = _compose.select_tenant(torch.einsum("bsd,krd->bskr", x, A), idx)
+    # All-K folded up-projection in fp32: [B, S, K, d_out].
+    t = _compose.select_tenant(
+        torch.einsum("bsr,kor->bsko", h.to(_F32), gsB.to(_F32)), idx)
+    g_row = g.to(_F32).index_select(0, idx)             # [B, d_out]
+    delta = ((g_row[:, None, :] - 1.0) * y_base.to(_F32) + t).to(
+        y_base.dtype)
+    y = y_base + delta
+    if bias is not None:
+        y = y + bias
+    return y
+
+
+def stack_adapter_states(states, *, axis: int = 0):
+    """Stack K congruent per-tenant serving trees leaf-wise along a new
+    tenant dim at ``axis`` (0 for bare adapter leaves; the model-level
+    trees of ``make_precompute_step`` use axis=1 so the layer-stack dim
+    stays leading: leaves go [n_scan, ...] → [n_scan, K, ...]). The
+    stacked leaves are fresh tensors."""
+    states = list(states)
+    if not states:
+        raise ValueError("need at least one per-tenant state to stack")
+    return tree_map(lambda *leaves: torch.stack(leaves, dim=axis),
+                    *states)
 
 
 def _is_adapter_leaf(node) -> bool:

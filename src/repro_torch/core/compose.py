@@ -54,3 +54,23 @@ def compose_reference_fp64(base, lora, g, s: float):
     lo = lora.to(torch.float64)
     g64 = g.to(torch.float64)
     return (g64 - 1.0) * b + g64 * (float(s) * lo)
+
+
+def select_tenant(all_k, idx):
+    """Exact per-row tenant select for the dynamic grouped compose
+    (:func:`repro_torch.core.adapter.dora_linear_grouped`).
+
+    ``all_k`` is an all-tenant intermediate ``[B, S, K, ...]``: every row's
+    contribution computed for every stacked tenant ``k`` by one batched
+    contraction whose reduction order does not depend on the tenant. ``idx``
+    is the per-row int tenant index ``[B]``. The select is a pure gather on
+    the K axis, so row ``b``'s result is the very value computed for tenant
+    ``idx[b]``: no arithmetic touches it."""
+    b = all_k.shape[0]
+    if tuple(idx.shape) != (b,):
+        raise ValueError(
+            f"per-row tenant index has shape {tuple(idx.shape)}; need "
+            f"({b},) — one stacked-tenant position per batch row")
+    ix = idx.to(device=all_k.device, dtype=torch.int64).reshape(
+        (b,) + (1,) * (all_k.ndim - 1))
+    return torch.take_along_dim(all_k, ix, dim=2).squeeze(2)

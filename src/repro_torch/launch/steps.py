@@ -198,7 +198,7 @@ def make_precompute_step(mcfg: ModelConfig, scfg: StepConfig, *,
 
 
 def make_prefill_step(mcfg: ModelConfig, scfg: StepConfig, *, batch: int,
-                      seq: int, padded: bool = False):
+                      seq: int, padded: bool = False, tenant_groups=None):
     """(params, adapters, batch_in) -> (last_logits [B, V], cache).
 
     Runs the prompt and fills a fresh cache of ``seq`` positions on the
@@ -211,7 +211,11 @@ def make_prefill_step(mcfg: ModelConfig, scfg: StepConfig, *, batch: int,
     overwrites the first padded row (the padded rows beyond it are masked
     by causality). Only attention caches can rewind: a Mamba state has
     integrated the padded tokens, so a stack with Mamba layers refuses
-    ``padded=True``."""
+    ``padded=True``.
+
+    ``tenant_groups``: multi-tenant serving, static ``(start, size)`` row
+    blocks grouping the batch by adapter; the adapter tree must be the
+    stacked folded serving state (see ``repro_torch.launch.serve``)."""
     if padded and any(k != "attn" for k in mcfg.layer_kinds()):
         raise ValueError(
             "padded prefill requires attention-only caches: SSM layer "
@@ -239,7 +243,7 @@ def make_prefill_step(mcfg: ModelConfig, scfg: StepConfig, *, batch: int,
             kw["loss_slice"] = 1
         logits, new_cache = forward(mcfg, params, adapters, scfg.dora,
                                     **inputs, cache=cache, training=False,
-                                    **kw)
+                                    tenant_groups=tenant_groups, **kw)
         if padded:
             new_cache["len"] = p_len
         return logits[:, -1], new_cache
@@ -323,13 +327,26 @@ def make_prefill_chunk_step(mcfg: ModelConfig, scfg: StepConfig, *,
     return prefill_chunk
 
 
-def make_decode_step(mcfg: ModelConfig, scfg: StepConfig, *, batch: int):
+def make_decode_step(mcfg: ModelConfig, scfg: StepConfig, *, batch: int,
+                     tenant_groups=None, dynamic_groups: bool = False):
     """(params, adapters, cache, batch_in) -> (logits [B, V], cache'): one
     new token ``batch_in["tokens"]`` [B, 1] (or a frontend's
     ``batch_in["embeds"]`` [B, 1, d_model]) against the cache, written in
     place at position ``cache["len"]``: one int for the whole batch, or a
     [B] tensor of per-row lengths (continuous batching), where each row
-    writes and attends at its own position."""
+    writes and attends at its own position.
+
+    ``tenant_groups``: multi-tenant serving, the rows grouped by adapter
+    in static ``(start, size)`` blocks over the stacked folded serving
+    state; the step does no norm work (no K1 launch).
+    ``dynamic_groups``: each row's adapter is the int [B] stack position
+    ``batch_in["adapter_idx"]``, so the tenant mix changes values, not the
+    step. Mutually exclusive with a static ``tenant_groups``."""
+    if dynamic_groups and tenant_groups is not None:
+        raise ValueError(
+            "dynamic_groups=True takes the per-row adapter index from "
+            "batch_in['adapter_idx']; a static tenant_groups signature "
+            "cannot be given at the same time")
 
     @torch.no_grad()
     def decode_step(params, adapters, cache, batch_in):
@@ -338,8 +355,11 @@ def make_decode_step(mcfg: ModelConfig, scfg: StepConfig, *, batch: int):
         if tuple(x.shape[:2]) != (batch, 1):
             raise ValueError(f"decode built for {name} [{batch}, 1], got "
                              f"{tuple(x.shape)}")
+        tg = (torch.as_tensor(batch_in["adapter_idx"], device=x.device)
+              if dynamic_groups else tenant_groups)
         logits, new_cache = forward(mcfg, params, adapters, scfg.dora,
-                                    **inputs, cache=cache, training=False)
+                                    **inputs, cache=cache, training=False,
+                                    tenant_groups=tg)
         return logits[:, -1], new_cache
 
     return decode_step

@@ -33,12 +33,16 @@ def linear(x, w, bias=None):
 
 
 def maybe_dora(x, w, dora: dict | None, cfg: DoRAConfig | None, *,
-               bias=None, training: bool = True):
+               bias=None, training: bool = True, tenant_groups=None):
     """Adapted linear if a DoRA adapter is present, frozen linear
-    otherwise."""
+    otherwise. ``tenant_groups``: multi-tenant serving, with ``dora``
+    leaves carrying a leading tenant dim (see
+    ``repro_torch.core.adapter.dora_linear_grouped``); the base weight is
+    shared by every tenant, so the unadapted branch ignores it."""
     if dora is None:
         return linear(x, w.detach(), bias)
-    return dora_linear(x, w, dora, cfg, bias=bias, training=training)
+    return dora_linear(x, w, dora, cfg, bias=bias, training=training,
+                       tenant_groups=tenant_groups)
 
 
 def rms_norm(x, scale, eps: float = 1e-5):
@@ -226,7 +230,8 @@ def _write_rows(buf, new, pos):
 
 
 def attention(x, params, dora, mcfg, dcfg: DoRAConfig | None, *,
-              positions, cache=None, training: bool = True):
+              positions, cache=None, training: bool = True,
+              tenant_groups=None):
     """Attention block: QKV (DoRA-adapted), qk-norm (an RMS norm of each
     head of q and k, before the rotation), the position rotation, core,
     O-proj.
@@ -249,14 +254,18 @@ def attention(x, params, dora, mcfg, dcfg: DoRAConfig | None, *,
     view is scattered back into the pools. The view is a fresh tensor:
     the pools see the write only through the scatter. Unallocated blocks
     read as zeros and lie at or past their row's frontier, where the
-    causal bias gives them a softmax weight of exactly 0."""
+    causal bias gives them a softmax weight of exactly 0.
+
+    ``tenant_groups``: multi-tenant serving, forwarded to every adapted
+    projection (the attention core is row-local and adapter-free)."""
     b, s, _ = x.shape
     hq, hkv, hd = mcfg.num_heads, mcfg.num_kv_heads, mcfg.head_dim
     dora = dora or {}
 
     def proj(name):
         return maybe_dora(x, params[name], dora.get(name), dcfg,
-                          bias=params.get(name + "_bias"), training=training)
+                          bias=params.get(name + "_bias"), training=training,
+                          tenant_groups=tenant_groups)
 
     q = proj("wq").reshape(b, s, hq, hd)
     k = proj("wk").reshape(b, s, hkv, hd)
@@ -304,28 +313,29 @@ def attention(x, params, dora, mcfg, dcfg: DoRAConfig | None, *,
 
     out = out.reshape(b, s, hq * hd)
     y = maybe_dora(out, params["wo"], dora.get("wo"), dcfg,
-                   training=training)
+                   training=training, tenant_groups=tenant_groups)
     return y, new_cache
 
 
 def mlp_swiglu(x, params, dora, dcfg: DoRAConfig | None, *,
-               training: bool = True):
+               training: bool = True, tenant_groups=None):
     d = dora or {}
     gate = maybe_dora(x, params["w_gate"], d.get("w_gate"), dcfg,
-                      training=training)
+                      training=training, tenant_groups=tenant_groups)
     up = maybe_dora(x, params["w_up"], d.get("w_up"), dcfg,
-                    training=training)
+                    training=training, tenant_groups=tenant_groups)
     return maybe_dora(F.silu(gate) * up, params["w_down"], d.get("w_down"),
-                      dcfg, training=training)
+                      dcfg, training=training, tenant_groups=tenant_groups)
 
 
 def mlp_gelu(x, params, dora, dcfg: DoRAConfig | None, *,
-             training: bool = True):
+             training: bool = True, tenant_groups=None):
     """The plain 2-matrix MLP (MusicGen): up with bias, GELU in its tanh
     form (``jax.nn.gelu``'s default), down with bias."""
     d = dora or {}
     y = maybe_dora(x, params["w_up"], d.get("w_up"), dcfg,
-                   bias=params["w_up_bias"], training=training)
+                   bias=params["w_up_bias"], training=training,
+                   tenant_groups=tenant_groups)
     return maybe_dora(F.gelu(y, approximate="tanh"), params["w_down"],
                       d.get("w_down"), dcfg, bias=params["w_down_bias"],
-                      training=training)
+                      training=training, tenant_groups=tenant_groups)

@@ -299,10 +299,18 @@ def _apply_norm(x, p, mcfg: ModelConfig):
 
 
 def _layer_apply(x, p, a, c, mcfg, dcfg, *, kind, ffn, positions, length,
-                 training, pages=None):
+                 training, pages=None, tenant_groups=None):
     """Pre-norm mixer (attention or Mamba) + pre-norm MLP (when the layer
     has one), residual adds. ``c`` is this layer's cache slice, written in
-    place, or None; ``pages`` the block table of a paged cache."""
+    place, or None; ``pages`` the block table of a paged cache.
+    ``tenant_groups``: multi-tenant serving, where the adapted linears
+    apply the per-group folded adapter state (attention and dense-MLP
+    layers only)."""
+    if tenant_groups is not None and (kind != "attn" or ffn == "moe"):
+        raise NotImplementedError(
+            f"multi-tenant grouped serving supports attention + dense-MLP "
+            f"layers only; arch {mcfg.name!r} has a "
+            f"{'moe ffn' if ffn == 'moe' else kind} layer")
     h = _apply_norm(x, p["ln1"], mcfg)
     a = a or {}
     if kind == "attn":
@@ -313,7 +321,7 @@ def _layer_apply(x, p, a, c, mcfg, dcfg, *, kind, ffn, positions, length,
                 attn_cache["pages"] = pages
         y, _ = L.attention(h, p["mixer"], a.get("mixer"), mcfg, dcfg,
                            positions=positions, cache=attn_cache,
-                           training=training)
+                           training=training, tenant_groups=tenant_groups)
     else:
         y, new_c = M.mamba_block(h, p["mixer"], a.get("mixer"), mcfg, dcfg,
                                  cache=c, training=training)
@@ -325,7 +333,8 @@ def _layer_apply(x, p, a, c, mcfg, dcfg, *, kind, ffn, positions, length,
         return x
     h = _apply_norm(x, p["ln2"], mcfg)
     mlp = L.mlp_swiglu if mcfg.mlp_kind == "swiglu" else L.mlp_gelu
-    return x + mlp(h, p["ffn"], a.get("ffn"), dcfg, training=training)
+    return x + mlp(h, p["ffn"], a.get("ffn"), dcfg, training=training,
+                   tenant_groups=tenant_groups)
 
 
 def _slice_tree(tree, i: int):
@@ -347,7 +356,7 @@ def _unstack_tree(tree, n: int) -> list:
 def forward(mcfg: ModelConfig, params, adapters, dcfg: DoRAConfig | None,
             *, tokens=None, embeds=None, cache=None, positions=None,
             training: bool = True, loss_slice: int | None = None,
-            gather_position: int | None = None):
+            gather_position: int | None = None, tenant_groups=None):
     """Returns (logits [B, S, V], new_cache).
 
     ``tokens`` int [B, S], or ``embeds`` [B, S, d_model]: the precomputed
@@ -364,7 +373,16 @@ def forward(mcfg: ModelConfig, params, adapters, dcfg: DoRAConfig | None,
     ``loss_slice``: keep only the last N positions before the LM head.
     ``gather_position``: keep ONLY this position before the final norm and
     the head (logits [B, 1, V]); overrides ``loss_slice``.
+    ``tenant_groups``: multi-tenant serving, static ``(start, size)`` row
+    blocks grouping the batch by adapter or an int [B] tensor of per-row
+    positions into the stacked tenant dim; ``adapters`` is then a stacked
+    folded serving tree (leaves [n_scan, K, ...], see
+    ``repro_torch.core.adapter.stack_adapter_states``). Serving only:
+    ``training=False`` is required.
     """
+    if tenant_groups is not None and training:
+        raise ValueError("tenant_groups is a serving-only path "
+                         "(training=False required)")
     check_supported(mcfg)
     if (tokens is None) == (embeds is None):
         raise ValueError("forward takes exactly one of tokens and embeds")
@@ -408,7 +426,7 @@ def forward(mcfg: ModelConfig, params, adapters, dcfg: DoRAConfig | None,
             j = int(li[1:])
             kw = dict(mcfg=mcfg, dcfg=dcfg, kind=kinds[j], ffn=ffns[j],
                       positions=positions, length=length, training=training,
-                      pages=pages)
+                      pages=pages, tenant_groups=tenant_groups)
             if remat:
                 x = checkpoint(_layer_apply, x, unit_p[li], a, c,
                                use_reentrant=False, preserve_rng_state=False,

@@ -170,6 +170,22 @@ def test_config_matches_reference(arch, smoke):
     tlm.model_spec(t)
 
 
+@pytest.mark.parametrize("arch", ["qwen2-7b", "falcon-mamba-7b", *ARCHS])
+def test_shapes_match_reference(arch):
+    """``configs/shapes.py``: the assigned shape sets, field by field, and
+    which of them each arch runs (full and SMOKE configs)."""
+    from repro.configs import shapes as jshapes
+    from repro_torch.configs import shapes as tshapes
+
+    for table in ("SHAPES", "SMOKE_SHAPES"):
+        t, j = getattr(tshapes, table), getattr(jshapes, table)
+        assert {k: dataclasses.astuple(v) for k, v in t.items()} == {
+            k: dataclasses.astuple(v) for k, v in j.items()}, table
+    for smoke in (False, True):
+        assert tshapes.applicable_shapes(get_config(arch, smoke=smoke)) == \
+            jshapes.applicable_shapes(jget_config(arch, smoke=smoke))
+
+
 def test_registry_ports_every_dense_arch():
     assert NOT_PORTED == ("jamba-v0.1-52b", "qwen2-moe-a2.7b",
                           "llama4-scout-17b-a16e")
