@@ -61,6 +61,29 @@ the same bf16 weights, with one folded serving tree (g and g·s·B):
       committed paged trace, and a 2-layer fp32 engine on the card and on
       the CPU with the same streams.
 
+Then speculative decoding (k = 3) and the fault plan in the engine (see
+spec_checks and fault_checks):
+
+  S1. in fp32 at 2 layers, the committed ``speculative`` trace,
+      rectangular and paged: identity adapters (B = 0, m the precompute's
+      own norm, so g == 1 exactly) give the counters of
+      ``speculative_model`` (45 drafts, 15 verifies, 63 accepted); the
+      perturbed adapters with the ladder (floor 0.99, window 2, re-enable
+      2) disable and re-enable it; the streams equal the plain engine's;
+  S2. in bf16 at full width and depth, the realistic trace on E1's paged
+      geometry: K1 = assembled = 196 (the precompute), K8 = 2 x 28 x
+      (chunk + decode + draft + verify steps), nothing else; every
+      request its 64 tokens, the pool drained, three drafts a verify;
+      printed beside E1's plain run: the accept rate, ticks, ms a tick,
+      tokens/s, the verify's 19.5 MB logits fetch, and the share of
+      requests whose tokens equal the plain run's;
+  F1. in bf16 at full width and depth, the paged engine over the first 8
+      requests of the realistic trace with 16 new tokens, clean and under
+      a plan of a one-row NaN, an all-rows NaN, a 0.05 s slow tick, a
+      stale and an evict event: the reference's containment (each request
+      finishes once, no slot or block leaks, unaffected streams equal,
+      affected ones a prefix) and the fault counters.
+
 Then, on the same weights, multi-tenant serving (see serve_mt_checks):
 
   T1. three r=384 tenants (each perturbed from its own seed) in one batch
@@ -1762,12 +1785,13 @@ def drive_engine(engine, trace, vocab: int, *, timed: bool = False) -> dict:
     """Submit each request of ``trace`` as its arrival step comes due and
     tick once per step (the arrival loop of the committed models). Returns
     the token streams and the wall seconds; with ``timed``, also the wall
-    ms of every decode and chunk step, each between device
-    synchronisations."""
+    ms of every decode, chunk, draft and verify step and of every logits
+    fetch (the verify's apart), each between device synchronisations."""
     rng = np.random.default_rng(SEED + 1)
     prompts = [rng.integers(0, vocab, r["prompt_len"]) for r in trace]
     streams: dict = {}
-    times: dict = {"decode": [], "prefill_chunk": []}
+    times: dict = {"decode": [], "prefill_chunk": [], "draft": [],
+                   "verify": [], "fetch": [], "verify_fetch": []}
     if timed:
         dev = engine.device     # not the engine: no reference cycle
 
@@ -1777,13 +1801,20 @@ def drive_engine(engine, trace, vocab: int, *, timed: bool = False) -> dict:
                 t0 = time.perf_counter()
                 out = fn(*a, **k)
                 _sync(dev)
-                times[name].append((time.perf_counter() - t0) * 1e3)
+                key = name(a) if callable(name) else name
+                times[key].append((time.perf_counter() - t0) * 1e3)
                 return out
             return call
         engine._decode = timer("decode", engine._decode)
         if engine._paged:
             engine._chunk_prefill = timer("prefill_chunk",
                                           engine._chunk_prefill)
+        if engine.speculative_k:
+            engine._draft = timer("draft", engine._draft)
+            engine._verify = timer("verify", engine._verify)
+        engine._fetch = timer(
+            lambda a: "verify_fetch" if a[0].ndim == 3 else "fetch",
+            engine._fetch)
 
     def on_token(rid, tok):
         streams.setdefault(rid, []).append(tok)
@@ -1972,7 +2003,8 @@ def engine_checks(dev, mcfg, params, adapters) -> dict:
         del engine
     del state
     _empty_cache(dev)
-    return {"engine_paged": main, "traces": traces}
+    return {"engine_paged": main, "traces": traces,
+            "realistic_streams": run["streams"]}
 
 
 def engine_parity(dev, mcfg, params, adapters) -> dict:
@@ -2031,6 +2063,332 @@ def engine_parity(dev, mcfg, params, adapters) -> dict:
     out["small_card_vs_cpu"] = {"layers": 2, "tokens": sum(
         len(v) for v in streams["cpu"].values())}
     print("engine parity: " + json.dumps(out), flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Speculative decoding and the fault plan in the engine.
+# ---------------------------------------------------------------------------
+
+SPEC_K = 3
+SPEC_LADDER = dict(spec_accept_floor=0.99, spec_window=2,
+                   spec_reenable_after=2)
+SPEC_LAYERS = 2
+FAULT_REQUESTS, FAULT_NEW, FAULT_SLOW_S = 8, 16, 0.05
+
+
+def speculative_trace():
+    """(trace, slots, max_len, k, committed model) of ``BENCH_serve.json``'s
+    ``speculative`` section, the trace rebuilt from its parameters."""
+    sec = json.loads((Path(__file__).resolve().parent
+                      / "BENCH_serve.json").read_text())["speculative"]
+    tp = dict(sec["trace"])
+    slots, max_len, k = tp.pop("slots"), tp.pop("max_len"), tp.pop("k")
+    tp.pop("degraded_accept_rate")
+    return (make_arrival_trace(**tp), slots, max_len, k,
+            sec["speculative_model"])
+
+
+def _identity_tree(params, adapters, dcfg):
+    """``params``/``adapters`` walked together: every adapter leaf gets
+    B = 0 and m = the row norm of W + s·0·A, per layer slice."""
+    from repro_torch.core.adapter import compute_weight_norm
+
+    if isinstance(adapters, dict) and {"A", "B", "m"} <= set(adapters):
+        B = torch.zeros_like(adapters["B"])
+        base_sq = adapters.get("base_sq")
+        m = torch.stack([compute_weight_norm(
+            params[i], adapters["A"][i], B[i], dcfg,
+            base_sq_cache=None if base_sq is None else base_sq[i])
+            for i in range(params.shape[0])])
+        return {**adapters, "B": B, "m": m.to(adapters["m"].dtype)}
+    return {k: _identity_tree(params[k], v, dcfg)
+            for k, v in adapters.items()}
+
+
+def spec_checks(dev, mcfg, params, adapters, plain_main) -> tuple:
+    """The speculative engine (k = 3).
+
+    (a) fp32 at SPEC_LAYERS layers of the full width, the committed
+        ``speculative`` trace, rectangular and paged: with identity
+        adapters (g == 1 exactly, asserted) the seven counters equal
+        ``speculative_model`` and the streams equal the plain engine's;
+        with the perturbed adapters and the ladder (floor 0.99, window 2,
+        re-enable 2) at least one disable and one re-enable, and the
+        streams equal the plain engine's. K8 = 2 x layers a paged device
+        step. Then the realistic trace on (b)'s paged geometry with both
+        trees: speculative streams equal plain ones.
+    (b) bf16 at full width and depth, the realistic trace on the
+        ``ENGINE_*`` paged geometry: the precompute (K1 = assembled =
+        196) and the speculative engine, K8 = 2 x 28 x (chunk + decode +
+        draft + verify steps), K3 = K6 = 0, every request its full budget,
+        the pool drained, three drafts a verify; printed beside the plain
+        paged engine's run of engine_checks (``plain_main``): the accept
+        rate, ticks, ms a tick, tokens/s, the verify fetch's ms and the
+        share of requests whose tokens equal the plain run's.
+
+    Returns (record, the bf16 serving tree) for fault_checks."""
+    import dataclasses
+
+    from repro_torch import kernels
+    from repro_torch.core.config import DoRAConfig
+    from repro_torch.launch.engine import DecodeEngine
+    from repro_torch.launch.steps import StepConfig, make_precompute_step
+
+    auto = StepConfig(dora=DoRAConfig(rank=RANK, alpha=ALPHA, mode="auto"))
+    out: dict = {}
+
+    # --- (a) fp32 at SPEC_LAYERS layers, the committed trace ---
+    trace, slots, max_len, k, model = speculative_trace()
+    mcfg32 = dataclasses.replace(mcfg, num_layers=SPEC_LAYERS,
+                                 dtype=torch.float32)
+    p32 = _upcast_layers(params, SPEC_LAYERS)
+    a32 = _upcast_layers(adapters, SPEC_LAYERS)
+    precompute = make_precompute_step(mcfg32, auto, fold_gsb=True)
+    trees = {"identity": precompute(p32, _identity_tree(p32, a32,
+                                                        auto.dora)),
+             "perturbed": precompute(p32, a32)}
+    for leaf in _adapter_leaves(trees["identity"]):
+        check(bool((leaf["g"] == 1.0).all()) and not leaf["gsB"].any(),
+              "identity adapters: g != 1 or gsB != 0")
+    fp32 = {}
+    for name, state in trees.items():
+        extra = {} if name == "identity" else SPEC_LADDER
+        for layout in ("rect", "paged"):
+            kw = dict(slots=slots, max_len=max_len, device=dev,
+                      paged=layout == "paged")
+            runs = {}
+            for spec in (0, k):
+                kernels.reset_launch_counts()
+                engine = DecodeEngine(mcfg32, auto, p32, adapters=state,
+                                      speculative_k=spec,
+                                      **(extra if spec else {}), **kw)
+                runs[spec] = drive_engine(engine, trace, mcfg.vocab_size)
+                steps = engine.device_steps()
+                want = counts_of(paged_gather=2 * SPEC_LAYERS * sum(
+                    steps.values()) if layout == "paged" else 0)
+                check(launch_counts() == want,
+                      f"spec (a) {name} {layout} k={spec}: launches "
+                      f"{launch_counts()}, want {want}")
+            st = engine.stats()
+            check(runs[k]["streams"] == runs[0]["streams"],
+                  f"spec (a) {name} {layout}: fp32 speculative streams "
+                  f"differ from the plain engine's")
+            if name == "identity":
+                got = {f: getattr(st, f) for f in model}
+                check(got == model, f"spec (a) identity {layout}: "
+                      f"counters {got}, BENCH_serve.json {model}")
+            else:
+                check(st.spec_disables >= 1 and st.spec_reenables >= 1,
+                      f"spec (a) perturbed {layout}: the ladder did not "
+                      f"trip and re-enable: {st}")
+            fp32[f"{name}_{layout}"] = {
+                f: getattr(st, f) for f in (
+                    "steps", "decode_steps", "draft_steps", "verify_steps",
+                    "accepted_drafts", "generated_tokens", "spec_disables",
+                    "spec_reenables")}
+    # The realistic trace on (b)'s paged geometry (chunked admission, the
+    # fallback while a slot is mid-admission, long windows), in fp32.
+    paged_kw = dict(slots=ENGINE_SLOTS, max_len=ENGINE_MAX_LEN, paged=True,
+                    block_size=ENGINE_BLOCK, n_blocks=ENGINE_BLOCKS,
+                    prefill_chunk=ENGINE_CHUNK, device=dev)
+    for name, state in trees.items():
+        runs = {spec: drive_engine(
+            DecodeEngine(mcfg32, auto, p32, adapters=state,
+                         speculative_k=spec, **paged_kw),
+            realistic_trace(), mcfg.vocab_size)["streams"]
+            for spec in (0, SPEC_K)}
+        check(runs[SPEC_K] == runs[0],
+              f"spec (a) {name}, realistic trace: fp32 speculative streams "
+              f"differ from the plain engine's")
+        fp32[f"{name}_realistic_tokens"] = sum(len(v) for v in
+                                               runs[0].values())
+    out["fp32"] = {"layers": SPEC_LAYERS, "k": k, "runs": fp32}
+    print("spec (a) fp32: " + json.dumps(out["fp32"]), flush=True)
+    del trees, p32, a32, engine
+    _empty_cache(dev)
+
+    # --- (b) bf16, full width and depth, the realistic trace ---
+    L = mcfg.num_layers
+    trace = realistic_trace()
+    _sync(dev)
+    kernels.reset_launch_counts()
+    state = make_precompute_step(mcfg, auto, fold_gsb=True)(params,
+                                                            adapters)
+    engine = DecodeEngine(mcfg, auto, params, adapters=state,
+                          speculative_k=SPEC_K, slots=ENGINE_SLOTS,
+                          max_len=ENGINE_MAX_LEN, paged=True,
+                          block_size=ENGINE_BLOCK, n_blocks=ENGINE_BLOCKS,
+                          prefill_chunk=ENGINE_CHUNK, device=dev)
+    run = drive_engine(engine, trace, mcfg.vocab_size, timed=True)
+    counts = launch_counts()
+    steps = engine.device_steps()
+    st, ps = engine.stats(), engine.pool_stats()
+    check(counts == counts_of(norm_terms=7 * L, assembled=7 * L,
+                              paged_gather=2 * L * sum(steps.values())),
+          f"spec engine launch counts {counts} (device steps {steps})")
+    check(st.generated_tokens == ENGINE_REQUESTS * ENGINE_NEW
+          and st.retired == ENGINE_REQUESTS
+          and all(len(v) == ENGINE_NEW for v in run["streams"].values()),
+          f"spec engine generated {st.generated_tokens} tokens, retired "
+          f"{st.retired}")
+    check(ps["used_blocks"] == 0, f"spec engine pool did not drain: {ps}")
+    check(st.draft_steps == SPEC_K * st.verify_steps > 0
+          and steps["draft"] == st.draft_steps
+          and steps["verify"] == st.verify_steps,
+          f"spec engine drafts {st.draft_steps}, verifies "
+          f"{st.verify_steps}, device steps {steps}")
+    plain = plain_main["streams"]
+    # The index of each request's first token that differs from the plain
+    # run's (None: the same tokens).
+    diverge = {rid: next((i for i, (x, y) in enumerate(
+        zip(run["streams"][rid], plain[rid])) if x != y), None)
+        for rid in sorted(plain)}
+    first = next(({"request": rid, "token": at}
+                  for rid, at in diverge.items() if at is not None), None)
+    # One speculative tick with every slot active, profiled after the
+    # counts were read: 8 single-chunk prompts admitted, then the tick.
+    rng = np.random.default_rng(SEED + 3)
+    for _ in range(ENGINE_SLOTS):
+        engine.submit(rng.integers(0, mcfg.vocab_size, ENGINE_CHUNK),
+                      max_new_tokens=16)
+    engine.step()
+    tick_profile = profile(engine.step,
+                           "engine speculative tick (8 rows, bf16)")
+    engine.run()
+    times = run["times_ms"]
+    out["bf16"] = {
+        "layers": L, "k": SPEC_K, "ticks": st.steps,
+        "decode_steps": st.decode_steps, "draft_steps": st.draft_steps,
+        "verify_steps": st.verify_steps,
+        "accepted_drafts": st.accepted_drafts,
+        "accept_rate": st.accepted_drafts / (SPEC_K * st.verify_steps),
+        "chunk_steps": steps["prefill_chunk"],
+        "wall_s": run["wall_s"],
+        "ms_per_tick": run["wall_s"] * 1e3 / st.steps,
+        "tokens_per_s": st.generated_tokens / run["wall_s"],
+        "draft_ms": _mean(times["draft"]),
+        "verify_ms": _mean(times["verify"]),
+        "verify_fetch_ms": _mean(times["verify_fetch"]),
+        "verify_fetch_bytes": ENGINE_SLOTS * (SPEC_K + 1)
+        * mcfg.vocab_size * 4,
+        "fetch_ms": _mean(times["fetch"]),
+        "decode_ms": _mean(times["decode"]),
+        "chunk_step_ms": _mean(times["prefill_chunk"]),
+        "plain": {"ticks": plain_main["ticks"], "wall_s":
+                  plain_main["wall_s"],
+                  "ms_per_tick": plain_main["wall_s"] * 1e3
+                  / plain_main["ticks"],
+                  "tokens_per_s": plain_main["tokens_per_s"],
+                  "decode_ms": plain_main["decode_ms_per_tick"]},
+        "requests_equal_plain": sum(at is None for at in diverge.values())
+        / len(plain),
+        "first_divergence": first,
+        "divergence_token_by_request": diverge,
+        "peak_used_blocks": ps["peak_used_blocks"], "launches": counts,
+        "tick_profile": tick_profile}
+    print("spec (b) bf16, realistic length: " + json.dumps(
+        {k2: v for k2, v in out["bf16"].items()
+         if k2 not in ("launches", "tick_profile")}), flush=True)
+    del engine
+    return out, state
+
+
+def fault_checks(dev, mcfg, params, state) -> dict:
+    """The fault plan on the paged engine at full width and depth (bf16):
+    the first FAULT_REQUESTS requests of the realistic trace with
+    FAULT_NEW new tokens each (8 slots, so no request waits), clean and
+    under a plan fixed from the clean run's schedule: a one-row NaN at the
+    first tick that decodes at least three rows, a slow tick
+    (FAULT_SLOW_S), a stale and an evict event, and an all-rows NaN three
+    ticks after the first. Held: each request finishes once with a valid
+    reason, no slot and no block leaks, the unaffected requests' tokens
+    equal the clean run's and the affected ones' are a prefix of them, no
+    new kind of device step, ``injected_nans``, ``quarantined`` and
+    ``slow_ticks`` as the plan and the clean schedule say, and
+    ``forced_evictions == stale_injected == 0``."""
+    from repro_torch.core.config import DoRAConfig
+    from repro_torch.launch.engine import FINISH_REASONS, DecodeEngine
+    from repro_torch.launch.faults import FaultEvent, FaultPlan
+    from repro_torch.launch.steps import StepConfig
+
+    auto = StepConfig(dora=DoRAConfig(rank=RANK, alpha=ALPHA, mode="auto"))
+    trace = [dict(r, gen_len=FAULT_NEW)
+             for r in realistic_trace()[:FAULT_REQUESTS]]
+    kw = dict(slots=ENGINE_SLOTS, max_len=ENGINE_MAX_LEN, paged=True,
+              block_size=ENGINE_BLOCK, n_blocks=ENGINE_BLOCKS,
+              prefill_chunk=ENGINE_CHUNK, device=dev)
+
+    def engine_with(plan):
+        return DecodeEngine(mcfg, auto, params, adapters=state,
+                            fault_plan=plan, **kw)
+
+    # The clean run, recording which request each slot decodes a tick.
+    clean = engine_with(None)
+    rows: dict = {}
+    decode = clean._decode
+
+    def recorded(*a, **k2):
+        rows[clean._steps] = {i: s.req.request_id
+                              for i, s in enumerate(clean._slots)
+                              if s.active}
+        return decode(*a, **k2)
+    clean._decode = recorded
+    clean_run = drive_engine(clean, trace, mcfg.vocab_size)
+    t1 = min(t for t, r in rows.items() if len(r) >= 3)
+    slot1 = max(rows[t1])
+    victim = rows[t1][slot1]
+    t2 = t1 + 3
+    victims = {victim} | set(rows.get(t2, {}).values())
+    plan = FaultPlan([FaultEvent("nan", t1, slot1),
+                      FaultEvent("slow", t1 + 1, duration_s=FAULT_SLOW_S),
+                      FaultEvent("stale", t1 + 2),
+                      FaultEvent("evict", t1 + 2),
+                      FaultEvent("nan", t2)])
+    check(len(victims) >= 2 and len(victims) < FAULT_REQUESTS,
+          f"fault plan {plan} hits {victims} of {FAULT_REQUESTS}")
+
+    faulty = engine_with(plan)
+    run = drive_engine(faulty, trace, mcfg.vocab_size)
+    results = faulty.pop_results()
+    st, ps = faulty.stats(), faulty.pool_stats()
+    reasons = {r.request_id: r.finish_reason for r in results}
+    check(sorted(r.request_id for r in results) == list(range(len(trace)))
+          and set(reasons.values()) <= set(FINISH_REASONS),
+          f"faults: results {reasons}")
+    check(not faulty.has_work() and ps["used_blocks"] == 0
+          and ps["per_slot_blocks"] == [0] * ENGINE_SLOTS,
+          f"faults: a slot or a block leaked: {ps}")
+    hit = {r.request_id for r in results
+           if r.finish_reason == "error_numeric"}
+    check(hit == victims, f"faults: quarantined {hit}, the plan hits "
+          f"{victims}")
+    for r in results:
+        got, want = r.tokens.tolist(), clean_run["streams"][r.request_id]
+        if r.request_id in hit:
+            check(got == want[:len(got)] and len(got) < len(want),
+                  f"faults: request {r.request_id}'s tokens are not a "
+                  f"prefix of its clean stream")
+        else:
+            check(got == want and r.finish_reason == "length",
+                  f"faults: unaffected request {r.request_id} differs "
+                  f"from the clean run")
+    check(st.injected_nans == st.quarantined == len(victims)
+          and st.slow_ticks == 1
+          and st.forced_evictions == st.stale_injected == 0,
+          f"faults: counters {st}")
+    new_kinds = {k2 for k2, v in faulty.device_steps().items() if v} - {
+        k2 for k2, v in clean.device_steps().items() if v}
+    check(not new_kinds, f"faults: new device step kinds {new_kinds}")
+    out = {"plan": repr(plan), "victims": sorted(victims),
+           "injected_nans": st.injected_nans, "quarantined": st.quarantined,
+           "slow_ticks": st.slow_ticks, "ticks": st.steps,
+           "clean_ticks": clean.stats().steps,
+           "wall_s": run["wall_s"], "clean_wall_s": clean_run["wall_s"],
+           "device_steps": faulty.device_steps()}
+    print("faults (bf16): " + json.dumps(out), flush=True)
+    del clean, faulty, state
+    _empty_cache(dev)
     return out
 
 
@@ -3060,6 +3418,14 @@ def main() -> int:
     engine["parity"] = engine_parity(dev, mcfg, params, adapters)
     print(f"engine phases: {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
+    plain_main = {**engine["engine_paged"],
+                  "streams": engine.pop("realistic_streams")}
+    spec, spec_state = spec_checks(dev, mcfg, params, adapters, plain_main)
+    faults = fault_checks(dev, mcfg, params, spec_state)
+    del spec_state
+    print(f"spec and fault phases: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    t0 = time.perf_counter()
     mt = serve_mt_checks(dev, mcfg, params)
     print(f"serve_mt phases: {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
@@ -3083,6 +3449,7 @@ def main() -> int:
                "train_elementwise": trained["train_elementwise"]["launches"],
                "engine_paged": engine["engine_paged"]["launches"],
                "engine_trace_paged": engine["traces"]["paged"]["launches"],
+               "engine_spec": spec["bf16"]["launches"],
                "serve_mt": mt["cold"]["launches"],
                "serve_mamba": mamba["serve_mamba"]["launches"],
                "train_vl": vl["train"]["launches"],
@@ -3141,7 +3508,7 @@ def main() -> int:
     detail.parent.mkdir(exist_ok=True)
     detail.write_text(json.dumps({
         "card": smi, "kernel_rows": rows, "serve": served,
-        "engine": engine, "serve_mt": mt,
+        "engine": engine, "spec": spec, "faults": faults, "serve_mt": mt,
         "train": {k: trained[k] for k in ("train_auto", "train_elementwise",
                                           "fp32_agreement")},
         "train_parity": parity, "mamba": mamba, "vl": vl, "archs": archs},
@@ -3154,6 +3521,11 @@ def main() -> int:
                       "engine": {k: v for k, v in engine["engine_paged"].items()
                                  if k not in ("trace", "launches",
                                               "decode_tick_profile")},
+                      "spec": {k: v for k, v in spec["bf16"].items()
+                               if k not in ("launches", "tick_profile",
+                                            "divergence_token_by_request")},
+                      "faults": {k: faults[k] for k in (
+                          "victims", "injected_nans", "slow_ticks")},
                       "train": train_summary,
                       "mt": {**{run: {k: v for k, v in mt[run].items()
                                       if k not in ("launches", "cache",

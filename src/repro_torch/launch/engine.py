@@ -38,14 +38,23 @@ seeded from (seed, key_id, number of tokens sampled so far), so a
 request's stream does not depend on what shares its batch; these draws
 are not the reference's ``jax.random`` draws.
 
-What this slice leaves to later ones (each raises ``NotImplementedError``
-at construction, naming its ROADMAP queue 1 item 4 sub-slice): per-request
-adapters through an adapter-state cache (``adapter_cache``,
-``dynamic_grouping``, ``max_active_per_adapter``), speculative decoding
-(``speculative_k``), the fault plan (``fault_plan``), tracing (``trace``)
-and a device mesh (``mesh``). The reference's ``compile_counts()`` counts
-XLA executables, which PyTorch does not have; :meth:`device_steps` counts
-the device steps the engine ran instead.
+Speculative decoding (``speculative_k``, ROADMAP queue 1 item 4.1): a
+tick drafts k tokens a row through the base model alone
+(``make_draft_step``), verifies the k + 1 window in one forward through
+the adapted path (``make_verify_step``), accepts each row's longest
+matching prefix plus the verify's own token, and rewinds ``cache["len"]``
+to each row's accepted frontier; an accept-rate ladder turns it off and
+on again. The fault plan (``fault_plan``, item 4.2,
+``launch/faults.py``) poisons fetched logits rows, stalls ticks, and arms
+the adapter-cache faults, which have no target on this engine.
+
+What later slices bring (each raises ``NotImplementedError`` at
+construction, naming its ROADMAP item): per-request adapters through an
+adapter-state cache (``adapter_cache``, ``dynamic_grouping``,
+``max_active_per_adapter``: item 4.3), tracing (``trace``: item 4.4) and
+a device mesh (``mesh``: item 6). The reference's ``compile_counts()``
+counts XLA executables, which PyTorch does not have; :meth:`device_steps`
+counts the device steps the engine ran instead.
 
 SSM/Mamba archs are refused (their states integrate every processed
 token and cannot rewind to a slot's true prompt length), and MoE FFNs
@@ -54,15 +63,19 @@ too (expert-capacity dispatch couples rows).
 from __future__ import annotations
 
 import dataclasses
+import time
 from collections import deque
 
 import numpy as np
 import torch
 
+from repro_torch.launch.faults import FaultPlan
 from repro_torch.launch.serve import resolve_device
 from repro_torch.launch.steps import (StepConfig, make_decode_step,
+                                      make_draft_step,
                                       make_prefill_chunk_step,
-                                      make_prefill_into_slot_step)
+                                      make_prefill_into_slot_step,
+                                      make_verify_step)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.lm import init_cache
 
@@ -76,8 +89,6 @@ from repro_torch.models.lm import init_cache
 #:   error_numeric the row's logits went non-finite and it was quarantined
 FINISH_REASONS = ("eos", "length", "max_len", "error", "timeout",
                   "error_numeric")
-
-_LATER = "ROADMAP queue 1 item 4"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -114,30 +125,33 @@ class RequestResult:
 @dataclasses.dataclass(frozen=True)
 class EngineStats:
     """Deterministic scheduling counters (point-in-time snapshot), with
-    the reference's fields. The speculative, fleet and fault-injection
-    counters stay 0 until those slices are ported."""
+    the reference's fields. ``stack_inserts`` and ``busy_rejections``
+    belong to fleet grouping (ROADMAP queue 1 item 4.3) and stay 0, and so
+    do ``forced_evictions`` and ``stale_injected``: their faults act on an
+    adapter-state cache and on adapter handles, which this engine does not
+    hold."""
     slots: int
     steps: int                  # engine steps driven (incl. idle ones)
-    decode_steps: int           # steps that ran the batched decode
+    decode_steps: int           # steps that ran the batched PLAIN decode
     prefills: int               # completed admissions (prefill or chunks)
     admitted: int
     retired: int
-    generated_tokens: int       # sampled tokens (admission + decode)
-    slot_steps: int             # sum over decode steps of active slots
-    draft_steps: int = 0
-    verify_steps: int = 0
-    accepted_drafts: int = 0
+    generated_tokens: int       # sampled tokens (admission, decode, verify)
+    slot_steps: int             # sum over plain decode steps of active slots
+    draft_steps: int = 0        # base-only draft forwards (speculative)
+    verify_steps: int = 0       # k + 1-window verifies (= speculative ticks)
+    accepted_drafts: int = 0    # draft tokens the verify accepted
     stack_inserts: int = 0
     preemptions: int = 0        # slots displaced (priority or pool reclaim)
     timeouts: int = 0           # requests retired by deadline expiry
     quarantined: int = 0        # rows retired with non-finite logits
     busy_rejections: int = 0
-    spec_disables: int = 0
-    spec_reenables: int = 0
-    injected_nans: int = 0
-    forced_evictions: int = 0
-    stale_injected: int = 0
-    slow_ticks: int = 0
+    spec_disables: int = 0      # speculative ladder trips (accept collapse)
+    spec_reenables: int = 0     # speculative re-enables after the cooldown
+    injected_nans: int = 0      # fault plan: logits rows poisoned
+    forced_evictions: int = 0   # fault plan: adapter-cache invalidations
+    stale_injected: int = 0     # fault plan: admissions given stale handles
+    slow_ticks: int = 0         # fault plan: straggler sleeps
 
     @property
     def mean_occupancy(self) -> float:
@@ -187,11 +201,33 @@ class DecodeEngine:
     be present; ``"cpu"`` is the explicit CPU request; ``params`` and
     ``adapters`` must live there.
 
-    ``step()`` is one scheduler tick: expire deadlines → admit into free
-    slots (preempting lower-priority rows when an outranking request is
-    queued) → one prompt chunk per admitting slot (paged) → one batched
-    decode over every active slot. ``run()`` drives until the queue and
-    the slot table drain.
+    ``step()`` is one scheduler tick: apply the fault plan's events →
+    expire deadlines → admit into free slots (preempting lower-priority
+    rows when an outranking request is queued) → one prompt chunk per
+    admitting slot (paged) → one batched decode, or draft/verify/rewind,
+    over every active slot. ``run()`` drives until the queue and the slot
+    table drain.
+
+    ``speculative_k`` = k > 0: a tick drafts k tokens a row through the
+    base model alone, verifies the k + 1 window in one forward through
+    the adapted path, emits each row's longest matching prefix plus the
+    verify's own token and rewinds each row's length to its frontier.
+    Greedy speculative streams equal plain greedy streams (the verify's
+    logits at an accepted position are plain decode's, up to the
+    summation order of a product over more rows). A tick decodes plainly
+    at ``temperature > 0``, when a row's window would pass ``max_len``,
+    and (paged) while a slot is mid-admission or when the pool cannot
+    back every window. The ladder: when the mean accept rate of the last
+    ``spec_window`` speculative ticks falls below ``spec_accept_floor``,
+    the next ``spec_reenable_after`` ticks decode plainly.
+
+    ``fault_plan`` (``launch/faults.py``): a ``nan`` event poisons its
+    slot's fetched logits (admission or decode or verify) so the row is
+    quarantined with ``finish_reason="error_numeric"``; ``slow`` sleeps
+    at the top of the tick (capped at ``MAX_SLOW_S``); ``evict`` and
+    ``stale`` act on an adapter-state cache and on adapter handles, which
+    this engine does not hold, so they change nothing here, as in the
+    reference's single-tenant engine.
 
     Paged knobs: ``block_size`` (default: the largest divisor of
     ``max_len`` up to 16), ``n_blocks`` (default: enough for every slot
@@ -209,8 +245,10 @@ class DecodeEngine:
                  prefill_chunk: int | None = None, device=None,
                  adapter_cache=None, dynamic_grouping: bool = False,
                  max_active_per_adapter: int | None = None,
-                 speculative_k: int = 0, fault_plan=None, trace=None,
-                 mesh=None):
+                 speculative_k: int = 0,
+                 fault_plan: FaultPlan | None = None,
+                 spec_accept_floor: float = 0.0, spec_window: int = 4,
+                 spec_reenable_after: int = 8, trace=None, mesh=None):
         if mcfg.ssm or mcfg.attn_period:
             raise NotImplementedError(
                 f"continuous batching requires attention-only caches: SSM "
@@ -226,26 +264,32 @@ class DecodeEngine:
                 f"from an expert (arch {mcfg.name!r})")
         for name, given, item in (
                 ("adapter_cache", adapter_cache is not None,
-                 "fleet grouping"),
-                ("dynamic_grouping", dynamic_grouping, "fleet grouping"),
+                 "fleet grouping (ROADMAP queue 1 item 4.3)"),
+                ("dynamic_grouping", dynamic_grouping,
+                 "fleet grouping (ROADMAP queue 1 item 4.3)"),
                 ("max_active_per_adapter",
-                 max_active_per_adapter is not None, "fleet grouping"),
-                ("speculative_k", speculative_k != 0,
-                 "speculative decoding"),
-                ("fault_plan", fault_plan is not None, "the fault plan"),
-                ("trace", trace is not None, "obs wiring"),
-                ("mesh", mesh is not None, "multi-device serving")):
+                 max_active_per_adapter is not None,
+                 "fleet grouping (ROADMAP queue 1 item 4.3)"),
+                ("trace", trace is not None,
+                 "obs wiring (ROADMAP queue 1 item 4.4)"),
+                ("mesh", mesh is not None,
+                 "multi-device serving (ROADMAP queue 1 item 6)")):
             if given:
                 raise NotImplementedError(
                     f"DecodeEngine({name}=...) is not ported yet: it comes "
-                    f"with {item} ({_LATER} and ROADMAP.md)")
+                    f"with {item}")
         if adapters is None:
             raise ValueError(
                 "DecodeEngine serves one fixed precomputed `adapters` "
                 "tree (make_precompute_step); per-request adapters come "
-                f"with fleet grouping ({_LATER})")
+                "with fleet grouping (ROADMAP queue 1 item 4.3)")
         if slots < 1:
             raise ValueError(f"need at least one slot, got {slots}")
+        if speculative_k < 0:
+            raise ValueError(f"speculative_k={speculative_k} < 0")
+        if not 0.0 <= spec_accept_floor <= 1.0:
+            raise ValueError(
+                f"spec_accept_floor={spec_accept_floor} not in [0, 1]")
         self.device = resolve_device(device)
         if params["embed"].device != self.device:
             raise ValueError(f"params live on {params['embed'].device}, "
@@ -258,6 +302,11 @@ class DecodeEngine:
         self.max_len = int(max_len)
         self.temperature = float(temperature)
         self.seed = int(seed)
+        self.speculative_k = int(speculative_k)
+        self.fault_plan = fault_plan
+        self.spec_accept_floor = float(spec_accept_floor)
+        self.spec_window = int(spec_window)
+        self.spec_reenable_after = int(spec_reenable_after)
         # -- paged K/V knobs -----------------------------------------------
         self._paged = bool(paged)
         if not self._paged and (block_size is not None or n_blocks is not None
@@ -303,8 +352,12 @@ class DecodeEngine:
         else:
             self._prefill = make_prefill_into_slot_step(mcfg, scfg,
                                                         seq=self.max_len)
+        if self.speculative_k:
+            self._draft = make_draft_step(mcfg, scfg, batch=self.slots)
+            self._verify = make_verify_step(mcfg, scfg, batch=self.slots,
+                                            window=self.speculative_k + 1)
         self._device_steps = {"prefill_into_slot": 0, "prefill_chunk": 0,
-                              "decode": 0}
+                              "decode": 0, "draft": 0, "verify": 0}
         # -- host mirror of the block pool (paged only) --------------------
         # The engine owns the free list and the per-slot block lists,
         # mirrors them into the int32 table and writes the table to the
@@ -328,9 +381,22 @@ class DecodeEngine:
         self._retired = 0
         self._generated = 0
         self._slot_steps = 0
+        self._draft_steps = 0
+        self._verify_steps = 0
+        self._accepted_drafts = 0
         self._preemptions = 0
         self._timeouts = 0
         self._quarantined = 0
+        self._spec_disables = 0
+        self._spec_reenables = 0
+        self._injected_nans = 0
+        self._slow_ticks = 0
+        self._nan_tick: tuple = ()     # this tick's poisoned slots
+        # A planned "stale" event arms this for the next admission that
+        # carries an adapter handle; this engine admits none (item 4.3).
+        self._stale_pending = False
+        self._spec_rates: list[float] = []   # recent per-tick accept rates
+        self._spec_cooldown = 0        # plain ticks left before re-enable
 
     # -- submission ---------------------------------------------------------
 
@@ -351,7 +417,7 @@ class DecodeEngine:
             raise ValueError(
                 "this engine serves one fixed adapter tree; requests "
                 "cannot carry adapter handles (per-request adapters come "
-                f"with fleet grouping, {_LATER})")
+                "with fleet grouping, ROADMAP queue 1 item 4.3)")
         return prompt
 
     def submit(self, prompt, *, adapter=None, max_new_tokens: int,
@@ -390,15 +456,23 @@ class DecodeEngine:
                            admitted=self._admitted, retired=self._retired,
                            generated_tokens=self._generated,
                            slot_steps=self._slot_steps,
+                           draft_steps=self._draft_steps,
+                           verify_steps=self._verify_steps,
+                           accepted_drafts=self._accepted_drafts,
                            preemptions=self._preemptions,
                            timeouts=self._timeouts,
-                           quarantined=self._quarantined)
+                           quarantined=self._quarantined,
+                           spec_disables=self._spec_disables,
+                           spec_reenables=self._spec_reenables,
+                           injected_nans=self._injected_nans,
+                           slow_ticks=self._slow_ticks)
 
     def device_steps(self) -> dict:
         """How many times each device step ran: "prefill_into_slot"
-        (rectangular admissions), "prefill_chunk" (paged chunks) and
-        "decode". A paged engine launches K8 twice per layer in each
-        chunk and decode step."""
+        (rectangular admissions), "prefill_chunk" (paged chunks),
+        "decode", and the speculative "draft" and "verify". A paged
+        engine launches K8 twice per layer in each chunk, decode, draft
+        and verify step."""
         return dict(self._device_steps)
 
     # -- block pool (paged K/V) ---------------------------------------------
@@ -564,6 +638,45 @@ class DecodeEngine:
             finished_step=self._steps, preempted=req.preempted)
         self._timeouts += 1
 
+    def _apply_tick_faults(self) -> None:
+        """Consult the fault plan once at the top of the tick (nothing
+        without a plan): a ``slow`` event sleeps now, ``nan`` events arm
+        the slots that admission and sampling poison this tick, and
+        ``stale`` arms the next adapter-carrying admission. ``evict``
+        invalidates an adapter-state cache, which this engine does not
+        hold (item 4.3), so it is not counted."""
+        plan = self.fault_plan
+        self._nan_tick = ()
+        if plan is None:
+            return
+        d = plan.slow_at(self._steps)
+        if d > 0:
+            time.sleep(d)
+            self._slow_ticks += 1
+        if plan.stale_at(self._steps):
+            self._stale_pending = True
+        self._nan_tick = plan.nan_slots(self._steps)
+
+    def _nan_targets(self, rows: list[int]) -> list[int]:
+        """Which of ``rows`` this tick's plan poisons (None = all)."""
+        if not self._nan_tick:
+            return []
+        if any(t is None for t in self._nan_tick):
+            return list(rows)
+        return [i for i in rows if i in self._nan_tick]
+
+    def _poison(self, rows: list[int], logits_np: np.ndarray) -> np.ndarray:
+        """Overwrite the planned rows with NaN on a copy of the host
+        logits; the no-fault path makes no copy."""
+        targets = self._nan_targets(rows)
+        if not targets:
+            return logits_np
+        logits_np = np.array(logits_np)
+        for i in targets:
+            logits_np[i] = np.nan
+            self._injected_nans += 1
+        return logits_np
+
     def _expire_deadlines(self) -> None:
         """Retire every request, queued or mid-decode, whose absolute
         deadline step has arrived."""
@@ -641,9 +754,14 @@ class DecodeEngine:
 
     def _first_token(self, slot: _Slot, logits, on_token) -> None:
         """Sample a completed admission's first token, behind the
-        non-finite guard."""
+        non-finite guard. A ``nan`` event of this tick on the slot poisons
+        every admission into it, a request that refills the slot within
+        the tick included, as in the reference."""
         req = slot.req
         row = self._fetch(logits)[0]
+        if self._nan_targets([slot.idx]):
+            row = np.full_like(row, np.nan)
+            self._injected_nans += 1
         if not np.isfinite(row).all():
             self._finish(slot, "error_numeric")
             return
@@ -722,17 +840,20 @@ class DecodeEngine:
             self._preempt(victim)
 
     def _quarantine(self, rows: list[int], logits_np: np.ndarray
-                    ) -> list[int]:
-        """Per-row non-finite guard over the fetched host logits: a row
-        whose logits are not all finite retires with
+                    ) -> tuple[list[int], np.ndarray]:
+        """Per-row non-finite guard over the fetched host logits ([slots,
+        V] from decode, [slots, k + 1, V] from a verify), after the fault
+        plan's poison: a row whose logits are not all finite retires with
         ``finish_reason="error_numeric"``; the others go on untouched.
-        Returns the surviving rows."""
-        bad = [i for i in rows if not np.isfinite(logits_np[i]).all()]
+        Returns the surviving rows and the (possibly poisoned) logits."""
+        logits_np = self._poison(rows, logits_np)
+        flat = logits_np.reshape(logits_np.shape[0], -1)
+        bad = [i for i in rows if not np.isfinite(flat[i]).all()]
         for i in bad:
             self._finish(self._slots[i], "error_numeric")
         if bad:
             rows = [i for i in rows if self._slots[i].active]
-        return rows
+        return rows, logits_np
 
     def _chunk_tick(self, on_token) -> None:
         """Paged chunked admission: ONE prompt chunk per mid-admission slot
@@ -794,7 +915,7 @@ class DecodeEngine:
         logits_np = self._fetch(logits)      # the sampling sync
         self._decode_steps += 1
         self._slot_steps += len(active)
-        active = self._quarantine(active, logits_np)
+        active, logits_np = self._quarantine(active, logits_np)
         toks_out = self._sample_rows(
             [logits_np[i] for i in active],
             [(self._slots[i].req.key_id,
@@ -807,20 +928,158 @@ class DecodeEngine:
             if reason is not None:
                 self._finish(slot, reason)
 
+    def _sync_len(self, lens: np.ndarray) -> None:
+        """Set ``cache["len"]`` to the host's per-row lengths: the
+        speculative rewind. A fresh tensor every time (``torch.tensor``
+        copies), so it aliases neither the host array nor a length a step
+        still holds. Free rows get 0: their K/V are garbage either way,
+        and an admission fills its row anew."""
+        self.cache["len"] = torch.tensor(lens, dtype=torch.int32,
+                                         device=self.device)
+
+    def _speculative_ok(self, active: list[int]) -> bool:
+        """Whether THIS tick drafts and verifies: greedy sampling only, and
+        every active row's k + 1 window must fit under ``max_len``
+        (``_write_rows`` would clamp a window past the end and shift that
+        row's writes without failing). Paged: no slot mid-admission (the
+        drafts would advance its device length past what its next chunk
+        rewrites), and the pool must back every row's whole window now;
+        when it cannot, the tick decodes plainly, which needs at most one
+        block a row, and nothing is preempted for speculation.
+
+        The ladder: a tick in the cooldown after a disable decodes
+        plainly, and the last tick of the cooldown counts a re-enable."""
+        if self.speculative_k <= 0 or self.temperature > 0.0:
+            return False
+        if self._spec_cooldown > 0:
+            self._spec_cooldown -= 1
+            if self._spec_cooldown == 0:
+                self._spec_reenables += 1
+            return False
+        k = self.speculative_k
+        if not all(self._slots[i].pos + k + 1 <= self.max_len
+                   for i in active):
+            return False
+        if self._paged:
+            if any(s.prefilling for s in self._slots):
+                return False
+            if not all(self._ensure_blocks(i, self._slots[i].pos + k + 1)
+                       for i in active):
+                return False
+        return True
+
+    def _speculative_tick(self, active: list[int], on_token) -> None:
+        """Draft k base-only tokens a row, verify the k + 1 window in one
+        forward through the adapted path, accept each row's longest
+        matching prefix and rewind its length to the accepted frontier.
+
+        The drafts write base-path K/V at pos..pos+k-1; the verify starts
+        again at pos and overwrites pos..pos+k with full-path K/V, so no
+        committed token ever attends to base-path K/V. Past a row's new
+        frontier the K/V are stale, and the causal mask hides them until
+        they are overwritten."""
+        k = self.speculative_k
+        base_len = np.zeros((self.slots,), np.int32)
+        cur = np.zeros((self.slots, 1), np.int64)
+        for i in active:
+            base_len[i] = self._slots[i].pos
+            cur[i, 0] = self._slots[i].last_token
+
+        # -- draft: k greedy base-only tokens a row -------------------------
+        self._sync_len(base_len)
+        if self._paged:
+            self._flush_pages()       # _speculative_ok grew the windows
+        drafts = np.zeros((self.slots, k), np.int64)
+        for j in range(k):
+            logits, self.cache = self._draft(
+                self.params, self.cache,
+                {"tokens": torch.as_tensor(cur, device=self.device)})
+            self._device_steps["draft"] += 1
+            lnp = self._fetch(logits)
+            self._draft_steps += 1
+            for i in active:
+                drafts[i, j] = cur[i, 0] = int(np.argmax(lnp[i]))
+
+        # -- verify: one forward over [last token, drafts] ------------------
+        self._sync_len(base_len)      # rewind over the drafts' advance
+        win = np.zeros((self.slots, k + 1), np.int64)
+        for i in active:
+            win[i, 0] = self._slots[i].last_token
+            win[i, 1:] = drafts[i]
+        logits, self.cache = self._verify(
+            self.params, self.adapters, self.cache,
+            {"tokens": torch.as_tensor(win, device=self.device)})
+        self._device_steps["verify"] += 1
+        logits_np = self._fetch(logits)       # [slots, k + 1, V]
+        self._verify_steps += 1
+        # Quarantine BEFORE acceptance: a poisoned row emits nothing, and
+        # its rewind target is 0.
+        active, logits_np = self._quarantine(active, logits_np)
+
+        # -- accept the longest matching prefix, then rewind ----------------
+        accepted_this = 0
+        new_len = np.zeros((self.slots,), np.int32)
+        for i in active:
+            slot = self._slots[i]
+            # true[j]: the token plain decode emits after window position
+            # j, valid up to the first draft that misses.
+            true = np.argmax(logits_np[i], axis=-1)
+            a = 0
+            while a < k and drafts[i, a] == true[a]:
+                a += 1
+            self._accepted_drafts += a
+            accepted_this += a
+            # The a accepted drafts and the verify's own token (a missed
+            # draft's correction, or the token after a whole window).
+            for tok in true[:a + 1]:
+                slot.pos += 1
+                reason = self._note_token(slot, int(tok), on_token)
+                if reason is not None:
+                    self._finish(slot, reason)
+                    break
+            if slot.active:
+                new_len[i] = slot.pos
+        if self._paged:
+            # Blocks past each surviving row's frontier (taken for the
+            # window) go back to the pool; a finished row freed all of its
+            # blocks in _finish.
+            for i in active:
+                if self._slots[i].active:
+                    self._free_tail(i, self._slots[i].pos)
+        self._sync_len(new_len)
+
+        # -- the ladder: track the accept rate ------------------------------
+        if active and self.spec_accept_floor > 0.0:
+            self._spec_rates.append(accepted_this / (k * len(active)))
+            if len(self._spec_rates) > self.spec_window:
+                self._spec_rates.pop(0)
+            if (len(self._spec_rates) == self.spec_window
+                    and sum(self._spec_rates) / self.spec_window
+                    < self.spec_accept_floor):
+                self._spec_cooldown = self.spec_reenable_after
+                self._spec_disables += 1
+                self._spec_rates.clear()
+
     def step(self, on_token=None) -> list[RequestResult]:
-        """One scheduler tick: expire deadlines, admit into free slots,
-        one chunk per admitting slot (paged), then one batched decode over
+        """One scheduler tick: apply the fault plan's events, expire
+        deadlines, admit into free slots, one chunk per admitting slot
+        (paged), then one batched decode, or draft/verify/rewind, over
         every active slot. Returns the requests that FINISHED during this
         tick. ``on_token(request_id, token)`` streams every sampled
         token."""
         before = set(self._results)
+        self._apply_tick_faults()
         self._expire_deadlines()
         self._admit(on_token)
         if self._paged:
             self._chunk_tick(on_token)
         active = [i for i, s in enumerate(self._slots) if s.active]
         if active:
-            self._decode_tick(active, on_token)
+            if self._speculative_ok(active):
+                self._speculative_tick(active, on_token)
+            else:
+                self._decode_tick(active, on_token)
+        self._nan_tick = ()
         self._steps += 1
         return [self._results[rid]
                 for rid in sorted(set(self._results) - before)]

@@ -432,7 +432,16 @@ def main(argv: Sequence[str] | None = None) -> None:
                          "MultiTenantServer")
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default; raises without a card) or 'cpu'")
+    for flag in ("--speculative", "--inject", "--deadline"):
+        ap.add_argument(flag, default=None, help="not ported yet: comes "
+                        "with the cache-routed EngineServer CLI (ROADMAP "
+                        "queue 1 item 4.5)")
     args = ap.parse_args(argv)
+    for flag in ("speculative", "inject", "deadline"):
+        if getattr(args, flag) is not None:
+            raise NotImplementedError(
+                f"serve --{flag} is not ported yet: it comes with the "
+                f"cache-routed EngineServer CLI (ROADMAP queue 1 item 4.5)")
 
     dev = resolve_device(args.device)
     mcfg = get_config(args.arch, smoke=args.smoke)

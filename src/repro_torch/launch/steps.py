@@ -1,6 +1,7 @@
 """Step functions (counterpart of ``repro/launch/steps.py``): the train
 step, and the serving steps precompute, padded prefill, decode, and the
-continuous-batching engine's prefill-into-slot and prefill-chunk.
+continuous-batching engine's prefill-into-slot, prefill-chunk, and the
+speculative draft and verify.
 
 Each builder returns a plain function over (params, adapters, ...). The
 train step updates the adapters and the optimizer state IN PLACE and
@@ -363,3 +364,66 @@ def make_decode_step(mcfg: ModelConfig, scfg: StepConfig, *, batch: int,
         return logits[:, -1], new_cache
 
     return decode_step
+
+
+def make_draft_step(mcfg: ModelConfig, scfg: StepConfig, *, batch: int):
+    """(params, cache, batch_in) -> (logits [B, V], cache').
+
+    The speculative draft: one token ``batch_in["tokens"]`` [B, 1] through
+    the BASE model only. The adapter tree is the empty dict, so every
+    projection takes ``maybe_dora``'s base matmul: no ``dora_linear``, no
+    norm and no gsB work. ``scfg.dora`` still reaches the attention, so a
+    paged cache gathers through K8 as in decode. The cache contract is the
+    decode step's: per-row "len", each row writing and attending at its own
+    position. The verify rewrites every drafted position with full-path
+    K/V, so no base-path K/V survives into the committed cache (see
+    ``launch/engine.py``)."""
+
+    @torch.no_grad()
+    def draft_step(params, cache, batch_in):
+        tokens = batch_in["tokens"]
+        if tuple(tokens.shape) != (batch, 1):
+            raise ValueError(f"draft built for tokens [{batch}, 1], got "
+                             f"{tuple(tokens.shape)}")
+        logits, new_cache = forward(mcfg, params, {}, scfg.dora,
+                                    tokens=tokens, cache=cache,
+                                    training=False)
+        return logits[:, -1], new_cache
+
+    return draft_step
+
+
+def make_verify_step(mcfg: ModelConfig, scfg: StepConfig, *, batch: int,
+                     window: int, tenant_groups=None,
+                     dynamic_groups: bool = False):
+    """(params, adapters, cache, batch_in) -> (logits [B, window, V],
+    cache').
+
+    The speculative verify: score ``window`` = k + 1 positions
+    ``batch_in["tokens"]`` [B, window] per row in ONE forward through the
+    full adapted path, the one the decode step runs, each row at its own
+    frontier (per-row "len" and causal mask, the dense attention path).
+    Logits come back for EVERY window position: position j scores the
+    draft at j + 1 and gives the correction where the draft diverges. The
+    K/V of the whole window are written at each row's frontier, over the
+    drafts' base-path K/V, and "len" advances by ``window``; the engine
+    rewinds it to each row's accepted frontier.
+
+    ``tenant_groups`` and ``dynamic_groups`` (the reference's grouped
+    verify) come with fleet grouping, ROADMAP queue 1 item 4.3."""
+    if tenant_groups is not None or dynamic_groups:
+        raise NotImplementedError(
+            "make_verify_step(tenant_groups=... / dynamic_groups=True) is "
+            "not ported yet: it comes with fleet grouping (ROADMAP queue 1 "
+            "item 4.3)")
+
+    @torch.no_grad()
+    def verify_step(params, adapters, cache, batch_in):
+        tokens = batch_in["tokens"]
+        if tuple(tokens.shape) != (batch, window):
+            raise ValueError(f"verify built for tokens [{batch}, {window}], "
+                             f"got {tuple(tokens.shape)}")
+        return forward(mcfg, params, adapters, scfg.dora, tokens=tokens,
+                       cache=cache, training=False)
+
+    return verify_step

@@ -469,8 +469,6 @@ def test_temperature_sampling_is_reproducible(state):
     ({"adapter_cache": object()}, "fleet grouping"),
     ({"dynamic_grouping": True}, "fleet grouping"),
     ({"max_active_per_adapter": 2}, "fleet grouping"),
-    ({"speculative_k": 2}, "speculative decoding"),
-    ({"fault_plan": object()}, "fault plan"),
     ({"trace": object()}, "obs wiring"),
     ({"mesh": object()}, "multi-device"),
 ])
