@@ -103,6 +103,35 @@ Then, on the same weights, multi-tenant serving (see serve_mt_checks):
       of the static one at [6, 1, 3584];
   T4. the ``--tenants 3`` CLI at full width (K1 = 588).
 
+Then fleet grouping and tracing in the engine (see fleet_parity and
+fleet_checks):
+
+  FL1. in fp32 at 2 layers, five perturbed tenants: the committed
+       ``fleet`` trace through the dynamic and the static cache-routed
+       engine, counters equal to ``fleet.schedule_model``, the static
+       engine's four ``signature_keys`` and the dynamic one's
+       ``"dynamic"``, equal streams, logits within 1e-5 of max, K1 =
+       assembled = 14 a cache miss; dynamic + speculative (k = 3) + paged
+       equal to static plain; the committed ``obs`` trace traced and
+       untraced alike, its latencies ``obs.lifecycle_model`` exactly from
+       136 events; ``MultiTenantServer.serve`` of six mixed-length
+       requests (prompts 700-960) over three tenants through the engine,
+       each equal to the request served alone; a tiered cache of two
+       states whose spill and reload land on the engine's trace;
+  FL2. in bf16 at full width and depth, nine r=384 tenants (the memory
+       reckoning printed first says why not twelve) through E1's paged
+       geometry and trace, each request's tenant from its own stream, a
+       cache of six states and no host tier, two slots an adapter at
+       most, traced: the dynamic engine, then the static one (a fresh
+       cache); K1 = assembled = 196 x the misses, K8 = 2 x 28 x (chunk +
+       decode steps), nothing else, the dynamic decode under
+       ``"dynamic"`` alone, stack inserts <= admissions, every request
+       its 64 tokens, the trace complete (24 submitted, 24 terminal, 0
+       dropped); printed: ms a tick and decode ms beside E1's, tokens/s,
+       peak memory, the cache's counters, a profiled dynamic tick's idle
+       share, lifecycle percentiles and the share of requests whose
+       dynamic stream equals the static one.
+
 Then it trains the same bf16 weights (the serving cache freed) through
 ``repro_torch.launch.steps.make_train_step``: batch 2 x seq 2048, loss on
 the last 1024 tokens, layer remat, AdamW defaults:
@@ -165,6 +194,7 @@ printing anything.
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import re
@@ -1781,12 +1811,15 @@ def realistic_trace():
     return reqs
 
 
-def drive_engine(engine, trace, vocab: int, *, timed: bool = False) -> dict:
+def drive_engine(engine, trace, vocab: int, *, timed: bool = False,
+                 adapters=None) -> dict:
     """Submit each request of ``trace`` as its arrival step comes due and
     tick once per step (the arrival loop of the committed models). Returns
     the token streams and the wall seconds; with ``timed``, also the wall
     ms of every decode, chunk, draft and verify step and of every logits
-    fetch (the verify's apart), each between device synchronisations."""
+    fetch (the verify's apart), each between device synchronisations.
+    ``adapters``: the adapter id of each request (a cache-routed
+    engine)."""
     rng = np.random.default_rng(SEED + 1)
     prompts = [rng.integers(0, vocab, r["prompt_len"]) for r in trace]
     streams: dict = {}
@@ -1825,7 +1858,8 @@ def drive_engine(engine, trace, vocab: int, *, timed: bool = False) -> dict:
     while i < len(trace) or engine.has_work():
         while i < len(trace) and trace[i]["arrival_step"] <= step:
             engine.submit(prompts[i], max_new_tokens=trace[i]["gen_len"],
-                          key_id=i)
+                          key_id=i,
+                          adapter=None if adapters is None else adapters[i])
             i += 1
         engine.step(on_token)
         step += 1
@@ -1852,6 +1886,10 @@ def _peak(dev):
 
 def _empty_cache(dev) -> None:
     if torch.device(dev).type == "cuda":
+        # An engine whose steps drive_engine or capture_logits wrapped
+        # holds itself through those bound methods: collect such cycles
+        # before the allocator returns their memory.
+        gc.collect()
         torch.cuda.empty_cache()
 
 
@@ -2395,6 +2433,562 @@ def fault_checks(dev, mcfg, params, state) -> dict:
 # ---------------------------------------------------------------------------
 # Training at full width.
 # ---------------------------------------------------------------------------
+
+# ---------------------------------------------------------------------------
+# Fleet grouping and tracing in the engine.
+# ---------------------------------------------------------------------------
+
+# FL1: fp32 at FLEET_LAYERS layers of the full width; the card's fp32
+# tolerance for logits (serve_mt's: cuBLAS sums a batch of rows in another
+# order than a batch of one).
+FLEET_LAYERS, FLEET_TOL = 2, 1e-5
+FLEET_MT_REQUESTS, FLEET_MT_TENANTS, FLEET_MT_PROMPT, FLEET_MT_GEN = (
+    6, 3, (700, 960), 8)
+# FL2: a server of one base model and many fine-tunes, more tenants than
+# decode rows: E1's geometry and trace, each request's tenant drawn from
+# its own seeded stream, a device budget of FLEET_CACHE_STATES states and
+# no host tier (a spill costs about 2.1 s at this width). Nine tenants,
+# not twelve: the registry's raw trees (1.94 GB each), the states pinned
+# beyond the LRU (2.14 GB of g and gsB each; 12 at once with twelve
+# tenants) and the 8-position stack (24.1 GB) with the weights (15.2 GB)
+# need about 88.5 GB with twelve, 76.3 GB with nine (see fleet_checks).
+FLEET_TENANTS, FLEET_CACHE_STATES, FLEET_MAX_ACTIVE = 9, 6, 2
+FLEET_STATIC_REQUESTS = ENGINE_REQUESTS
+
+# make_fleet_trace and simulate_fleet are copies of
+# benchmarks/serve_bench.py's (which imports jax).
+
+
+def make_fleet_trace(*, n_requests=12, tenants=5, mean_interarrival=2.0,
+                     prompt_len=8, gen_lens=(4, 6, 8, 10), seed=0):
+    trace = make_arrival_trace(n_requests=n_requests,
+                               mean_interarrival=mean_interarrival,
+                               prompt_len=prompt_len, gen_lens=gen_lens,
+                               seed=seed)
+    rng = np.random.default_rng(seed + 1)
+    for r in trace:
+        r["tenant"] = int(rng.integers(tenants))
+    return trace
+
+
+def simulate_fleet(trace, *, slots: int) -> dict:
+    from collections import deque
+    queue: deque = deque()
+    table = [None] * slots
+    i, step = 0, 0
+    decode_steps = prefills = generated = slot_steps = 0
+    signatures: set = set()
+    n = len(trace)
+
+    def has_work():
+        return bool(queue) or any(v is not None for v in table)
+
+    def signature():
+        keys = [(table[j][1] if table[j] is not None else None)
+                for j in range(slots)]
+        last = None
+        for j, k in enumerate(keys):
+            if k is None:
+                keys[j] = last
+            else:
+                last = k
+        nxt = None
+        for j in reversed(range(slots)):
+            if keys[j] is None:
+                keys[j] = nxt
+            else:
+                nxt = keys[j]
+        if len(set(keys)) == 1:
+            return None
+        runs: list = []
+        for k in keys:
+            if runs and runs[-1][0] == k:
+                runs[-1] = (k, runs[-1][1] + 1)
+            else:
+                runs.append((k, 1))
+        groups, start = [], 0
+        for _, cnt in runs:
+            groups.append((start, cnt))
+            start += cnt
+        return tuple(groups)
+
+    while i < n or has_work():
+        while i < n and trace[i]["arrival_step"] <= step:
+            queue.append(trace[i])
+            i += 1
+        for j in range(slots):
+            while table[j] is None and queue:
+                r = queue.popleft()
+                prefills += 1
+                generated += 1
+                if r["gen_len"] - 1 > 0:
+                    table[j] = [r["gen_len"] - 1, r["tenant"]]
+        active = [j for j in range(slots) if table[j] is not None]
+        if active:
+            signatures.add(signature())
+            decode_steps += 1
+            slot_steps += len(active)
+            for j in active:
+                generated += 1
+                table[j][0] -= 1
+                if table[j][0] == 0:
+                    table[j] = None
+        step += 1
+    occ = slot_steps / (decode_steps * slots) if decode_steps else 0.0
+    return {"steps": step, "decode_steps": decode_steps,
+            "prefills": prefills, "generated_tokens": generated,
+            "slot_steps": slot_steps, "mean_occupancy": occ,
+            "static_signatures": len(signatures),
+            "signature_keys": sorted(str(s) for s in signatures),
+            "dynamic_signatures": 1}
+
+
+def capture_logits(engine) -> dict:
+    """Record each sampled row's host logits by (key_id, tokens sampled
+    before it), the keys the engine samples under."""
+    seen: dict = {}
+    sample = engine._sample_rows
+
+    def recorded(rows, keys):
+        for row, key in zip(rows, keys):
+            seen[tuple(int(k) for k in key)] = np.asarray(row, np.float64)
+        return sample(rows, keys)
+    engine._sample_rows = recorded
+    return seen
+
+
+def max_rel_logits(got: dict, want: dict) -> float:
+    """The largest gap between two records of :func:`capture_logits`, over
+    each row's max |logit|."""
+    check(got.keys() == want.keys(), "logit records of other rows")
+    return max(float(np.abs(got[k] - want[k]).max()
+                     / np.abs(want[k]).max()) for k in want)
+
+
+def tick_pcts(xs) -> dict:
+    """p50/p90/max in ticks with the obs layer's nearest-rank percentile,
+    the definition of ``BENCH_serve.json``'s ``obs.lifecycle_model``."""
+    from repro_torch.obs import percentile
+    return {"p50": percentile(xs, 50), "p90": percentile(xs, 90),
+            "max": float(max(xs)) if xs else 0.0}
+
+
+def lifecycle_of(rec, slots: int) -> dict:
+    """The committed lifecycle model's numbers from a trace: queue wait,
+    TTFT and admission-to-retirement percentiles in ticks, and decode-tick
+    occupancy from the token events."""
+    from collections import Counter
+
+    from repro_torch.obs import lifecycle_latencies
+    lat = lifecycle_latencies(rec)
+    out = {k: tick_pcts([r[k] for r in lat.values()])
+           for k in ("queue_wait_ticks", "ttft_ticks",
+                     "admit_to_retire_ticks")}
+    per_tick = Counter(e.tick for e in rec if e.name == "token")
+    occ = [per_tick[t] for t in sorted(per_tick)]
+    out["occupancy"] = {"p50": tick_pcts(occ)["p50"],
+                        "mean": sum(occ) / (len(occ) * slots)}
+    out["n_requests"] = len(lat)
+    return out
+
+
+def fleet_parity(dev, mcfg, params) -> dict:
+    """FL1: fleet grouping and tracing on the card in fp32 at FLEET_LAYERS
+    layers of the full width, five perturbed tenants:
+
+    - the committed ``fleet`` trace through the dynamic and the static
+      engine (each with a fresh cache): the counters of
+      ``fleet.schedule_model`` (and of this file's copy of its simulator),
+      the static engine's four ``signature_keys``, the dynamic one's
+      ``"dynamic"``, equal streams, logits within FLEET_TOL of max, K1 =
+      assembled = 14 a miss and nothing else;
+    - dynamic + speculative (k = 3) + paged: the static plain streams, K8 =
+      2 x layers a paged step, the verify under ``('dynamic', 4)``;
+    - the committed ``obs`` trace, traced and untraced (single tenant):
+      the same streams, stats, device steps and signatures, and the trace
+      gives ``obs.lifecycle_model`` exactly with 136 events;
+    - ``MultiTenantServer.serve`` of six mixed-length requests (prompts
+      700-960) over three tenants through the engine route: each request
+      served alone gives its tokens, logits within FLEET_TOL of max;
+    - a tiered cache of two states on the card, forced to spill and
+      reload: each tier move is an event on the traced engine's trace."""
+    import dataclasses
+
+    from repro_torch import kernels
+    from repro_torch.core.adapter_cache import (AdapterStateCache,
+                                                serving_state_nbytes)
+    from repro_torch.core.config import DoRAConfig
+    from repro_torch.launch import serve
+    from repro_torch.launch.engine import DecodeEngine
+    from repro_torch.launch.steps import StepConfig, make_precompute_step
+    from repro_torch.obs import TraceRecorder
+
+    n = FLEET_LAYERS
+    vocab = mcfg.vocab_size
+    scfg = StepConfig(dora=DoRAConfig(rank=RANK, alpha=ALPHA, mode="auto"))
+    m32 = dataclasses.replace(mcfg, num_layers=n, dtype=torch.float32)
+    p32 = _upcast_layers(params, n)
+    bench = json.loads((Path(__file__).resolve().parent
+                        / "BENCH_serve.json").read_text())
+    tp = dict(bench["fleet"]["trace"])
+    model = bench["fleet"]["schedule_model"]
+    slots, max_len = tp.pop("slots"), tp.pop("max_len")
+    tenants = [_tenant_adapters(m32, p32, scfg.dora, t, dev)
+               for t in range(tp["tenants"])]
+
+    def fresh_cache(**kw):
+        cache = AdapterStateCache.for_serving(m32, scfg, device=dev, **kw)
+        for t, ad in enumerate(tenants):
+            cache.register(f"tenant-{t}", ad)
+        return cache
+
+    trace = make_fleet_trace(**tp)
+    ids = [f"tenant-{r['tenant']}" for r in trace]
+    sim = simulate_fleet(trace, slots=slots)
+    for field in ("steps", "decode_steps", "prefills", "generated_tokens",
+                  "slot_steps", "signature_keys"):
+        check(sim[field] == model[field], f"fleet simulator {field}="
+              f"{sim[field]}, BENCH_serve.json {model[field]}")
+    out: dict = {"layers": n}
+    runs = {}
+    for form in ("dynamic", "static"):
+        dyn = form == "dynamic"
+        kernels.reset_launch_counts()
+        cache = fresh_cache()
+        eng = DecodeEngine(m32, scfg, p32, adapter_cache=cache, slots=slots,
+                           max_len=max_len, dynamic_grouping=dyn,
+                           device=dev)
+        logits = capture_logits(eng)
+        run = drive_engine(eng, trace, vocab, adapters=ids)
+        st, misses = eng.stats(), cache.stats().misses
+        for field in ("steps", "decode_steps", "prefills",
+                      "generated_tokens", "slot_steps"):
+            check(getattr(st, field) == model[field],
+                  f"FL1 {form} {field}={getattr(st, field)}, "
+                  f"BENCH_serve.json {model[field]}")
+        sigs = eng.step_signatures()["decode"]
+        check(sorted(sigs) == (["dynamic"] if dyn
+                               else model["signature_keys"]),
+              f"FL1 {form} decode signatures {sorted(sigs)}")
+        want = counts_of(norm_terms=7 * n * misses, assembled=7 * n * misses)
+        check(launch_counts() == want,
+              f"FL1 {form} launches {launch_counts()}, want {want}")
+        if dyn:
+            check(0 < st.stack_inserts <= st.admitted
+                  and eng.device_steps()["adapter_insert"]
+                  == st.stack_inserts, f"FL1 stack inserts {st}")
+        runs[form] = {"streams": run["streams"], "logits": logits}
+        out[form] = {"stats": st.as_dict(), "signatures": sigs,
+                     "cache": cache.stats().as_dict(),
+                     "launches": launch_counts()}
+    check(runs["dynamic"]["streams"] == runs["static"]["streams"],
+          "FL1 dynamic streams differ from the static engine's")
+    check(len({tuple(v) for v in runs["static"]["streams"].values()}) > 1,
+          "FL1: every request streamed the same tokens")
+    err = max_rel_logits(runs["dynamic"]["logits"], runs["static"]["logits"])
+    check(err <= FLEET_TOL, f"FL1 dynamic vs static logits {err} of max")
+    out["dynamic_vs_static_rel_err"] = err
+
+    # --- dynamic + speculative + paged against the static plain run ---
+    kernels.reset_launch_counts()
+    cache = fresh_cache()
+    eng = DecodeEngine(m32, scfg, p32, adapter_cache=cache, slots=slots,
+                       max_len=max_len, dynamic_grouping=True,
+                       speculative_k=SPEC_K, paged=True, device=dev)
+    run = drive_engine(eng, trace, vocab, adapters=ids)
+    steps, st = eng.device_steps(), eng.stats()
+    misses = cache.stats().misses
+    check(run["streams"] == runs["static"]["streams"],
+          "FL1 dynamic + speculative + paged streams differ from static "
+          "plain")
+    want = counts_of(norm_terms=7 * n * misses, assembled=7 * n * misses,
+                     paged_gather=2 * n * sum(
+                         steps[k] for k in ("prefill_chunk", "decode",
+                                            "draft", "verify")))
+    check(launch_counts() == want,
+          f"FL1 speculative paged launches {launch_counts()}, want {want}")
+    check(st.verify_steps > 0 and list(eng.step_signatures()["verify"])
+          == [str(("dynamic", SPEC_K + 1))],
+          f"FL1 speculative verify signatures {eng.step_signatures()}")
+    check(eng.pool_stats()["used_blocks"] == 0, "FL1 pool did not drain")
+    out["dynamic_spec_paged"] = {"stats": st.as_dict(),
+                                 "device_steps": steps,
+                                 "launches": launch_counts()}
+
+    # --- the committed obs trace, traced and untraced ---
+    sec = bench["obs"]
+    tp_o = dict(sec["trace"])
+    slots_o, ml_o = tp_o.pop("slots"), tp_o.pop("max_len")
+    trace_o = make_arrival_trace(**tp_o)
+    state = make_precompute_step(m32, scfg, fold_gsb=True)(p32, tenants[0])
+    seen, rec = {}, None
+    for traced in (False, True):
+        rec = TraceRecorder() if traced else None
+        eng = DecodeEngine(m32, scfg, p32, adapters=state, slots=slots_o,
+                           max_len=ml_o, trace=rec, device=dev)
+        run = drive_engine(eng, trace_o, vocab)
+        seen[traced] = (run["streams"], eng.stats().as_dict(),
+                        eng.device_steps(), eng.step_signatures())
+    check(seen[True] == seen[False], "FL1: tracing changed the obs run")
+    life = lifecycle_of(rec, slots_o)
+    for key, want in sec["lifecycle_model"].items():
+        check(life[key] == want, f"FL1 obs trace {key}={life[key]}, "
+              f"BENCH_serve.json {want}")
+    check((rec.emitted, rec.dropped) == (sec["events"]["emitted"], 0) ==
+          (136, 0), f"FL1 obs trace events {rec.emitted}, dropped "
+          f"{rec.dropped}")
+    for e in rec:
+        json.dumps(e.as_dict())
+    out["obs"] = {"lifecycle": life, "events": rec.emitted}
+    del state
+
+    # --- MultiTenantServer: mixed lengths through the engine route ---
+    cache = fresh_cache()
+    server = serve.MultiTenantServer(m32, scfg, p32, cache=cache, device=dev)
+    rng = np.random.default_rng(SEED + 11)
+    lo, hi = FLEET_MT_PROMPT
+    reqs = [serve.Request(rng.integers(0, vocab, int(rng.integers(lo, hi + 1))),
+                          f"tenant-{i % FLEET_MT_TENANTS}")
+            for i in range(FLEET_MT_REQUESTS)]
+    check(len({len(r.prompt) for r in reqs}) > 1, "FL1: uniform lengths")
+    eng = server._get_engine(slots=server.engine_slots, max_len=MAX_LEN,
+                             temperature=0.0, seed=0, allow_miss=True)
+    logits = capture_logits(eng)
+    rows = server.serve(reqs, gen_len=FLEET_MT_GEN, max_len=MAX_LEN)
+    alone: dict = {}
+    for i, r in enumerate(reqs):
+        toks, lg = serve.generate(
+            m32, p32, cache.current_handle(r.adapter), scfg,
+            np.asarray(r.prompt)[None], gen_len=FLEET_MT_GEN,
+            max_len=MAX_LEN, adapter_cache=cache, return_logits=True,
+            device=dev)
+        check(rows[i].tolist() == toks[0].tolist(),
+              f"FL1 server request {i} differs from it served alone")
+        for s, step_lg in enumerate(lg):
+            alone[i, s] = step_lg[0].double().cpu().numpy()
+    err = max_rel_logits(logits, alone)
+    check(err <= FLEET_TOL, f"FL1 server vs alone logits {err} of max")
+    out["server_mixed"] = {"requests": FLEET_MT_REQUESTS,
+                           "prompt_lens": [len(r.prompt) for r in reqs],
+                           "rel_err_vs_alone": err,
+                           "engine_stats": eng.stats().as_dict()}
+    nbytes = serving_state_nbytes(cache.get_state(
+        p32, cache.current_handle("tenant-0")))
+    del server, cache, eng
+
+    # --- a tiered cache of two states: spill and reload on the trace ---
+    tier = fresh_cache(max_bytes=2 * nbytes, host_max_bytes=3 * nbytes)
+    rec = TraceRecorder()
+    eng = DecodeEngine(m32, scfg, p32, adapter_cache=tier, slots=1,
+                       max_len=32, trace=rec, device=dev)
+    for t in (0, 1, 2, 0):
+        eng.submit(rng.integers(0, vocab, 16), adapter=f"tenant-{t}",
+                   max_new_tokens=2)
+        eng.run()
+    cst = tier.stats()
+    moves = [(e.name, e.data["adapter"]) for e in rec
+             if e.name in ("spill", "reload")]
+    check(cst.spills >= 1 and cst.reloads == 1
+          and moves.count(("reload", "tenant-0")) == 1
+          and len(moves) == cst.spills + cst.reloads,
+          f"FL1 tier events {moves}, cache {cst}")
+    out["tier"] = {"events": moves, "cache": cst.as_dict()}
+    print("fleet FL1 (fp32, " + f"{n} layers): " + json.dumps(
+        {k: v for k, v in out.items() if k not in ("dynamic", "static")}
+        | {k: {"signatures": out[k]["signatures"],
+               "launches": out[k]["launches"]}
+           for k in ("dynamic", "static")}), flush=True)
+    del tier, eng, p32, tenants
+    _empty_cache(dev)
+    return out
+
+
+def fleet_checks(dev, mcfg, params, adapters, plain_main) -> dict:
+    """FL2: qwen2-7b at full width and depth (bf16, r = 384) serving
+    FLEET_TENANTS perturbed tenants (tenant 0 the main path's own adapter
+    tree) through the paged engine on E1's geometry and trace, each
+    request's tenant drawn from its own stream, over a cache of
+    FLEET_CACHE_STATES states and no host tier, FLEET_MAX_ACTIVE slots an
+    adapter at most, traced: the dynamic engine first, then the static
+    one on the same trace with a fresh cache (everything freed between).
+
+    Gates: K1 = assembled = 196 x the cache's misses, K8 = 2 x 28 x
+    (chunk + decode steps), nothing else; the dynamic decode under
+    ``"dynamic"`` alone; stack inserts <= admissions; every request
+    ``length`` with its 64 tokens; the pool drained; the trace drops
+    nothing and holds 24 ``submitted`` and 24 ``terminal`` events.
+    Printed: ticks, ms a tick, tokens/s, peak memory, the cache's
+    counters, the static signatures, each engine's decode ms beside E1's
+    (``plain_main``), a profiled dynamic decode tick's idle share, the
+    lifecycle percentiles, and the share of requests whose dynamic stream
+    equals the static one (bf16: reported, not gated)."""
+    from collections import Counter
+
+    from repro_torch import kernels
+    from repro_torch.core.adapter_cache import (AdapterStateCache,
+                                                serving_state_nbytes)
+    from repro_torch.core.config import DoRAConfig
+    from repro_torch.launch.engine import DecodeEngine
+    from repro_torch.launch.steps import StepConfig, make_precompute_step
+    from repro_torch.obs import TraceRecorder
+
+    L = mcfg.num_layers
+    n_adapted = 7 * L
+    auto = StepConfig(dora=DoRAConfig(rank=RANK, alpha=ALPHA, mode="auto"))
+    _empty_cache(dev)
+    tenants = [adapters] + [_tenant_adapters(mcfg, params, auto.dora, t, dev)
+                            for t in range(1, FLEET_TENANTS)]
+    trace = realistic_trace()
+    rng = np.random.default_rng(SEED + 5)
+    ids = [f"tenant-{int(rng.integers(FLEET_TENANTS))}" for _ in trace]
+
+    # The memory reckoning, from one state's measured bytes.
+    probe = make_precompute_step(mcfg, auto, fold_gsb=True)(params,
+                                                            adapters)
+    state_bytes = serving_state_nbytes(probe)
+
+    def nbytes(ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    reckoning = {
+        "weights": nbytes(_leaves_sorted(params)),
+        "raw_per_tenant": nbytes(_leaves_sorted(adapters)),
+        "state_counted": state_bytes,
+        "state_held": _held_bytes(probe, adapters),
+        "stack_position": nbytes(leaf[k] for leaf in _adapter_leaves(probe)
+                                 for k in ("A", "g", "gsB"))}
+    del probe
+    reckoning["stack"] = ENGINE_SLOTS * reckoning["stack_position"]
+    reckoning["predicted_peak"] = (
+        reckoning["weights"] + FLEET_TENANTS * reckoning["raw_per_tenant"]
+        + FLEET_TENANTS * reckoning["state_held"] + reckoning["stack"])
+    reckoning["card_bytes"] = (
+        torch.cuda.get_device_properties(dev).total_memory
+        if torch.device(dev).type == "cuda" else None)
+    print("fleet FL2 memory reckoning: " + json.dumps(reckoning), flush=True)
+
+    paged_kw = dict(slots=ENGINE_SLOTS, max_len=ENGINE_MAX_LEN, paged=True,
+                    block_size=ENGINE_BLOCK, n_blocks=ENGINE_BLOCKS,
+                    prefill_chunk=ENGINE_CHUNK, device=dev)
+    out: dict = {"tenants": FLEET_TENANTS,
+                 "cache_states": FLEET_CACHE_STATES,
+                 "max_active_per_adapter": FLEET_MAX_ACTIVE,
+                 "requests_by_tenant": dict(sorted(Counter(ids).items())),
+                 "reckoning": reckoning}
+    streams = {}
+    for form in ("dynamic", "static"):
+        dyn = form == "dynamic"
+        n_req = ENGINE_REQUESTS if dyn else FLEET_STATIC_REQUESTS
+        cache = AdapterStateCache.for_serving(
+            mcfg, auto, device=dev,
+            max_bytes=FLEET_CACHE_STATES * state_bytes)
+        for t, ad in enumerate(tenants):
+            cache.register(f"tenant-{t}", ad)
+        rec = TraceRecorder()
+        _sync(dev)
+        _reset_peak(dev)
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        eng = DecodeEngine(mcfg, auto, params, adapter_cache=cache,
+                           dynamic_grouping=dyn,
+                           max_active_per_adapter=FLEET_MAX_ACTIVE,
+                           trace=rec, **paged_kw)
+        run = drive_engine(eng, trace[:n_req], mcfg.vocab_size, timed=True,
+                           adapters=ids)
+        counts, peak = launch_counts(), _peak(dev)
+        steps, st, cst = eng.device_steps(), eng.stats(), cache.stats()
+        results = eng.pop_results()
+        want = counts_of(norm_terms=n_adapted * cst.misses,
+                         assembled=n_adapted * cst.misses,
+                         paged_gather=2 * L * (steps["decode"]
+                                               + steps["prefill_chunk"]))
+        check(counts == want, f"FL2 {form} launches {counts}, want {want} "
+              f"(device steps {steps}, cache {cst})")
+        check(steps["draft"] == steps["verify"] == 0,
+              f"FL2 {form} device steps {steps}")
+        sigs = eng.step_signatures()["decode"]
+        if dyn:
+            check(list(sigs) == ["dynamic"], f"FL2 dynamic signatures {sigs}")
+            check(st.stack_inserts <= st.admitted == n_req,
+                  f"FL2 stack inserts {st.stack_inserts}, admitted "
+                  f"{st.admitted}")
+        check(len(results) == n_req and all(
+            r.finish_reason == "length" and len(r.tokens) == ENGINE_NEW
+            for r in results), f"FL2 {form}: not every request finished "
+            f"with its {ENGINE_NEW} tokens")
+        names = Counter(e.name for e in rec)
+        check(rec.dropped == 0 and names["submitted"] == names["terminal"]
+              == n_req, f"FL2 {form} trace {dict(names)}, dropped "
+              f"{rec.dropped}")
+        check(eng.pool_stats()["used_blocks"] == 0,
+              f"FL2 {form}: the pool did not drain")
+        life = lifecycle_of(rec, ENGINE_SLOTS)
+        times = run["times_ms"]
+        out[form] = {
+            "requests": n_req, "ticks": st.steps,
+            "decode_steps": st.decode_steps,
+            "chunk_steps": steps["prefill_chunk"],
+            "wall_s": run["wall_s"],
+            "ms_per_tick": run["wall_s"] * 1e3 / st.steps,
+            "tokens_per_s": st.generated_tokens / run["wall_s"],
+            "decode_ms": _mean(times["decode"]),
+            "chunk_step_ms": _mean(times["prefill_chunk"]),
+            "fetch_ms": _mean(times["fetch"]),
+            "max_memory_allocated_bytes": peak,
+            "cache": {k: cst.as_dict()[k] for k in (
+                "hits", "misses", "evictions", "current_bytes")},
+            "stack_inserts": st.stack_inserts, "admitted": st.admitted,
+            "preemptions": st.preemptions,
+            "signatures": len(sigs), "signature_steps": sigs,
+            "events": rec.emitted,
+            "lifecycle": {k: life[k] for k in (
+                "queue_wait_ticks", "ttft_ticks", "admit_to_retire_ticks")},
+            "launches": counts}
+        streams[form] = run["streams"]
+        if dyn:
+            # One decode tick with every slot active under eight tenants,
+            # profiled after the counts were read.
+            prng = np.random.default_rng(SEED + 2)
+            for t in range(ENGINE_SLOTS):
+                eng.submit(prng.integers(0, mcfg.vocab_size,
+                                         min(768, ENGINE_MAX_LEN // 2)),
+                           adapter=f"tenant-{t}", max_new_tokens=8)
+            while eng._queue or any(s.prefilling for s in eng._slots):
+                eng.step()
+            eng.step()
+            out[form]["decode_tick_profile"] = profile(
+                eng.step, "FL2 dynamic decode tick (8 rows, 8 tenants)")
+            eng.run()
+        out[form]["phase_s"] = time.perf_counter() - t0
+        print(f"fleet FL2 {form} (bf16): " + json.dumps(
+            {k: v for k, v in out[form].items()
+             if k not in ("launches", "decode_tick_profile",
+                          "signature_steps")}), flush=True)
+        del eng, cache, rec, results
+        _empty_cache(dev)
+    shared = sorted(streams["static"])
+    out["requests_equal_static"] = sum(
+        streams["dynamic"][rid] == streams["static"][rid]
+        for rid in shared) / len(shared)
+    out["e1"] = {"ticks": plain_main["ticks"],
+                 "ms_per_tick": plain_main["wall_s"] * 1e3
+                 / plain_main["ticks"],
+                 "decode_ms": plain_main["decode_ms_per_tick"],
+                 "tokens_per_s": plain_main["tokens_per_s"]}
+    print("fleet FL2 summary: " + json.dumps(
+        {"dynamic_decode_ms": out["dynamic"]["decode_ms"],
+         "static_decode_ms": out["static"]["decode_ms"],
+         "e1_decode_ms": out["e1"]["decode_ms"],
+         "dynamic_ms_per_tick": out["dynamic"]["ms_per_tick"],
+         "static_ms_per_tick": out["static"]["ms_per_tick"],
+         "e1_ms_per_tick": out["e1"]["ms_per_tick"],
+         "requests_equal_static": out["requests_equal_static"],
+         "idle_share": out["dynamic"]["decode_tick_profile"].get(
+             "device_idle_share")}), flush=True)
+    del tenants
+    _empty_cache(dev)
+    return out
+
 
 def _train_batches(mcfg, steps: int):
     """The port's synthetic pipeline at the training shape, on the host."""
@@ -3429,6 +4023,12 @@ def main() -> int:
     mt = serve_mt_checks(dev, mcfg, params)
     print(f"serve_mt phases: {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
+    fleet = {"fl1": fleet_parity(dev, mcfg, params)}
+    print(f"fleet FL1: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    fleet["fl2"] = fleet_checks(dev, mcfg, params, adapters, plain_main)
+    print(f"fleet FL2: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
     trained = train_checks(dev, mcfg, params, adapters)
     del params, adapters
     torch.cuda.empty_cache()
@@ -3451,6 +4051,8 @@ def main() -> int:
                "engine_trace_paged": engine["traces"]["paged"]["launches"],
                "engine_spec": spec["bf16"]["launches"],
                "serve_mt": mt["cold"]["launches"],
+               "engine_fleet_dynamic": fleet["fl2"]["dynamic"]["launches"],
+               "engine_fleet_static": fleet["fl2"]["static"]["launches"],
                "serve_mamba": mamba["serve_mamba"]["launches"],
                "train_vl": vl["train"]["launches"],
                "serve_vl": vl["serve"]["launches"],
@@ -3509,6 +4111,7 @@ def main() -> int:
     detail.write_text(json.dumps({
         "card": smi, "kernel_rows": rows, "serve": served,
         "engine": engine, "spec": spec, "faults": faults, "serve_mt": mt,
+        "fleet": fleet,
         "train": {k: trained[k] for k in ("train_auto", "train_elementwise",
                                           "fp32_agreement")},
         "train_parity": parity, "mamba": mamba, "vl": vl, "archs": archs},
@@ -3537,6 +4140,15 @@ def main() -> int:
                              "state_nbytes": mt["state_nbytes"],
                              "state_held_bytes": mt["state_held_bytes"],
                              "fp32_parity": mt["fp32_parity"]},
+                      "fleet": {form: {k: fleet["fl2"][form][k] for k in (
+                          "ticks", "ms_per_tick", "decode_ms", "tokens_per_s",
+                          "max_memory_allocated_bytes", "cache",
+                          "stack_inserts", "signatures")}
+                          for form in ("dynamic", "static")}
+                      | {"tenants": FLEET_TENANTS,
+                         "requests_equal_static":
+                         fleet["fl2"]["requests_equal_static"],
+                         "e1_decode_ms": fleet["fl2"]["e1"]["decode_ms"]},
                       "mamba": {k: v for k, v in mamba["serve_mamba"].items()
                                 if not k.endswith("_profile")},
                       "vl": {"train": {f: vl["train"][f] for f in (

@@ -79,11 +79,6 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-# Where the engine route of MultiTenantServer points: the engine's adapter
-# cache and fleet grouping are not ported.
-_ENGINE_LATER = "ROADMAP queue 1 item 4.3 (fleet grouping in the engine)"
-
-
 def _check_cache_mesh(cache: AdapterStateCache, mesh) -> None:
     """The cache keys states on the layout they were placed for; serving
     them under another would re-lay them out every step. The port serves
@@ -238,34 +233,28 @@ class MultiTenantServer:
         signature ((start, size) per tenant); each group's rows take the
         homogeneous gsB path's delta, and no step does norm work.
 
+    Mixed prompt lengths, ``static=False`` and ``speculative_k`` take the
+    ENGINE route instead: a cache-routed continuous-batching
+    :class:`~repro_torch.launch.engine.DecodeEngine` of ``engine_slots``
+    slots, kept per (slots, max_len) (at most two, least recently used
+    dropped first: each pins a K/V cache), to which ``dynamic_grouping``,
+    ``max_active_per_adapter`` and ``trace`` are handed.
+
     Step closures are kept per (batch, max_len, pad, groups), at most
     ``max_cached_steps`` of them (least recently used dropped first).
 
     ``device``: None is the card, which must be present; ``"cpu"`` is the
-    explicit CPU request; ``params`` must live there. Same-length batches
-    are served here; the engine route (mixed prompt lengths,
-    ``static=False``, ``speculative_k``, ``dynamic_grouping``,
-    ``max_active_per_adapter``, ``trace``) is refused until the engine's
-    adapter cache is ported (ROADMAP queue 1 item 4.3). ``mesh`` is
+    explicit CPU request; ``params`` must live there. ``mesh`` is
     refused: the port serves on one card.
     """
 
     def __init__(self, mcfg, scfg: StepConfig, params, *,
                  cache: AdapterStateCache, mesh=None,
-                 max_cached_steps: int = 32,
+                 max_cached_steps: int = 32, engine_slots: int = 8,
                  dynamic_grouping: bool = False,
                  max_active_per_adapter: int | None = None,
                  trace=None, device=None):
         _check_cache_mesh(cache, mesh)
-        for name, given in (
-                ("dynamic_grouping", dynamic_grouping),
-                ("max_active_per_adapter", max_active_per_adapter is not None),
-                ("trace", trace is not None)):
-            if given:
-                raise NotImplementedError(
-                    f"MultiTenantServer({name}=...) configures the engine "
-                    f"route, which is not ported yet: it comes with "
-                    f"{_ENGINE_LATER}")
         self.device = resolve_device(device)
         if params["embed"].device != self.device:
             raise ValueError(f"params live on {params['embed'].device}, "
@@ -274,8 +263,14 @@ class MultiTenantServer:
         self.scfg = scfg
         self.params = params
         self.cache = cache
+        self.trace = trace
+        self.dynamic_grouping = bool(dynamic_grouping)
+        self.max_active_per_adapter = max_active_per_adapter
+        self.engine_slots = int(engine_slots)
         self.max_cached_steps = max_cached_steps
         self._steps: OrderedDict = OrderedDict()
+        self.max_cached_engines = 2
+        self._engines: OrderedDict = OrderedDict()
 
     def _resolve(self, req: Request) -> AdapterHandle:
         if isinstance(req.adapter, AdapterHandle):
@@ -297,23 +292,75 @@ class MultiTenantServer:
             self._steps.popitem(last=False)
         return self._steps[key]
 
+    def _get_engine(self, *, slots: int, max_len: int, temperature: float,
+                    seed: int, allow_miss: bool, speculative_k: int = 0):
+        from repro_torch.launch.engine import DecodeEngine
+        key = (slots, max_len)
+        if key in self._engines:
+            self._engines.move_to_end(key)
+            eng = self._engines[key]
+        else:
+            eng = DecodeEngine(self.mcfg, self.scfg, self.params,
+                               slots=slots, max_len=max_len,
+                               adapter_cache=self.cache,
+                               dynamic_grouping=self.dynamic_grouping,
+                               max_active_per_adapter=(
+                                   self.max_active_per_adapter),
+                               trace=self.trace, device=self.device)
+            self._engines[key] = eng
+            while len(self._engines) > self.max_cached_engines:
+                self._engines.popitem(last=False)
+        eng.temperature = float(temperature)
+        eng.seed = int(seed)
+        eng.allow_miss = allow_miss
+        eng.speculative_k = int(speculative_k)
+        return eng
+
+    def _serve_continuous(self, requests, prompts, *, gen_len, max_len,
+                          temperature, seed, allow_miss, speculative_k=0):
+        """The engine route: every request is prefilled into a slot at its
+        TRUE prompt length; beyond ``engine_slots`` requests queue and
+        join as rows retire. Returns 1-D [P_i + gen_len] arrays in request
+        order. Every request is checked before the first submit, so a bad
+        one fails the call without stranding others in the persistent
+        engine; sampling streams are keyed by the request's index within
+        THIS call, so a repeated call reproduces its tokens."""
+        eng = self._get_engine(slots=self.engine_slots, max_len=max_len,
+                               temperature=temperature, seed=seed,
+                               allow_miss=allow_miss,
+                               speculative_k=speculative_k)
+        checked = [eng.check_request(p, adapter=self._resolve(r),
+                                     max_new_tokens=gen_len)
+                   for r, p in zip(requests, prompts)]
+        rids = [eng.submit(p, adapter=h, max_new_tokens=gen_len, key_id=i)
+                for i, (p, h) in enumerate(checked)]
+        results = {res.request_id: res for res in eng.run()}
+        for rid in rids:
+            if results[rid].finish_reason == "error":
+                # A late resolution failed at admission: the engine has
+                # already dropped the request, so it is not wedged.
+                raise results[rid].error
+        return [np.concatenate([p, results[rid].tokens])
+                for p, rid in zip(prompts, rids)]
+
     def serve(self, requests: Sequence[Request], *, gen_len: int,
               max_len: int, temperature: float = 0.0, seed: int = 0,
               allow_miss: bool = True, return_logits: bool = False,
               static: bool | None = None, speculative_k: int = 0,
+              check_contract: bool | None = None,
               stats: dict | None = None):
-        """Serve one batch of same-length prompts. Returns tokens
-        [B, P+gen_len] in REQUEST order (or (tokens, per-step logits) with
-        ``return_logits``).
-
-        ``static=False``, ``speculative_k`` and mixed prompt lengths take
-        the engine route, which raises NotImplementedError (ROADMAP queue
-        1 item 4.3); ``static=True`` with mixed lengths keeps the
-        reference's length-bucket error.
-        ``stats``: when given, filled with the wall seconds of each phase
-        (``precompute_s``: the cache lookups, a precompute per miss;
-        ``stack_s`` when K > 1; ``prefill_s``; ``decode_s``), each ended
-        by a device synchronisation."""
+        """Serve one batch. Same-length batches take the static path and
+        return tokens [B, P+gen_len] in REQUEST order (or (tokens,
+        per-step logits) with ``return_logits``). Mixed lengths,
+        ``static=False`` and ``speculative_k > 0`` take the engine route
+        and return a LIST of 1-D [P_i + gen_len] int32 arrays in request
+        order; ``static=True`` with mixed lengths keeps the length-bucket
+        error. ``return_logits`` and ``check_contract`` are the static
+        path's (the port's static loop always checks the cache length).
+        ``stats`` (static path): when given, filled with the wall seconds
+        of each phase (``precompute_s``: the cache lookups, a precompute
+        per miss; ``stack_s`` when K > 1; ``prefill_s``; ``decode_s``),
+        each ended by a device synchronisation."""
         if not requests:
             raise ValueError("empty request batch")
         prompts = [np.asarray(r.prompt) for r in requests]
@@ -327,18 +374,33 @@ class MultiTenantServer:
                 "path (its rewindable per-row cache): serve with "
                 "static=False/None, not static=True")
         if not static:
-            why = ("mixed prompt lengths" if mixed else
-                   "speculative_k" if speculative_k else "static=False")
-            raise NotImplementedError(
-                f"MultiTenantServer.serve routes {why} through the "
-                f"continuous-batching engine with an adapter cache, which "
-                f"is not ported yet: it comes with {_ENGINE_LATER}")
+            if return_logits:
+                raise ValueError(
+                    "return_logits is only available on the static path "
+                    "(the engine streams per-request tokens instead)")
+            if check_contract:
+                raise ValueError(
+                    "check_contract is only meaningful on the static "
+                    "path: the engine schedules on host mirrors and "
+                    "never reads cache['len'] back, so there is no "
+                    "blocking contract check to enable")
+            if any(p.shape[-1] + gen_len > max_len for p in prompts):
+                raise ValueError(
+                    f"max_len={max_len} < P+gen_len="
+                    f"{max(p.shape[-1] for p in prompts) + gen_len}")
+            return self._serve_continuous(
+                requests, [np.asarray(p, np.int32) for p in prompts],
+                gen_len=gen_len, max_len=max_len, temperature=temperature,
+                seed=seed, allow_miss=allow_miss,
+                speculative_k=speculative_k)
         if mixed:
             raise ValueError(
                 f"all prompts in one batch must share a length bucket on "
                 f"the static path; got "
-                f"{sorted({p.shape[-1] for p in prompts})} — bucket "
-                f"requests by prompt length before batching")
+                f"{sorted({p.shape[-1] for p in prompts})} — serve with "
+                f"static=None/False to admit mixed lengths through the "
+                f"continuous-batching engine, or bucket requests by "
+                f"prompt length before batching")
         if max_len < P + gen_len:
             raise ValueError(f"max_len={max_len} < P+gen_len={P + gen_len}")
 

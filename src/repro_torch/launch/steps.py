@@ -409,13 +409,15 @@ def make_verify_step(mcfg: ModelConfig, scfg: StepConfig, *, batch: int,
     drafts' base-path K/V, and "len" advances by ``window``; the engine
     rewinds it to each row's accepted frontier.
 
-    ``tenant_groups`` and ``dynamic_groups`` (the reference's grouped
-    verify) come with fleet grouping, ROADMAP queue 1 item 4.3."""
-    if tenant_groups is not None or dynamic_groups:
-        raise NotImplementedError(
-            "make_verify_step(tenant_groups=... / dynamic_groups=True) is "
-            "not ported yet: it comes with fleet grouping (ROADMAP queue 1 "
-            "item 4.3)")
+    ``tenant_groups`` and ``dynamic_groups``: as for
+    :func:`make_decode_step`, the rows grouped by adapter in static
+    ``(start, size)`` blocks, or each row's adapter the int [B] stack
+    position ``batch_in["adapter_idx"]``; mutually exclusive."""
+    if dynamic_groups and tenant_groups is not None:
+        raise ValueError(
+            "dynamic_groups=True takes the per-row adapter index from "
+            "batch_in['adapter_idx']; a static tenant_groups signature "
+            "cannot be given at the same time")
 
     @torch.no_grad()
     def verify_step(params, adapters, cache, batch_in):
@@ -423,7 +425,9 @@ def make_verify_step(mcfg: ModelConfig, scfg: StepConfig, *, batch: int,
         if tuple(tokens.shape) != (batch, window):
             raise ValueError(f"verify built for tokens [{batch}, {window}], "
                              f"got {tuple(tokens.shape)}")
+        tg = (torch.as_tensor(batch_in["adapter_idx"], device=tokens.device)
+              if dynamic_groups else tenant_groups)
         return forward(mcfg, params, adapters, scfg.dora, tokens=tokens,
-                       cache=cache, training=False)
+                       cache=cache, training=False, tenant_groups=tg)
 
     return verify_step

@@ -466,10 +466,6 @@ def test_temperature_sampling_is_reproducible(state):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("kw,item", [
-    ({"adapter_cache": object()}, "fleet grouping"),
-    ({"dynamic_grouping": True}, "fleet grouping"),
-    ({"max_active_per_adapter": 2}, "fleet grouping"),
-    ({"trace": object()}, "obs wiring"),
     ({"mesh": object()}, "multi-device"),
 ])
 def test_later_slices_are_refused(state, kw, item):

@@ -162,7 +162,8 @@ def test_engine_under_a_plan_matches_reference(drafty, name, speculative_k,
         1 for s in range(st["steps"]) if t_plan.slow_at(s) > 0)
     steps = port.device_steps()
     assert set(steps) == {"prefill_into_slot", "prefill_chunk", "decode",
-                          "draft", "verify"}
+                          "draft", "verify", "adapter_insert"}
+    assert steps["adapter_insert"] == 0
     if name == "seed142":
         # The reference's rule for a slot refilled in the tick that
         # poisons it: every admission into slot 0 during tick 0 is

@@ -460,24 +460,24 @@ def test_server_refusals():
     with pytest.raises(ValueError, match="keyed for sharding"):
         tserve.MultiTenantServer(tm, scfg, tparams, cache=other,
                                  device="cpu")
-    # the engine route: mixed lengths, static=False, speculative_k and the
-    # engine's knobs (ROADMAP queue 1 item 4.3)
+    # the engine route (mixed lengths, static=False, speculative_k) keeps
+    # the reference's contracts: no logits, no contract check, room for
+    # every prompt's tokens
     mixed = [tserve.Request(np.arange(6), "t0"),
              tserve.Request(np.arange(7), "t1")]
-    for call in (
-            lambda: server.serve(mixed, gen_len=2, max_len=MAX_LEN),
-            lambda: server.serve(reqs, gen_len=2, max_len=MAX_LEN,
-                                 static=False),
-            lambda: server.serve(reqs, gen_len=2, max_len=MAX_LEN,
-                                 speculative_k=2),
-            *(lambda kw=kw: tserve.MultiTenantServer(
-                tm, scfg, tparams, cache=cache, device="cpu", **kw)
-              for kw in ({"dynamic_grouping": True},
-                         {"max_active_per_adapter": 1},
-                         {"trace": object()}))):
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP queue 1 item 4.3"):
-            call()
+    for kw, match in (({"return_logits": True}, "return_logits"),
+                      ({"check_contract": True}, "check_contract"),
+                      ({"static": False, "return_logits": True},
+                       "return_logits"),
+                      ({"speculative_k": 2, "check_contract": True},
+                       "check_contract")):
+        with pytest.raises(ValueError, match=match):
+            server.serve(mixed if "static" not in kw else reqs, gen_len=2,
+                         max_len=MAX_LEN, **kw)
+    with pytest.raises(ValueError, match="P\\+gen_len"):
+        server.serve(mixed, gen_len=MAX_LEN - 6, max_len=MAX_LEN)
+    assert not server._engines or not any(
+        e.has_work() for e in server._engines.values())
     with pytest.raises(ValueError, match="length bucket"):
         server.serve(mixed, gen_len=2, max_len=MAX_LEN, static=True)
     with pytest.raises(ValueError, match="speculative_k requires"):

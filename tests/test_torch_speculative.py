@@ -254,9 +254,9 @@ def test_step_contracts(state):
         tsteps.make_verify_step(tm, _tstep(), batch=2, window=3)(
             t_params, t_serving, cache,
             {"tokens": torch.zeros((2, 2), dtype=torch.long)})
-    for kw in ({"tenant_groups": ((0, 2),)}, {"dynamic_groups": True}):
-        with pytest.raises(NotImplementedError, match="item 4.3"):
-            tsteps.make_verify_step(tm, _tstep(), batch=2, window=3, **kw)
+    with pytest.raises(ValueError, match="adapter_idx"):
+        tsteps.make_verify_step(tm, _tstep(), batch=2, window=3,
+                                tenant_groups=((0, 2),), dynamic_groups=True)
     with pytest.raises(ValueError, match="speculative_k"):
         _port_engine(state, slots=2, max_len=16, speculative_k=-1)
     for flag, value in (("--speculative", "2"), ("--inject", "nan@3"),
