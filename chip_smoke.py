@@ -7,7 +7,8 @@ Run from the repository root on a machine with the card:
 
 It builds the hand-written kernels from ``src/repro_torch/kernels/csrc``
 (printing each kernel's ptxas registers, static shared memory and
-spills; K6's tensor-core kernel must spill nothing), holds each kernel
+spills; K6's tensor-core kernel, K9's six instantiations and the scan's
+backward must spill nothing), holds each kernel
 against its plain PyTorch version at the shapes the serving and training
 paths give it (K1 and K6 also at falcon-mamba-7b's in_proj and out_proj,
 every K6 shape on the tensor-core route with the same bits on a second
@@ -150,9 +151,20 @@ the last 1024 tokens, layer remat, AdamW defaults:
   8. a 2-layer fp32 model trained 2 steps on the card and on the CPU, on
      both compose routes: losses and adapters within 1e-4 x max|value|.
 
-Last, with qwen2-7b's state freed, it serves full-width falcon-mamba-7b
-(64 Mamba-1 layers, random weights from a seed) with r=384 DoRA on
-in_proj and out_proj (see mamba_checks):
+With qwen2-7b's state freed, it drives the serve CLI's engine paths
+in-process through ``repro_torch.launch.serve.main`` at qwen2-7b's full
+width and depth, 8 slots, prompts of 512-1024 and 16 new tokens (see
+cli_checks): ``--continuous --paged``; ``--continuous --speculative 3``
+with ``--trace-out``/``--metrics-out`` (both files parsed, no event
+dropped); ``--continuous --inject nan@3:1,slow@4 --deadline 40
+--priority 1``; ``--fleet N`` with N from a memory reckoning printed
+first. Each: K1 = assembled = 196 a tenant, K8 on the paged path alone,
+the CLI's own checks, and its streams against the plain counterpart's
+(asserted by the CLI in fp32, counted here in bf16).
+
+Then it serves full-width falcon-mamba-7b (64 Mamba-1 layers, random
+weights from a seed) with r=384 DoRA on in_proj and out_proj (see
+mamba_checks):
 
   M1. auto mode in bf16 (the Mamba main path): precompute, exact-length
       prefill of 4 x 960, 32 greedy tokens; K1 = assembled = 128,
@@ -162,6 +174,18 @@ in_proj and out_proj (see mamba_checks):
       1e-4 x max|h|, equal greedy tokens;
   M3. a 2-layer fp32 model on the card and on the CPU: prefill logits
       within 1e-4 x max|logit|, equal greedy tokens.
+
+and trains it (see mamba_train_checks; the kernel phase has held K9 with
+chunk states and the scan's backward against their plain versions at the
+training shape [2, 2048, 8192] and a ragged one, same bits twice):
+
+  MT1. auto mode in bf16, batch 2 x seq 2048, loss on the last 1024,
+      layer remat, AdamW, 3 steps: per step K1 = assembled = 128,
+      K6 = 256, K7 = 128, K9 = 128 (with chunk states) and the scan's
+      backward = 64, nothing else; step ms, tokens/s, peak memory (the
+      reckoning printed first) and a profiled step's idle share;
+  MT2. kernel route vs eager route on the fp32 upcast at 4 layers: loss
+      within 1e-5 relative, adapter-gradient cosine >= 0.99999.
 
 Then the rest of the dense family (see vl_checks and arch_checks), after
 the kernel phase has held K1 with its epilogue at each of their 20 new
@@ -259,6 +283,11 @@ SOURCES = {
                      "src/repro/kernels/paged_gather.py:90"),
     "selective_scan": ("src/repro_torch/kernels/csrc/selective_scan.cu",
                        "src/repro/kernels/selective_scan.py:60"),
+    # No TPU kernel: the reference differentiates its XLA scan.
+    "selective_scan_bwd": ("src/repro_torch/kernels/csrc/"
+                           "selective_scan_bwd.cu",
+                           "none (the reference differentiates "
+                           "src/repro/models/mamba.py:50 _ssm_scan_fused)"),
 }
 # The path whose launch count each kernel's record carries (for K2, the
 # launches of its arithmetic as K1's epilogue), and the index of the shape
@@ -272,7 +301,8 @@ RECORD_PATH = {"norm_terms": ("serve_auto", 2),
                "compose_mm_fwd": ("serve_auto", 1),
                "compose_mm_bwd": ("train_auto", 0),
                "paged_gather": ("engine_paged", 0),
-               "selective_scan": ("serve_mamba", 0)}
+               "selective_scan": ("serve_mamba", 0),
+               "selective_scan_bwd": ("train_mamba", 0)}
 
 
 def check(cond: bool, msg: str) -> None:
@@ -963,7 +993,96 @@ def kernel_checks(dev) -> dict:
                deterministic=same, **extra)
         del args, dt, dtx, y, h_f, ref_y, ref_h, y2, h_f2
     torch.cuda.empty_cache()
+    scan_train_checks(gen, rows, record)
     return rows
+
+
+def scan_train_checks(gen, rows, record) -> None:
+    """K9's training forward (chunk states) and the scan's backward at the
+    falcon-mamba-7b training shape [2, 2048, 8192], n = 16, and a ragged
+    one (S no multiple of the 32-step stride, di no multiple of the
+    backward's 64 channels a block): with chunk states K9 gives y and h_f
+    bitwise as without and hc within 1e-5 of max of its plain version's;
+    the backward within 1e-5 of max |grad| of its plain version for each
+    of d_dt, d_dtx, d_B and d_C, the same bits twice; ms by events and
+    device time beside the bound. K9's row gains its chunk-state time."""
+    from repro_torch.kernels import selective_scan as ks
+
+    f32 = torch.float32
+    dev = gen.device
+    for b, seq, di, n in ((TRAIN_BATCH, TRAIN_SEQ, 8192, 16),
+                          (1, 70, 8192 + 40, 16)):
+        u = torch.rand((b, seq, di), generator=gen, device=dev)
+        dt = torch.exp(math.log(1e-3) + u * math.log(100.0))
+        dtx = dt * torch.randn((b, seq, di), generator=gen, device=dev)
+        Bm = torch.randn((b, seq, n), generator=gen, device=dev)
+        Cm = torch.randn((b, seq, n), generator=gen, device=dev)
+        A_t = -(torch.arange(1, n + 1, device=dev, dtype=f32)[:, None]
+                * (1.0 + 0.1 * torch.rand((n, di), generator=gen,
+                                          device=dev)))
+        h0_t = torch.zeros((b, n, di), device=dev)
+        dy = torch.randn((b, seq, di), generator=gen, device=dev)
+        args = (dt, dtx, Bm, Cm, A_t, h0_t)
+        label = f"[{b}, {seq}, {di}, {n}]"
+        y0, hf0 = ks.selective_scan(*args)
+        y, hf, hc = ks.selective_scan(*args, chunk_states=True)
+        _, _, hc_ref = ks.selective_scan_plain(*args, chunk_states=True)
+        e_hc, m_hc = max_err(hc, hc_ref)
+        fwd = {"y_h_f_bitwise_without_states": bool(
+                   torch.equal(y, y0) and torch.equal(hf, hf0)),
+               "hc_err": e_hc, "hc_tol": SCAN_TOL * m_hc}
+        check(fwd["y_h_f_bitwise_without_states"] and e_hc <= SCAN_TOL * m_hc,
+              f"selective_scan with chunk states {label}: {fwd}")
+        grads = ks.selective_scan_bwd(*args[:5], hc, dy)
+        ref = ks.selective_scan_bwd_plain(*args[:5], hc, dy)
+        again = ks.selective_scan_bwd(*args[:5], hc, dy)
+        same = all(torch.equal(g, a) for g, a in zip(grads, again))
+        errs = {name: max_err(g, r) for name, g, r in
+                zip(("d_dt", "d_dtx", "d_B", "d_C"), grads, ref)}
+        worst = max(errs, key=lambda k: errs[k][0] / errs[k][1])
+        check(same, f"selective_scan_bwd {label}: a second call gave other "
+                    f"bits")
+        for name, (e, m) in errs.items():
+            check(e <= SCAN_TOL * m, f"selective_scan_bwd {label} {name}: "
+                                     f"err {e} > tol {SCAN_TOL * m}")
+        # Bytes: dt, dtx, dy and hc read, d_dt and d_dtx written (B, C, A,
+        # d_B and d_C besides). Operations: b*seq*di*n exps on the SFUs,
+        # or about 10 fp32 flops each on the FMA pipes: the larger time.
+        n_exp = b * seq * di * n
+        nbytes = 4 * (5 * b * seq * di + 4 * b * seq * n + n * di
+                      + hc.numel())
+        extra = {}
+        if b == TRAIN_BATCH:
+            states_ms = time_ms(lambda: ks.selective_scan(
+                *args, chunk_states=True))
+            serve_ms = time_ms(lambda: ks.selective_scan(*args))
+            rows["selective_scan"][0]["train_shape"] = [b, seq, di, n]
+            rows["selective_scan"][0]["chunk_states_ms"] = states_ms
+            rows["selective_scan"][0]["without_states_ms_train_shape"] = \
+                serve_ms
+            print(f"  selective_scan {label} with chunk states: "
+                  f"{states_ms:.4f} ms (without {serve_ms:.4f} ms); "
+                  + json.dumps(fwd), flush=True)
+            extra = {"device_ms": profiled_ms(
+                lambda: [ks.selective_scan_bwd(*args[:5], hc, dy)
+                         for _ in range(5)], "selective_scan_bwd", 5,
+                f"selective_scan_bwd {label} x 5")}
+        record("selective_scan_bwd", [b, seq, di, n], errs[worst][0],
+               errs[worst][1], SCAN_TOL,
+               time_ms(lambda: ks.selective_scan_bwd(*args[:5], hc, dy)),
+               time_ms(lambda: ks.selective_scan_bwd_plain(*args[:5], hc,
+                                                           dy)),
+               nbytes, max(n_exp / SFU_EXP_PER_S, 10 * n_exp / F32_OPS),
+               grid=f"{-(-di // ks.BWD_CHANNELS)} x {b} blocks of "
+                    f"{ks.BWD_CHANNELS} channels x 2 lanes",
+               errors={k: {"err": e, "tol": SCAN_TOL * m}
+                       for k, (e, m) in errs.items()},
+               chunk_states_forward=fwd,
+               bound_bytes_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+               bound_sfu_ms=n_exp / SFU_EXP_PER_S * 1e3,
+               deterministic=same, **extra)
+        del args, dt, dtx, Bm, Cm, dy, y0, y, hc, hc_ref, grads, ref, again
+    torch.cuda.empty_cache()
 
 
 # The weight shapes [d_out, d_in] of the adapted modules of the archs
@@ -1152,6 +1271,7 @@ def host_checks(dev) -> dict:
             randn(1, 16, 128, dtype=f32), randn(1, 16, 16, dtype=f32),
             randn(1, 16, 16, dtype=f32), -randn(16, 128, dtype=f32).abs(),
             randn(1, 16, 128, dtype=f32))
+    scan_hc = randn(1, 1, 16, 128, dtype=f32)
     calls = {
         "norm_terms": lambda: kn.norm_terms(W, A, B),
         "assemble_norm": lambda: ka.assemble_norm(vec, vec, vec, 0.5),
@@ -1161,7 +1281,9 @@ def host_checks(dev) -> dict:
         "compose_mm_fwd": lambda: kc.compose_mm_fwd(mat, h, B, vec, 0.5),
         "compose_mm_bwd": lambda: kc.compose_mm_bwd(mat, B, vec, vec),
         "paged_gather": lambda: kp.paged_gather(pool, pages),
-        "selective_scan": lambda: ks.selective_scan(*scan)}
+        "selective_scan": lambda: ks.selective_scan(*scan),
+        "selective_scan_bwd": lambda: ks.selective_scan_bwd(
+            *scan[:5], scan_hc, scan[1])}
     with torch.no_grad():
         out = {name: host_us(fn) for name, fn in calls.items()}
         out["index_select (PyTorch op)"] = host_us(
@@ -3957,6 +4079,272 @@ def kernel_phase_vs(other: Path) -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# falcon-mamba-7b trained at full width and depth.
+# ---------------------------------------------------------------------------
+
+def _gb(nbytes) -> float:
+    return round(nbytes / 1e9, 2)
+
+
+def mamba_train_checks(dev) -> dict:
+    """MT1-MT2: falcon-mamba-7b (64 layers, d_inner 8192) trained with
+    r=384 DoRA on in_proj and out_proj through ``make_train_step``: batch
+    2 x seq 2048, loss on the last 1024 tokens, layer remat, AdamW.
+
+      MT1. auto mode in bf16, 3 steps, exact launch counts a step: K1 =
+           assembled = 128 (the norms, before the remat checkpoint), K6 =
+           256 (in_proj and out_proj, forward and recompute), K7 = 128, K9
+           = 128 with chunk states (forward and recompute), the scan's
+           backward = 64, nothing else; the memory reckoning printed
+           first; step ms, tokens/s, peak memory and one profiled step;
+      MT2. the same weights upcast to fp32 at MAMBA_AGREE_LAYERS layers:
+           kernel route (K6/K7, K9 with chunk states, the backward kernel)
+           against the eager route (autograd of the plain scan loop): loss
+           within 1e-5 relative, adapter-gradient cosine >= 0.99999."""
+    import dataclasses
+
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.core.config import DoRAConfig
+    from repro_torch.launch import serve
+    from repro_torch.launch.steps import StepConfig, make_grad_step
+
+    mcfg = get_config(MAMBA_ARCH)
+    L = mcfg.num_layers
+    auto = DoRAConfig(rank=RANK, alpha=ALPHA, mode="auto")
+    _empty_cache(dev)
+    params, adapters = serve.build_state(mcfg, auto, SEED, dev)
+    adapters = perturb_adapters(
+        adapters, torch.Generator(device=dev).manual_seed(SEED + 3))
+
+    def nbytes(tree):
+        return sum(t.numel() * t.element_size() for t in _leaves_sorted(tree))
+
+    # The reckoning: weights, the adapters and their gradient and two AdamW
+    # moments (fp32), the 64 layer inputs the remat keeps, and one layer's
+    # chunk states.
+    ad = nbytes(adapters)
+    ad32 = sum(t.numel() * 4 for t in _leaves_sorted(adapters))
+    states = (TRAIN_BATCH * -(-TRAIN_SEQ // 32) * mcfg.ssm_state
+              * mcfg.d_inner * 4)
+    reckoning = {"weights_gb": _gb(nbytes(params)), "adapters_gb": _gb(ad),
+                 "grads_gb": _gb(ad32), "adamw_gb": _gb(2 * ad32),
+                 "layer_inputs_gb": _gb(L * TRAIN_BATCH * TRAIN_SEQ
+                                        * mcfg.d_model * 2),
+                 "chunk_states_one_layer_gb": _gb(states)}
+    reckoning["total_gb"] = round(sum(reckoning.values()), 2)
+    print(f"mamba train memory reckoning ({MAMBA_ARCH}, {L} layers, r="
+          f"{RANK}): " + json.dumps(reckoning), flush=True)
+
+    batches = _train_batches(mcfg, TRAIN_STEPS)
+    mma0 = kernels.compose_mm_fwd.mma_launches
+    rec = _steps_on(dev, mcfg, params, adapters, auto, batches,
+                    "mamba auto")
+    check_k6_on_tensor_cores(mma0, rec["launches"], "train mamba")
+    want = counts_of(norm_terms=2 * L, assembled=2 * L,
+                     compose_mm_fwd=4 * L, compose_mm_bwd=2 * L,
+                     selective_scan=2 * L, selective_scan_bwd=L)
+    for i, got in enumerate(rec["launches_per_step"]):
+        check(got == want, f"train mamba step {i} launch counts {got}")
+    rec["reckoning"] = reckoning
+    rec["profile"] = _profile_step(dev, mcfg, params, adapters, auto,
+                                   batches[-1])
+
+    # --- MT2: kernel route vs eager route, fp32, MAMBA_AGREE_LAYERS ---
+    n = MAMBA_AGREE_LAYERS
+    mcfg32 = dataclasses.replace(mcfg, num_layers=n, dtype=torch.float32)
+    p32, a32 = _upcast_layers(params, n), _upcast_layers(adapters, n)
+    del params, adapters
+    _empty_cache(dev)
+    bt = {k: torch.as_tensor(v, device=dev) for k, v in batches[0].items()}
+    agree, grads = {}, {}
+    for name, dcfg in (("auto", auto),
+                       ("eager", dataclasses.replace(auto, mode="eager"))):
+        kernels.reset_launch_counts()
+        loss, g = make_grad_step(mcfg32, StepConfig(
+            dora=dcfg, loss_tokens=LOSS_TOKENS), batch=TRAIN_BATCH,
+            seq=TRAIN_SEQ)(p32, a32, bt)
+        grads[name] = torch.cat([t.flatten() for t in
+                                 _leaves_sorted(g)]).double()
+        agree[name] = {"loss": float(loss), "launches": launch_counts()}
+        del g
+    check(agree["auto"]["launches"] == counts_of(
+              norm_terms=2 * n, assembled=2 * n, compose_mm_fwd=4 * n,
+              compose_mm_bwd=2 * n, selective_scan=2 * n,
+              selective_scan_bwd=n)
+          and sum(agree["eager"]["launches"].values()) == 0,
+          f"fp32 mamba train routes launched {agree}")
+    rel = abs(agree["auto"]["loss"] / agree["eager"]["loss"] - 1)
+    cos = cosine(grads["auto"], grads["eager"])
+    agree["auto"].update(loss_rel_to_eager=rel, grad_cosine_to_eager=cos)
+    print(f"mamba train fp32 routes ({n} layers, kernel vs eager): "
+          + json.dumps(agree), flush=True)
+    check(rel <= 1e-5, f"fp32 mamba train loss differs from eager by {rel}")
+    check(cos >= GRAD_COSINE_MIN, f"fp32 mamba train gradient cosine {cos}")
+    del p32, a32, grads
+    _empty_cache(dev)
+    return {"train": rec, "fp32_routes": agree}
+
+
+# ---------------------------------------------------------------------------
+# The serve CLI's engine paths at qwen2-7b's full width and depth.
+# ---------------------------------------------------------------------------
+
+CLI_BATCH, CLI_PROMPT, CLI_GEN = 8, 1024, 16
+# The paged mode's block (and so prefill chunk) size: a divisor of max_len
+# 1040 near E1's chunk of 256, so a prompt takes 3-5 chunk steps.
+CLI_BLOCK = 208
+# Card memory the fleet mode leaves free beyond its reckoning: activations,
+# K/V caches, the allocator's slack.
+CLI_FLEET_HEADROOM = 20e9
+
+
+def cli_fleet_tenants(reckoning: dict, card_bytes: int) -> tuple[int, dict]:
+    """The number of --fleet tenants whose states fit: the CLI's cache has
+    no byte budget, so every tenant's raw tree and serving state stay on
+    the card beside the weights and the dynamic stack (FL2's measured
+    bytes)."""
+    per = reckoning["raw_per_tenant"] + reckoning["state_held"]
+    fixed = reckoning["weights"] + reckoning["stack"]
+    n = int((card_bytes - CLI_FLEET_HEADROOM - fixed) // per)
+    return n, {"weights_gb": _gb(reckoning["weights"]),
+               "per_tenant_gb": _gb(per), "stack_gb": _gb(reckoning["stack"]),
+               "tenants": n, "predicted_gb": _gb(fixed + n * per),
+               "card_gb": _gb(card_bytes)}
+
+
+def _run_cli(serve, argv: list) -> tuple[str, float, dict]:
+    """serve.main(argv) in this process: (its printed output, wall
+    seconds, the kernels it launched); the output is echoed."""
+    import contextlib
+    import io
+
+    from repro_torch import kernels
+
+    buf = io.StringIO()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        serve.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    out = buf.getvalue()
+    print(out, end="", flush=True)
+    return out, wall, launch_counts()
+
+
+def cli_checks(dev, fl2_reckoning: dict) -> dict:
+    """C1-C4: ``repro_torch.launch.serve.main`` at qwen2-7b's full width
+    and depth (bf16, r=384, each call its own random weights), --batch 8
+    slots, prompts of 512-1024, 16 new tokens:
+
+      C1. --continuous --paged (blocks and chunks of CLI_BLOCK): the pool
+          drains, every admission a chunked prefill; the streams against
+          the rectangular engine's (counted in bf16);
+      C2. --continuous --speculative 3 --trace-out x.jsonl --metrics-out
+          x.prom: both files parse, > 0 events and none dropped;
+      C3. --continuous --inject nan@3:1,slow@4 --deadline 40 --priority 1:
+          every request finishes once with a known reason, the slot table
+          drains (asserted by the CLI), a row quarantined, one slow tick;
+      C4. --fleet N, N from the memory reckoning printed first: one
+          dynamic decode signature, stack inserts counted, the static
+          engine's streams against the dynamic one's (counted in bf16).
+    Each: K1 = assembled = 196 a cache miss (a tenant's precompute) and
+    K8 only on the paged path; wall seconds and tokens/s as the CLI
+    prints them."""
+    from repro_torch.launch import serve
+    from repro_torch.obs import parse_prometheus
+
+    n_adapted = 7 * serve.get_config(ARCH).num_layers
+    base = ["--arch", ARCH, "--batch", str(CLI_BATCH), "--prompt-len",
+            str(CLI_PROMPT), "--gen-len", str(CLI_GEN), "--rank", str(RANK),
+            "--alpha", str(ALPHA), "--seed", str(SEED)]
+    out_dir = Path(__file__).resolve().parent / "build" / "cli_obs"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    jsonl, prom = out_dir / "trace.jsonl", out_dir / "metrics.prom"
+    for f in (jsonl, prom):
+        f.unlink(missing_ok=True)
+    tenants, reckoning = cli_fleet_tenants(
+        fl2_reckoning, torch.cuda.get_device_properties(dev).total_memory)
+    print("serve CLI --fleet memory reckoning: " + json.dumps(reckoning),
+          flush=True)
+    check(tenants >= 2, f"--fleet: no room for two tenants: {reckoning}")
+    modes = {
+        "paged": ["--continuous", "--paged", "--block-size", str(CLI_BLOCK)],
+        "speculative": ["--continuous", "--speculative", "3", "--trace-out",
+                        str(jsonl), "--metrics-out", str(prom)],
+        "faults": ["--continuous", "--inject", "nan@3:1,slow@4",
+                   "--deadline", "40", "--priority", "1"],
+        "fleet": ["--fleet", str(tenants)]}
+    res: dict = {"fleet_reckoning": reckoning}
+    for mode, flags in modes.items():
+        _empty_cache(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        print(f"serve CLI {mode}: {' '.join(flags)}", flush=True)
+        out, wall, launched = _run_cli(serve, base + flags)
+        first = next(ln for ln in out.splitlines()
+                     if ln.startswith(("continuous:", "fleet:")))
+        m = re.search(r"in ([0-9.]+) s \(([0-9.]+) tok/s", first)
+        equal = re.search(r"(\d+) of (\d+) streams equal", out)
+        res[mode] = {"wall_s": wall, "engine_s": float(m.group(1)),
+                     "tokens_per_s": float(m.group(2)),
+                     "max_memory_allocated_bytes":
+                         torch.cuda.max_memory_allocated(dev),
+                     "launches": launched,
+                     "streams_equal": (None if equal is None else
+                                       [int(equal.group(1)),
+                                        int(equal.group(2))])}
+        # One precompute a tenant the requests reach (its cache miss).
+        misses = (int(re.search(r"/ (\d+) misses", out).group(1))
+                  if mode == "fleet" else 1)
+        res[mode]["cache_misses"] = misses
+        check(launched["norm_terms"] == launched["assembled"]
+              == misses * n_adapted,
+              f"serve CLI {mode}: K1 launches {launched}")
+        check((launched["paged_gather"] > 0) == (mode == "paged"),
+              f"serve CLI {mode}: K8 launches {launched}")
+        check(all(launched[k] == 0 for k in (
+                  "assemble_norm", "compose_fwd_dual", "compose_bwd",
+                  "compose_mm_bwd", "selective_scan", "selective_scan_bwd")),
+              f"serve CLI {mode}: launches {launched}")
+        if mode == "paged":
+            check("(pool drained)" in out and "'prefill_into_slot': 0" in out
+                  and equal is not None, f"serve CLI paged: {out}")
+        elif mode == "speculative":
+            events = [json.loads(ln) for ln in jsonl.read_text().splitlines()]
+            metrics = parse_prometheus(prom.read_text())
+            res[mode].update(
+                events=len(events),
+                dropped=int(re.search(r"\((\d+) dropped\)", out).group(1)),
+                metrics=len(metrics),
+                generated_tokens=metrics[
+                    "repro_engine_generated_tokens_total"],
+                accepted_drafts=metrics["repro_engine_accepted_drafts_total"])
+            check(res[mode]["events"] > 0 and res[mode]["dropped"] == 0
+                  and res[mode]["generated_tokens"]
+                  == 2 * CLI_BATCH * CLI_GEN and equal is not None,
+                  f"serve CLI speculative: {res[mode]}")
+        elif mode == "faults":
+            line = next(ln for ln in out.splitlines()
+                        if "finish reasons" in ln)
+            res[mode]["finish_reasons"] = line.split("finish reasons ")[1]
+            counters = dict(re.findall(r"(\w+)=(\d+)", next(
+                ln for ln in out.splitlines() if "counters:" in ln)))
+            res[mode]["counters"] = {k: int(v) for k, v in counters.items()}
+            check(res[mode]["counters"]["quarantined"] >= 1
+                  and res[mode]["counters"]["slow_ticks"] == 1,
+                  f"serve CLI faults: {out}")
+        else:
+            check("one dynamic decode signature" in out and equal is not None,
+                  f"serve CLI fleet: {out}")
+        print(f"serve CLI {mode}: " + json.dumps(
+            {k: v for k, v in res[mode].items() if k != "launches"}),
+              flush=True)
+    _empty_cache(dev)
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -3992,10 +4380,15 @@ def main() -> int:
     check(len(k6_ptxas) == 1 and " 0 bytes spill stores" in k6_ptxas[0],
           f"compose_mm_fwd_mma_kernel's ptxas report: {k6_ptxas}")
     k9_ptxas = [ln for ln in ptxas if ln.startswith("selective_scan_kernel")]
-    check(len(k9_ptxas) == 3 and all(" 0 bytes spill stores" in ln
+    check(len(k9_ptxas) == 6 and all(" 0 bytes spill stores" in ln
                                      for ln in k9_ptxas),
-          f"selective_scan_kernel's ptxas report (one per lane count): "
-          f"{k9_ptxas}")
+          f"selective_scan_kernel's ptxas report (one per lane count, with "
+          f"and without chunk states): {k9_ptxas}")
+    bwd_ptxas = [ln for ln in ptxas if ln.startswith("selective_scan_bwd")]
+    check(len(bwd_ptxas) == 2 and all(" 0 bytes spill stores" in ln
+                                      for ln in bwd_ptxas),
+          f"selective_scan_bwd's ptxas report (the scan and its partial "
+          f"sum): {bwd_ptxas}")
 
     print("kernels vs plain versions:", flush=True)
     rows = kernel_checks(dev)
@@ -4035,8 +4428,15 @@ def main() -> int:
     parity = train_parity(dev)
     print(f"train phases: {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
+    cli = cli_checks(dev, fleet["fl2"]["reckoning"])
+    print(f"serve CLI phases: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
     mamba = mamba_checks(dev)
     print(f"mamba phases: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    mamba_train = mamba_train_checks(dev)
+    print(f"mamba train phases: {time.perf_counter() - t0:.1f} s",
+          flush=True)
     t0 = time.perf_counter()
     vl = vl_checks(dev)
     print(f"{VL_ARCH} phases: {time.perf_counter() - t0:.1f} s", flush=True)
@@ -4054,6 +4454,9 @@ def main() -> int:
                "engine_fleet_dynamic": fleet["fl2"]["dynamic"]["launches"],
                "engine_fleet_static": fleet["fl2"]["static"]["launches"],
                "serve_mamba": mamba["serve_mamba"]["launches"],
+               "train_mamba": mamba_train["train"]["launches"],
+               **{f"serve_cli_{m}": cli[m]["launches"]
+                  for m in ("paged", "speculative", "faults", "fleet")},
                "train_vl": vl["train"]["launches"],
                "serve_vl": vl["serve"]["launches"],
                **{f"serve_{a}": r["launches"] for a, r in archs.items()}}
@@ -4094,8 +4497,13 @@ def main() -> int:
                 "index_select_host_us": host["index_select (PyTorch op)"]}
                if name == "paged_gather" else {}),
             **({k: top[k] for k in ("device_ms", "lanes", "lane_sweep_ms",
-                                    "deterministic")}
-               if name == "selective_scan" else {})})
+                                    "deterministic", "train_shape",
+                                    "chunk_states_ms",
+                                    "without_states_ms_train_shape")}
+               if name == "selective_scan" else {}),
+            **({k: top[k] for k in ("device_ms", "deterministic", "errors",
+                                    "chunk_states_forward")}
+               if name == "selective_scan_bwd" else {})})
     train_summary = {
         k: {f: trained[k][f] for f in ("step_ms", "grad_ms", "optim_ms",
                                        "tokens_per_s",
@@ -4114,7 +4522,8 @@ def main() -> int:
         "fleet": fleet,
         "train": {k: trained[k] for k in ("train_auto", "train_elementwise",
                                           "fp32_agreement")},
-        "train_parity": parity, "mamba": mamba, "vl": vl, "archs": archs},
+        "train_parity": parity, "mamba": mamba, "mamba_train": mamba_train,
+        "serve_cli": cli, "vl": vl, "archs": archs},
         indent=1))
     print(f"details: {detail.relative_to(root)}")
     print(smi)
@@ -4151,6 +4560,20 @@ def main() -> int:
                          "e1_decode_ms": fleet["fl2"]["e1"]["decode_ms"]},
                       "mamba": {k: v for k, v in mamba["serve_mamba"].items()
                                 if not k.endswith("_profile")},
+                      "mamba_train": {
+                          **{f: mamba_train["train"][f] for f in (
+                              "step_ms", "tokens_per_s",
+                              "max_memory_allocated_bytes")},
+                          "device_idle_share": mamba_train["train"][
+                              "profile"].get("device_idle_share"),
+                          "fp32_routes": {
+                              k: mamba_train["fp32_routes"]["auto"][k]
+                              for k in ("loss_rel_to_eager",
+                                        "grad_cosine_to_eager")}},
+                      "serve_cli": {m: {k: v for k, v in r.items()
+                                        if k != "launches"}
+                                    for m, r in cli.items()
+                                    if m != "fleet_reckoning"},
                       "vl": {"train": {f: vl["train"][f] for f in (
                           "step_ms", "tokens_per_s",
                           "max_memory_allocated_bytes")},

@@ -19,13 +19,16 @@ from repro_torch.kernels.norm_assembly import assemble_norm
 from repro_torch.kernels import paged_gather as _paged
 from repro_torch.kernels import selective_scan as _scan
 
-# name → wrapper, in the order of the TPU kernel table (K1–K9).
+# name → wrapper, in the order of the TPU kernel table (K1–K9), then the
+# scan's backward, which has no TPU counterpart (the reference
+# differentiates its XLA scan).
 KERNELS = {"norm_terms": norm_terms, "assemble_norm": assemble_norm,
            "compose_fwd": compose_fwd, "compose_fwd_dual": compose_fwd_dual,
            "compose_bwd": compose_bwd, "compose_mm_fwd": compose_mm_fwd,
            "compose_mm_bwd": compose_mm_bwd,
            "paged_gather": _paged.paged_gather,
-           "selective_scan": _scan.selective_scan}
+           "selective_scan": _scan.selective_scan,
+           "selective_scan_bwd": _scan.selective_scan_bwd}
 
 
 def launch_counts() -> dict[str, int]:

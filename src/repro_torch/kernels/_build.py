@@ -57,8 +57,10 @@ _SIGNATURES = {
     "compose_mm_bwd": ((_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
                        _I),
     "paged_gather": ((_P, _P, _P, _L, _L, _L, _P), _I),
-    "selective_scan": ((_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                        _P), _I),
+    "selective_scan": ((_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                        _I, _I, _P), _I),
+    "selective_scan_bwd": ((_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                            _P, _I, _I, _I, _I, _I, _P), _I),
     "runtime_error_string": ((_I,), ctypes.c_char_p),
 }
 

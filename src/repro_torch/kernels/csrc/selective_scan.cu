@@ -55,6 +55,13 @@
 // 16-byte aligned, the same pipeline copies 4 bytes at a time. nvcc
 // contracts a*h + b into one FMA, so results differ from the plain
 // version by rounding, not bitwise.
+//
+// Training forward: given hc, the kernel also writes the state at every
+// boundary of tc steps (tc a multiple of kChunk), hc [B, ceil(S / tc), n,
+// di] with hc[:, k] = h before step k * tc (hc[:, 0] = h0): where the
+// backward (selective_scan_bwd.cu) restarts its recompute. That is a
+// separate instantiation (kStates), so the serving kernel, without hc, is
+// compiled and computes exactly as before.
 #include "common.cuh"
 #include "wgmma.cuh"
 
@@ -85,8 +92,10 @@ struct Plan {
       4 * (kStages * kStage + 2 * kChunk * kYRow);
   // Blocks an SM holds: one wave at the prefill shape for L <= 2. At L = 4
   // a wave needs 8, but 8 or 7 cap a thread at 64 or 72 registers, and
-  // the kernel spills at both; 6 leave it 85.
+  // the kernel spills at both; 6 leave it 85. The training forward's
+  // chunk-state stores spill at 85 (measured on the H100): 5, 102.
   static constexpr int kMinBlocks = L == 4 ? 6 : 2 * L;
+  static constexpr int kMinBlocksStates = L == 4 ? 5 : kMinBlocks;
 };
 
 // Copy 4 bytes from global to shared memory asynchronously; with `valid`
@@ -249,8 +258,10 @@ __device__ __forceinline__ void store_y(const float* s_y,
   }
 }
 
-template <int L>
-__global__ void __launch_bounds__(kThreads, Plan<L>::kMinBlocks)
+template <int L, bool kStates>
+__global__ void __launch_bounds__(kThreads, kStates
+                                                ? Plan<L>::kMinBlocksStates
+                                                : Plan<L>::kMinBlocks)
 selective_scan_kernel(const float* __restrict__ dt,
                       const float* __restrict__ dtx,
                       const float* __restrict__ bm,
@@ -258,6 +269,7 @@ selective_scan_kernel(const float* __restrict__ dt,
                       const float* __restrict__ a_t,
                       const float* __restrict__ h0_t,
                       float* __restrict__ y, float* __restrict__ h_f,
+                      float* __restrict__ hc, int per_state,
                       int seq, int di, int n, bool vec_dt, bool vec_bc) {
   using P = Plan<L>;
   constexpr int kS = P::kS;
@@ -309,6 +321,17 @@ selective_scan_kernel(const float* __restrict__ dt,
       load_chunk<P>(smem + (next % kStages) * P::kStage, dt, dtx, bm, cm, b,
                     next * kChunk, seq, di, d0, n, vec_dt, vec_bc);
     cp_async_commit();
+    if (kStates && k % per_state == 0) {
+      // h before chunk k, which starts a stretch of per_state chunks: one
+      // of hc's boundaries.
+      const long long slot =
+          b * ((chunks + per_state - 1) / per_state) + k / per_state;
+#pragma unroll
+      for (int j = 0; j < kS; ++j) {
+        const int i = g * kS + j;
+        if (live && i < n) hc[(slot * n + i) * di + d] = h[j];
+      }
+    }
     const float* st = smem + (k % kStages) * P::kStage;
     float* s_y = s_y0 + (k & 1) * kChunk * P::kYRow;
     const int len = min(kChunk, seq - k * kChunk);
@@ -334,34 +357,49 @@ bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
-template <int L>
-int launch(const float* dt, const float* dtx, const float* bm,
-           const float* cm, const float* a_t, const float* h0_t, float* y,
-           float* h_f, int batch, int seq, int di, int n,
-           cudaStream_t stream) {
+template <int L, bool kStates>
+int launch_as(const float* dt, const float* dtx, const float* bm,
+              const float* cm, const float* a_t, const float* h0_t, float* y,
+              float* h_f, float* hc, int per_state, int batch, int seq,
+              int di, int n, cudaStream_t stream) {
   using P = Plan<L>;
   const cudaError_t attr = cudaFuncSetAttribute(
-      selective_scan_kernel<L>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      P::kSmemBytes);
+      selective_scan_kernel<L, kStates>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, P::kSmemBytes);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const bool vec_dt = di % 4 == 0 && aligned16(dt) && aligned16(dtx) &&
                       aligned16(y);
   const bool vec_bc = n % 4 == 0 && aligned16(bm) && aligned16(cm);
   const dim3 grid((di + P::kC - 1) / P::kC, batch);
-  selective_scan_kernel<L><<<grid, kThreads, P::kSmemBytes, stream>>>(
-      dt, dtx, bm, cm, a_t, h0_t, y, h_f, seq, di, n, vec_dt, vec_bc);
+  selective_scan_kernel<L, kStates>
+      <<<grid, kThreads, P::kSmemBytes, stream>>>(
+          dt, dtx, bm, cm, a_t, h0_t, y, h_f, hc, per_state, seq, di, n,
+          vec_dt, vec_bc);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int L>
+int launch(const float* dt, const float* dtx, const float* bm,
+           const float* cm, const float* a_t, const float* h0_t, float* y,
+           float* h_f, float* hc, int per_state, int batch, int seq, int di,
+           int n, cudaStream_t stream) {
+  return hc == nullptr
+             ? launch_as<L, false>(dt, dtx, bm, cm, a_t, h0_t, y, h_f, hc,
+                                   per_state, batch, seq, di, n, stream)
+             : launch_as<L, true>(dt, dtx, bm, cm, a_t, h0_t, y, h_f, hc,
+                                  per_state, batch, seq, di, n, stream);
 }
 
 }  // namespace
 
 extern "C" int selective_scan(const void* dt, const void* dtx, const void* bm,
                               const void* cm, const void* a_t,
-                              const void* h0_t, void* y, void* h_f, int batch,
-                              int seq, int di, int n, int lanes,
-                              void* stream) {
+                              const void* h0_t, void* y, void* h_f, void* hc,
+                              int tc, int batch, int seq, int di, int n,
+                              int lanes, void* stream) {
   if (batch <= 0 || di <= 0) return 0;
-  if (n < 1 || n > kMaxState || batch > 65535 || seq < 0)
+  if (n < 1 || n > kMaxState || batch > 65535 || seq < 0 ||
+      (hc != nullptr && (tc < kChunk || tc % kChunk != 0)))
     return static_cast<int>(cudaErrorInvalidValue);
   const auto* f_dt = static_cast<const float*>(dt);
   const auto* f_dtx = static_cast<const float*>(dtx);
@@ -371,17 +409,19 @@ extern "C" int selective_scan(const void* dt, const void* dtx, const void* bm,
   const auto* f_h0 = static_cast<const float*>(h0_t);
   auto* f_y = static_cast<float*>(y);
   auto* f_hf = static_cast<float*>(h_f);
+  auto* f_hc = static_cast<float*>(hc);
+  const int per = hc != nullptr ? tc / kChunk : 1;
   auto s = static_cast<cudaStream_t>(stream);
   switch (lanes) {
     case 1:
-      return launch<1>(f_dt, f_dtx, f_bm, f_cm, f_a, f_h0, f_y, f_hf, batch,
-                       seq, di, n, s);
+      return launch<1>(f_dt, f_dtx, f_bm, f_cm, f_a, f_h0, f_y, f_hf, f_hc,
+                       per, batch, seq, di, n, s);
     case 2:
-      return launch<2>(f_dt, f_dtx, f_bm, f_cm, f_a, f_h0, f_y, f_hf, batch,
-                       seq, di, n, s);
+      return launch<2>(f_dt, f_dtx, f_bm, f_cm, f_a, f_h0, f_y, f_hf, f_hc,
+                       per, batch, seq, di, n, s);
     case 4:
-      return launch<4>(f_dt, f_dtx, f_bm, f_cm, f_a, f_h0, f_y, f_hf, batch,
-                       seq, di, n, s);
+      return launch<4>(f_dt, f_dtx, f_bm, f_cm, f_a, f_h0, f_y, f_hf, f_hc,
+                       per, batch, seq, di, n, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -12,6 +12,9 @@
     h = x·Aᵀ. Forward K6; backward K7 for d_base and d_h, then the cross
     product T = dYᵀ·h in fp32 (a plain matmul, as the reference leaves it
     outside its kernels) for d_B and the lora half of d_g.
+  - :func:`scan_fn`: a ``torch.autograd.Function`` on the Mamba-1 scan.
+    Forward K9 with its chunk states; backward the scan's backward kernel
+    (``selective_scan_bwd``) for d_dt, d_dtx, d_B and d_C.
 
 The kernels mask their ragged edges, so nothing is padded here. dY from
 autograd may be non-contiguous; it is made contiguous before a launch.
@@ -27,6 +30,8 @@ from repro_torch.kernels.dora_compose import (compose_bwd, compose_fwd,
                                               compose_fwd_dual,
                                               compose_mm_bwd, compose_mm_fwd)
 from repro_torch.kernels.factored_norm import Assembly, norm_terms
+from repro_torch.kernels.selective_scan import (selective_scan,
+                                                selective_scan_bwd)
 
 _F32 = torch.float32
 
@@ -134,6 +139,45 @@ def fused_compose_mm(base, h, B, g, s: float, *, mag_grad: bool = True):
         raise ValueError(f"base leading dims {tuple(base.shape[:-1])} != "
                          f"h leading dims {tuple(h.shape[:-1])}")
     return _ComposeMM.apply(base, h, B, g, float(s), bool(mag_grad))
+
+
+class _Scan(torch.autograd.Function):
+    """(y, h_f) of the selective scan; the gradients of dt, dtx, Bm and
+    Cm. The reference differentiates only those: it wraps A_log in
+    ``stop_gradient`` and starts training from h0 = 0, and its final state
+    feeds no loss, so h_f is marked non-differentiable. The residuals are
+    the inputs and K9's chunk states, [B, ceil(S / 32), n, di] fp32; under
+    layer remat they live for one layer at a time."""
+
+    @staticmethod
+    def forward(ctx, dt, dtx, Bm, Cm, A_t, h0_t):
+        y, h_f, hc = selective_scan(dt, dtx, Bm, Cm, A_t, h0_t,
+                                    chunk_states=True)
+        ctx.save_for_backward(dt, dtx, Bm, Cm, A_t, hc)
+        ctx.mark_non_differentiable(h_f)
+        return y, h_f
+
+    @staticmethod
+    def backward(ctx, dy, _dh_f):
+        dt, dtx, Bm, Cm, A_t, hc = ctx.saved_tensors
+        d_dt, d_dtx, d_B, d_C = selective_scan_bwd(dt, dtx, Bm, Cm, A_t, hc,
+                                                   dy.contiguous())
+        return d_dt, d_dtx, d_B, d_C, None, None
+
+
+def scan_fn(dt, dtx, Bm, Cm, A_t, h0_t):
+    """The selective scan in K9's layout (``kernels/selective_scan.py``)
+    under autograd: forward K9 with chunk states, backward its backward
+    kernel (their plain versions on CPU tensors). A_t and h0_t take no
+    gradient, as in the reference; one that requires it is refused."""
+    for name, t in (("A_t", A_t), ("h0_t", h0_t)):
+        if t.requires_grad:
+            raise ValueError(
+                f"scan_fn: {name} requires grad, but the scan has no "
+                f"gradient for it: the reference wraps A_log in "
+                f"jax.lax.stop_gradient and trains from h0 = 0 "
+                f"(repro/models/mamba.py) — detach it")
+    return _Scan.apply(dt, dtx, Bm, Cm, A_t, h0_t)
 
 
 @torch.no_grad()

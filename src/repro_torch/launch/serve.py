@@ -11,6 +11,15 @@ Runs on the card unless the CPU is asked for explicitly::
         --smoke --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-7b \\
         --smoke --device cpu --continuous --paged
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-7b \\
+        --batch 8 --prompt-len 1024 --gen-len 16 --rank 384 --alpha 192 \\
+        --continuous --speculative 3 --trace-out trace.jsonl \\
+        --metrics-out metrics.prom
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-7b \\
+        --smoke --device cpu --continuous --inject nan@3:1,slow@4 \\
+        --deadline 40 --priority 1
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-7b \\
+        --smoke --device cpu --fleet 4
     PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon-mamba-7b \\
         --batch 4 --prompt-len 960 --gen-len 32 --rank 384 --alpha 192
     PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon-mamba-7b \\
@@ -31,9 +40,27 @@ musicgen-medium and qwen2-vl-72b. The prompts are token ids, for the
 frontend archs too (their frontends are stubs; precomputed embeddings go
 through ``launch/steps.py``'s prefill and decode steps).
 
-``--continuous`` serves 2 x ``--batch`` mixed-length requests through the
-continuous-batching engine (``--batch`` slots; ``launch/engine.py``),
-``--paged`` with its block-paged K/V cache and chunked prefill.
+``--continuous`` serves 2 x ``--batch`` mixed-length requests for one
+registered tenant through :class:`EngineServer` (``--batch`` slots of the
+continuous-batching engine, ``launch/engine.py``, over an adapter-state
+cache): ``--paged`` with its block-paged K/V cache and chunked prefill,
+``--speculative K`` drafting K base-model tokens a tick, ``--inject``
+a fault plan, ``--deadline N`` and ``--priority N``. ``--fleet N``
+serves ``max(2 x --batch, N)`` requests over N tenants through the
+dynamic-grouping engine, then the static one. ``--trace-out`` and
+``--metrics-out`` write the traced engine's lifecycle (JSONL or Chrome
+trace) and metrics (Prometheus text).
+
+The CLI's oracles: the paged, fleet and speculative runs are each served
+again by their plain counterpart (a rectangular, a static-grouping, a
+non-speculative engine) and their greedy streams compared. In fp32 (the
+``--smoke`` configs) the streams must be equal and the CLI asserts it. In
+bf16 the two engines round differently (chunked prefill against one
+prefill, per-group against all-tenant products, a verify window against a
+decode step), so random-weight streams part after a few tokens (on an
+H100 at qwen2-7b's full width, 3 of 24 streams of 64 tokens stayed equal
+across the fleet groupings and 1 of 24 with speculation): the CLI prints
+how many of the streams are equal.
 
 ``--tenants N`` registers N adapter sets with an :class:`~repro_torch.
 core.adapter_cache.AdapterStateCache` and serves ``--batch`` requests
@@ -50,6 +77,8 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
+import time
 from collections import OrderedDict
 from typing import Any, Sequence
 
@@ -329,19 +358,16 @@ class MultiTenantServer:
                                temperature=temperature, seed=seed,
                                allow_miss=allow_miss,
                                speculative_k=speculative_k)
-        checked = [eng.check_request(p, adapter=self._resolve(r),
-                                     max_new_tokens=gen_len)
-                   for r, p in zip(requests, prompts)]
-        rids = [eng.submit(p, adapter=h, max_new_tokens=gen_len, key_id=i)
-                for i, (p, h) in enumerate(checked)]
-        results = {res.request_id: res for res in eng.run()}
-        for rid in rids:
-            if results[rid].finish_reason == "error":
+        results = _serve_on_engine(
+            eng, [(p, self._resolve(r)) for r, p in zip(requests, prompts)],
+            gen_len=gen_len)
+        for res in results:
+            if res.finish_reason == "error":
                 # A late resolution failed at admission: the engine has
                 # already dropped the request, so it is not wedged.
-                raise results[rid].error
-        return [np.concatenate([p, results[rid].tokens])
-                for p, rid in zip(prompts, rids)]
+                raise res.error
+        return [np.concatenate([p, res.tokens])
+                for p, res in zip(prompts, results)]
 
     def serve(self, requests: Sequence[Request], *, gen_len: int,
               max_len: int, temperature: float = 0.0, seed: int = 0,
@@ -452,6 +478,143 @@ class MultiTenantServer:
         return tokens
 
 
+# ---------------------------------------------------------------------------
+# Continuous-batching server (slot-scheduled; see repro_torch.launch.engine).
+# ---------------------------------------------------------------------------
+
+class EngineServer:
+    """Request-routed continuous serving over one persistent
+    :class:`~repro_torch.launch.engine.DecodeEngine` (counterpart of the
+    reference's ``EngineServer``).
+
+    Where :class:`MultiTenantServer` serves one static batch at a time,
+    ``EngineServer`` keeps a slot table of ``slots`` decode rows alive
+    across calls: ``run(requests)`` queues the requests (any mix of prompt
+    lengths and adapters) and drives the engine until they drain. Requests
+    join the running batch through per-row prefill, retire one by one on
+    EOS, token budget or ``max_len``, and the freed rows admit whatever
+    waits. Per-slot adapter handles resolve through ``cache``, the same
+    :class:`AdapterStateCache` LRU as the static server.
+
+    The keywords are the engine's. ``device``: None is the card, which
+    must be present; ``"cpu"`` is the explicit CPU request; ``params``
+    must live there. ``mesh`` is refused: the port serves on one card.
+    """
+
+    def __init__(self, mcfg, scfg: StepConfig, params, *,
+                 cache: AdapterStateCache, slots: int, max_len: int,
+                 mesh=None, temperature: float = 0.0, seed: int = 0,
+                 allow_miss: bool = True, speculative_k: int = 0,
+                 fault_plan=None, spec_accept_floor: float = 0.0,
+                 paged: bool = False, block_size: int | None = None,
+                 n_blocks: int | None = None,
+                 prefill_chunk: int | None = None,
+                 dynamic_grouping: bool = False,
+                 max_active_per_adapter: int | None = None,
+                 trace=None, device=None):
+        from repro_torch.launch.engine import DecodeEngine
+        mesh_fingerprint(mesh)           # refuses a mesh: one card
+        _check_cache_mesh(cache, mesh)
+        self.cache = cache
+        self.engine = DecodeEngine(
+            mcfg, scfg, params, slots=slots, max_len=max_len,
+            adapter_cache=cache, temperature=temperature, seed=seed,
+            allow_miss=allow_miss, speculative_k=speculative_k,
+            fault_plan=fault_plan, spec_accept_floor=spec_accept_floor,
+            paged=paged, block_size=block_size, n_blocks=n_blocks,
+            prefill_chunk=prefill_chunk, dynamic_grouping=dynamic_grouping,
+            max_active_per_adapter=max_active_per_adapter, trace=trace,
+            device=device)
+
+    def run(self, requests: Sequence[Request], *, gen_len: int,
+            eos_id: int | None = None, on_token=None,
+            speculative_k: int | None = None, deadline_ticks=None,
+            priority=0):
+        """Serve ``requests`` to completion through the slot table; returns
+        a list of :class:`~repro_torch.launch.engine.RequestResult` in
+        request order (``result.tokens`` holds the generated tokens,
+        possibly fewer than ``gen_len`` on EOS or ``max_len``;
+        ``finish_reason == "error"`` with ``result.error`` set when a
+        request's adapter failed to resolve at admission, while the other
+        requests still serve). ``on_token(request_id, token)`` streams
+        tokens as they are sampled. The engine (``self.engine``) persists
+        across calls, so its counters accumulate; sampling streams are
+        keyed by each request's index within THIS call, so a repeated call
+        at ``temperature > 0`` reproduces its tokens.
+        ``speculative_k``: the engine's draft window for this call and
+        later ones (0 = plain decode; None keeps the current one).
+        ``deadline_ticks`` / ``priority``: one scalar for every request,
+        or one entry a request (see ``DecodeEngine.submit``).
+
+        Submission is all-or-nothing: every request is checked before the
+        first is queued, so a bad one fails the call with nothing left in
+        the persistent queue."""
+        if not requests:
+            raise ValueError("empty request batch")
+
+        def per_request(v, name):
+            if v is None or isinstance(v, (int, np.integer)):
+                return [v] * len(requests)
+            v = list(v)
+            if len(v) != len(requests):
+                raise ValueError(f"{name} has {len(v)} entries for "
+                                 f"{len(requests)} requests")
+            return v
+
+        deadlines = per_request(deadline_ticks, "deadline_ticks")
+        priorities = per_request(priority, "priority")
+        if speculative_k is not None:
+            if speculative_k < 0:
+                raise ValueError(f"speculative_k={speculative_k} < 0")
+            self.engine.speculative_k = int(speculative_k)
+        return _serve_on_engine(
+            self.engine, [(r.prompt, r.adapter) for r in requests],
+            gen_len=gen_len, eos_id=eos_id, on_token=on_token,
+            priorities=priorities, deadlines=deadlines)
+
+
+def _serve_on_engine(engine, requests, *, gen_len: int, eos_id=None,
+                     on_token=None, priorities=None, deadlines=None):
+    """Submit (prompt, adapter) pairs to ``engine`` all or nothing (every
+    one checked before the first is queued, so a bad one fails the call
+    without stranding others in a persistent engine), drive it until they
+    drain, and return their results in request order. Sampling streams
+    are keyed by each request's index in the call."""
+    n = len(requests)
+    priorities = priorities or [0] * n
+    deadlines = deadlines or [None] * n
+    checked = [engine.check_request(p, adapter=a, max_new_tokens=gen_len)
+               for p, a in requests]
+    rids = [engine.submit(p, adapter=h, max_new_tokens=gen_len,
+                          eos_id=eos_id, key_id=i,
+                          priority=int(priorities[i] or 0),
+                          deadline_ticks=deadlines[i])
+            for i, (p, h) in enumerate(checked)]
+    results = {res.request_id: res for res in engine.run(on_token)}
+    return [results[rid] for rid in rids]
+
+
+def _dump_obs(trace, engine, args) -> None:
+    """Write what the CLI was asked for: ``--trace-out`` (JSONL when the
+    path ends in .jsonl, else a Chrome trace) and ``--metrics-out``
+    (Prometheus text, with the trace's latency histograms)."""
+    from repro_torch.obs import engine_metrics
+
+    if args.trace_out:
+        if args.trace_out.endswith(".jsonl"):
+            trace.to_jsonl(args.trace_out)
+            kind = "jsonl"
+        else:
+            trace.to_chrome_trace(args.trace_out)
+            kind = "chrome-trace"
+        print(f"  obs: {len(trace)} events ({trace.dropped} dropped) -> "
+              f"{args.trace_out} ({kind})")
+    if args.metrics_out:
+        engine_metrics(engine, trace).to_prometheus(args.metrics_out)
+        print(f"  obs: metrics snapshot -> {args.metrics_out} "
+              f"(prometheus text)")
+
+
 def build_state(mcfg, dcfg: DoRAConfig, seed: int, device):
     """Random params and DoRA-initialized adapters from ``seed``, drawn on
     ``device``."""
@@ -478,32 +641,59 @@ def main(argv: Sequence[str] | None = None) -> None:
     ap.add_argument("--no-adapter-cache", action="store_true",
                     help="skip the frozen-adapter precompute (recompute the "
                          "factored norm every step)")
-    ap.add_argument("--continuous", action="store_true",
-                    help="continuous-batching demo: 2x--batch MIXED-length "
-                         "requests through the slot-scheduled engine "
-                         "(--batch slots; requests join/leave mid-decode)")
-    ap.add_argument("--paged", action="store_true",
-                    help="with --continuous: block-paged K/V cache + "
-                         "chunked prefill; asserts the block pool drains")
-    ap.add_argument("--block-size", type=int, default=0, metavar="B",
-                    help="with --paged: K/V block size (0 = auto: the "
-                         "largest divisor of max_len up to 16)")
     ap.add_argument("--tenants", type=int, default=1, metavar="N",
                     help="multi-tenant demo: N adapter sets, --batch "
                          "requests each, served in ONE batch through "
                          "MultiTenantServer")
+    ap.add_argument("--continuous", action="store_true",
+                    help="continuous-batching demo: 2x--batch MIXED-length "
+                         "requests of one registered tenant through "
+                         "EngineServer (--batch slots; requests join and "
+                         "leave mid-decode)")
+    ap.add_argument("--speculative", type=int, default=0, metavar="K",
+                    help="with --continuous: draft K base-model tokens a "
+                         "tick and verify them in one adapted window; the "
+                         "greedy streams are compared with a plain "
+                         "engine's (asserted equal in fp32, counted in "
+                         "bf16)")
+    ap.add_argument("--inject", default="", metavar="SPEC",
+                    help="with --continuous: a fault plan, e.g. 'nan@3' or "
+                         "'nan@3:1,evict@5,stale@2,slow@4' (see "
+                         "repro_torch.launch.faults.FaultPlan.parse); "
+                         "asserts every request finishes once with a known "
+                         "reason and the slot table drains")
+    ap.add_argument("--deadline", type=int, default=0, metavar="N",
+                    help="with --continuous: every request expires N engine "
+                         "ticks after submission (finish_reason "
+                         "'timeout')")
+    ap.add_argument("--priority", type=int, default=0, metavar="N",
+                    help="with --continuous: submit the LAST request at "
+                         "priority N, so it admits ahead of the queue")
+    ap.add_argument("--paged", action="store_true",
+                    help="with --continuous: block-paged K/V cache and "
+                         "chunked prefill; asserts the block pool drains "
+                         "and compares the greedy streams with a "
+                         "rectangular engine's (asserted equal in fp32, "
+                         "counted in bf16)")
+    ap.add_argument("--block-size", type=int, default=0, metavar="B",
+                    help="with --paged: K/V block size (0 = auto: the "
+                         "largest divisor of max_len up to 16)")
+    ap.add_argument("--fleet", type=int, default=0, metavar="N",
+                    help="fleet demo: N tenants over --batch slots through "
+                         "the traced dynamic-grouping engine (one decode "
+                         "signature), then the static one; the greedy "
+                         "streams are compared (asserted equal in fp32, "
+                         "counted in bf16)")
+    ap.add_argument("--trace-out", default="", metavar="PATH",
+                    help="with --continuous/--fleet: record the request "
+                         "lifecycle and write it here, JSONL when PATH ends "
+                         "in .jsonl, else a Chrome trace")
+    ap.add_argument("--metrics-out", default="", metavar="PATH",
+                    help="with --continuous/--fleet: write the engine's "
+                         "metrics here as Prometheus text")
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default; raises without a card) or 'cpu'")
-    for flag in ("--speculative", "--inject", "--deadline"):
-        ap.add_argument(flag, default=None, help="not ported yet: comes "
-                        "with the cache-routed EngineServer CLI (ROADMAP "
-                        "queue 1 item 4.5)")
     args = ap.parse_args(argv)
-    for flag in ("speculative", "inject", "deadline"):
-        if getattr(args, flag) is not None:
-            raise NotImplementedError(
-                f"serve --{flag} is not ported yet: it comes with the "
-                f"cache-routed EngineServer CLI (ROADMAP queue 1 item 4.5)")
 
     dev = resolve_device(args.device)
     mcfg = get_config(args.arch, smoke=args.smoke)
@@ -513,9 +703,11 @@ def main(argv: Sequence[str] | None = None) -> None:
     rng = np.random.default_rng(args.seed)
     where = (probes.device_name(dev.index or 0) if dev.type == "cuda"
              else "cpu")
+    if args.fleet > 1:
+        _serve_fleet(args, mcfg, scfg, params, rng, dev, where)
+        return
     if args.continuous:
-        _serve_continuous(args, mcfg, scfg, params, adapters, rng, dev,
-                          where)
+        _serve_engine(args, mcfg, scfg, params, rng, dev, where)
         return
     if args.tenants > 1:
         _serve_tenants(args, mcfg, scfg, params, rng, dev, where)
@@ -537,20 +729,208 @@ def main(argv: Sequence[str] | None = None) -> None:
         print(f"  seq{b}: ...{toks[b, args.prompt_len - 4:].tolist()}")
 
 
+def _tenant_cache(args, mcfg, scfg, params, dev, tenants: int,
+                  first_seed: int) -> AdapterStateCache:
+    """A serving cache with ``tenants`` adapter sets registered as
+    tenant-0, tenant-1, ..., each a fresh DoRA init from its own seed."""
+    cache = AdapterStateCache.for_serving(mcfg, scfg, device=dev)
+    for t in range(tenants):
+        gen = torch.Generator(device=dev).manual_seed(first_seed + t)
+        cache.register(f"tenant-{t}",
+                       init_adapters(gen, mcfg, params, scfg.dora))
+    return cache
+
+
+def _mixed_requests(args, mcfg, rng, n_req: int, tenant) -> list:
+    """``n_req`` requests with prompt lengths drawn from [prompt_len // 2,
+    prompt_len]; ``tenant()`` names each one's adapter."""
+    return [Request(rng.integers(
+        0, mcfg.vocab_size,
+        int(rng.integers(args.prompt_len // 2, args.prompt_len + 1)),
+        dtype=np.int32), tenant()) for _ in range(n_req)]
+
+
+def _timed_run(server: EngineServer, requests, **kw):
+    """(results, wall seconds) of ``server.run``, ended by a device
+    synchronisation."""
+    t0 = time.perf_counter()
+    results = server.run(requests, **kw)
+    if server.engine.device.type == "cuda":
+        torch.cuda.synchronize(server.engine.device)
+    return results, time.perf_counter() - t0
+
+
+def _streams_oracle(label: str, results, base, mcfg) -> None:
+    """Compare the greedy streams of a run with its plain counterpart's:
+    equal in fp32 (asserted); in bf16 the two round differently, so the
+    number of equal streams is printed."""
+    same = [r.tokens.tolist() == b.tokens.tolist()
+            for r, b in zip(results, base)]
+    if mcfg.dtype == torch.float32:
+        for r, b, eq in zip(results, base, same):
+            assert eq, (label, r.request_id, r.tokens, b.tokens)
+        print(f"  {label}: greedy streams equal (oracle OK, fp32)")
+    else:
+        print(f"  {label}: {sum(same)} of {len(same)} streams equal "
+              f"({mcfg.dtype}: not asserted)")
+
+
+def _serve_fleet(args, mcfg, scfg, params, rng, dev, where) -> None:
+    """``--fleet N``: ``max(2 x --batch, N)`` mixed-length requests over N
+    tenants through the traced dynamic-grouping engine, then the same
+    requests through a static-grouping engine as the oracle."""
+    from repro_torch.obs import TraceRecorder
+
+    cache = _tenant_cache(args, mcfg, scfg, params, dev, args.fleet,
+                          args.seed + 1)
+    n_req = max(2 * args.batch, args.fleet)
+    requests = _mixed_requests(
+        args, mcfg, rng, n_req,
+        lambda: f"tenant-{int(rng.integers(args.fleet))}")
+    max_len = args.prompt_len + args.gen_len
+    trace = TraceRecorder() if args.trace_out or args.metrics_out else None
+    dyn = EngineServer(mcfg, scfg, params, cache=cache, slots=args.batch,
+                       max_len=max_len, temperature=args.temperature,
+                       seed=args.seed, dynamic_grouping=True, trace=trace,
+                       device=dev)
+    results, dt = _timed_run(dyn, requests, gen_len=args.gen_len)
+    st = dyn.engine.stats()
+    sigs = dyn.engine.step_signatures()
+    inserts = dyn.engine.device_steps()["adapter_insert"]
+    # The port's counterpart of the reference's one dynamic decode
+    # executable and one adapter-insert executable: every decode step ran
+    # under the one signature, and every stack write was one insert.
+    assert list(sigs["decode"]) == ["dynamic"], sigs
+    assert 0 < inserts == st.stack_inserts, (inserts, st.stack_inserts)
+    print(f"fleet: {n_req} requests x {args.fleet} tenants through "
+          f"{args.batch} slots on {where} in {dt:.2f} s "
+          f"({st.generated_tokens / dt:.1f} tok/s, {st.stack_inserts} "
+          f"stack inserts, one dynamic decode signature)")
+    cst = cache.stats()
+    print(f"  cache: {cst.hits} hits / {cst.misses} misses / "
+          f"{cst.current_bytes} state bytes")
+    if trace is not None:
+        _dump_obs(trace, dyn.engine, args)
+    # The traced engine holds the cache's event hook: release it, so the
+    # dynamic engine and its stack are freed before the static one runs.
+    cache.on_event = None
+    del dyn
+    gc.collect()
+    if args.temperature <= 0.0:
+        static = EngineServer(mcfg, scfg, params, cache=cache,
+                              slots=args.batch, max_len=max_len,
+                              temperature=args.temperature, seed=args.seed,
+                              device=dev)
+        base, dt_s = _timed_run(static, requests, gen_len=args.gen_len)
+        n_sigs = len(static.engine.step_signatures()["decode"])
+        print(f"  static grouping: {dt_s:.2f} s "
+              f"({static.engine.stats().generated_tokens / dt_s:.1f} "
+              f"tok/s, {n_sigs} decode signatures)")
+        _streams_oracle("fleet dynamic vs static", results, base, mcfg)
+    for r in results[:2]:
+        print(f"  req{r.request_id}: P={len(r.prompt)} "
+              f"-> {r.tokens.tolist()} ({r.finish_reason})")
+
+
+def _serve_engine(args, mcfg, scfg, params, rng, dev, where) -> None:
+    """``--continuous``: 2 x ``--batch`` mixed-length requests of tenant-0
+    through :class:`EngineServer`, with the fault-containment checks under
+    ``--inject``/``--deadline``/``--priority`` and the paged and
+    speculative oracles."""
+    from repro_torch.launch.engine import FINISH_REASONS
+    from repro_torch.launch.faults import FaultPlan
+    from repro_torch.obs import TraceRecorder
+
+    plan = FaultPlan.parse(args.inject) if args.inject else None
+    faulty = plan is not None or args.deadline > 0 or args.priority > 0
+    cache = _tenant_cache(args, mcfg, scfg, params, dev, 1, args.seed + 1)
+    n_req = 2 * args.batch
+    requests = _mixed_requests(args, mcfg, rng, n_req, lambda: "tenant-0")
+    max_len = args.prompt_len + args.gen_len
+    trace = TraceRecorder() if args.trace_out or args.metrics_out else None
+    server = EngineServer(mcfg, scfg, params, cache=cache, slots=args.batch,
+                          max_len=max_len, temperature=args.temperature,
+                          seed=args.seed, speculative_k=args.speculative,
+                          fault_plan=plan, paged=args.paged,
+                          block_size=args.block_size or None, trace=trace,
+                          device=dev)
+    results, dt = _timed_run(
+        server, requests, gen_len=args.gen_len,
+        deadline_ticks=args.deadline if args.deadline > 0 else None,
+        priority=([0] * (n_req - 1) + [args.priority]
+                  if args.priority > 0 else 0))
+    st = server.engine.stats()
+    print(f"continuous: {n_req} mixed-length requests through {args.batch} "
+          f"slots on {where} in {dt:.2f} s ({st.generated_tokens / dt:.1f} "
+          f"tok/s, occupancy {st.mean_occupancy:.2f}, {st.decode_steps} "
+          f"decode steps)")
+    if faulty:
+        # Fault containment: every request finishes once with a known
+        # reason, and the slot table drains.
+        hist: dict[str, int] = {}
+        for r in results:
+            hist[r.finish_reason] = hist.get(r.finish_reason, 0) + 1
+        assert len(results) == n_req
+        assert all(r.finish_reason in FINISH_REASONS for r in results)
+        assert not server.engine.has_work(), "slot table did not drain"
+        print(f"  faults: inject={args.inject or '-'} "
+              f"deadline={args.deadline or '-'} "
+              f"priority={args.priority or '-'} -> finish reasons "
+              f"{sorted(hist.items())}")
+        print(f"  counters: timeouts={st.timeouts} "
+              f"quarantined={st.quarantined} preemptions={st.preemptions} "
+              f"injected_nans={st.injected_nans} "
+              f"forced_evictions={st.forced_evictions} "
+              f"stale_injected={st.stale_injected} "
+              f"slow_ticks={st.slow_ticks}")
+    if args.paged:
+        ps = server.engine.pool_stats()
+        steps = server.engine.device_steps()
+        assert ps["used_blocks"] == 0, f"leaked blocks: {ps}"
+        assert ps["per_slot_blocks"] == [0] * args.batch, ps
+        # Every admission went through the chunked prefill.
+        assert steps["prefill_chunk"] > 0, steps
+        assert steps["prefill_into_slot"] == 0, steps
+        print(f"  paged: block_size={ps['block_size']} "
+              f"n_blocks={ps['n_blocks']} chunk={ps['prefill_chunk']} "
+              f"peak_used={ps['peak_used_blocks']} blocks (pool drained); "
+              f"device steps {steps}")
+    if args.speculative > 0:
+        print(f"  speculative k={args.speculative}: {st.verify_steps} "
+              f"verify + {st.draft_steps} draft steps, "
+              f"{st.accepted_drafts} drafts accepted")
+    if trace is not None:
+        _dump_obs(trace, server.engine, args)
+    # The oracle engine is rectangular and plain: it checks paging and
+    # speculation at once.
+    oracle = " ".join(w for w, on in (("paged", args.paged),
+                                      ("speculative", args.speculative > 0))
+                      if on)
+    if oracle and args.temperature <= 0.0 and not faulty:
+        del server
+        plain = EngineServer(mcfg, scfg, params, cache=cache,
+                             slots=args.batch, max_len=max_len,
+                             temperature=args.temperature, seed=args.seed,
+                             device=dev)
+        base, dt_p = _timed_run(plain, requests, gen_len=args.gen_len)
+        print(f"  plain rectangular engine: {dt_p:.2f} s "
+              f"({plain.engine.stats().generated_tokens / dt_p:.1f} tok/s)")
+        _streams_oracle(f"{oracle} vs plain rectangular", results, base,
+                        mcfg)
+    for r in results[:2]:
+        print(f"  req{r.request_id}: P={len(r.prompt)} "
+              f"-> {r.tokens.tolist()} ({r.finish_reason})")
+
+
 def _serve_tenants(args, mcfg, scfg, params, rng, dev, where) -> None:
     """``--tenants N``: N adapter sets registered with one cache, ``--batch``
     requests each, served in one batch; prints the phases and the cache's
     counters."""
-    cache = AdapterStateCache.for_serving(mcfg, scfg, device=dev)
-    requests = []
-    for t in range(args.tenants):
-        gen = torch.Generator(device=dev).manual_seed(args.seed + 1 + t)
-        cache.register(f"tenant-{t}",
-                       init_adapters(gen, mcfg, params, scfg.dora))
-        for _ in range(args.batch):
-            requests.append(Request(rng.integers(0, mcfg.vocab_size,
-                                                 args.prompt_len),
-                                    f"tenant-{t}"))
+    cache = _tenant_cache(args, mcfg, scfg, params, dev, args.tenants,
+                          args.seed + 1)
+    requests = [Request(rng.integers(0, mcfg.vocab_size, args.prompt_len),
+                        f"tenant-{t}")
+                for t in range(args.tenants) for _ in range(args.batch)]
     server = MultiTenantServer(mcfg, scfg, params, cache=cache, device=dev)
     stats: dict = {}
     toks = server.serve(requests, gen_len=args.gen_len,
@@ -565,49 +945,6 @@ def _serve_tenants(args, mcfg, scfg, params, rng, dev, where) -> None:
           f"{st.current_bytes} state bytes")
     for b in range(min(len(requests), 2)):
         print(f"  req{b}: ...{toks[b, args.prompt_len - 4:].tolist()}")
-
-
-def _serve_continuous(args, mcfg, scfg, params, adapters, rng, dev,
-                      where) -> None:
-    """The single-tenant engine over 2 x ``--batch`` requests with prompt
-    lengths drawn from [prompt_len // 2, prompt_len]."""
-    import time
-
-    from repro_torch.launch.engine import DecodeEngine
-
-    state = make_precompute_step(mcfg, scfg, fold_gsb=True)(params,
-                                                            adapters)
-    engine = DecodeEngine(mcfg, scfg, params, slots=args.batch,
-                          max_len=args.prompt_len + args.gen_len,
-                          adapters=state, temperature=args.temperature,
-                          seed=args.seed, paged=args.paged,
-                          block_size=((args.block_size or None)
-                                      if args.paged else None),
-                          device=dev)
-    n_req = 2 * args.batch
-    for i in range(n_req):
-        p_len = int(rng.integers(args.prompt_len // 2, args.prompt_len + 1))
-        engine.submit(rng.integers(0, mcfg.vocab_size, p_len),
-                      max_new_tokens=args.gen_len, key_id=i)
-    t0 = time.perf_counter()
-    results = engine.run()
-    dt = time.perf_counter() - t0
-    st = engine.stats()
-    print(f"continuous: {n_req} mixed-length requests through {args.batch} "
-          f"slots on {where} in {dt:.2f}s ({st.generated_tokens / dt:.1f} "
-          f"tok/s, occupancy {st.mean_occupancy:.2f}, {st.decode_steps} "
-          f"decode steps)")
-    if args.paged:
-        ps = engine.pool_stats()
-        assert ps["used_blocks"] == 0, f"leaked blocks: {ps}"
-        assert ps["per_slot_blocks"] == [0] * args.batch, ps
-        print(f"  paged: block_size={ps['block_size']} "
-              f"n_blocks={ps['n_blocks']} chunk={ps['prefill_chunk']} "
-              f"peak_used={ps['peak_used_blocks']} blocks (pool drained); "
-              f"device steps {engine.device_steps()}")
-    for r in results[:2]:
-        print(f"  req{r.request_id}: P={len(r.prompt)} "
-              f"-> {r.tokens.tolist()} ({r.finish_reason})")
 
 
 if __name__ == "__main__":

@@ -15,8 +15,15 @@ its one scan for either value. A one-token step (``S == 1``, decode)
 keeps the reference's one-step update in plain torch.
 
 Decode carries ``{"h": [B, di, n] fp32, "conv": [B, k-1, di]}`` per
-layer. There is no backward: K9 has no backward kernel in the reference
-(it differentiates the XLA scan), so training an SSM stack is refused.
+layer.
+
+Training: as in the reference, only the DoRA adapters of ``in_proj`` and
+``out_proj`` train (the conv, ``x_proj``, ``dt_proj``, ``dt_bias``,
+``A_log`` and ``skip_d`` are detached, the reference's
+``stop_gradient``). With grad enabled the kernel route runs the scan
+through :func:`~repro_torch.kernels.ops.scan_fn` (K9 with chunk states,
+then the scan's backward kernel), and the eager route through autograd of
+the plain loop.
 """
 from __future__ import annotations
 
@@ -25,6 +32,7 @@ import torch.nn.functional as F
 
 from repro_torch.core.config import DoRAConfig
 from repro_torch.core.dispatch import plan_scan
+from repro_torch.kernels.ops import scan_fn
 from repro_torch.kernels.selective_scan import (selective_scan,
                                                 selective_scan_plain)
 from repro_torch.models import layers as L
@@ -58,7 +66,8 @@ def ssm_scan(dt, dtx, Bm, Cm, A, h0, dcfg: DoRAConfig | None):
     dt, dtx [B, S, di] fp32; Bm, Cm [B, S, n] fp32; A [di, n]; h0
     [B, di, n]. Returns (y [B, S, di], h_final [B, di, n]). S == 1 is the
     reference's one-step update; longer sequences run K9 (or its plain
-    version on the eager route) in its [n, di] state layout."""
+    version on the eager route) in its [n, di] state layout, through
+    :func:`scan_fn` where a gradient is wanted."""
     if dt.shape[1] == 1:
         a = torch.exp(dt[:, 0, :, None] * A)
         b = dtx[:, 0, :, None] * Bm[:, 0, None, :]
@@ -67,6 +76,9 @@ def ssm_scan(dt, dtx, Bm, Cm, A, h0, dcfg: DoRAConfig | None):
         return y[:, None], h
     plan = plan_scan(dcfg, device=dt.device)
     scan = selective_scan if plan.fused else selective_scan_plain
+    if plan.fused and torch.is_grad_enabled() and any(
+            t.requires_grad for t in (dt, dtx, Bm, Cm)):
+        scan = scan_fn
     y, h_t = scan(dt.contiguous(), dtx.contiguous(), Bm.contiguous(),
                   Cm.contiguous(), A.T.contiguous(),
                   h0.transpose(1, 2).contiguous())
@@ -82,12 +94,6 @@ def mamba_block(x, p, dora, mcfg: ModelConfig, dcfg: DoRAConfig | None, *,
         "A_log": [di, n], "skip_d": [di], "out_proj": [D, di]}.
     ``cache``: {"h", "conv"} of this layer or None; the new state is
     returned, not written (the caller writes it in place)."""
-    if training and torch.is_grad_enabled():
-        raise NotImplementedError(
-            f"{mcfg.name}: training a Mamba stack is not ported yet; it "
-            f"needs a backward for the selective scan (K9 has none in the "
-            f"reference, which differentiates its XLA scan), which comes "
-            f"with the later Mamba-training slice")
     di, n, dtr = mcfg.d_inner, mcfg.ssm_state, mcfg.dt_rank
     dora = dora or {}
     xz = L.maybe_dora(x, p["in_proj"], dora.get("in_proj"), dcfg,

@@ -475,7 +475,7 @@ def test_build_needs_nvcc_and_names_library_by_source_hash(monkeypatch,
     assert {p.name for p in _build.sources()} == {
         "norm_terms.cu", "assemble_norm.cu", "compose.cu", "compose_bwd.cu",
         "compose_mm.cu", "compose_mm_bwd.cu", "paged_gather.cu",
-        "selective_scan.cu"}
+        "selective_scan.cu", "selective_scan_bwd.cu"}
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
     monkeypatch.setattr(_build.probes, "nvcc_path", lambda: None)
     with pytest.raises(RuntimeError, match="nvcc not found"):
@@ -491,7 +491,9 @@ def test_kernel_sources_name_the_tpu_kernel_they_replace():
               "compose_mm.cu": "dora_compose.py:211",
               "compose_mm_bwd.cu": "dora_compose.py:239",
               "paged_gather.cu": "paged_gather.py:90",
-              "selective_scan.cu": "selective_scan.py:60"}
+              "selective_scan.cu": "selective_scan.py:60",
+              # no TPU kernel: the XLA scan the reference differentiates
+              "selective_scan_bwd.cu": "models/mamba.py:50 _ssm_scan_fused"}
     for name, ref in expect.items():
         text = (_build.SRC_DIR / name).read_text()
         assert ref in text and "Bound on the H100" in text, name

@@ -11,8 +11,9 @@
     CPU tensors), at d_model 128 so that in_proj and out_proj divide 128;
   - the whole slice: ``generate`` on falcon-mamba SMOKE in fp32 against
     the reference's, and the SSM cache after prefill bridged both ways;
-  - the refusals (padded SSM prefill, SSM training, the engine on an SSM
-    stack, hybrid and MoE stacks) and the full config's widths.
+  - the refusals (padded SSM prefill, a scan gradient for A or h0, the
+    engine on an SSM stack, hybrid and MoE stacks) and the full config's
+    widths; SSM training itself runs (``test_torch_mamba_train.py``).
 
 Every input is made with numpy from a seed and handed to both packages;
 every tolerance is scaled to the reference's largest magnitude.
@@ -42,6 +43,7 @@ from repro_torch.configs import get_config
 from repro_torch.core import dispatch
 from repro_torch.core.config import FORCE_TIER_ENV, DoRAConfig
 from repro_torch.kernels import dora_compose, factored_norm
+from repro_torch.kernels import ops as tops
 from repro_torch.kernels import selective_scan as tk_scan
 from repro_torch.launch import serve as tserve
 from repro_torch.launch import steps as tsteps
@@ -150,7 +152,10 @@ def test_scan_wrapper_checks_shapes_and_never_falls_back():
     with pytest.raises(RuntimeError, match="CUDA unavailable"):
         tk_scan.selective_scan(*meta)
     assert tkernels.KERNELS["selective_scan"] is tk_scan.selective_scan
-    assert list(tkernels.KERNELS)[-1] == "selective_scan"
+    # K9 ends the TPU table's kernels; the scan's backward, which has no
+    # TPU counterpart, follows it.
+    assert list(tkernels.KERNELS)[-2:] == ["selective_scan",
+                                           "selective_scan_bwd"]
 
 
 def test_plan_scan():
@@ -396,14 +401,26 @@ def test_padded_ssm_prefill_is_refused():
 
 
 def test_ssm_training_is_refused():
+    """SSM training runs now (the scan's backward, test_torch_mamba_train.py
+    holds it against jax.grad); what stays refused is a gradient for the
+    scan's A or h0, which the reference stops too."""
     tm = get_config("falcon-mamba-7b", smoke=True)
-    dcfg = DoRAConfig(rank=4)
+    dcfg = DoRAConfig(rank=4, mode="fused")
     params, adapters = tserve.build_state(tm, dcfg, 0, "cpu")
     step = tsteps.make_grad_step(tm, tsteps.StepConfig(dora=dcfg), batch=1,
                                  seq=4)
     toks = torch.zeros(1, 4, dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="Mamba-training slice"):
-        step(params, adapters, {"tokens": toks, "labels": toks})
+    loss, grads = step(params, adapters, {"tokens": toks, "labels": toks})
+    assert torch.isfinite(loss)
+    g = flatten_paths(grads)
+    assert set(g) == set(flatten_paths(adapters))
+    # a fresh DoRA init has B = 0: B is the leaf whose gradient moves first
+    assert all(v.abs().max() > 0 for k, v in g.items() if k.endswith("/B"))
+    args = [torch.ones(1, 4, 8) for _ in range(2)] + [
+        torch.ones(1, 4, 2) for _ in range(2)]
+    with pytest.raises(ValueError, match="stop_gradient"):
+        tops.scan_fn(*args, -torch.ones(2, 8, requires_grad=True),
+                     torch.zeros(1, 2, 8))
 
 
 def test_engine_refuses_ssm_stacks():

@@ -244,7 +244,7 @@ def test_draft_runs_no_adapted_linear(state, monkeypatch):
     assert calls[0] == 7 * WIDTHS["num_layers"]
 
 
-def test_step_contracts(state):
+def test_step_contracts(state, capsys):
     _, _, _, tm, t_params, t_serving = state
     cache = tlm.init_cache(tm, 2, 8, row_lens=True)
     with pytest.raises(ValueError, match="draft built for tokens"):
@@ -259,11 +259,15 @@ def test_step_contracts(state):
                                 tenant_groups=((0, 2),), dynamic_groups=True)
     with pytest.raises(ValueError, match="speculative_k"):
         _port_engine(state, slots=2, max_len=16, speculative_k=-1)
-    for flag, value in (("--speculative", "2"), ("--inject", "nan@3"),
-                        ("--deadline", "4")):
-        with pytest.raises(NotImplementedError, match="item 4.5"):
-            tserve.main(["--arch", "qwen2-7b", "--smoke", "--device", "cpu",
-                         flag, value])
+    # The serve CLI's engine flags run through EngineServer (they were
+    # refused until it was ported; test_torch_engine_server.py holds each).
+    for flag, value, says in (("--speculative", "2", "drafts accepted"),
+                              ("--inject", "nan@3", "finish reasons"),
+                              ("--deadline", "4", "finish reasons")):
+        tserve.main(["--arch", "qwen2-7b", "--smoke", "--device", "cpu",
+                     "--continuous", "--batch", "2", "--prompt-len", "8",
+                     "--gen-len", "3", flag, value])
+        assert says in capsys.readouterr().out, flag
     for floor in (-0.1, 1.5):
         with pytest.raises(ValueError, match="spec_accept_floor"):
             _port_engine(state, slots=2, max_len=16, speculative_k=2,
