@@ -8,7 +8,8 @@ Run from the repository root on a machine with the card:
 It builds the hand-written kernels from ``src/repro_torch/kernels/csrc``
 (printing each kernel's ptxas registers, static shared memory and
 spills; K6's tensor-core kernel, K9's six instantiations and the scan's
-backward must spill nothing), holds each kernel
+backward at 4 and 8 lanes must spill nothing, and the backward's
+occupancy), holds each kernel
 against its plain PyTorch version at the shapes the serving and training
 paths give it (K1 and K6 also at falcon-mamba-7b's in_proj and out_proj,
 every K6 shape on the tensor-core route with the same bits on a second
@@ -410,6 +411,9 @@ def ptxas_report(log: str) -> list[str]:
                 rest = rest[len(part.group(1)) + n:]
             tag = next((t for k, t in types.items()
                         if rest.startswith(k + "E")), None)
+            ints = re.match(r"I((?:L[ib]\d+E)+)E", rest)
+            if tag is None and ints:
+                tag = ", ".join(re.findall(r"L[ib](\d+)E", ints.group(1)))
             name = (parts[-1] if parts else entry.group(1)) + (
                 f"<{tag}>" if tag else "")
         elif "spill" in line:
@@ -997,15 +1001,49 @@ def kernel_checks(dev) -> dict:
     return rows
 
 
+def bwd_design_exps(b: int, seq: int, di: int, lanes: int) -> int:
+    """The exps the backward kernel issues: for every (batch row, channel
+    of its blocks, one of 16 states) and chunk, the pass from hc to the
+    last window's start and every window's recompute (the walk back reuses
+    those)."""
+    from repro_torch.kernels import selective_scan as ks
+
+    blocks, _, channels = ks.bwd_schedule(b, di, lanes)
+    steps = 0
+    for t0 in range(0, seq, ks.STATE_EVERY):
+        windows = -(-min(ks.STATE_EVERY, seq - t0) // ks.BWD_WINDOW)
+        steps += (2 * windows - 1) * ks.BWD_WINDOW
+    return b * blocks * channels * ks.MAX_STATE * steps
+
+
+def bwd_occupancy(lanes: int) -> dict:
+    """The backward kernel's residency at ``lanes`` from the CUDA
+    occupancy API: blocks and warps an SM, registers, shared memory and
+    spilled bytes a thread."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+
+    out = (ctypes.c_int * 5)()
+    _build.check(_build.library().selective_scan_bwd_occupancy(
+        lanes, ctypes.cast(out, ctypes.c_void_p)), "selective_scan_bwd")
+    blocks, threads, regs, smem, local = out
+    return {"blocks_per_sm": blocks, "warps_per_sm": blocks * threads // 32,
+            "threads": threads, "registers": regs, "smem_bytes": smem,
+            "local_bytes": local}
+
+
 def scan_train_checks(gen, rows, record) -> None:
     """K9's training forward (chunk states) and the scan's backward at the
     falcon-mamba-7b training shape [2, 2048, 8192], n = 16, and a ragged
-    one (S no multiple of the 32-step stride, di no multiple of the
-    backward's 64 channels a block): with chunk states K9 gives y and h_f
-    bitwise as without and hc within 1e-5 of max of its plain version's;
-    the backward within 1e-5 of max |grad| of its plain version for each
-    of d_dt, d_dtx, d_B and d_C, the same bits twice; ms by events and
-    device time beside the bound. K9's row gains its chunk-state time."""
+    one (S no multiple of the 32-step stride or the 8-step window, di no
+    multiple of the backward's 64 or 32 channels a block): with chunk
+    states K9 gives y and h_f bitwise as without and hc within 1e-5 of max
+    of its plain version's; the backward within 1e-5 of max |grad| of its
+    plain version for each of d_dt, d_dtx, d_B and d_C, the same bits
+    twice; ms by events and device time beside the bound, the bound of
+    the exps the design issues, a sweep of its lanes a channel and their
+    residency. K9's row gains its chunk-state time."""
     from repro_torch.kernels import selective_scan as ks
 
     f32 = torch.float32
@@ -1053,6 +1091,19 @@ def scan_train_checks(gen, rows, record) -> None:
                       + hc.numel())
         extra = {}
         if b == TRAIN_BATCH:
+            # The lane sweep behind ks.BWD_LANES (the faster), each lane
+            # count's residency, and the chosen kernel's device time.
+            sweep = {}
+            chosen = ks.BWD_LANES
+            try:
+                for lanes in (4, 8):
+                    ks.BWD_LANES = lanes
+                    sweep[lanes] = time_ms(lambda: ks.selective_scan_bwd(
+                        *args[:5], hc, dy))
+            finally:
+                ks.BWD_LANES = chosen
+            print(f"  selective_scan_bwd {label} ms by lanes: {sweep}",
+                  flush=True)
             states_ms = time_ms(lambda: ks.selective_scan(
                 *args, chunk_states=True))
             serve_ms = time_ms(lambda: ks.selective_scan(*args))
@@ -1066,20 +1117,27 @@ def scan_train_checks(gen, rows, record) -> None:
             extra = {"device_ms": profiled_ms(
                 lambda: [ks.selective_scan_bwd(*args[:5], hc, dy)
                          for _ in range(5)], "selective_scan_bwd", 5,
-                f"selective_scan_bwd {label} x 5")}
+                f"selective_scan_bwd {label} x 5"),
+                "lanes": chosen, "lane_sweep_ms": sweep,
+                "occupancy": {lanes: bwd_occupancy(lanes)
+                              for lanes in (4, 8)}}
+        blocks, _, channels = ks.bwd_schedule(b, di, ks.BWD_LANES)
+        design_exp = bwd_design_exps(b, seq, di, ks.BWD_LANES)
         record("selective_scan_bwd", [b, seq, di, n], errs[worst][0],
                errs[worst][1], SCAN_TOL,
                time_ms(lambda: ks.selective_scan_bwd(*args[:5], hc, dy)),
                time_ms(lambda: ks.selective_scan_bwd_plain(*args[:5], hc,
                                                            dy)),
                nbytes, max(n_exp / SFU_EXP_PER_S, 10 * n_exp / F32_OPS),
-               grid=f"{-(-di // ks.BWD_CHANNELS)} x {b} blocks of "
-                    f"{ks.BWD_CHANNELS} channels x 2 lanes",
+               grid=f"{blocks} x {b} blocks of {channels} channels x "
+                    f"{ks.BWD_LANES} lanes, windows of {ks.BWD_WINDOW}",
                errors={k: {"err": e, "tol": SCAN_TOL * m}
                        for k, (e, m) in errs.items()},
                chunk_states_forward=fwd,
                bound_bytes_ms=nbytes / HBM_BYTES_PER_S * 1e3,
                bound_sfu_ms=n_exp / SFU_EXP_PER_S * 1e3,
+               design_exps=design_exp,
+               bound_sfu_design_ms=design_exp / SFU_EXP_PER_S * 1e3,
                deterministic=same, **extra)
         del args, dt, dtx, Bm, Cm, dy, y0, y, hc, hc_ref, grads, ref, again
     torch.cuda.empty_cache()
@@ -4038,8 +4096,8 @@ def kernel_phase_vs(other: Path) -> int:
     its own on this card; then, with this script's own methods on each
     checkout's package, the per-module norm and the qwen2-7b precompute
     (fused_norm_ab) and each wrapper's host time (host_checks). Prints
-    K1's and K2's rows of each run and writes them to
-    build/kernel_phase_vs.json."""
+    K1's, K2's, K9's and the scan backward's rows of each run and writes
+    them to build/kernel_phase_vs.json."""
     here = Path(__file__).resolve().parent
     code = ("import importlib.util, json, sys, torch; "
             "sys.path[:0] = [sys.argv[1] + '/src', sys.argv[1]]; "
@@ -4050,7 +4108,8 @@ def kernel_phase_vs(other: Path) -> int:
             "torch.backends.cuda.matmul.allow_tf32 = False; "
             "dev = torch.device('cuda', 0); "
             "rows = c.kernel_checks(dev); "
-            "out = {k: rows[k] for k in ('norm_terms', 'assemble_norm')}; "
+            "out = {k: rows[k] for k in ('norm_terms', 'assemble_norm', "
+            "'selective_scan', 'selective_scan_bwd')}; "
             "out['fused_norm_ab'] = t.fused_norm_ab(dev); "
             "out['host_us'] = t.host_checks(dev); "
             "print('ROWS ' + json.dumps(out))")
@@ -4066,11 +4125,13 @@ def kernel_phase_vs(other: Path) -> int:
             return run.returncode
         rows = json.loads(run.stdout.split("ROWS ", 1)[1])
         runs.append({"label": label, "root": str(root), **rows})
-        for name in ("norm_terms", "assemble_norm"):
+        for name in ("norm_terms", "assemble_norm", "selective_scan",
+                     "selective_scan_bwd"):
             for row in rows[name]:
                 print(f"{label}: {name} {row['shape']} {row['ms']:.4f} ms, "
                       f"device {row.get('device_ms')}, library "
-                      f"{row['library_ms']}", flush=True)
+                      f"{row['library_ms']}, grid {row.get('grid')}",
+                      flush=True)
         print(f"{label}: fused_norm_ab {rows['fused_norm_ab']}")
         print(f"{label}: host us {rows['host_us']}", flush=True)
     out = here / "build" / "kernel_phase_vs.json"
@@ -4385,10 +4446,16 @@ def main() -> int:
           f"selective_scan_kernel's ptxas report (one per lane count, with "
           f"and without chunk states): {k9_ptxas}")
     bwd_ptxas = [ln for ln in ptxas if ln.startswith("selective_scan_bwd")]
-    check(len(bwd_ptxas) == 2 and all(" 0 bytes spill stores" in ln
+    check(len(bwd_ptxas) == 3 and all(" 0 bytes spill stores" in ln
                                       for ln in bwd_ptxas),
-          f"selective_scan_bwd's ptxas report (the scan and its partial "
-          f"sum): {bwd_ptxas}")
+          f"selective_scan_bwd's ptxas report (the scan at 4 and 8 lanes "
+          f"and its partial sum): {bwd_ptxas}")
+    for lanes in (4, 8):
+        occ = bwd_occupancy(lanes)
+        print(f"  selective_scan_bwd_kernel<{lanes}> occupancy: "
+              + json.dumps(occ), flush=True)
+        check(occ["warps_per_sm"] > 4 and occ["local_bytes"] == 0,
+              f"selective_scan_bwd at {lanes} lanes: {occ}")
 
     print("kernels vs plain versions:", flush=True)
     rows = kernel_checks(dev)
@@ -4502,7 +4569,10 @@ def main() -> int:
                                     "without_states_ms_train_shape")}
                if name == "selective_scan" else {}),
             **({k: top[k] for k in ("device_ms", "deterministic", "errors",
-                                    "chunk_states_forward")}
+                                    "chunk_states_forward", "lanes",
+                                    "lane_sweep_ms", "occupancy",
+                                    "bound_bytes_ms", "bound_sfu_ms",
+                                    "bound_sfu_design_ms")}
                if name == "selective_scan_bwd" else {})})
     train_summary = {
         k: {f: trained[k][f] for f in ("step_ms", "grad_ms", "optim_ms",

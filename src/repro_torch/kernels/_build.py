@@ -60,7 +60,8 @@ _SIGNATURES = {
     "selective_scan": ((_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                         _I, _I, _P), _I),
     "selective_scan_bwd": ((_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                            _P, _I, _I, _I, _I, _I, _P), _I),
+                            _P, _I, _I, _I, _I, _I, _I, _P), _I),
+    "selective_scan_bwd_occupancy": ((_I, _P), _I),
     "runtime_error_string": ((_I,), ctypes.c_char_p),
 }
 

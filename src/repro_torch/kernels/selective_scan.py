@@ -19,8 +19,11 @@ Training: ``chunk_states=True`` also returns the state at every boundary
 of :data:`STATE_EVERY` steps, and :func:`selective_scan_bwd` (kernel:
 ``csrc/selective_scan_bwd.cu``; no TPU counterpart, the reference
 differentiates its XLA scan) walks the chunks backwards from them to the
-gradients of dt, dtx, Bm and Cm. ``repro_torch.kernels.ops.scan_fn`` is
-the autograd Function over the pair.
+gradients of dt, dtx, Bm and Cm: :data:`BWD_LANES` lanes a channel
+(:func:`bwd_schedule`), h recomputed from hc to the start of every
+:data:`BWD_WINDOW`-step window and then window by window in registers.
+``repro_torch.kernels.ops.scan_fn`` is the autograd Function over the
+pair.
 """
 from __future__ import annotations
 
@@ -147,9 +150,28 @@ selective_scan.launches = 0
 # The backward (no TPU kernel: the reference differentiates its XLA scan).
 # ---------------------------------------------------------------------------
 
-# Channels a block of the backward kernel holds (its blocks along di are
-# the rows of its d_B and d_C partials).
-BWD_CHANNELS = 64
+BWD_THREADS = 256      # threads a block of the backward kernel
+# Lanes that share one (batch, channel) pair in the backward kernel,
+# MAX_STATE / BWD_LANES states each: 4 or 8 (the faster of chip_smoke.py's
+# sweep on the H100).
+BWD_LANES = 4
+# Steps a window of the backward holds in registers: a chunk of
+# STATE_EVERY steps is recomputed from hc to each window's start, then
+# window by window, last to first.
+BWD_WINDOW = 8
+
+
+def bwd_schedule(batch: int, di: int, lanes: int) -> tuple[int, int, int]:
+    """(blocks along di, blocks along the batch, channels a block) of the
+    backward kernel's grid: thread t of block (x, b) holds channel
+    x * channels + t // lanes of batch row b and states
+    (t % lanes) * MAX_STATE / lanes onward. The blocks along di are the
+    rows of its d_B and d_C partials."""
+    if lanes not in (4, 8):
+        raise ValueError(f"selective_scan_bwd: lanes = {lanes}, expected 4 "
+                         f"or 8")
+    channels = BWD_THREADS // lanes
+    return _build.cdiv(di, channels), batch, channels
 
 
 def selective_scan_bwd_plain(dt, dtx, Bm, Cm, A_t, hc, dy):
@@ -202,13 +224,14 @@ def selective_scan_bwd(dt, dtx, Bm, Cm, A_t, hc, dy):
     if b == 0 or s == 0 or di == 0:
         return d_dt, d_dtx, torch.zeros_like(Bm), torch.zeros_like(Cm)
     d_B, d_C = torch.empty_like(Bm), torch.empty_like(Cm)
-    part = torch.empty((2, _build.cdiv(di, BWD_CHANNELS), b, s, n),
-                       dtype=_F32, device=dt.device)
+    blocks, _, _ = bwd_schedule(b, di, BWD_LANES)
+    part = torch.empty((2, blocks, b, s, n), dtype=_F32, device=dt.device)
     rc = _build.library().selective_scan_bwd(
         dt.data_ptr(), dtx.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
         A_t.data_ptr(), hc.data_ptr(), dy.data_ptr(), d_dt.data_ptr(),
         d_dtx.data_ptr(), d_B.data_ptr(), d_C.data_ptr(), part[0].data_ptr(),
-        part[1].data_ptr(), STATE_EVERY, b, s, di, n, _build.stream_of(dt))
+        part[1].data_ptr(), STATE_EVERY, b, s, di, n, BWD_LANES,
+        _build.stream_of(dt))
     _build.check(rc, "selective_scan_bwd")
     selective_scan_bwd.launches += 1
     return d_dt, d_dtx, d_B, d_C

@@ -112,6 +112,9 @@ SCAN_CASES = [  # (seed, B, S, di, n, the reference's unroll)
     (2, 2, 64, 32, 16, 16),     # S a multiple of both
     (3, 3, 33, 40, 8, 5),       # one step past a boundary, unroll 5
     (4, 2, 1, 24, 16, 8),       # S = 1 (the reference's one-step path)
+    (5, 1, 45, 72, 16, 8),      # ragged against the backward's tiling:
+                                # di against 64 and 32 channels a block,
+                                # S against 8-step windows and 32
 ]
 
 
@@ -194,37 +197,224 @@ def test_scan_bwd_wrapper_checks_shapes_and_never_falls_back():
     assert tkernels.KERNELS["selective_scan_bwd"] is tk_scan.selective_scan_bwd
 
 
-def _channel_sum(v):
-    """csrc/selective_scan_bwd.cu ``channel_sum`` over one warp, in torch:
-    v [32 lanes, 8] (lane 2c + g holds states 8g .. 8g + 7 of channel c),
-    the xor reduce-scatter at masks 2, 4, 8, then mask 16 adding the last
-    pair. Returns each lane's result [32]."""
+def _tree(x):
+    """Sum over the last dim in the kernels' xor-tree order: pairs of
+    neighbours first (index bit 0), then pairs of pairs."""
+    while x.shape[-1] > 1:
+        x = x[..., 0::2] + x[..., 1::2]
+    return x[..., 0]
+
+
+def _xor_reduce_scatter(v, masks):
+    """csrc/selective_scan_bwd.cu's ``lane_sum`` and ``channel_sum`` over
+    one warp, in torch: v [32 lanes, k]; at each mask m a lane keeps the
+    odd or even values as its bit m is set or not and adds those of lane
+    ^ m. Returns each lane's remaining values [32, k / 2**len(masks)]."""
     lanes = torch.arange(32)
-    for m in (2, 4, 8):
+    for m in masks:
         up = (lanes & m) != 0
         lo, hi = v[:, 0::2], v[:, 1::2]
         send = torch.where(up[:, None], lo, hi)
         v = torch.where(up[:, None], hi, lo) + send[lanes ^ m]
-    return v[:, 0] + v[lanes ^ 16, 0]
+    return v
 
 
-def test_backward_channel_sum_gives_each_state_one_lane():
-    """The backward kernel's sum over a warp's 16 channels leaves state
-    (l & 1)·8 + ((l >> 1) & 7) in lane l < 16 (the lane that writes it)
-    and the same bits in lane l ^ 16; summed in a fixed tree, within
-    fp32 rounding of the plain sum."""
-    rng = np.random.default_rng(3)
-    p = torch.from_numpy(rng.standard_normal((16, 16)).astype(np.float32))
-    v = torch.stack([p[lane // 2, (lane % 2) * 8:(lane % 2) * 8 + 8]
-                     for lane in range(32)])
-    got = _channel_sum(v)
-    for lane in range(16):
-        state = (lane & 1) * 8 + ((lane >> 1) & 7)
-        assert torch.equal(got[lane], got[lane ^ 16])
-        want = p[:, state].double().sum().item()
-        assert abs(got[lane].item() - want) <= 1e-5 * p.abs().max().item()
-    states = sorted((lane & 1) * 8 + ((lane >> 1) & 7) for lane in range(16))
-    assert states == list(range(16))
+def _slots(lanes):
+    """The backward kernel's slot order: slot j of lane L·c + g of a warp
+    holds state g·kS + (j ^ (c % kS)) [32, kS]."""
+    ks = 16 // lanes
+    return torch.tensor([[(lane % lanes) * ks + (j ^ (lane // lanes % ks))
+                          for j in range(ks)] for lane in range(32)])
+
+
+def _channel_sum(v, lanes):
+    """csrc/selective_scan_bwd.cu ``channel_sum`` in torch: v [32 lanes,
+    2·kS] (d_B's slots, then d_C's); at every mask below 16 a lane keeps
+    its even values and adds its partner's odd ones; at mask 16 it keeps
+    d_B or d_C as bit 16 is clear or set. Returns each lane's sum [32]."""
+    lanes_ = torch.arange(32)
+    m = lanes
+    while m < 16:
+        v = v[:, 0::2] + v[lanes_ ^ m, 1::2]
+        m <<= 1
+    up = (lanes_ & 16) != 0
+    keep = torch.where(up, v[:, 1], v[:, 0])
+    send = torch.where(up, v[:, 0], v[:, 1])
+    return keep + send[lanes_ ^ 16]
+
+
+@pytest.mark.parametrize("lanes", [4, 8])
+def test_backward_channel_sum_gives_each_state_one_lane(lanes):
+    """The backward kernel's d_B and d_C sum over a warp's 32 / lanes
+    channels (lane L·c + g holds the products of channel c, d_B's then
+    d_C's, in its slot order): lane l ends with quantity (l // L) // kS
+    of state (l % L)·kS + (l // L) % kS; the 32 lanes hold every
+    (quantity, state) once, each the xor tree over the channels (bitwise:
+    the same sums as a reduce-scatter with selects over states in order)
+    and within fp32 rounding of the plain sum."""
+    ks, cw = 16 // lanes, 32 // lanes
+    rng = np.random.default_rng(3 + lanes)
+    p = torch.from_numpy(rng.standard_normal((2, cw, 16)).astype(np.float32))
+    slots = _slots(lanes)
+    v = torch.stack([torch.cat([p[q, lane // lanes, slots[lane]]
+                                for q in (0, 1)]) for lane in range(32)])
+    got = _channel_sum(v, lanes)[:, None]
+    plain_order = torch.stack([torch.cat([p[q, lane // lanes, (lane % lanes)
+                                            * ks:(lane % lanes + 1) * ks]
+                                          for q in (0, 1)])
+                               for lane in range(32)])
+    assert torch.equal(got, _xor_reduce_scatter(
+        plain_order, [lanes << k for k in range(cw.bit_length() - 1)]))
+    held = []
+    for lane in range(32):
+        cq = lane // lanes
+        q, i = cq // ks, (lane % lanes) * ks + cq % ks
+        held.append((q, i))
+        assert torch.equal(got[lane, 0], _tree(p[q, :, i]))
+        want = p[q, :, i].double().sum().item()
+        assert abs(got[lane, 0].item() - want) <= 1e-5 * p.abs().max().item()
+    assert sorted(held) == [(q, i) for q in (0, 1) for i in range(16)]
+
+
+@pytest.mark.parametrize("lanes", [4, 8])
+def test_backward_lane_sum_gives_each_step_one_lane(lanes):
+    """d_dt and d_dtx sum over a channel's lanes: each lane holds its
+    partial sums of ``lanes`` consecutive steps; after masks 1 .. L / 2
+    lane g of each channel holds step g's sum (every step once), the xor
+    tree over the lanes, within fp32 rounding of the plain sum."""
+    rng = np.random.default_rng(11 + lanes)
+    p = torch.from_numpy(rng.standard_normal((32 // lanes, lanes, lanes))
+                         .astype(np.float32))       # [channel, lane, step]
+    v = p.reshape(32, lanes)
+    masks = [1 << k for k in range(lanes.bit_length() - 1)]
+    got = _xor_reduce_scatter(v, masks)
+    assert got.shape == (32, 1)
+    for lane in range(32):
+        ch, g = divmod(lane, lanes)
+        assert torch.equal(got[lane, 0], _tree(p[ch, :, g]))
+        want = p[ch, :, g].double().sum().item()
+        assert abs(got[lane, 0].item() - want) <= 1e-5 * p.abs().max().item()
+
+
+def _bwd_schedule(dt, dtx, Bm, Cm, A_t, hc, dy, lanes):
+    """csrc/selective_scan_bwd.cu's schedule and summation order in torch
+    (fp32; exps by exp2(dt·A·log2 e)): states padded to 16 and di to the
+    block's channels; chunks last to first; in each, the pass from hc to
+    the start of every window, then the windows last to first, each
+    recomputed and walked back; d_dt and d_dtx summed over a lane's states
+    in order, then over the lanes in the xor tree (d_dt scaled by ln 2);
+    d_B and d_C over a warp's channels in the xor tree, the block's warps
+    in order, then the blocks in index order. A lane takes its states in
+    its slot order (``_slots``), and carries a_{t+1}·g_{t+1}."""
+    b, s, di = dt.shape
+    n = A_t.shape[0]
+    blocks, _, ch = tk_scan.bwd_schedule(b, di, lanes)
+    ks, cw = 16 // lanes, 32 // lanes
+    # State of slot j of lane g of every channel: [lanes, ks, dp].
+    x = torch.arange(blocks * ch) % cw % ks
+    slot = torch.stack([torch.stack([g * ks + (j ^ x) for j in range(ks)])
+                        for g in range(lanes)])
+    win, tc = tk_scan.BWD_WINDOW, tk_scan.STATE_EVERY
+    chunks = tk_scan.chunk_count(s)
+    sp, dp = chunks * tc, blocks * ch
+    pad = lambda x, *p: torch.nn.functional.pad(x, p)
+    dt, dtx, dy = (pad(x, 0, dp - di, 0, sp - s) for x in (dt, dtx, dy))
+    Bm, Cm = (pad(x, 0, 16 - n, 0, sp - s) for x in (Bm, Cm))
+    a2 = pad(A_t, 0, dp - di, 0, 16 - n) * np.float32(1.4426950408889634)
+    hc = pad(hc, 0, dp - di, 0, 16 - n)
+
+    def lane_sum(v):                        # [b, 16, dp] -> [b, dp]
+        acc = torch.zeros(b, lanes, dp)
+        for j in range(ks):                 # a lane's slots in order
+            acc = acc + v.gather(1, slot[:, j].expand(b, lanes, dp))
+        return _tree(acc.transpose(1, 2))
+
+    def channel_sum(x):                     # [b, 16, dp] -> [b, 16]
+        x = _tree(x.reshape(b, 16, blocks, 8, cw))
+        part = torch.zeros(b, 16, blocks)
+        for wp in range(8):
+            part = part + x[..., wp]
+        out = torch.zeros(b, 16)
+        for x_ in range(blocks):
+            out = out + part[..., x_]
+        return out
+
+    outs = [torch.zeros(b, sp, dp), torch.zeros(b, sp, dp),
+            torch.zeros(b, sp, 16), torch.zeros(b, sp, 16)]
+    ag = torch.zeros(b, 16, dp)             # a_{t+1}·g_{t+1}
+    for k in reversed(range(chunks)):
+        t0 = k * tc
+        nwin = -(-min(tc, s - t0) // win)
+
+        def step(t, h):
+            a = torch.exp2(dt[:, t, None, :] * a2)
+            return a, a * h + dtx[:, t, None, :] * Bm[:, t, :, None]
+
+        starts = [hc[:, k]]
+        for w in range(nwin - 1):
+            h = starts[-1]
+            for u in range(win):
+                h = step(t0 + w * win + u, h)[1]
+            starts.append(h)
+        for w in reversed(range(nwin)):
+            aw, hw = [], []
+            for u in range(win):
+                a, h = step(t0 + w * win + u, hw[-1] if hw else starts[w])
+                aw.append(a)
+                hw.append(h)
+            for u in reversed(range(win)):
+                t = t0 + w * win + u
+                dyv, dxv = dy[:, t, None, :], dtx[:, t, None, :]
+                gr = dyv * Cm[:, t, :, None] + ag
+                ag = aw[u] * gr
+                hp = hw[u - 1] if u else starts[w]
+                outs[0][:, t] = lane_sum((ag * hp) * a2) \
+                    * np.float32(0.6931471805599453)
+                outs[1][:, t] = lane_sum(gr * Bm[:, t, :, None])
+                outs[2][:, t] = channel_sum(gr * dxv)
+                outs[3][:, t] = channel_sum(hw[u] * dyv)
+    return (outs[0][:, :s, :di], outs[1][:, :s, :di], outs[2][:, :s, :n],
+            outs[3][:, :s, :n])
+
+
+@pytest.mark.parametrize("lanes", [4, 8])
+@pytest.mark.parametrize("seed,B,S,di,n", [
+    (12, 1, 45, 72, 16),     # di ragged against 64 and 32 channels, S 45
+    (13, 2, 70, 40, 4),      # n < 16, three chunks, the last of 6 steps
+])
+def test_backward_schedule_matches_plain_and_jax_grad(seed, B, S, di, n,
+                                                      lanes):
+    """The kernel's schedule (windows of BWD_WINDOW steps recomputed from
+    the pass's starts, g carried across windows and chunks, the sums in
+    the kernel's orders) gives the plain version's gradients and
+    jax.grad's, within 1e-5 of max |grad| each."""
+    dt, dtx, Bm, Cm, A, w = _scan_case(seed, B, S, di, n)
+    want = _jax_scan_grads(dt, dtx, Bm, Cm, A, w, 8)
+    t = [torch.from_numpy(a) for a in (dt, dtx, Bm, Cm)]
+    A_t = torch.from_numpy(np.ascontiguousarray(A.T))
+    _, _, hc = tk_scan.selective_scan(*t, A_t, torch.zeros(B, n, di),
+                                      chunk_states=True)
+    dy = torch.from_numpy(w)
+    got = _bwd_schedule(*t, A_t, hc, dy, lanes)
+    plain = tk_scan.selective_scan_bwd_plain(*t, A_t, hc, dy)
+    for name, g, p, jg in zip(("dt", "dtx", "Bm", "Cm"), got, plain, want):
+        assert g.shape == p.shape
+        assert _rel(g, p.numpy()) <= SCAN_REL, name
+        assert _rel(g, jg) <= SCAN_REL, name
+
+
+def test_backward_schedule_fills_the_card():
+    """At the falcon-mamba-7b training shape [2, 2048, 8192] the backward
+    runs more than 1,024 warps at each lane count (the first design ran
+    1,024, one 4-warp block an SM); its partials have a row per block
+    along di."""
+    for lanes, warps in ((4, 2048), (8, 4096)):
+        blocks, rows, ch = tk_scan.bwd_schedule(2, 8192, lanes)
+        assert blocks * ch == 8192 and rows == 2
+        assert blocks * rows * tk_scan.BWD_THREADS // 32 == warps
+    assert tk_scan.bwd_schedule(1, 8232, 4)[0] == 129
+    with pytest.raises(ValueError, match="lanes = 2"):
+        tk_scan.bwd_schedule(1, 64, 2)
 
 
 # --- the block ----------------------------------------------------------------
