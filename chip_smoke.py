@@ -198,10 +198,25 @@ weight shapes and K6 and K7 at 4096 rows x each of their 8 new d_out
       K1 = assembled = 196, K6 = 280, K7 = 140 a step; the routes in fp32
       at 2 layers from embeddings; ``generate`` with K1 = 196, K6 = 140;
       an embeddings prefill, kernel vs eager route in fp32 at full depth;
-  A1-A5. phi4-mini-3.8b, chatglm3-6b, musicgen-medium, qwen3-32b and
-      qwen2-vl-72b at their published widths, depth cut as ARCH_DEPTH
-      says (printed), served with the launch counts the port's dispatch
-      plans give, kernel vs eager route in fp32 at 4 layers.
+  A1-A6. phi4-mini-3.8b, chatglm3-6b, musicgen-medium, qwen3-32b,
+      qwen2-vl-72b and llama4-scout-17b-a16e (MoE, 12 of 48 layers) at
+      their published widths, depth cut as ARCH_DEPTH says (printed),
+      served with the launch counts the port's dispatch plans give,
+      kernel vs eager route in fp32 at 4 layers (for the MoE arch with its
+      dropped share at prefill and its routing flips between the routes).
+
+Last, the MoE stack (see moe_checks): qwen2-moe-a2.7b at full width and
+depth (24 layers, 60 experts top-4 and a shared expert), r=384 DoRA on
+the attention and the shared expert:
+
+  MoE1. ``generate`` as the dense archs: K1 = assembled = 168, K6 = 48,
+      nothing at decode; the dropped share per layer at prefill, a
+      profiled decode step's idle share;
+  MoE2. 3 train steps as qwen2-7b's: K1 = assembled = 168, K6 = 96,
+      K7 = 48 a step; a profiled step by MoE function; each layer's
+      recompute routes bitwise as its forward;
+  MoE3. one layer routed twice the same; kernel vs eager route in fp32
+      at 4 layers, trained and served, with the routing flips counted.
 
 With ``--kernel-phase-vs DIR`` it runs only the kernel phase, of the
 checkout at DIR (a ``git archive`` of another commit) and of this one, in
@@ -219,6 +234,7 @@ printing anything.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import math
@@ -260,6 +276,9 @@ ENGINE_REQUESTS, ENGINE_PROMPT, ENGINE_NEW, ENGINE_ARRIVAL = (
 # prompts, the route comparison in fp32 at 4 layers, card vs CPU at 2.
 MAMBA_ARCH, MAMBA_AGREE_LAYERS, MAMBA_AGREE_GEN = "falcon-mamba-7b", 4, 8
 SCAN_TOL = 1e-5
+# qwen2-moe-a2.7b served and trained at full width and depth, with its
+# route comparison in fp32 at 4 layers.
+MOE_ARCH, MOE_AGREE_LAYERS = "qwen2-moe-a2.7b", 4
 # K1's (d_out, d_in): qwen2-7b's wq, wk, w_gate, w_down, then
 # falcon-mamba-7b's in_proj and out_proj.
 K1_SHAPES = ((3584, 3584), (512, 3584), (18944, 3584), (3584, 18944),
@@ -1153,8 +1172,10 @@ ARCH_K1_SHAPES = (
     (5120, 25600), (25600, 5120), (1024, 5120), (5120, 8192),  # qwen3-32b
     (8192, 5120),
     (1536, 6144), (6144, 1536), (1536, 1536),                 # musicgen
-    (8192, 29568), (29568, 8192), (1024, 8192), (8192, 8192))  # qwen2-vl-72b
-ARCH_MM_N = (3072, 8192, 4096, 13696, 5120, 25600, 6144, 29568)
+    (8192, 29568), (29568, 8192), (1024, 8192), (8192, 8192),  # qwen2-vl-72b
+    (2048, 2048), (5632, 2048), (2048, 5632),                 # qwen2-moe
+    (5120, 5120))                                             # llama4-scout
+ARCH_MM_N = (3072, 8192, 4096, 13696, 5120, 25600, 6144, 29568, 5632)
 ARCH_MM_ROWS = BATCH * MAX_LEN
 
 
@@ -3247,10 +3268,13 @@ def _kernel_family(name: str) -> str:
     return "other"
 
 
-def profile(run, label: str, echo: bool = True) -> dict:
+def profile(run, label: str, echo: bool = True, ranges=()) -> dict:
     """``run()`` under torch.profiler, outside every launch count: device
     time by kernel family and by kernel, and the device's idle share of
-    the wall time; printed unless ``echo`` is False."""
+    the wall time; printed unless ``echo`` is False. ``ranges``: names of
+    ``record_function`` ranges that ``run`` opens (``moe_ranges``), whose
+    kernels' device time is reported by range (the ranges' own device-side
+    annotation spans count as no kernel)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
@@ -3264,8 +3288,14 @@ def profile(run, label: str, echo: bool = True) -> dict:
             _sync(dev)
             wall_us = (time.perf_counter() - t0) * 1e6
         by_name: dict = {}
+        in_range: dict = {}
         for ev in prof.events():
             if ev.device_type != DeviceType.CUDA:
+                if ev.name in ranges:
+                    n, t = in_range.get(ev.name, (0, 0.0))
+                    in_range[ev.name] = (n + 1, t + ev.device_time_total)
+                continue
+            if ev.name in ranges:
                 continue
             us = ev.time_range.end - ev.time_range.start
             n, t = by_name.get(ev.name, (0, 0.0))
@@ -3287,13 +3317,18 @@ def profile(run, label: str, echo: bool = True) -> dict:
                                families.items(), key=lambda kv: -kv[1][1])},
            "top_kernels_ms": [{"name": k[:100], "launches": n, "ms": t / 1e3}
                               for k, (n, t) in top]}
+    if ranges:
+        rec["ranges_ms"] = {k: {"calls": n, "ms": t / 1e3}
+                            for k, (n, t) in sorted(in_range.items())}
     if echo:
         print(f"{label} profile: " + json.dumps(rec), flush=True)
     return rec
 
 
-def _profile_step(dev, mcfg, params, adapters, dcfg, batch) -> dict:
-    """One more training step under the profiler."""
+def _profile_step(dev, mcfg, params, adapters, dcfg, batch,
+                  ranges=()) -> dict:
+    """One more training step under the profiler (``ranges``: as
+    ``profile`` takes them)."""
     from repro_torch.launch.steps import StepConfig, make_train_step
     from repro_torch.optim import adamw_init
 
@@ -3303,10 +3338,18 @@ def _profile_step(dev, mcfg, params, adapters, dcfg, batch) -> dict:
     opt = adamw_init(adapters)
     bt = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
     rec = profile(lambda: step(params, adapters, opt, bt),
-                  "train (auto, bf16, one step)")
+                  f"train {mcfg.name} (auto, bf16, one step)", ranges=ranges)
     del opt
     torch.cuda.empty_cache()
     return rec
+
+
+def _first_layers(tree, n: int):
+    """Copies of the first ``n`` layer slices of a stacked tree's stack,
+    beside its other leaves as they are: the rest of the stack is freed
+    with the tree it came from, before an upcast of the copies."""
+    return {k: _tree_map(lambda t: t[:n].clone(), v) if k == "stack" else v
+            for k, v in tree.items()}
 
 
 def _upcast_layers(tree, n: int):
@@ -3665,11 +3708,13 @@ def mamba_checks(dev) -> dict:
 
 VL_ARCH = "qwen2-vl-7b"
 # Layers each arch is served at (of its published depth), and the depth
-# of its fp32 route comparison. qwen3-32b (65.5 GB of bf16 weights) and
-# qwen2-vl-72b (145.4 GB) are cut to fit one card beside their fp32
-# copies; the three that fit whole run whole.
+# of its fp32 route comparison. qwen3-32b (65.5 GB of bf16 weights),
+# qwen2-vl-72b (145.4 GB) and llama4-scout-17b-a16e (203.5 GB; 4.15 GB a
+# layer, 54.0 GB with its embedding and head at 12 layers) are cut to fit
+# one card beside their fp32 copies; the three that fit whole run whole.
 ARCH_DEPTH = {"phi4-mini-3.8b": 32, "chatglm3-6b": 28, "musicgen-medium": 48,
-              "qwen3-32b": 24, "qwen2-vl-72b": 16}
+              "qwen3-32b": 24, "qwen2-vl-72b": 16,
+              "llama4-scout-17b-a16e": 12}
 ARCH_GEN, ARCH_AGREE_LAYERS = 8, 4
 
 
@@ -3930,21 +3975,28 @@ def vl_checks(dev) -> dict:
 
 
 def arch_checks(dev) -> dict:
-    """A1-A5: phi4-mini-3.8b, chatglm3-6b, musicgen-medium, qwen3-32b and
-    qwen2-vl-72b at their published widths, each at the depth of
-    ARCH_DEPTH (printed with its published depth), random weights from a
-    seed, DoRA r=384 on every projection: ``generate`` (bf16, auto),
-    batch 4, prompt 960 padded to 1024, 8 greedy tokens, with the launch
-    counts the port's dispatch gives before the run; then the weights'
-    first ARCH_AGREE_LAYERS layers upcast to fp32, kernel route against
-    eager route: prefill logit cosine >= 0.9999, equal tokens."""
+    """A1-A6: phi4-mini-3.8b, chatglm3-6b, musicgen-medium, qwen3-32b,
+    qwen2-vl-72b and llama4-scout-17b-a16e (MoE: 16 experts top-1 in every
+    layer, no shared expert) at their published widths, each at the depth
+    of ARCH_DEPTH (printed with its published depth), random weights from
+    a seed, DoRA r=384 on every projection the reference adapts:
+    ``generate`` (bf16, auto), batch 4, prompt 960 padded to 1024, 8
+    greedy tokens, with the launch counts the port's dispatch gives before
+    the run (llama4-scout: K1 = 48, K6 = 24 on wq and wo); for the MoE
+    arch, the dropped share per layer of a padded prefill and the bound
+    of decode's read of every expert's weights; then copies of the
+    weights' first ARCH_AGREE_LAYERS layers (the rest freed) upcast to
+    fp32, kernel route against eager route: prefill logit cosine >=
+    0.9999, equal tokens, and for the MoE arch the routing flips between
+    the routes counted layer by layer with each flip's margin."""
     import dataclasses
 
     from repro_torch import kernels
     from repro_torch.configs import get_config
     from repro_torch.core.config import DoRAConfig
     from repro_torch.launch import serve
-    from repro_torch.launch.steps import StepConfig
+    from repro_torch.launch.steps import (StepConfig, make_precompute_step,
+                                          make_prefill_step)
 
     cfg = {mode: StepConfig(dora=DoRAConfig(rank=RANK, alpha=ALPHA,
                                             mode=mode))
@@ -3968,9 +4020,11 @@ def arch_checks(dev) -> dict:
               f"{mcfg.num_kv_heads} KV heads, d_ff {mcfg.d_ff} "
               f"{mcfg.mlp_kind}, vocab "
               f"{mcfg.vocab_size}, {mcfg.pos_mode}, {mcfg.norm_kind} norm"
-              f"{', qk-norm' if mcfg.qk_norm else ''}), {cut}; built with "
-              f"r={RANK} DoRA in {time.perf_counter() - t0:.1f} s",
-              flush=True)
+              f"{', qk-norm' if mcfg.qk_norm else ''}"
+              + (f", {mcfg.num_experts} experts of {mcfg.moe_d_ff} top-"
+                 f"{mcfg.top_k}" if mcfg.moe else "")
+              + f"), {cut}; built with r={RANK} DoRA in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
         prompts = np.random.default_rng(SEED).integers(
             0, mcfg.vocab_size, (BATCH, PROMPT))
         serve.generate(mcfg, params, adapters, cfg["auto"], prompts,
@@ -4000,18 +4054,35 @@ def arch_checks(dev) -> dict:
                    torch.cuda.max_memory_allocated(dev),
                "launches": counts}
         del logits
-        m32 = dataclasses.replace(mcfg, num_layers=ARCH_AGREE_LAYERS,
-                                  dtype=torch.float32)
-        p32 = _upcast_layers(params, ARCH_AGREE_LAYERS)
-        a32 = _upcast_layers(adapters, ARCH_AGREE_LAYERS)
+        if mcfg.moe:
+            expert_bytes = (depth * 3 * mcfg.num_experts * mcfg.moe_d_ff
+                            * mcfg.d_model * 2)
+            rec["decode_expert_read_bound_ms"] = \
+                expert_bytes / HBM_BYTES_PER_S * 1e3
+            state = make_precompute_step(mcfg, cfg["auto"])(params, adapters)
+            with moe_recording() as moe_rec:
+                make_prefill_step(mcfg, cfg["auto"], batch=BATCH,
+                                  seq=MAX_LEN, padded=True)(
+                    params, state, {"tokens": torch.nn.functional.pad(
+                        torch.as_tensor(prompts, device=dev),
+                        (0, MAX_LEN - PROMPT)), "prompt_len": PROMPT})
+            rec["prefill_dropped_share_by_layer"] = dropped_shares(moe_rec)
+            del state, moe_rec
+        n = ARCH_AGREE_LAYERS
+        m32 = dataclasses.replace(mcfg, num_layers=n, dtype=torch.float32)
+        params, adapters = (_first_layers(params, n),
+                            _first_layers(adapters, n))
+        _empty_cache(dev)
+        p32, a32 = _upcast_layers(params, n), _upcast_layers(adapters, n)
         del params, adapters
-        torch.cuda.empty_cache()
-        routes = {}
+        _empty_cache(dev)
+        routes, moe_routes = {}, {}
         for mode in ("auto", "eager"):
             kernels.reset_launch_counts()
-            tk, lg = serve.generate(m32, p32, a32, cfg[mode], prompts,
-                                    gen_len=ARCH_GEN, max_len=MAX_LEN,
-                                    device=dev, return_logits=True)
+            with moe_recording(margins=True) as moe_routes[mode]:
+                tk, lg = serve.generate(m32, p32, a32, cfg[mode], prompts,
+                                        gen_len=ARCH_GEN, max_len=MAX_LEN,
+                                        device=dev, return_logits=True)
             routes[mode] = (lg[0].float(), tk, launch_counts())
         (lk, tk, ck), (le, te, ce) = routes["auto"], routes["eager"]
         check(ck == serve_counts(m32, auto, prefill_rows=BATCH * MAX_LEN,
@@ -4022,6 +4093,9 @@ def arch_checks(dev) -> dict:
             "layers": ARCH_AGREE_LAYERS,
             "prefill_logit_cosine": cosine(lk, le),
             "tokens_equal": bool(torch.equal(tk, te))}
+        if mcfg.moe:
+            rec["fp32_routes"]["prefill_route_flips_by_layer"] = route_flips(
+                moe_routes["auto"], moe_routes["eager"], n)
         print(f"serve {arch} (bf16, auto; fp32 routes at "
               f"{ARCH_AGREE_LAYERS} layers): " + json.dumps(rec),
               flush=True)
@@ -4030,9 +4104,353 @@ def arch_checks(dev) -> dict:
         check(rec["fp32_routes"]["tokens_equal"],
               f"{arch} fp32 routes' greedy tokens differ")
         out[arch] = rec
-        del p32, a32, routes
-        torch.cuda.empty_cache()
+        del p32, a32, routes, moe_routes
+        _empty_cache(dev)
     return out
+
+
+# ---------------------------------------------------------------------------
+# MoE: qwen2-moe-a2.7b served and trained at full width and depth (MoE1-
+# MoE3); llama4-scout-17b-a16e is served with the dense family (A6).
+# ---------------------------------------------------------------------------
+
+# The functions of models/moe.py that a profiled MoE step times, each in
+# a record_function range of this name.
+MOE_RANGES = {"router_topk": "moe.router",
+              "_dispatch_indices": "moe.dispatch_indices",
+              "_dispatch": "moe.scatter", "_expert_ffn": "moe.experts",
+              "_combine": "moe.gather"}
+
+
+@contextlib.contextmanager
+def moe_ranges():
+    """Each MOE_RANGES function of ``models/moe.py`` inside a
+    ``record_function`` range of its name while the block runs (for
+    ``profile(ranges=...)``); yields the range names."""
+    from repro_torch.models import moe as MOE
+
+    saved = {f: getattr(MOE, f) for f in MOE_RANGES}
+
+    def ranged(fn, name):
+        def wrapper(*args, **kw):
+            with torch.profiler.record_function(name):
+                return fn(*args, **kw)
+        return wrapper
+    for f, name in MOE_RANGES.items():
+        setattr(MOE, f, ranged(saved[f], name))
+    try:
+        yield tuple(MOE_RANGES.values())
+    finally:
+        for f, fn in saved.items():
+            setattr(MOE, f, fn)
+
+
+@contextlib.contextmanager
+def moe_recording(margins: bool = False):
+    """What the MoE layers route while the block runs, call by call and
+    outside every launch count: each router call's gate_i under "route"
+    (with ``margins``, also each token's least gap between neighbours of
+    its k + 1 largest probabilities, recomputed from the router's input:
+    the change of probability that would change its experts or their
+    order), each dispatch's slot and keep under "dispatch"."""
+    from repro_torch.models import moe as MOE
+
+    rec = {"route": [], "dispatch": []}
+    router, dispatch = MOE.router_topk, MOE._dispatch_indices
+
+    def router_rec(x, w, cfg):
+        out = router(x, w, cfg)
+        entry = {"gate_i": out[1].detach().clone()}
+        if margins and cfg.top_k < cfg.num_experts:
+            with torch.no_grad():
+                probs = torch.softmax(x.detach().float() @ w.float().T, -1)
+                top = torch.topk(probs, cfg.top_k + 1, dim=-1).values
+                entry["margin"] = (top[..., :-1] - top[..., 1:]).amin(-1)
+        rec["route"].append(entry)
+        return out
+
+    def dispatch_rec(gate_i, E, capacity):
+        slot, keep = dispatch(gate_i, E, capacity)
+        rec["dispatch"].append({"slot": slot.clone(), "keep": keep.clone()})
+        return slot, keep
+    MOE.router_topk, MOE._dispatch_indices = router_rec, dispatch_rec
+    try:
+        yield rec
+    finally:
+        MOE.router_topk, MOE._dispatch_indices = router, dispatch
+
+
+def dropped_shares(rec) -> list:
+    """The share of dropped assignments of each recorded dispatch."""
+    return [1.0 - d["keep"].float().mean().item() for d in rec["dispatch"]]
+
+
+def route_flips(got, want, calls: int) -> list:
+    """For each of the first ``calls`` recorded router calls (a layer
+    each), the tokens whose experts (the set or their order) differ
+    between two runs, with ``want``'s margin at each flip (at most 16
+    listed) and its least margin over all tokens."""
+    out = []
+    for a, b in zip(got["route"][:calls], want["route"][:calls]):
+        flip = (a["gate_i"] != b["gate_i"]).any(dim=-1)
+        out.append({"flips": int(flip.sum()),
+                    "flip_margins": b["margin"][flip][:16].tolist(),
+                    "least_margin": float(b["margin"].min())})
+    return out
+
+
+def moe_checks(dev) -> dict:
+    """MoE1-MoE3: qwen2-moe-a2.7b (24 layers, d_model 2048, 60 routed
+    experts of 1408 top-4 and a shared expert of 5632 behind a sigmoid
+    gate) at full width and depth, random weights from a seed, DoRA r=384
+    on the seven projections the reference adapts (wq, wk, wv, wo and the
+    shared expert's w_gate, w_up, w_down; the routed experts, the router
+    and the gate stay frozen):
+
+      MoE1. ``generate`` (bf16, auto), batch 4, prompt 960 padded to 1024,
+          32 greedy tokens: K1 = assembled = 168 at precompute, K6 = 48
+          (the shared expert's w_gate and w_up) at prefill, nothing at
+          decode; precompute, prefill and decode ms, peak memory; the
+          share of dropped assignments per layer at prefill (capacity 85
+          from the padded 1024); one profiled decode step's idle share
+          beside the bound of its read of every expert's weights;
+      MoE2. 3 train steps (bf16, auto), batch 2 x seq 2048, loss on the
+          last 1024, layer remat, AdamW: per step K1 = assembled = 168,
+          K6 = 96 (forward and recompute), K7 = 48, nothing else; step
+          ms, tokens/s, peak (the memory reckoning printed first); one
+          profiled step with the device time of the MoE functions by
+          range; one more gradient step recording the routing: each
+          layer's recompute routes bitwise as its forward did;
+      MoE3. one layer's router and dispatch called twice on one input
+          give the same gate weights, gate_i, slots and keep; the first
+          MOE_AGREE_LAYERS layers upcast to fp32, kernel route against
+          eager route: train loss within 1e-5 relative, adapter-gradient
+          cosine >= 0.99999, prefill logit cosine >= 0.9999, equal greedy
+          tokens; the routing flips between the two routes counted layer
+          by layer, with each flip's margin."""
+    import dataclasses
+
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.core.config import DoRAConfig
+    from repro_torch.launch import serve
+    from repro_torch.launch.steps import (StepConfig, make_decode_step,
+                                          make_grad_step,
+                                          make_precompute_step,
+                                          make_prefill_step)
+    from repro_torch.models import lm
+    from repro_torch.models import moe as MOE
+
+    mcfg = get_config(MOE_ARCH)
+    L, E, D = mcfg.num_layers, mcfg.num_experts, mcfg.d_model
+    _check_shapes_held(mcfg)
+    cfg = {mode: StepConfig(dora=DoRAConfig(rank=RANK, alpha=ALPHA,
+                                            mode=mode))
+           for mode in ("auto", "eager")}
+    auto = cfg["auto"].dora
+    _empty_cache(dev)
+    t0 = time.perf_counter()
+    params, adapters = serve.build_state(mcfg, auto, SEED, dev)
+    adapters = perturb_adapters(
+        adapters, torch.Generator(device=dev).manual_seed(SEED + 1))
+    _sync(dev)
+    print(f"moe: built {MOE_ARCH} ({L} layers, d_model {D}, "
+          f"{mcfg.num_heads} heads, {E} experts of {mcfg.moe_d_ff} top-"
+          f"{mcfg.top_k}, a shared expert of {mcfg.shared_d_ff}, vocab "
+          f"{mcfg.vocab_size}, {mcfg.dtype}) with r={RANK} DoRA on 7 "
+          f"targets in {time.perf_counter() - t0:.1f} s", flush=True)
+    prompts = np.random.default_rng(SEED).integers(
+        0, mcfg.vocab_size, (BATCH, PROMPT))
+
+    def capacity(seq):
+        return max(int(mcfg.capacity_factor * mcfg.top_k * seq / E), 1)
+
+    # --- MoE1: serving, bf16, auto ---
+    serve.generate(mcfg, params, adapters, cfg["auto"], prompts, gen_len=1,
+                   max_len=MAX_LEN, device=dev)
+    want = serve_counts(mcfg, auto, prefill_rows=BATCH * MAX_LEN,
+                        decode_rows=BATCH, decode_steps=GEN)
+    check(want == counts_of(norm_terms=7 * L, assembled=7 * L,
+                            compose_mm_fwd=2 * L),
+          f"{MOE_ARCH} serve: the dispatch plans give {want}")
+    _reset_peak(dev)
+    stats: dict = {}
+    kernels.reset_launch_counts()
+    mma0 = kernels.compose_mm_fwd.mma_launches
+    toks, logits = serve.generate(
+        mcfg, params, adapters, cfg["auto"], prompts, gen_len=GEN,
+        max_len=MAX_LEN, device=dev, return_logits=True, stats=stats)
+    _sync(dev)
+    counts = launch_counts()
+    check(counts == want, f"{MOE_ARCH} serve launch counts {counts}")
+    check_k6_on_tensor_cores(mma0, counts, f"{MOE_ARCH} serve")
+    check(tuple(toks.shape) == (BATCH, PROMPT + GEN)
+          and all(torch.isfinite(lg.float()).all().item() for lg in logits)
+          and ((toks >= 0) & (toks < mcfg.vocab_size)).all().item(),
+          f"{MOE_ARCH} serve: non-finite logits or tokens out of range")
+    expert_bytes = L * 3 * E * mcfg.moe_d_ff * D * 2
+    served = {
+        "precompute_ms": stats["precompute_s"] * 1e3,
+        "prefill_ms": stats["prefill_s"] * 1e3,
+        "decode_ms_per_token": stats["decode_s"] * 1e3 / GEN,
+        "decode_tok_per_s": BATCH * GEN / stats["decode_s"],
+        "max_memory_allocated_bytes": _peak(dev), "launches": counts,
+        "prefill_capacity": capacity(MAX_LEN),
+        "unpadded_capacity": capacity(PROMPT),
+        "decode_expert_bytes": expert_bytes,
+        "decode_expert_read_bound_ms": expert_bytes / HBM_BYTES_PER_S * 1e3}
+    del logits
+    # The padded prefill again, recording each layer's dispatch, and one
+    # decode step under the profiler (both outside the counts).
+    state = make_precompute_step(mcfg, cfg["auto"])(params, adapters)
+    prefill = make_prefill_step(mcfg, cfg["auto"], batch=BATCH,
+                                seq=MAX_LEN, padded=True)
+    padded = {"tokens": torch.nn.functional.pad(
+        torch.as_tensor(prompts, device=dev), (0, MAX_LEN - PROMPT)),
+        "prompt_len": PROMPT}
+    with moe_recording() as rec:
+        last, cache = prefill(params, state, padded)
+    shares = dropped_shares(rec)
+    check(len(shares) == L, f"{MOE_ARCH} prefill recorded {len(shares)} "
+          f"dispatches")
+    served["prefill_dropped_share_by_layer"] = shares
+    decode = make_decode_step(mcfg, cfg["auto"], batch=BATCH)
+    nxt = last.argmax(dim=-1)[:, None]
+    served["decode_profile"] = profile(
+        lambda: decode(params, state, cache, {"tokens": nxt}),
+        f"serve {MOE_ARCH} decode step (bf16)")
+    print(f"serve {MOE_ARCH} (bf16, auto): " + json.dumps(
+        {k: v for k, v in served.items() if k != "decode_profile"}),
+        flush=True)
+    del state, cache, last, rec
+    _empty_cache(dev)
+
+    # --- MoE2: training, bf16, auto ---
+    def nbytes(tree):
+        return sum(t.numel() * t.element_size() for t in _leaves_sorted(tree))
+
+    ad32 = sum(t.numel() * 4 for t in _leaves_sorted(adapters))
+    reckoning = {
+        "weights_gb": _gb(nbytes(params)),
+        "adapters_gb": _gb(nbytes(adapters)),
+        "grads_gb": _gb(ad32), "adamw_gb": _gb(2 * ad32),
+        "layer_inputs_gb": _gb(L * TRAIN_BATCH * TRAIN_SEQ * D * 2),
+        "logits_fp32_gb": _gb(TRAIN_BATCH * LOSS_TOKENS * mcfg.vocab_size
+                              * 4),
+        "expert_buffer_one_layer_gb": _gb(E * TRAIN_BATCH
+                                          * capacity(TRAIN_SEQ) * D * 2)}
+    reckoning["total_gb"] = round(sum(reckoning.values()), 2)
+    print(f"{MOE_ARCH} train memory reckoning ({L} layers, r={RANK}): "
+          + json.dumps(reckoning), flush=True)
+    batches = _train_batches(mcfg, TRAIN_STEPS)
+    want = train_counts(mcfg, auto, rows=TRAIN_BATCH * TRAIN_SEQ)
+    check(want == counts_of(norm_terms=7 * L, assembled=7 * L,
+                            compose_mm_fwd=4 * L, compose_mm_bwd=2 * L),
+          f"{MOE_ARCH} train: the dispatch plans give {want}")
+    mma0 = kernels.compose_mm_fwd.mma_launches
+    train = _steps_on(dev, mcfg, params, adapters, auto, batches,
+                      f"{MOE_ARCH} auto")
+    check_k6_on_tensor_cores(mma0, train["launches"], f"{MOE_ARCH} train")
+    for i, got in enumerate(train["launches_per_step"]):
+        check(got == want, f"{MOE_ARCH} train step {i} launch counts {got}")
+    train["reckoning"] = reckoning
+    with moe_ranges() as names:
+        train["profile"] = _profile_step(dev, mcfg, params, adapters, auto,
+                                         batches[-1], ranges=names)
+    bt = {k: torch.as_tensor(v, device=dev) for k, v in batches[0].items()}
+    grad_step = make_grad_step(mcfg, StepConfig(dora=auto,
+                                                loss_tokens=LOSS_TOKENS),
+                               batch=TRAIN_BATCH, seq=TRAIN_SEQ)
+    with moe_recording() as rec:
+        grad_step(params, adapters, bt)
+    # The forward routes layers 0..L-1; the backward recomputes them from
+    # the last layer down.
+    fwd = list(zip(rec["route"][:L], rec["dispatch"][:L]))
+    again = list(zip(rec["route"][L:], rec["dispatch"][L:]))[::-1]
+    same = [torch.equal(r0["gate_i"], r1["gate_i"])
+            and torch.equal(d0["slot"], d1["slot"])
+            and torch.equal(d0["keep"], d1["keep"])
+            for (r0, d0), (r1, d1) in zip(fwd, again)]
+    check(len(rec["route"]) == 2 * L and all(same),
+          f"{MOE_ARCH} train: the recompute routed differently from the "
+          f"forward ({len(rec['route'])} router calls, layers equal: "
+          f"{same})")
+    train["recompute_routes_bitwise"] = True
+    train["train_dropped_share_by_layer"] = dropped_shares(
+        {"dispatch": rec["dispatch"][:L]})
+    del rec
+
+    # --- MoE3: one layer routed twice; the routes in fp32 ---
+    layer = lm._slice_tree(params["stack"], 0)["l0"]["ffn"]
+    h = (torch.randn((TRAIN_BATCH, TRAIN_SEQ, D), device=dev,
+                     generator=torch.Generator(device=dev).manual_seed(
+                         SEED + 5))).to(mcfg.dtype)
+    runs = []
+    for _ in range(2):
+        w, i, _ = MOE.router_topk(h, layer["router"], mcfg)
+        runs.append((w, i, *MOE._dispatch_indices(i, E,
+                                                   capacity(TRAIN_SEQ))))
+    check(all(torch.equal(a, b) for a, b in zip(*runs)),
+          f"{MOE_ARCH}: one layer's routing differs between two calls")
+    del runs, h, layer
+    n = MOE_AGREE_LAYERS
+    m32 = dataclasses.replace(mcfg, num_layers=n, dtype=torch.float32)
+    p32, a32 = _upcast_layers(params, n), _upcast_layers(adapters, n)
+    del params, adapters
+    _empty_cache(dev)
+    agree, grads, routes = {}, {}, {}
+    for mode in ("auto", "eager"):
+        kernels.reset_launch_counts()
+        with moe_recording(margins=True) as routes[mode]:
+            loss, g = make_grad_step(m32, StepConfig(
+                dora=cfg[mode].dora, loss_tokens=LOSS_TOKENS),
+                batch=TRAIN_BATCH, seq=TRAIN_SEQ)(p32, a32, bt)
+        agree[mode] = {"loss": float(loss), "launches": launch_counts()}
+        grads[mode] = torch.cat([t.flatten() for t in
+                                 _leaves_sorted(g)]).double()
+        del g
+    check(agree["auto"]["launches"] == train_counts(
+        m32, auto, rows=TRAIN_BATCH * TRAIN_SEQ)
+        and sum(agree["eager"]["launches"].values()) == 0,
+        f"{MOE_ARCH} fp32 train routes launched {agree}")
+    agree["loss_rel"] = abs(agree["auto"]["loss"] / agree["eager"]["loss"]
+                            - 1)
+    agree["grad_cosine"] = cosine(grads["auto"], grads["eager"])
+    agree["route_flips_by_layer"] = route_flips(routes["auto"],
+                                                routes["eager"], n)
+    del grads, routes
+    print(f"{MOE_ARCH} train fp32 routes ({n} layers, kernel vs eager): "
+          + json.dumps(agree), flush=True)
+    check(agree["loss_rel"] <= 1e-5,
+          f"{MOE_ARCH} fp32 kernel loss differs by {agree['loss_rel']}")
+    check(agree["grad_cosine"] >= GRAD_COSINE_MIN,
+          f"{MOE_ARCH} fp32 gradient cosine {agree['grad_cosine']}")
+    routes, outs = {}, {}
+    for mode in ("auto", "eager"):
+        kernels.reset_launch_counts()
+        with moe_recording(margins=True) as routes[mode]:
+            tk, lg = serve.generate(m32, p32, a32, cfg[mode], prompts,
+                                    gen_len=ARCH_GEN, max_len=MAX_LEN,
+                                    device=dev, return_logits=True)
+        outs[mode] = (lg[0].float(), tk, launch_counts())
+    (lk, tk, ck), (le, te, ce) = outs["auto"], outs["eager"]
+    check(ck == serve_counts(m32, auto, prefill_rows=BATCH * MAX_LEN,
+                             decode_rows=BATCH, decode_steps=ARCH_GEN)
+          and sum(ce.values()) == 0,
+          f"{MOE_ARCH} fp32 serve routes launched {ck} and {ce}")
+    serve32 = {"layers": n, "prefill_logit_cosine": cosine(lk, le),
+               "tokens_equal": bool(torch.equal(tk, te)),
+               "prefill_route_flips_by_layer": route_flips(
+                   routes["auto"], routes["eager"], n)}
+    print(f"serve {MOE_ARCH} fp32 routes ({n} layers, kernel vs eager): "
+          + json.dumps(serve32), flush=True)
+    check(serve32["prefill_logit_cosine"] >= COSINE_MIN,
+          f"{MOE_ARCH} fp32 kernel vs eager cosine {serve32}")
+    check(serve32["tokens_equal"], f"{MOE_ARCH} fp32 routes' tokens differ")
+    del p32, a32, routes, outs
+    _empty_cache(dev)
+    return {"serve": served, "train": train, "train_fp32_routes": agree,
+            "serve_fp32_routes": serve32}
 
 
 def fused_norm_ab(dev) -> dict:
@@ -4510,6 +4928,9 @@ def main() -> int:
     t0 = time.perf_counter()
     archs = arch_checks(dev)
     print(f"arch phases: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    moe = moe_checks(dev)
+    print(f"{MOE_ARCH} phases: {time.perf_counter() - t0:.1f} s", flush=True)
 
     by_path = {"serve_auto": served["auto"], "serve_fused": served["fused"],
                "train_auto": trained["train_auto"]["launches"],
@@ -4526,7 +4947,9 @@ def main() -> int:
                   for m in ("paged", "speculative", "faults", "fleet")},
                "train_vl": vl["train"]["launches"],
                "serve_vl": vl["serve"]["launches"],
-               **{f"serve_{a}": r["launches"] for a, r in archs.items()}}
+               **{f"serve_{a}": r["launches"] for a, r in archs.items()},
+               "serve_moe": moe["serve"]["launches"],
+               "train_moe": moe["train"]["launches"]}
     record = []
     for name, (src, replaces) in SOURCES.items():
         path, at = RECORD_PATH[name]
@@ -4593,7 +5016,7 @@ def main() -> int:
         "train": {k: trained[k] for k in ("train_auto", "train_elementwise",
                                           "fp32_agreement")},
         "train_parity": parity, "mamba": mamba, "mamba_train": mamba_train,
-        "serve_cli": cli, "vl": vl, "archs": archs},
+        "serve_cli": cli, "vl": vl, "archs": archs, "moe": moe},
         indent=1))
     print(f"details: {detail.relative_to(root)}")
     print(smi)
@@ -4651,7 +5074,28 @@ def main() -> int:
                                     if "launches" not in k}},
                       "archs": {a: {k: v for k, v in r.items()
                                     if k != "launches"}
-                                for a, r in archs.items()}}))
+                                for a, r in archs.items()},
+                      "moe": {
+                          "serve": {k: v for k, v in moe["serve"].items()
+                                    if k not in ("launches",
+                                                 "decode_profile")}
+                          | {"decode_idle_share": moe["serve"][
+                              "decode_profile"].get("device_idle_share")},
+                          "train": {f: moe["train"][f] for f in (
+                              "step_ms", "tokens_per_s",
+                              "max_memory_allocated_bytes",
+                              "recompute_routes_bitwise")}
+                          | {"device_idle_share": moe["train"][
+                              "profile"].get("device_idle_share"),
+                             "ranges_ms": moe["train"]["profile"].get(
+                                 "ranges_ms")},
+                          "train_fp32_routes": {
+                              k: moe["train_fp32_routes"][k] for k in (
+                                  "loss_rel", "grad_cosine")},
+                          "serve_fp32_routes": {
+                              k: moe["serve_fp32_routes"][k] for k in (
+                                  "prefill_logit_cosine",
+                                  "tokens_equal")}}}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

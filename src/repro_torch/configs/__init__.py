@@ -1,9 +1,10 @@
 """Architecture registry of the port: each arch has a FULL config (the
 published numbers) and a SMOKE config (reduced, runs on CPU). The
-reference registers more archs; the port runs its dense ones (qwen2-7b,
-phi4-mini-3.8b, chatglm3-6b, qwen3-32b, the paper's qwen2-vl-7b, qwen2-vl-72b
-and musicgen-medium, whose frontends are stubs that take precomputed
-embeddings) and the pure Mamba-1 falcon-mamba-7b."""
+reference registers one more arch (the hybrid jamba); the port runs its
+dense ones (qwen2-7b, phi4-mini-3.8b, chatglm3-6b, qwen3-32b, the paper's
+qwen2-vl-7b, qwen2-vl-72b and musicgen-medium, whose frontends are stubs
+that take precomputed embeddings), the pure Mamba-1 falcon-mamba-7b and
+the MoE qwen2-moe-a2.7b and llama4-scout-17b-a16e."""
 from __future__ import annotations
 
 import importlib
@@ -12,10 +13,12 @@ _MODULES = {"qwen2-7b": "qwen2_7b", "falcon-mamba-7b": "falcon_mamba_7b",
             "phi4-mini-3.8b": "phi4_mini_3_8b", "qwen2-vl-7b": "qwen2_vl_7b",
             "chatglm3-6b": "chatglm3_6b", "qwen3-32b": "qwen3_32b",
             "musicgen-medium": "musicgen_medium",
-            "qwen2-vl-72b": "qwen2_vl_72b"}
+            "qwen2-vl-72b": "qwen2_vl_72b",
+            "qwen2-moe-a2.7b": "qwen2_moe_a2_7b",
+            "llama4-scout-17b-a16e": "llama4_scout_17b_a16e"}
 
-# Archs the reference registers that later slices port (MoE and hybrid).
-NOT_PORTED = ("jamba-v0.1-52b", "qwen2-moe-a2.7b", "llama4-scout-17b-a16e")
+# Archs the reference registers that a later slice ports (the hybrid).
+NOT_PORTED = ("jamba-v0.1-52b",)
 
 
 def get_config(arch: str, smoke: bool = False):

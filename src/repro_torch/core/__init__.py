@@ -1,7 +1,7 @@
 """Core DoRA library of the port (counterpart of ``repro/core``): the
 names ``repro/core/__init__.py`` exports that the port has (no
-``select_tier``, ``compose_naive``, ``dora_linear_stacked`` or
-``factored_norm_sharded`` yet), resolved on first use.
+``select_tier``, ``compose_naive`` or ``factored_norm_sharded`` yet),
+resolved on first use.
 
 The exports are looked up lazily (PEP 562) because ``core.adapter``
 imports the kernel wrappers, which import ``core.compose``: an eager
@@ -14,7 +14,8 @@ import importlib
 
 _EXPORTS = {
     "config": ("DoRAConfig",),
-    "adapter": ("dora_linear", "dora_linear_grouped", "init_dora_params",
+    "adapter": ("dora_linear", "dora_linear_grouped",
+                "dora_linear_stacked", "init_dora_params",
                 "compute_weight_norm", "compose_delta",
                 "compose_delta_factored", "precompute_adapter_state",
                 "invalidate_adapter_state", "stack_adapter_states"),

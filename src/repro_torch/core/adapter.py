@@ -191,6 +191,25 @@ def dora_linear(x, W, adapter: dict[str, Any], cfg: DoRAConfig, *,
     return y
 
 
+def dora_linear_stacked(x, W, adapter: dict[str, Any], cfg: DoRAConfig, *,
+                        bias=None, training: bool = True,
+                        base_sq_cache=None):
+    """:func:`dora_linear` over a leading stack dim (the experts of an MoE
+    layer): x [E, ..., d_in], W [E, d_out, d_in], adapter leaves stacked
+    on dim 0, ``bias`` and ``base_sq_cache`` [E, d_out] when given (the
+    cache takes the place of the adapter's own "base_sq"). One call per
+    slice, the results stacked, as the reference's ``vmap`` computes."""
+    out = []
+    for e in range(W.shape[0]):
+        ad = {k: v[e] for k, v in adapter.items()}
+        if base_sq_cache is not None:
+            ad["base_sq"] = base_sq_cache[e]
+        out.append(dora_linear(x[e], W[e], ad, cfg,
+                               bias=None if bias is None else bias[e],
+                               training=training))
+    return torch.stack(out)
+
+
 def check_tenant_groups(tenant_groups, batch: int) -> tuple:
     """Validate a multi-tenant grouping: a tuple of ``(start, size)`` row
     blocks that tile ``[0, batch)`` contiguously in order (the server sorts

@@ -33,12 +33,21 @@ Runs on the card unless the CPU is asked for explicitly::
         --alpha 192
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-7b \\
         --smoke --device cpu --tenants 3
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-moe-a2.7b \\
+        --batch 4 --prompt-len 960 --gen-len 32 --rank 384 --alpha 192
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch llama4-scout-17b-a16e --smoke --device cpu
 
 ``--arch`` takes every arch of ``repro_torch.configs``: qwen2-7b,
 falcon-mamba-7b, phi4-mini-3.8b, qwen2-vl-7b, chatglm3-6b, qwen3-32b,
-musicgen-medium and qwen2-vl-72b. The prompts are token ids, for the
-frontend archs too (their frontends are stubs; precomputed embeddings go
-through ``launch/steps.py``'s prefill and decode steps).
+musicgen-medium, qwen2-vl-72b and the MoE qwen2-moe-a2.7b and
+llama4-scout-17b-a16e. The prompts are token ids, for the frontend archs
+too (their frontends are stubs; precomputed embeddings go through
+``launch/steps.py``'s prefill and decode steps). An MoE stack serves on
+the plain path only: its capacity dispatch couples a batch's rows, so
+``--continuous``, ``--fleet`` and ``--tenants`` refuse it, as the
+reference's do; its padded prefill computes the experts' capacity from
+the padded length, as the reference's does.
 
 ``--continuous`` serves 2 x ``--batch`` mixed-length requests for one
 registered tenant through :class:`EngineServer` (``--batch`` slots of the

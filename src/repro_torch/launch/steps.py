@@ -95,7 +95,9 @@ def make_grad_step(mcfg: ModelConfig, scfg: StepConfig, *, batch: int,
     ``scfg.loss_tokens``: the loss reads only the last N positions (the
     head runs on those alone). ``scfg.grad_accum`` = ga: the batch is
     split into ga microbatches along its first dim, their gradients
-    summed in fp32 and divided by ga, as the reference's scan does."""
+    summed in fp32 and divided by ga, as the reference's scan does. The
+    loss is the token-mean cross entropy plus the MoE layers' router loss
+    (zero without MoE or with ``router_aux_coef`` 0)."""
     lt = scfg.loss_tokens
     ga = max(scfg.grad_accum, 1)
     if batch % ga:
@@ -103,11 +105,12 @@ def make_grad_step(mcfg: ModelConfig, scfg: StepConfig, *, batch: int,
                          f"{ga}")
 
     def loss_fn(params, adapters, inputs, labels):
-        logits, _ = forward(mcfg, params, adapters, scfg.dora, **inputs,
-                            training=True, loss_slice=lt)
+        logits, _, aux = forward(mcfg, params, adapters, scfg.dora,
+                                 **inputs, training=True, loss_slice=lt,
+                                 return_aux=True)
         lbl = labels if lt is None or lt >= labels.shape[1] \
             else labels[:, -lt:]
-        return cross_entropy(logits, lbl)
+        return cross_entropy(logits, lbl) + aux
 
     def value_and_grad(params, adapters, inputs, labels):
         leaves = flatten_paths(adapters)

@@ -4,9 +4,10 @@ torch dtypes.
 The dataclass keeps the reference's field names for what the port runs:
 the dense attention archs (RoPE, partial RoPE, M-RoPE or sinusoidal
 positions, qk-norm, RMS or LayerNorm, SwiGLU or GELU MLP, the patch and
-audio-frame embedding frontends) and the pure Mamba-1 stacks. The flags
-that mark the other archs (MoE, hybrid) stay so that
-:func:`check_supported` can refuse them.
+audio-frame embedding frontends), the pure Mamba-1 stacks and MoE in every
+layer (shared + routed top-k experts with capacity, ``models/moe.py``).
+The flags that mark the other archs (MoE every k-th layer, hybrid) stay
+so that :func:`check_supported` can refuse them.
 """
 from __future__ import annotations
 
@@ -39,9 +40,20 @@ class ModelConfig:
     # --- mlp ---
     mlp_kind: str = "swiglu"        # swiglu | gelu (plain 2-matrix MLP)
     norm_kind: str = "rms"          # rms | layer
-    # --- MoE (not ported yet; see check_supported) ---
+    # --- MoE ---
     moe: bool = False
-    moe_period: int = 1             # MoE FFN every k-th layer
+    num_experts: int = 0
+    top_k: int = 0
+    num_shared_experts: int = 0
+    shared_d_ff: int = 0            # shared-expert hidden (qwen2-moe: 5632)
+    moe_d_ff: int = 0               # routed-expert hidden
+    moe_period: int = 1             # MoE FFN every k-th layer (only 1 here)
+    capacity_factor: float = 1.25
+    # >1: the sequence folds into this many dispatch groups (the
+    # reference's chunk-local dispatch); 0/1 = one group per batch row.
+    moe_seq_chunks: int = 0
+    renorm_topk: bool = True        # renormalize the top-k gate weights
+    router_aux_coef: float = 0.0    # load-balance aux loss coefficient
     # --- SSM (Mamba-1) ---
     ssm: bool = False
     ssm_state: int = 16
@@ -72,6 +84,8 @@ class ModelConfig:
                                self.d_model // self.num_heads)
         if self.dt_rank == 0 and self.ssm:
             object.__setattr__(self, "dt_rank", -(-self.d_model // 16))
+        if self.moe and self.moe_d_ff == 0:
+            object.__setattr__(self, "moe_d_ff", self.d_ff)
 
     @property
     def d_inner(self) -> int:
@@ -109,7 +123,8 @@ class ModelConfig:
     @property
     def period(self) -> int:
         """Length of the repeating layer pattern (the stacked unit): 1 for
-        the uniform stacks the port runs (dense, pure Mamba)."""
+        the uniform stacks the port runs (dense, pure Mamba, MoE in every
+        layer)."""
         return 1
 
     @property
@@ -124,15 +139,20 @@ FRONTENDS = (None, "patches", "audio_tokens")
 def check_supported(mcfg: ModelConfig) -> None:
     """Raise NotImplementedError for the archs later slices port, and
     ValueError for values no package knows."""
-    if mcfg.moe:
+    if mcfg.moe and mcfg.moe_period != 1:
         raise NotImplementedError(
-            f"{mcfg.name}: MoE stacks are not ported yet; they come with "
-            f"the later slice that ports models/moe.py")
+            f"{mcfg.name}: MoE every {mcfg.moe_period}th layer needs the "
+            f"non-uniform stacked unit, which is not ported yet; it comes "
+            f"with the later slice that ports jamba (MoE stacks with "
+            f"moe_period=1 run)")
     if mcfg.attn_period:
         raise NotImplementedError(
             f"{mcfg.name}: hybrid Mamba + attention stacks are not ported "
             f"yet; they come with the later slice that ports jamba "
             f"(with models/moe.py)")
+    if mcfg.moe and not (0 < mcfg.top_k <= mcfg.num_experts):
+        raise ValueError(f"{mcfg.name}: MoE needs 0 < top_k <= num_experts, "
+                         f"got top_k {mcfg.top_k} of {mcfg.num_experts}")
     if mcfg.ssm and mcfg.ssm_impl not in ("fused_chunk", "assoc"):
         raise ValueError(f"{mcfg.name}: unknown ssm_impl {mcfg.ssm_impl!r} "
                          f"(expected 'fused_chunk' or 'assoc')")

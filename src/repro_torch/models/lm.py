@@ -1,7 +1,8 @@
 """LM assembly (counterpart of ``repro/models/lm.py``): parameter specs and
 init, DoRA adapter trees, the decode caches (rectangular or block-paged
 K/V for attention layers, the ``h``/``conv`` states of Mamba layers) and
-the forward pass.
+the forward pass, whose FFN is a dense MLP or an MoE layer
+(``models/moe.py``).
 
 Trees are plain dicts that mirror the reference's pytrees: the layer
 stack is one unit whose leaves carry a leading ``[n_scan, ...]`` dim, so
@@ -29,6 +30,7 @@ from repro_torch.core.adapter import attach_weight_norms, init_dora_params
 from repro_torch.core.config import DoRAConfig
 from repro_torch.models import layers as L
 from repro_torch.models import mamba as M
+from repro_torch.models import moe as MOE
 from repro_torch.models.config import ModelConfig, check_supported
 
 _F32 = torch.float32
@@ -59,13 +61,26 @@ def _attn_spec(mcfg: ModelConfig):
     return s
 
 
-def _mlp_spec(mcfg: ModelConfig):
-    D, ff = mcfg.d_model, mcfg.d_ff
+def _mlp_spec(mcfg: ModelConfig, ff: int):
+    D = mcfg.d_model
     if mcfg.mlp_kind == "swiglu":
         return {"w_gate": ("linear", (ff, D)), "w_up": ("linear", (ff, D)),
                 "w_down": ("linear", (D, ff))}
     return {"w_up": ("linear", (ff, D)), "w_up_bias": ("zeros", (ff,)),
             "w_down": ("linear", (D, ff)), "w_down_bias": ("zeros", (D,))}
+
+
+def _moe_spec(mcfg: ModelConfig):
+    """Router, stacked routed experts ("linear3", never adapted) and the
+    optional shared expert behind its sigmoid gate."""
+    D, E, F = mcfg.d_model, mcfg.num_experts, mcfg.moe_d_ff
+    s = {"router": ("linear", (E, D)),
+         "gate": ("linear3", (E, F, D)), "up": ("linear3", (E, F, D)),
+         "down": ("linear3", (E, D, F))}
+    if mcfg.num_shared_experts:
+        s["shared"] = _mlp_spec(mcfg, mcfg.shared_d_ff)
+        s["shared_gate"] = ("linear", (1, D))
+    return s
 
 
 def _mamba_spec(mcfg: ModelConfig):
@@ -84,13 +99,15 @@ def _layer_spec(mcfg: ModelConfig, kind: str, ffn: str):
     s["mixer"] = _attn_spec(mcfg) if kind == "attn" else _mamba_spec(mcfg)
     if ffn != "none":
         s["ln2"] = _norm_spec(mcfg)
-        s["ffn"] = _mlp_spec(mcfg)
+        s["ffn"] = (_moe_spec(mcfg) if ffn == "moe"
+                    else _mlp_spec(mcfg, mcfg.d_ff))
     return s
 
 
 def unit_spec(mcfg: ModelConfig):
     """The repeating stack unit {"l0": layer, ...}: one attention + MLP
-    layer (dense) or one Mamba layer with no FFN (falcon-mamba)."""
+    layer (dense), one attention + MoE layer (MoE in every layer) or one
+    Mamba layer with no FFN (falcon-mamba)."""
     kinds, ffns = mcfg.layer_kinds(), mcfg.ffn_kinds()
     return {f"l{i}": _layer_spec(mcfg, kinds[i], ffns[i])
             for i in range(mcfg.period)}
@@ -300,12 +317,13 @@ def _apply_norm(x, p, mcfg: ModelConfig):
 
 def _layer_apply(x, p, a, c, mcfg, dcfg, *, kind, ffn, positions, length,
                  training, pages=None, tenant_groups=None):
-    """Pre-norm mixer (attention or Mamba) + pre-norm MLP (when the layer
-    has one), residual adds. ``c`` is this layer's cache slice, written in
-    place, or None; ``pages`` the block table of a paged cache.
-    ``tenant_groups``: multi-tenant serving, where the adapted linears
-    apply the per-group folded adapter state (attention and dense-MLP
-    layers only)."""
+    """Pre-norm mixer (attention or Mamba) + pre-norm FFN (a dense MLP or
+    MoE, when the layer has one), residual adds. Returns (x, aux): aux is
+    the MoE layer's router loss (fp32 0-d), None for other layers. ``c``
+    is this layer's cache slice, written in place, or None; ``pages`` the
+    block table of a paged cache. ``tenant_groups``: multi-tenant
+    serving, where the adapted linears apply the per-group folded adapter
+    state (attention and dense-MLP layers only)."""
     if tenant_groups is not None and (kind != "attn" or ffn == "moe"):
         raise NotImplementedError(
             f"multi-tenant grouped serving supports attention + dense-MLP "
@@ -330,11 +348,15 @@ def _layer_apply(x, p, a, c, mcfg, dcfg, *, kind, ffn, positions, length,
             c["conv"].copy_(new_c["conv"])
     x = x + y
     if ffn == "none":
-        return x
+        return x, None
     h = _apply_norm(x, p["ln2"], mcfg)
+    if ffn == "moe":
+        y, aux = MOE.moe_ffn(h, p["ffn"], a.get("ffn"), mcfg, dcfg,
+                             training=training)
+        return x + y, aux
     mlp = L.mlp_swiglu if mcfg.mlp_kind == "swiglu" else L.mlp_gelu
     return x + mlp(h, p["ffn"], a.get("ffn"), dcfg, training=training,
-                   tenant_groups=tenant_groups)
+                   tenant_groups=tenant_groups), None
 
 
 def _slice_tree(tree, i: int):
@@ -356,8 +378,12 @@ def _unstack_tree(tree, n: int) -> list:
 def forward(mcfg: ModelConfig, params, adapters, dcfg: DoRAConfig | None,
             *, tokens=None, embeds=None, cache=None, positions=None,
             training: bool = True, loss_slice: int | None = None,
-            gather_position: int | None = None, tenant_groups=None):
-    """Returns (logits [B, S, V], new_cache).
+            gather_position: int | None = None, tenant_groups=None,
+            return_aux: bool = False):
+    """Returns (logits [B, S, V], new_cache), or (logits, new_cache, aux)
+    with ``return_aux``: aux is the MoE layers' router losses summed, fp32
+    0-d (zero for a stack without MoE or with ``router_aux_coef`` 0), the
+    reference's third result.
 
     ``tokens`` int [B, S], or ``embeds`` [B, S, d_model]: the precomputed
     patch or frame embeddings of a frontend stub, cast to the model's
@@ -414,6 +440,7 @@ def forward(mcfg: ModelConfig, params, adapters, dcfg: DoRAConfig | None,
     kinds, ffns = mcfg.layer_kinds(), mcfg.ffn_kinds()
     remat = (training and mcfg.remat == "layer" and cache is None
              and torch.is_grad_enabled())
+    aux = None
     for i in range(mcfg.n_scan):
         unit_p = _slice_tree(stack_p, i)
         unit_a = units_a[i]
@@ -428,11 +455,13 @@ def forward(mcfg: ModelConfig, params, adapters, dcfg: DoRAConfig | None,
                       positions=positions, length=length, training=training,
                       pages=pages, tenant_groups=tenant_groups)
             if remat:
-                x = checkpoint(_layer_apply, x, unit_p[li], a, c,
-                               use_reentrant=False, preserve_rng_state=False,
-                               **kw)
+                x, aux_l = checkpoint(_layer_apply, x, unit_p[li], a, c,
+                                      use_reentrant=False,
+                                      preserve_rng_state=False, **kw)
             else:
-                x = _layer_apply(x, unit_p[li], a, c, **kw)
+                x, aux_l = _layer_apply(x, unit_p[li], a, c, **kw)
+            if aux_l is not None:
+                aux = aux_l if aux is None else aux + aux_l
     new_cache = None
     if cache is not None:
         new_cache = {"stack": stack_c,
@@ -446,4 +475,8 @@ def forward(mcfg: ModelConfig, params, adapters, dcfg: DoRAConfig | None,
         x = x[:, -loss_slice:]
     x = _apply_norm(x, params["final_norm"], mcfg)
     logits = x @ params["head"].detach().T
+    if return_aux:
+        if aux is None:
+            aux = torch.zeros((), dtype=_F32, device=logits.device)
+        return logits, new_cache, aux
     return logits, new_cache

@@ -435,7 +435,7 @@ def test_engine_refuses_ssm_stacks():
 
 @pytest.mark.parametrize("flags,match", [
     ({"attn_period": 8}, "hybrid"),
-    ({"moe": True}, "MoE"),
+    ({"moe": True, "moe_period": 2}, "MoE"),
 ])
 def test_hybrid_and_moe_stacks_are_refused(flags, match):
     tm = ModelConfig(**{**BLOCK_WIDTHS, "num_layers": 8}, **flags)

@@ -570,7 +570,11 @@ def test_smoke_train_steps_match_reference():
         np.array, build_state(jm, JConfig(rank=RANK, alpha=ALPHA), 0)[2])
     jp, ja, jo = (jax.tree_util.tree_map(jnp.asarray, t)
                   for t in (params, adapters, jopt))
-    tp, ta = tree_from_numpy(params), tree_from_numpy(adapters)
+    # Copies: the port's step updates its adapters in place, and a tensor
+    # from tree_from_numpy shares memory with its numpy array, which
+    # jnp.asarray may alias in turn on the CPU (the reference's inputs).
+    tp, ta = (tree_from_numpy(jax.tree_util.tree_map(np.array, t))
+              for t in (params, adapters))
     to = adamw_init(ta)
     tkernels.reset_launch_counts()
     for batch in _batches():

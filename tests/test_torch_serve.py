@@ -183,7 +183,8 @@ def test_unported_archs_are_refused():
         get_config("jamba-v0.1-52b")
     with pytest.raises(KeyError):
         get_config("nope")
-    for flags in ({"moe": True}, {"ssm": True, "attn_period": 8},
+    for flags in ({"moe": True, "moe_period": 4},
+                  {"ssm": True, "attn_period": 8},
                   {"moe": True, "moe_period": 2}):
         mcfg = ModelConfig(**WIDTHS, **flags)
         with pytest.raises(NotImplementedError):
