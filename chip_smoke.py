@@ -189,9 +189,10 @@ training shape [2, 2048, 8192] and a ragged one, same bits twice):
       within 1e-5 relative, adapter-gradient cosine >= 0.99999.
 
 Then the rest of the dense family (see vl_checks and arch_checks), after
-the kernel phase has held K1 with its epilogue at each of their 20 new
-weight shapes and K6 and K7 at 4096 rows x each of their 8 new d_out
-(arch_kernel_checks; K3 also gets its device time there):
+the kernel phase has held K1 with its epilogue at each of the 27 weight
+shapes of ARCH_K1_SHAPES and K6 and K7 at 4096 rows x each of the 11
+d_out of ARCH_MM_N (arch_kernel_checks; K3 also
+gets its device time there):
 
   V1-V4. qwen2-vl-7b, the paper's backbone, at full width and depth:
       3 training steps from bf16 patch embeddings with exactly
@@ -217,6 +218,22 @@ the attention and the shared expert:
       recompute routes bitwise as its forward;
   MoE3. one layer routed twice the same; kernel vs eager route in fp32
       at 4 layers, trained and served, with the routing flips counted.
+
+Then the hybrid (see jamba_checks): jamba-v0.1-52b at full width on 16
+of its 32 layers (two 8-layer units: seven Mamba-1 layers, NoPE
+attention at index 4, a dense MLP on even layers and 16 experts top-2 on
+odd ones), r=384 DoRA on the 30 modules a unit that the reference adapts:
+
+  J1. ``generate`` with an exact-length prefill of 4 x 960 and 32 tokens:
+      K1 = assembled = 60, K6 = 56, K9 = 14, nothing at decode; the
+      dropped share per MoE layer, profiled prefill and decode steps;
+  J2. 3 train steps as qwen2-7b's (at 16 layers when the memory
+      reckoning printed first allows, else at one unit): K1 = assembled
+      = 60, K6 = 112, K7 = 56, K9 = 28, the scan's backward 14 a step; a
+      profiled step; each MoE layer's recompute routes bitwise;
+  J3. the first unit in fp32 (cut and upcast leaf by leaf after the bf16
+      model): kernel vs eager route, trained and served, with the routing
+      flips counted.
 
 With ``--kernel-phase-vs DIR`` it runs only the kernel phase, of the
 checkout at DIR (a ``git archive`` of another commit) and of this one, in
@@ -1174,8 +1191,12 @@ ARCH_K1_SHAPES = (
     (1536, 6144), (6144, 1536), (1536, 1536),                 # musicgen
     (8192, 29568), (29568, 8192), (1024, 8192), (8192, 8192),  # qwen2-vl-72b
     (2048, 2048), (5632, 2048), (2048, 5632),                 # qwen2-moe
-    (5120, 5120))                                             # llama4-scout
-ARCH_MM_N = (3072, 8192, 4096, 13696, 5120, 25600, 6144, 29568, 5632)
+    (5120, 5120),                                             # llama4-scout
+    (14336, 4096), (4096, 14336), (1024, 4096))               # jamba
+# 16384: falcon-mamba-7b's and jamba's in_proj, which the kernel phase
+# holds K6 at on the prefill rows only.
+ARCH_MM_N = (3072, 8192, 4096, 13696, 5120, 25600, 6144, 29568, 5632,
+             14336, 16384)
 ARCH_MM_ROWS = BATCH * MAX_LEN
 
 
@@ -4453,6 +4474,313 @@ def moe_checks(dev) -> dict:
             "serve_fp32_routes": serve32}
 
 
+# ---------------------------------------------------------------------------
+# The hybrid jamba-v0.1-52b at full width on two of its four 8-layer units.
+# ---------------------------------------------------------------------------
+
+# 16 of 32 layers (n_scan 2): 52.1 GB of bf16 weights, 25.5 GB a unit of
+# which 22.5 GB are its four MoE layers' experts. J2 trains at 16 layers
+# when the reckoned peak is at most JAMBA_TRAIN_PEAK, else at one unit.
+JAMBA_ARCH, JAMBA_LAYERS, JAMBA_TRAIN_PEAK = "jamba-v0.1-52b", 16, 72e9
+
+
+def _upcast_first_units(tree, n: int, stacked: bool = False):
+    """``tree`` cut to its first ``n`` stack slices and cast to fp32 leaf
+    by leaf IN PLACE: each bf16 leaf is dropped as soon as its fp32 copy
+    exists, so the peak stays near the fp32 copy's size (the bf16 tree
+    and an fp32 copy of a whole unit do not fit the card together)."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            _upcast_first_units(v, n, stacked or k == "stack")
+        else:
+            tree[k] = (v[:n] if stacked else v).to(torch.float32,
+                                                   copy=True)
+    return tree
+
+
+def jamba_counts(mcfg, dcfg, *, train: bool) -> dict:
+    """The launch counts of a jamba ``generate`` (precompute, the exact
+    BATCH x PROMPT prefill, GEN decode steps) or of one train step, from
+    the dispatch plans, with K9 once per Mamba layer at prefill (decode
+    steps the recurrence without it) and, in a train step, twice (forward
+    and recompute, with chunk states) and the scan's backward once."""
+    n_mamba = mcfg.layer_kinds().count("mamba")
+    if train:
+        return {**train_counts(mcfg, dcfg, rows=TRAIN_BATCH * TRAIN_SEQ),
+                "selective_scan": 2 * n_mamba,
+                "selective_scan_bwd": n_mamba}
+    return {**serve_counts(mcfg, dcfg, prefill_rows=BATCH * PROMPT,
+                           decode_rows=BATCH, decode_steps=GEN),
+            "selective_scan": n_mamba}
+
+
+def jamba_checks(dev) -> dict:
+    """J1-J3: jamba-v0.1-52b at full width (d_model 4096, 32 heads, 8 KV
+    heads, NoPE attention at index 4 of each 8-layer unit, seven Mamba-1
+    layers of d_inner 8192, a dense MLP of 14336 on even layers and 16
+    experts of 14336 top-2 on odd ones) on JAMBA_LAYERS = 16 of its 32
+    layers (two units), random weights from a seed, DoRA r=384 on the 30
+    modules of a unit the reference adapts (wq, wk, wv, wo; in_proj and
+    out_proj; w_gate, w_up, w_down; the experts and the router frozen):
+
+      J1. ``generate`` (bf16, auto), batch 4, prompt 960 at its exact
+          length (Mamba states cannot rewind a padded prefill), 32 greedy
+          tokens: K1 = assembled = 60 at precompute, K6 = 56 and K9 = 14
+          at prefill, nothing at decode; precompute, prefill and decode
+          ms, peak; the dropped share of each MoE layer at prefill; one
+          profiled prefill and decode step with their idle shares;
+      J2. 3 train steps (bf16, auto), batch 2 x seq 2048, loss on the
+          last 1024, layer remat, AdamW, at 16 layers if the reckoned
+          peak (printed first) is at most JAMBA_TRAIN_PEAK, else at one
+          unit: per step K1 = assembled = 60, K6 = 112, K7 = 56, K9 = 28
+          (with chunk states), the scan's backward 14; step ms, tokens/s,
+          peak; one profiled step with the MoE functions by range; one
+          gradient step recording the routing: each MoE layer's recompute
+          routes bitwise as its forward;
+      J3. the first unit (8 layers) upcast to fp32 after the bf16 model
+          is cut to it leaf by leaf: kernel route against eager route,
+          train loss within 1e-5 relative, adapter-gradient cosine >=
+          0.99999, prefill logit cosine >= 0.9999, equal greedy tokens,
+          the routing flips layer by layer with their gaps."""
+    import dataclasses
+
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.core.config import DoRAConfig
+    from repro_torch.launch import serve
+    from repro_torch.launch.steps import (StepConfig, make_decode_step,
+                                          make_grad_step,
+                                          make_precompute_step,
+                                          make_prefill_step)
+
+    mcfg = dataclasses.replace(get_config(JAMBA_ARCH),
+                               num_layers=JAMBA_LAYERS)
+    L, E, D = mcfg.num_layers, mcfg.num_experts, mcfg.d_model
+    n = mcfg.n_scan
+    n_moe = mcfg.ffn_kinds().count("moe")
+    _check_shapes_held(mcfg)
+    cfg = {mode: StepConfig(dora=DoRAConfig(rank=RANK, alpha=ALPHA,
+                                            mode=mode))
+           for mode in ("auto", "eager")}
+    auto = cfg["auto"].dora
+    _empty_cache(dev)
+    t0 = time.perf_counter()
+    params, adapters = serve.build_state(mcfg, auto, SEED, dev)
+    adapters = perturb_adapters(
+        adapters, torch.Generator(device=dev).manual_seed(SEED + 1))
+    _sync(dev)
+    print(f"jamba: built {JAMBA_ARCH} ({L} of 32 layers, {n} units of "
+          f"{mcfg.period}: {mcfg.layer_kinds()[:mcfg.period]}, "
+          f"{mcfg.ffn_kinds()[:mcfg.period]}; d_model {D}, {E} experts of "
+          f"{mcfg.moe_d_ff} top-{mcfg.top_k}, vocab {mcfg.vocab_size}, "
+          f"{mcfg.dtype}, {mcfg.count_params()} params) with r={RANK} DoRA "
+          f"on 30 modules a unit in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    prompts = np.random.default_rng(SEED).integers(
+        0, mcfg.vocab_size, (BATCH, PROMPT))
+    max_len = PROMPT + GEN
+
+    def capacity(seq):
+        return max(int(mcfg.capacity_factor * mcfg.top_k * seq / E), 1)
+
+    # --- J1: serving, bf16, auto ---
+    want = jamba_counts(mcfg, auto, train=False)
+    check(want == counts_of(norm_terms=30 * n, assembled=30 * n,
+                            compose_mm_fwd=28 * n, selective_scan=7 * n),
+          f"{JAMBA_ARCH} serve: the dispatch plans give {want}")
+    serve.generate(mcfg, params, adapters, cfg["auto"], prompts, gen_len=1,
+                   max_len=max_len, device=dev)
+    _reset_peak(dev)
+    stats: dict = {}
+    kernels.reset_launch_counts()
+    mma0 = kernels.compose_mm_fwd.mma_launches
+    toks, logits = serve.generate(
+        mcfg, params, adapters, cfg["auto"], prompts, gen_len=GEN,
+        max_len=max_len, device=dev, return_logits=True, stats=stats)
+    _sync(dev)
+    counts = launch_counts()
+    check(counts == want, f"{JAMBA_ARCH} serve launch counts {counts}")
+    check_k6_on_tensor_cores(mma0, counts, f"{JAMBA_ARCH} serve")
+    check(tuple(toks.shape) == (BATCH, PROMPT + GEN)
+          and all(torch.isfinite(lg.float()).all().item() for lg in logits)
+          and ((toks >= 0) & (toks < mcfg.vocab_size)).all().item(),
+          f"{JAMBA_ARCH} serve: non-finite logits or tokens out of range")
+    served = {
+        "layers": L, "precompute_ms": stats["precompute_s"] * 1e3,
+        "prefill_ms": stats["prefill_s"] * 1e3,
+        "decode_ms_per_token": stats["decode_s"] * 1e3 / GEN,
+        "decode_tok_per_s": BATCH * GEN / stats["decode_s"],
+        "max_memory_allocated_bytes": _peak(dev), "launches": counts,
+        "prefill_capacity": capacity(PROMPT)}
+    del logits
+    # The exact-length prefill again, recording each MoE layer's dispatch,
+    # then a profiled prefill and decode step (all outside the counts).
+    state = make_precompute_step(mcfg, cfg["auto"])(params, adapters)
+    prefill = make_prefill_step(mcfg, cfg["auto"], batch=BATCH,
+                                seq=max_len)
+    decode = make_decode_step(mcfg, cfg["auto"], batch=BATCH)
+    tok_in = torch.as_tensor(prompts, device=dev)
+    with moe_recording() as rec:
+        prefill(params, state, {"tokens": tok_in})
+    shares = dropped_shares(rec)
+    check(len(shares) == n_moe, f"{JAMBA_ARCH} prefill recorded "
+          f"{len(shares)} dispatches")
+    served["prefill_dropped_share_by_moe_layer"] = shares
+    held = {}
+
+    def run_prefill():
+        held["logits"], held["cache"] = prefill(params, state,
+                                                {"tokens": tok_in})
+    served["prefill_profile"] = profile(run_prefill,
+                                        f"serve {JAMBA_ARCH} prefill (bf16)")
+    nxt = held["logits"].argmax(dim=-1)[:, None]
+    served["decode_profile"] = profile(
+        lambda: decode(params, state, held["cache"], {"tokens": nxt}),
+        f"serve {JAMBA_ARCH} decode step (bf16)")
+    print(f"serve {JAMBA_ARCH} (bf16, auto): " + json.dumps(
+        {k: v for k, v in served.items() if not k.endswith("_profile")}),
+        flush=True)
+    del state, held, rec, prefill, decode
+    _empty_cache(dev)
+
+    # --- J2: training, bf16, auto ---
+    def nbytes(tree):
+        return sum(t.numel() * t.element_size() for t in _leaves_sorted(tree))
+
+    ad32 = sum(t.numel() * 4 for t in _leaves_sorted(adapters))
+    groups = TRAIN_BATCH * capacity(TRAIN_SEQ)
+    reckoning = {
+        "weights_gb": _gb(nbytes(params)),
+        "adapters_gb": _gb(nbytes(adapters)),
+        "grads_gb": _gb(ad32), "adamw_gb": _gb(2 * ad32),
+        "layer_inputs_gb": _gb(L * TRAIN_BATCH * TRAIN_SEQ * D * 2),
+        "logits_fp32_gb": _gb(2 * TRAIN_BATCH * LOSS_TOKENS
+                              * mcfg.vocab_size * 4),
+        # One MoE layer's backward: the dispatched tokens and the gate, up
+        # and activation products of every expert slot, and their grads.
+        "moe_layer_gb": _gb(2 * E * groups * (D + 3 * mcfg.moe_d_ff) * 2),
+        "chunk_states_one_layer_gb": _gb(
+            TRAIN_BATCH * -(-TRAIN_SEQ // 32) * mcfg.ssm_state
+            * mcfg.d_inner * 4)}
+    reckoning["total_gb"] = round(sum(reckoning.values()), 2)
+    print(f"{JAMBA_ARCH} train memory reckoning ({L} layers, r={RANK}): "
+          + json.dumps(reckoning), flush=True)
+    if reckoning["total_gb"] * 1e9 <= JAMBA_TRAIN_PEAK:
+        tcfg, tp, ta = mcfg, params, adapters
+    else:
+        print(f"{JAMBA_ARCH} trains at one unit: the reckoned peak "
+              f"{reckoning['total_gb']} GB is above "
+              f"{JAMBA_TRAIN_PEAK / 1e9:.0f} GB", flush=True)
+        tcfg = dataclasses.replace(mcfg, num_layers=mcfg.period)
+        tp, ta = _first_layers(params, 1), _first_layers(adapters, 1)
+    batches = _train_batches(tcfg, TRAIN_STEPS)
+    want = jamba_counts(tcfg, auto, train=True)
+    tn = tcfg.n_scan
+    check(want == counts_of(norm_terms=30 * tn, assembled=30 * tn,
+                            compose_mm_fwd=56 * tn, compose_mm_bwd=28 * tn,
+                            selective_scan=14 * tn,
+                            selective_scan_bwd=7 * tn),
+          f"{JAMBA_ARCH} train: the dispatch plans give {want}")
+    mma0 = kernels.compose_mm_fwd.mma_launches
+    train = _steps_on(dev, tcfg, tp, ta, auto, batches, f"{JAMBA_ARCH} auto")
+    check_k6_on_tensor_cores(mma0, train["launches"], f"{JAMBA_ARCH} train")
+    for i, got in enumerate(train["launches_per_step"]):
+        check(got == want, f"{JAMBA_ARCH} train step {i} launch counts {got}")
+    train.update(layers=tcfg.num_layers, reckoning=reckoning)
+    with moe_ranges() as names:
+        train["profile"] = _profile_step(dev, tcfg, tp, ta, auto,
+                                         batches[-1], ranges=names)
+    bt = {k: torch.as_tensor(v, device=dev) for k, v in batches[0].items()}
+    grad_step = make_grad_step(tcfg, StepConfig(dora=auto,
+                                                loss_tokens=LOSS_TOKENS),
+                               batch=TRAIN_BATCH, seq=TRAIN_SEQ)
+    with moe_recording() as rec:
+        grad_step(tp, ta, bt)
+    # The forward routes the MoE layers first to last; the backward
+    # recomputes them from the last down.
+    m = tcfg.ffn_kinds().count("moe")
+    fwd = list(zip(rec["route"][:m], rec["dispatch"][:m]))
+    again = list(zip(rec["route"][m:], rec["dispatch"][m:]))[::-1]
+    same = [torch.equal(r0["gate_i"], r1["gate_i"])
+            and torch.equal(d0["slot"], d1["slot"])
+            and torch.equal(d0["keep"], d1["keep"])
+            for (r0, d0), (r1, d1) in zip(fwd, again)]
+    check(len(rec["route"]) == 2 * m and all(same),
+          f"{JAMBA_ARCH} train: the recompute routed differently from the "
+          f"forward ({len(rec['route'])} router calls, layers equal: "
+          f"{same})")
+    train["recompute_routes_bitwise"] = True
+    train["train_dropped_share_by_moe_layer"] = dropped_shares(
+        {"dispatch": rec["dispatch"][:m]})
+    del rec, tp, ta, grad_step
+
+    # --- J3: the first unit in fp32, kernel route vs eager route ---
+    m32 = dataclasses.replace(mcfg, num_layers=mcfg.period,
+                              dtype=torch.float32)
+    p32 = _upcast_first_units(params, 1)
+    a32 = _upcast_first_units(adapters, 1)
+    del params, adapters
+    _empty_cache(dev)
+    agree, grads, routes = {}, {}, {}
+    for mode in ("auto", "eager"):
+        kernels.reset_launch_counts()
+        with moe_recording(margins=True) as routes[mode]:
+            loss, g = make_grad_step(m32, StepConfig(
+                dora=cfg[mode].dora, loss_tokens=LOSS_TOKENS),
+                batch=TRAIN_BATCH, seq=TRAIN_SEQ)(p32, a32, bt)
+        agree[mode] = {"loss": float(loss), "launches": launch_counts()}
+        grads[mode] = torch.cat([t.flatten() for t in
+                                 _leaves_sorted(g)]).double()
+        del g
+    check(agree["auto"]["launches"] == jamba_counts(m32, auto, train=True)
+          and sum(agree["eager"]["launches"].values()) == 0,
+          f"{JAMBA_ARCH} fp32 train routes launched {agree}")
+    agree["layers"] = m32.num_layers
+    agree["loss_rel"] = abs(agree["auto"]["loss"] / agree["eager"]["loss"]
+                            - 1)
+    agree["grad_cosine"] = cosine(grads["auto"], grads["eager"])
+    agree["route_flips_by_moe_layer"] = route_flips(
+        routes["auto"], routes["eager"], m32.ffn_kinds().count("moe"))
+    del grads, routes
+    print(f"{JAMBA_ARCH} train fp32 routes ({m32.num_layers} layers, kernel "
+          f"vs eager): " + json.dumps(agree), flush=True)
+    check(agree["loss_rel"] <= 1e-5,
+          f"{JAMBA_ARCH} fp32 kernel loss differs by {agree['loss_rel']}")
+    check(agree["grad_cosine"] >= GRAD_COSINE_MIN,
+          f"{JAMBA_ARCH} fp32 gradient cosine {agree['grad_cosine']}")
+    routes, outs = {}, {}
+    for mode in ("auto", "eager"):
+        kernels.reset_launch_counts()
+        with moe_recording(margins=True) as routes[mode]:
+            tk, lg = serve.generate(m32, p32, a32, cfg[mode], prompts,
+                                    gen_len=ARCH_GEN,
+                                    max_len=PROMPT + ARCH_GEN, device=dev,
+                                    return_logits=True)
+        outs[mode] = (lg[0].float(), tk, launch_counts())
+    (lk, tk, ck), (le, te, ce) = outs["auto"], outs["eager"]
+    want32 = {**serve_counts(m32, auto, prefill_rows=BATCH * PROMPT,
+                             decode_rows=BATCH, decode_steps=ARCH_GEN),
+              "selective_scan": m32.layer_kinds().count("mamba")}
+    check(ck == want32 and sum(ce.values()) == 0,
+          f"{JAMBA_ARCH} fp32 serve routes launched {ck} and {ce}")
+    serve32 = {"layers": m32.num_layers,
+               "prefill_logit_cosine": cosine(lk, le),
+               "tokens_equal": bool(torch.equal(tk, te)),
+               "prefill_route_flips_by_moe_layer": route_flips(
+                   routes["auto"], routes["eager"],
+                   m32.ffn_kinds().count("moe"))}
+    print(f"serve {JAMBA_ARCH} fp32 routes ({m32.num_layers} layers, kernel "
+          f"vs eager): " + json.dumps(serve32), flush=True)
+    check(serve32["prefill_logit_cosine"] >= COSINE_MIN,
+          f"{JAMBA_ARCH} fp32 kernel vs eager cosine {serve32}")
+    check(serve32["tokens_equal"],
+          f"{JAMBA_ARCH} fp32 routes' tokens differ")
+    del p32, a32, routes, outs
+    _empty_cache(dev)
+    return {"serve": served, "train": train, "train_fp32_routes": agree,
+            "serve_fp32_routes": serve32}
+
+
 def fused_norm_ab(dev) -> dict:
     """With whichever ``repro_torch`` is importable (for kernel_phase_vs):
     ``kernels.ops.fused_norm``, the norm of one adapted module, in ms by
@@ -4931,6 +5259,10 @@ def main() -> int:
     t0 = time.perf_counter()
     moe = moe_checks(dev)
     print(f"{MOE_ARCH} phases: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    jamba = jamba_checks(dev)
+    print(f"{JAMBA_ARCH} phases: {time.perf_counter() - t0:.1f} s",
+          flush=True)
 
     by_path = {"serve_auto": served["auto"], "serve_fused": served["fused"],
                "train_auto": trained["train_auto"]["launches"],
@@ -4949,7 +5281,9 @@ def main() -> int:
                "serve_vl": vl["serve"]["launches"],
                **{f"serve_{a}": r["launches"] for a, r in archs.items()},
                "serve_moe": moe["serve"]["launches"],
-               "train_moe": moe["train"]["launches"]}
+               "train_moe": moe["train"]["launches"],
+               "serve_jamba": jamba["serve"]["launches"],
+               "train_jamba": jamba["train"]["launches"]}
     record = []
     for name, (src, replaces) in SOURCES.items():
         path, at = RECORD_PATH[name]
@@ -5016,7 +5350,8 @@ def main() -> int:
         "train": {k: trained[k] for k in ("train_auto", "train_elementwise",
                                           "fp32_agreement")},
         "train_parity": parity, "mamba": mamba, "mamba_train": mamba_train,
-        "serve_cli": cli, "vl": vl, "archs": archs, "moe": moe},
+        "serve_cli": cli, "vl": vl, "archs": archs, "moe": moe,
+        "jamba": jamba},
         indent=1))
     print(f"details: {detail.relative_to(root)}")
     print(smi)
@@ -5094,6 +5429,27 @@ def main() -> int:
                                   "loss_rel", "grad_cosine")},
                           "serve_fp32_routes": {
                               k: moe["serve_fp32_routes"][k] for k in (
+                                  "prefill_logit_cosine",
+                                  "tokens_equal")}},
+                      "jamba": {
+                          "serve": {k: v for k, v in jamba["serve"].items()
+                                    if k not in ("launches",
+                                                 "prefill_profile",
+                                                 "decode_profile")}
+                          | {f"{p}_idle_share": jamba["serve"][
+                              f"{p}_profile"].get("device_idle_share")
+                             for p in ("prefill", "decode")},
+                          "train": {f: jamba["train"][f] for f in (
+                              "layers", "step_ms", "tokens_per_s",
+                              "max_memory_allocated_bytes",
+                              "recompute_routes_bitwise")}
+                          | {"device_idle_share": jamba["train"][
+                              "profile"].get("device_idle_share")},
+                          "train_fp32_routes": {
+                              k: jamba["train_fp32_routes"][k] for k in (
+                                  "loss_rel", "grad_cosine")},
+                          "serve_fp32_routes": {
+                              k: jamba["serve_fp32_routes"][k] for k in (
                                   "prefill_logit_cosine",
                                   "tokens_equal")}}}))
     print(json.dumps({"ok": True, "device": {

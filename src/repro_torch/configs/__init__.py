@@ -1,10 +1,11 @@
 """Architecture registry of the port: each arch has a FULL config (the
 published numbers) and a SMOKE config (reduced, runs on CPU). The
-reference registers one more arch (the hybrid jamba); the port runs its
-dense ones (qwen2-7b, phi4-mini-3.8b, chatglm3-6b, qwen3-32b, the paper's
-qwen2-vl-7b, qwen2-vl-72b and musicgen-medium, whose frontends are stubs
-that take precomputed embeddings), the pure Mamba-1 falcon-mamba-7b and
-the MoE qwen2-moe-a2.7b and llama4-scout-17b-a16e."""
+port runs every arch the reference registers: the dense ones (qwen2-7b,
+phi4-mini-3.8b, chatglm3-6b, qwen3-32b, the paper's qwen2-vl-7b,
+qwen2-vl-72b and musicgen-medium, whose frontends are stubs that take
+precomputed embeddings), the pure Mamba-1 falcon-mamba-7b, the MoE
+qwen2-moe-a2.7b and llama4-scout-17b-a16e, and the hybrid
+jamba-v0.1-52b."""
 from __future__ import annotations
 
 import importlib
@@ -15,16 +16,14 @@ _MODULES = {"qwen2-7b": "qwen2_7b", "falcon-mamba-7b": "falcon_mamba_7b",
             "musicgen-medium": "musicgen_medium",
             "qwen2-vl-72b": "qwen2_vl_72b",
             "qwen2-moe-a2.7b": "qwen2_moe_a2_7b",
-            "llama4-scout-17b-a16e": "llama4_scout_17b_a16e"}
+            "llama4-scout-17b-a16e": "llama4_scout_17b_a16e",
+            "jamba-v0.1-52b": "jamba_v0_1_52b"}
 
-# Archs the reference registers that a later slice ports (the hybrid).
-NOT_PORTED = ("jamba-v0.1-52b",)
+# Archs the reference registers that the port does not run: none left.
+NOT_PORTED = ()
 
 
 def get_config(arch: str, smoke: bool = False):
-    if arch in NOT_PORTED:
-        raise NotImplementedError(f"arch {arch!r} is not ported yet; "
-                                  f"ported: {sorted(_MODULES)}")
     if arch not in _MODULES:
         raise KeyError(f"unknown arch {arch!r}; known: {sorted(_MODULES)}")
     mod = importlib.import_module(f"repro_torch.configs.{_MODULES[arch]}")

@@ -37,12 +37,17 @@ Runs on the card unless the CPU is asked for explicitly::
         --batch 4 --prompt-len 960 --gen-len 32 --rank 384 --alpha 192
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch llama4-scout-17b-a16e --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch jamba-v0.1-52b \\
+        --smoke --device cpu
 
 ``--arch`` takes every arch of ``repro_torch.configs``: qwen2-7b,
 falcon-mamba-7b, phi4-mini-3.8b, qwen2-vl-7b, chatglm3-6b, qwen3-32b,
-musicgen-medium, qwen2-vl-72b and the MoE qwen2-moe-a2.7b and
-llama4-scout-17b-a16e. The prompts are token ids, for the frontend archs
-too (their frontends are stubs; precomputed embeddings go through
+musicgen-medium, qwen2-vl-72b, the MoE qwen2-moe-a2.7b and
+llama4-scout-17b-a16e and the hybrid jamba-v0.1-52b (Mamba and NoPE
+attention layers, MoE on every other layer; its prefill runs at the
+exact prompt length, as every stack with Mamba layers). The prompts are
+token ids, for the frontend archs too (their frontends are stubs;
+precomputed embeddings go through
 ``launch/steps.py``'s prefill and decode steps). An MoE stack serves on
 the plain path only: its capacity dispatch couples a batch's rows, so
 ``--continuous``, ``--fleet`` and ``--tenants`` refuse it, as the

@@ -18,6 +18,8 @@ Runs on the card unless the CPU is asked for explicitly::
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-moe-a2.7b \\
         --steps 3 --batch 2 --seq 2048 --rank 384 --alpha 192 \\
         --loss-tokens 1024
+    PYTHONPATH=src python -m repro_torch.launch.train --arch jamba-v0.1-52b \\
+        --smoke --device cpu --steps 2
 
 The flags, the schedule and the log lines are the reference's, plus
 ``--device``. Weights are random, drawn from ``--seed`` on the training

@@ -1,17 +1,19 @@
 """Model configuration (counterpart of ``repro/models/config.py``) with
 torch dtypes.
 
-The dataclass keeps the reference's field names for what the port runs:
-the dense attention archs (RoPE, partial RoPE, M-RoPE or sinusoidal
-positions, qk-norm, RMS or LayerNorm, SwiGLU or GELU MLP, the patch and
-audio-frame embedding frontends), the pure Mamba-1 stacks and MoE in every
-layer (shared + routed top-k experts with capacity, ``models/moe.py``).
-The flags that mark the other archs (MoE every k-th layer, hybrid) stay
-so that :func:`check_supported` can refuse them.
+The dataclass keeps the reference's field names for every arch the
+reference registers: the dense attention archs (RoPE, partial RoPE,
+M-RoPE, sinusoidal or no positions, qk-norm, RMS or LayerNorm, SwiGLU or
+GELU MLP, the patch and audio-frame embedding frontends), the pure
+Mamba-1 stacks, MoE (shared + routed top-k experts with capacity,
+``models/moe.py``) in every layer or every k-th one, and the hybrid
+Mamba + attention interleave (jamba). A non-uniform stack repeats a unit
+of :attr:`ModelConfig.period` layers.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any
 
 import torch
@@ -32,7 +34,8 @@ class ModelConfig:
     # --- attention ---
     qk_norm: bool = False           # RMS norm of q and k over head_dim
     qkv_bias: bool = False
-    pos_mode: str = "rope"          # rope | rope_partial | mrope | sinusoidal
+    # rope | rope_partial | mrope | sinusoidal | none (NoPE: jamba)
+    pos_mode: str = "rope"
     rope_theta: float = 10000.0
     rotary_dim: int = 0             # for rope_partial (ChatGLM 2d-RoPE)
     mrope_sections: tuple[int, int, int] = (16, 24, 24)
@@ -47,7 +50,7 @@ class ModelConfig:
     num_shared_experts: int = 0
     shared_d_ff: int = 0            # shared-expert hidden (qwen2-moe: 5632)
     moe_d_ff: int = 0               # routed-expert hidden
-    moe_period: int = 1             # MoE FFN every k-th layer (only 1 here)
+    moe_period: int = 1             # MoE FFN every k-th layer (jamba: 2)
     capacity_factor: float = 1.25
     # >1: the sequence folds into this many dispatch groups (the
     # reference's chunk-local dispatch); 0/1 = one group per batch row.
@@ -65,7 +68,7 @@ class ModelConfig:
     # both compute one recurrence, which the port runs as K9 either way.
     ssm_impl: str = "fused_chunk"
     ssm_unroll: int = 16            # the reference's fused_chunk unroll
-    # --- hybrid interleave (not ported yet; see check_supported) ---
+    # --- hybrid interleave (jamba: attention every 8th layer, index 4) ---
     attn_period: int = 0            # 0 = not hybrid
     attn_index: int = 4
     # --- misc ---
@@ -121,35 +124,78 @@ class ModelConfig:
         return out
 
     @property
+    def is_uniform(self) -> bool:
+        """True when every layer is identical (a unit of one layer)."""
+        return (len(set(self.layer_kinds())) == 1
+                and len(set(self.ffn_kinds())) == 1)
+
+    @property
+    def pattern_len(self) -> int:
+        """lcm(attn_period or 1, moe_period of an MoE stack): the layers
+        after which the kinds repeat."""
+        return math.lcm(self.attn_period or 1,
+                        self.moe_period if self.moe else 1)
+
+    @property
     def period(self) -> int:
         """Length of the repeating layer pattern (the stacked unit): 1 for
-        the uniform stacks the port runs (dense, pure Mamba, MoE in every
-        layer)."""
-        return 1
+        a uniform stack, else :attr:`pattern_len`."""
+        if self.is_uniform:
+            return 1
+        p = self.pattern_len
+        assert self.num_layers % p == 0, (self.num_layers, p)
+        return p
+
+    def count_params(self) -> int:
+        """Total parameter count (embeddings + head included), as the
+        reference counts it."""
+        D, V = self.d_model, self.vocab_size
+        total = 2 * V * D + D  # embed + head + final norm
+        for lk, fk in zip(self.layer_kinds(), self.ffn_kinds()):
+            total += D  # ln1
+            if lk == "attn":
+                total += (self.q_dim * D + 2 * self.kv_dim * D
+                          + D * self.q_dim)
+                if self.qkv_bias:
+                    total += self.q_dim + 2 * self.kv_dim
+                if self.qk_norm:
+                    total += 2 * self.head_dim
+            else:
+                di, n, dtr = self.d_inner, self.ssm_state, self.dt_rank
+                total += (2 * di * D + di * self.ssm_conv + di
+                          + (dtr + 2 * n) * di + di * dtr + di
+                          + di * n + di + D * di)
+            if fk != "none":
+                total += D  # ln2
+            if fk == "mlp":
+                total += (3 if self.mlp_kind == "swiglu" else 2) \
+                    * self.d_ff * D
+            elif fk == "moe":
+                total += self.num_experts * (3 * self.moe_d_ff * D) \
+                    + self.num_experts * D
+                if self.num_shared_experts:
+                    total += 3 * self.shared_d_ff * D + D
+        return total
 
     @property
     def n_scan(self) -> int:
         return self.num_layers // self.period
 
 
-POS_MODES = ("rope", "rope_partial", "mrope", "sinusoidal")
+POS_MODES = ("rope", "rope_partial", "mrope", "sinusoidal", "none")
 FRONTENDS = (None, "patches", "audio_tokens")
 
 
 def check_supported(mcfg: ModelConfig) -> None:
-    """Raise NotImplementedError for the archs later slices port, and
-    ValueError for values no package knows."""
-    if mcfg.moe and mcfg.moe_period != 1:
-        raise NotImplementedError(
-            f"{mcfg.name}: MoE every {mcfg.moe_period}th layer needs the "
-            f"non-uniform stacked unit, which is not ported yet; it comes "
-            f"with the later slice that ports jamba (MoE stacks with "
-            f"moe_period=1 run)")
-    if mcfg.attn_period:
-        raise NotImplementedError(
-            f"{mcfg.name}: hybrid Mamba + attention stacks are not ported "
-            f"yet; they come with the later slice that ports jamba "
-            f"(with models/moe.py)")
+    """Raise ValueError for values no package knows, and for a stack
+    whose depth is no whole number of its repeating units (where the
+    reference's ``period`` asserts)."""
+    if not mcfg.is_uniform and mcfg.num_layers % mcfg.pattern_len:
+        kind = ("hybrid" if mcfg.attn_period
+                else f"MoE-every-{mcfg.moe_period}")
+        raise ValueError(
+            f"{mcfg.name}: a {kind} stack of {mcfg.num_layers} layers is "
+            f"no whole number of its {mcfg.pattern_len}-layer units")
     if mcfg.moe and not (0 < mcfg.top_k <= mcfg.num_experts):
         raise ValueError(f"{mcfg.name}: MoE needs 0 < top_k <= num_experts, "
                          f"got top_k {mcfg.top_k} of {mcfg.num_experts}")

@@ -104,13 +104,25 @@ def _layer_spec(mcfg: ModelConfig, kind: str, ffn: str):
     return s
 
 
+def unit_kinds(mcfg: ModelConfig) -> list[tuple[str, str]]:
+    """(mixer kind, FFN kind) of each layer of the repeating unit, l0
+    first. Layer i of the stack is layer i % period of its unit, which
+    holds only if the pattern repeats every ``period`` layers: asserted."""
+    kinds, ffns = mcfg.layer_kinds(), mcfg.ffn_kinds()
+    p = mcfg.period
+    assert all(kinds[i] == kinds[i % p] and ffns[i] == ffns[i % p]
+               for i in range(mcfg.num_layers)), (mcfg.name, p)
+    return list(zip(kinds[:p], ffns[:p]))
+
+
 def unit_spec(mcfg: ModelConfig):
     """The repeating stack unit {"l0": layer, ...}: one attention + MLP
-    layer (dense), one attention + MoE layer (MoE in every layer) or one
-    Mamba layer with no FFN (falcon-mamba)."""
-    kinds, ffns = mcfg.layer_kinds(), mcfg.ffn_kinds()
-    return {f"l{i}": _layer_spec(mcfg, kinds[i], ffns[i])
-            for i in range(mcfg.period)}
+    layer (dense), one attention + MoE layer (MoE in every layer), one
+    Mamba layer with no FFN (falcon-mamba), or jamba's eight: Mamba
+    mixers with attention at index 4, a dense MLP on even indices and MoE
+    on odd ones."""
+    return {f"l{i}": _layer_spec(mcfg, kind, ffn)
+            for i, (kind, ffn) in enumerate(unit_kinds(mcfg))}
 
 
 def model_spec(mcfg: ModelConfig):
@@ -244,7 +256,7 @@ def cache_shapes(mcfg: ModelConfig, batch: int, max_len: int, dtype=None,
     check_supported(mcfg)
     dtype = dtype or mcfg.dtype
     hkv, hd = mcfg.num_kv_heads, mcfg.head_dim
-    kinds = mcfg.layer_kinds()
+    kinds = [kind for kind, _ in unit_kinds(mcfg)]
     paged = block_size is not None
     if paged:
         if not row_lens:
@@ -437,7 +449,7 @@ def forward(mcfg: ModelConfig, params, adapters, dcfg: DoRAConfig | None,
     stack_a = adapters.get("stack", {})
     stack_c = cache["stack"] if cache is not None else None
     units_a = _unstack_tree(stack_a, mcfg.n_scan)
-    kinds, ffns = mcfg.layer_kinds(), mcfg.ffn_kinds()
+    layers = unit_kinds(mcfg)
     remat = (training and mcfg.remat == "layer" and cache is None
              and torch.is_grad_enabled())
     aux = None
@@ -445,13 +457,13 @@ def forward(mcfg: ModelConfig, params, adapters, dcfg: DoRAConfig | None,
         unit_p = _slice_tree(stack_p, i)
         unit_a = units_a[i]
         unit_c = _slice_tree(stack_c, i) if stack_c is not None else None
-        for li in unit_p:
+        for j, (kind, ffn) in enumerate(layers):
+            li = f"l{j}"
             a = unit_a.get(li)
             if training and a is not None:
                 a = attach_weight_norms(unit_p[li], a, dcfg)
             c = unit_c[li] if unit_c is not None else None
-            j = int(li[1:])
-            kw = dict(mcfg=mcfg, dcfg=dcfg, kind=kinds[j], ffn=ffns[j],
+            kw = dict(mcfg=mcfg, dcfg=dcfg, kind=kind, ffn=ffn,
                       positions=positions, length=length, training=training,
                       pages=pages, tenant_groups=tenant_groups)
             if remat:

@@ -170,8 +170,20 @@ def test_config_matches_reference(arch, smoke):
     tlm.model_spec(t)
 
 
+def assert_spec_matches_reference(tm, jm):
+    """The port's parameter spec equals the reference's, leaf by leaf
+    under its "/"-joined path."""
+    got = {"/".join(p): leaf
+           for p, leaf in tlm._spec_items(tlm.model_spec(tm))}
+    want = {"/".join(str(k.key) for k in path): leaf for path, leaf in
+            jax.tree_util.tree_flatten_with_path(
+                jlm.model_spec(jm), is_leaf=jlm._is_leaf_spec)[0]}
+    assert got == want
+
+
 @pytest.mark.parametrize("arch", ["qwen2-7b", "falcon-mamba-7b", *ARCHS,
-                                  "qwen2-moe-a2.7b", "llama4-scout-17b-a16e"])
+                                  "qwen2-moe-a2.7b", "llama4-scout-17b-a16e",
+                                  "jamba-v0.1-52b"])
 def test_shapes_match_reference(arch):
     """``configs/shapes.py``: the assigned shape sets, field by field, and
     which of them each arch runs (full and SMOKE configs)."""
@@ -188,12 +200,21 @@ def test_shapes_match_reference(arch):
 
 
 def test_registry_ports_every_dense_arch():
-    assert NOT_PORTED == ("jamba-v0.1-52b",)
-    for arch in ARCHS:
+    """Every arch the reference registers is ported (``NOT_PORTED`` is
+    empty): the dense ones and the hybrid jamba-v0.1-52b, whose FULL and
+    SMOKE configs build with the reference's period of 8; an unknown
+    name is a KeyError."""
+    from repro.configs import _MODULES as jmodules
+    from repro_torch.configs import _MODULES as tmodules
+    assert NOT_PORTED == ()
+    assert set(tmodules) == set(jmodules)
+    for arch in (*ARCHS, "jamba-v0.1-52b"):
         assert get_config(arch).name == arch
-    for arch in NOT_PORTED:
-        with pytest.raises(NotImplementedError, match="not ported"):
-            get_config(arch)
+    for smoke in (False, True):
+        assert get_config("jamba-v0.1-52b", smoke=smoke).period == \
+            jget_config("jamba-v0.1-52b", smoke=smoke).period == 8
+    with pytest.raises(KeyError):
+        get_config("nope")
 
 
 def test_shapes_of_the_new_features():
@@ -237,13 +258,16 @@ def test_bad_values_are_refused():
 
 # --- the archs against the reference ---------------------------------------
 
-def perturbed_state(arch, seed=0, dtype=None):
+def perturbed_state(arch, seed=0, dtype=None, layers=None):
     """The reference's SMOKE build_state with nonzero B, m = ||W||·(1 +
     noise), and every bias, norm scale and norm bias off its init, as
-    numpy trees; with the reference's and the port's configs."""
+    numpy trees; with the reference's and the port's configs (``layers``:
+    the SMOKE config at that depth in both packages)."""
     jm = jget_config(arch, smoke=True)
     if dtype is not None:
         jm = dataclasses.replace(jm, dtype=dtype)
+    if layers is not None:
+        jm = dataclasses.replace(jm, num_layers=layers)
     params, adapters, _ = jbuild_state(jm, JConfig(rank=RANK, alpha=ALPHA),
                                        seed)
     params = jax.tree_util.tree_map(np.array, params)
@@ -265,6 +289,8 @@ def perturbed_state(arch, seed=0, dtype=None):
     tm = get_config(arch, smoke=True)
     if dtype is not None:
         tm = dataclasses.replace(tm, dtype=torch.bfloat16)
+    if layers is not None:
+        tm = dataclasses.replace(tm, num_layers=layers)
     return jm, tm, params, adapters
 
 

@@ -51,6 +51,7 @@ from repro_torch.launch.engine import DecodeEngine
 from repro_torch.models import lm as tlm
 from repro_torch.models import mamba as tmamba
 from repro_torch.models.config import ModelConfig
+from test_torch_archs import assert_spec_matches_reference
 
 RANK, ALPHA = 16, 32.0
 REL = 1e-5
@@ -438,9 +439,26 @@ def test_engine_refuses_ssm_stacks():
     ({"moe": True, "moe_period": 2}, "MoE"),
 ])
 def test_hybrid_and_moe_stacks_are_refused(flags, match):
-    tm = ModelConfig(**{**BLOCK_WIDTHS, "num_layers": 8}, **flags)
-    with pytest.raises(NotImplementedError, match=match):
-        tlm.model_spec(tm)
+    """A Mamba stack with attention every 8th layer (hybrid) or MoE on
+    every 2nd layer builds as the reference's does: a unit of ``period``
+    layers whose spec equals the reference's leaf by leaf. Refused, as
+    before: a depth that is no whole number of units (ValueError naming
+    the stack's kind, where the reference's ``period`` asserts) and an
+    unknown ``ssm_impl``."""
+    hybrid = "attn_period" in flags
+    extra = (dict(num_heads=2, num_kv_heads=1) if hybrid
+             else dict(num_experts=4, top_k=2, moe_d_ff=64))
+    widths = {**BLOCK_WIDTHS, "num_layers": 8, **extra}
+    tm = ModelConfig(**widths, **flags)
+    jm = JModel(**widths, **flags)
+    assert tm.period == jm.period == (8 if hybrid else 2)
+    assert tm.n_scan == 8 // tm.period
+    assert_spec_matches_reference(tm, jm)
+    depth = 12 if hybrid else 9
+    with pytest.raises(ValueError, match=f"a {match}"):
+        tlm.model_spec(dataclasses.replace(tm, num_layers=depth))
+    with pytest.raises(AssertionError):
+        dataclasses.replace(jm, num_layers=depth).period
     with pytest.raises(ValueError, match="ssm_impl"):
         tlm.model_spec(ModelConfig(**BLOCK_WIDTHS, ssm_impl="scan"))
 

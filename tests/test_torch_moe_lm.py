@@ -43,7 +43,8 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.optim import OptimizerConfig
 from test_torch_archs import (ALPHA, BATCH, GEN, PROMPT, RANK, SEQ,
                               _dtype_name, _no_forced_tier,  # noqa: F401
-                              _rel, assert_grads_close, perturbed_state,
+                              _rel, assert_grads_close,
+                              assert_spec_matches_reference, perturbed_state,
                               port_grads, reference_grads)
 from test_torch_archs import \
     test_compose_mm_plans_cover_the_new_shapes as _mm_plans_cover
@@ -308,8 +309,21 @@ def test_compose_mm_plans_cover_the_moe_shapes(arch):
 
 
 def test_moe_every_kth_layer_is_refused():
+    """MoE on every 2nd layer builds as the reference's does: a unit of
+    two layers (attention + dense MLP, attention + MoE) whose spec equals
+    the reference's. Refused: a depth that is no whole number of units
+    (ValueError, where the reference's ``period`` asserts) and a top_k
+    above the experts."""
     base = dataclasses.asdict(get_config("qwen2-moe-a2.7b", smoke=True))
-    with pytest.raises(NotImplementedError, match="jamba"):
-        tlm.model_spec(ModelConfig(**{**base, "moe_period": 2}))
+    jbase = jget_config("qwen2-moe-a2.7b", smoke=True)
+    tm = ModelConfig(**{**base, "moe_period": 2})
+    jm = dataclasses.replace(jbase, moe_period=2)
+    assert tm.period == jm.period == 2
+    assert tlm.unit_kinds(tm) == [("attn", "mlp"), ("attn", "moe")]
+    assert_spec_matches_reference(tm, jm)
+    with pytest.raises(ValueError, match="MoE-every-2"):
+        tlm.model_spec(dataclasses.replace(tm, num_layers=3))
+    with pytest.raises(AssertionError):
+        dataclasses.replace(jm, num_layers=3).period
     with pytest.raises(ValueError, match="top_k"):
         tlm.model_spec(ModelConfig(**{**base, "top_k": 9}))

@@ -34,6 +34,7 @@ from repro_torch.launch.steps import StepConfig
 from repro_torch.models import layers as tlayers
 from repro_torch.models import lm as tlm
 from repro_torch.models.config import ModelConfig
+from test_torch_archs import assert_spec_matches_reference
 
 WIDTHS = dict(name="slice-2l", family="dense", num_layers=2, d_model=256,
               num_heads=2, num_kv_heads=1, d_ff=512, vocab_size=512,
@@ -179,16 +180,29 @@ def test_cli_serves_smoke_config_on_cpu(monkeypatch, capsys):
 
 
 def test_unported_archs_are_refused():
-    with pytest.raises(NotImplementedError, match="not ported"):
-        get_config("jamba-v0.1-52b")
+    """No registered arch is refused any more: jamba-v0.1-52b builds with
+    its period of 8. An unknown arch is a KeyError. The period flags on a
+    2-layer dense config build the reference's spec once the MoE flags
+    name experts (a Mamba stack with attention every 8th layer has none
+    at index 4 of 2 layers, and MoE every 4th layer none at index 3: both
+    uniform, period 1; MoE every 2nd layer a unit of 2); without experts
+    the port refuses them with the top_k ValueError."""
+    jamba = get_config("jamba-v0.1-52b")
+    assert jamba.period == 8 and jamba.n_scan == 4
+    tlm.model_spec(jamba)
     with pytest.raises(KeyError):
         get_config("nope")
-    for flags in ({"moe": True, "moe_period": 4},
-                  {"ssm": True, "attn_period": 8},
-                  {"moe": True, "moe_period": 2}):
-        mcfg = ModelConfig(**WIDTHS, **flags)
-        with pytest.raises(NotImplementedError):
-            tlm.model_spec(mcfg)
+    experts = dict(num_experts=4, top_k=2)
+    for flags, period in (({"moe": True, "moe_period": 4}, 1),
+                          ({"ssm": True, "attn_period": 8}, 1),
+                          ({"moe": True, "moe_period": 2}, 2)):
+        if flags.get("moe"):
+            with pytest.raises(ValueError, match="top_k"):
+                tlm.model_spec(ModelConfig(**WIDTHS, **flags))
+            flags = {**flags, **experts}
+        mcfg, jm = ModelConfig(**WIDTHS, **flags), JModel(**WIDTHS, **flags)
+        assert mcfg.period == jm.period == period
+        assert_spec_matches_reference(mcfg, jm)
 
 
 def test_full_config_matches_reference_widths():
