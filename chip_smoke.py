@@ -45,13 +45,17 @@ seven projections through ``repro_torch.launch.serve.generate``:
      1e-4 x max|logit| and whose greedy tokens must match.
 
 Then the continuous-batching engine (``repro_torch.launch.engine``) on
-the same bf16 weights, with one folded serving tree (g and g·s·B):
+the same bf16 weights cut to their first ENGINE_LAYERS = 8 layers (views;
+the engine, speculative, fault and FL2 phases are host-bound, and every
+count they hold is derived from the depth L), with one folded serving
+tree (g and g·s·B):
 
   E1. the engine's main path: the precompute and the paged engine (8
       slots, max_len 2048, blocks of 16, chunks of 256, 512 blocks) over
       24 requests with prompts uniform in 256-1024 and 64 new tokens,
-      exponential arrivals of mean 3 ticks; K1 = assembled = 196 and
-      K8 = 2 x 28 per decode and chunk step, nothing else; the pool
+      exponential arrivals of mean 3 ticks; K1 = assembled = 7 x L and
+      K8 = 2 x L per decode and chunk step (2 x 8 x 305 = 4,880),
+      nothing else; the pool
       drains;
   E2. the same engine with the plain gather: the same greedy streams,
       bitwise, and no kernel launched;
@@ -72,14 +76,14 @@ spec_checks and fault_checks):
       ``speculative_model`` (45 drafts, 15 verifies, 63 accepted); the
       perturbed adapters with the ladder (floor 0.99, window 2, re-enable
       2) disable and re-enable it; the streams equal the plain engine's;
-  S2. in bf16 at full width and depth, the realistic trace on E1's paged
-      geometry: K1 = assembled = 196 (the precompute), K8 = 2 x 28 x
+  S2. in bf16 at full width on E1's 8 layers, the realistic trace on its
+      paged geometry: K1 = assembled = 7 x L (the precompute), K8 = 2 x L x
       (chunk + decode + draft + verify steps), nothing else; every
       request its 64 tokens, the pool drained, three drafts a verify;
       printed beside E1's plain run: the accept rate, ticks, ms a tick,
       tokens/s, the verify's 19.5 MB logits fetch, and the share of
       requests whose tokens equal the plain run's;
-  F1. in bf16 at full width and depth, the paged engine over the first 8
+  F1. in bf16 at full width on 8 layers, the paged engine over the first 8
       requests of the realistic trace with 16 new tokens, clean and under
       a plan of a one-row NaN, an all-rows NaN, a 0.05 s slow tick, a
       stale and an evict event: the reference's containment (each request
@@ -120,12 +124,12 @@ fleet_checks):
        requests (prompts 700-960) over three tenants through the engine,
        each equal to the request served alone; a tiered cache of two
        states whose spill and reload land on the engine's trace;
-  FL2. in bf16 at full width and depth, nine r=384 tenants (the memory
+  FL2. in bf16 at full width on 8 layers, nine r=384 tenants (the memory
        reckoning printed first says why not twelve) through E1's paged
        geometry and trace, each request's tenant from its own stream, a
        cache of six states and no host tier, two slots an adapter at
        most, traced: the dynamic engine, then the static one (a fresh
-       cache); K1 = assembled = 196 x the misses, K8 = 2 x 28 x (chunk +
+       cache); K1 = assembled = 7 x L x the misses, K8 = 2 x L x (chunk +
        decode steps), nothing else, the dynamic decode under
        ``"dynamic"`` alone, stack inserts <= admissions, every request
        its 64 tokens, the trace complete (24 submitted, 24 terminal, 0
@@ -235,6 +239,30 @@ odd ones), r=384 DoRA on the 30 modules a unit that the reference adapts:
       model): kernel vs eager route, trained and served, with the routing
       flips counted.
 
+Between the kernel phase and serving, the train step across a (data,
+model) mesh (see mesh_kernel_checks and mesh_checks), as ranks that
+share this card (``torch.multiprocessing`` spawn, gloo on ``cuda:0``,
+collectives built on ``all_reduce``); this measures no multi-card speed:
+
+  D1. K1's terms (no epilogue) and the standalone K2 on wo's and
+      w_down's d_in shards at model = 2, K6 and K7 at the column-parallel
+      local shapes [4096, 9472] and [4096, 1792]: each against its plain
+      version, the same bits twice, K6 on the tensor cores;
+  D2. qwen2-7b at full width on its first AGREE_LAYERS = 4 layers, batch
+      2 x 2048, loss on the last 1024, 3 AdamW steps in bf16 on the
+      meshes (data 1, model 2), (2, 1) and (2, 2) (2, 2 and 4 ranks):
+      per rank and step the launch counts of ``mesh_counts`` exactly (K1
+      with its epilogue on the column-parallel modules, K1's terms and the
+      standalone K2 on wo and w_down), every K6 on the tensor cores, the
+      norm's sums 8 x (2 x 14,336 + 589,824) = 4,947,968 B at model = 2
+      (printed beside the 322,961,408 B that gathering the other halves
+      of wo and w_down would move), the same loss on every rank; printed:
+      step ms and peak memory by rank, the collectives' calls and bytes;
+  D3. the same meshes in fp32: the sharded step's loss within 1e-5
+      relative and its gathered adapter gradients at cosine >= 0.99999 of
+      the unsharded port's on the card, and each adapter leaf within 1e-4
+      of its max.
+
 With ``--kernel-phase-vs DIR`` it runs only the kernel phase, of the
 checkout at DIR (a ``git archive`` of another commit) and of this one, in
 turns (DIR, this, this, DIR), and prints K1's and K2's rows of each, with
@@ -252,6 +280,7 @@ printing anything.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import gc
 import json
 import math
@@ -288,6 +317,10 @@ ENGINE_SLOTS, ENGINE_MAX_LEN, ENGINE_BLOCK, ENGINE_CHUNK = 8, 2048, 16, 256
 ENGINE_BLOCKS = 512
 ENGINE_REQUESTS, ENGINE_PROMPT, ENGINE_NEW, ENGINE_ARRIVAL = (
     24, (256, 1024), 64, 3.0)
+# The engine, speculative, fault and FL2 phases run on the first 8 of
+# qwen2-7b's 28 layers: they are host-bound, and every count they hold is
+# derived from the depth.
+ENGINE_LAYERS = 8
 
 # falcon-mamba-7b served at full width: exact-length prefill of the same
 # prompts, the route comparison in fp32 at 4 layers, card vs CPU at 2.
@@ -2378,9 +2411,9 @@ def spec_checks(dev, mcfg, params, adapters, plain_main) -> tuple:
         streams equal the plain engine's. K8 = 2 x layers a paged device
         step. Then the realistic trace on (b)'s paged geometry with both
         trees: speculative streams equal plain ones.
-    (b) bf16 at full width and depth, the realistic trace on the
-        ``ENGINE_*`` paged geometry: the precompute (K1 = assembled =
-        196) and the speculative engine, K8 = 2 x 28 x (chunk + decode +
+    (b) bf16 at full width and the model's depth L, the realistic trace
+        on the ``ENGINE_*`` paged geometry: the precompute (K1 = assembled
+        = 7 x L) and the speculative engine, K8 = 2 x L x (chunk + decode +
         draft + verify steps), K3 = K6 = 0, every request its full budget,
         the pool drained, three drafts a verify; printed beside the plain
         paged engine's run of engine_checks (``plain_main``): the accept
@@ -3034,7 +3067,7 @@ def fleet_checks(dev, mcfg, params, adapters, plain_main) -> dict:
     adapter at most, traced: the dynamic engine first, then the static
     one on the same trace with a fresh cache (everything freed between).
 
-    Gates: K1 = assembled = 196 x the cache's misses, K8 = 2 x 28 x
+    Gates: K1 = assembled = 7 x L x the cache's misses, K8 = 2 x L x
     (chunk + decode steps), nothing else; the dynamic decode under
     ``"dynamic"`` alone; stack inserts <= admissions; every request
     ``length`` with its 64 tokens; the pool drained; the trace drops
@@ -3212,13 +3245,14 @@ def fleet_checks(dev, mcfg, params, adapters, plain_main) -> dict:
     return out
 
 
-def _train_batches(mcfg, steps: int):
+def _train_batches(mcfg, steps: int, batch: int = TRAIN_BATCH,
+                   seq: int = TRAIN_SEQ):
     """The port's synthetic pipeline at the training shape, on the host."""
     from repro_torch.data import DataConfig, make_train_iterator
 
     it = make_train_iterator(DataConfig(
-        vocab_size=mcfg.vocab_size, seq_len=TRAIN_SEQ,
-        global_batch=TRAIN_BATCH, seed=SEED + 2))
+        vocab_size=mcfg.vocab_size, seq_len=seq,
+        global_batch=batch, seed=SEED + 2))
     return [next(it) for _ in range(steps)]
 
 
@@ -3279,7 +3313,8 @@ def _kernel_family(name: str) -> str:
                for part in ("", "_mma", "_sum", "_assemble")):
             return ours
     low = name.lower()
-    for family, keys in (("gemm", ("gemm", "xmma", "cutlass", "matmul")),
+    for family, keys in (("gemm", ("gemm", "xmma", "cutlass", "matmul",
+                                   "nvjet")),
                          ("reduce", ("reduce",)),
                          ("memcpy/memset", ("memcpy", "memset")),
                          ("elementwise", ("elementwise", "vectorized",
@@ -3371,6 +3406,27 @@ def _first_layers(tree, n: int):
     with the tree it came from, before an upcast of the copies."""
     return {k: _tree_map(lambda t: t[:n].clone(), v) if k == "stack" else v
             for k, v in tree.items()}
+
+
+def _layer_views(tree, n: int):
+    """The first ``n`` layer slices of a stacked tree's stack as views,
+    beside its other leaves: a shallower model on the same weights."""
+    return {k: _tree_map(lambda t: t[:n], v) if k == "stack" else v
+            for k, v in tree.items()}
+
+
+def full_depth_reckoning(reckoning: dict, params, layers: int,
+                         cut: int) -> dict:
+    """FL2's memory reckoning (taken at ``cut`` layers) at the full depth
+    of ``params``: the adapter and state bytes scale with the layers, the
+    weights are the full model's."""
+    out = dict(reckoning)
+    for k in ("raw_per_tenant", "state_counted", "state_held",
+              "stack_position", "stack"):
+        out[k] = reckoning[k] // cut * layers
+    out["weights"] = sum(t.numel() * t.element_size()
+                         for t in _leaves_sorted(params))
+    return out
 
 
 def _upcast_layers(tree, n: int):
@@ -5152,6 +5208,456 @@ def cli_checks(dev, fl2_reckoning: dict) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# D1-D3: the train step across a (data, model) mesh, ranks sharing the card.
+# ---------------------------------------------------------------------------
+
+MESH_SHAPES = ((1, 2), (2, 1), (2, 2))
+MESH_TIMEOUT_S = 300
+MESH_LABEL = "ranks sharing one card, collectives staged by gloo"
+# D3's bound on every adapter leaf's max |sharded - unsharded| / max
+# |unsharded| gradient, the CPU tests' tolerance against the reference.
+MESH_LEAF_REL_MAX = 1e-4
+
+
+class _DuckMesh:
+    """``axis_names`` and ``shape``: what the rules and plans read."""
+
+    def __init__(self, data: int, model: int):
+        self.axis_names = ("data", "model")
+        self.shape = {"data": data, "model": model}
+
+
+def mesh_counts(mcfg, dcfg, shape, *, batch: int, seq: int) -> dict:
+    """Launches a rank makes in one train step on a (data, model) mesh,
+    from the port's dispatch plans at the shapes ``models/layers.py``
+    gives each module: column-parallel modules (local d_out, all rows)
+    take K1 with its epilogue; row-parallel ones K1's terms and the
+    standalone K2; a matmul-fused compose K6 twice (the layer and its
+    recompute) and K7 once."""
+    from repro_torch.core import dispatch
+    from repro_torch.core.sharding import COLUMN_PARALLEL, P, plan_for_output
+
+    data, tp = shape
+    mesh = _DuckMesh(data, tp)
+    rows = batch // data * seq
+    col = plan_for_output(mesh, P(None, None, "model"), psum_dh=False)
+    row = plan_for_output(mesh, P(None, "model", None))
+    D, qd, kvd, ff = mcfg.d_model, mcfg.q_dim, mcfg.kv_dim, mcfg.d_ff
+    dims = {"wq": qd, "wk": kvd, "wv": kvd, "w_gate": ff, "w_up": ff,
+            "wo": D, "w_down": D}
+    c = counts_of()
+    for name, d_out in dims.items():
+        is_col = name in COLUMN_PARALLEL
+        local = d_out // tp if is_col else d_out
+        if dispatch.plan_norm(dcfg, d_out=local).fused:
+            c["norm_terms"] += 1
+            if is_col:
+                c["assembled"] += 1
+            else:
+                c["assemble_norm"] += 1
+        plan = dispatch.plan_compose(dcfg, training=True, rows=rows,
+                                     d_out=d_out, rank=dcfg.rank,
+                                     sharding=col if is_col else row)
+        if plan.matmul_fused:
+            c["compose_mm_fwd"] += 2
+            c["compose_mm_bwd"] += 1
+        elif plan.fused:
+            c["compose_fwd_dual"] += 2
+            c["compose_bwd"] += 1
+    return {k: v * mcfg.num_layers for k, v in c.items()}
+
+
+def mesh_norm_bytes(mcfg, dcfg, tp: int) -> int:
+    """Bytes a rank's norm sums move per step: base_sq and cross [d_model]
+    and G [r, r], fp32, for each row-parallel module (none on one model
+    rank)."""
+    if tp == 1:
+        return 0
+    return 2 * mcfg.num_layers * (2 * mcfg.d_model * 4
+                                  + dcfg.rank * dcfg.rank * 4)
+
+
+def mesh_kernel_checks(dev, rows) -> dict:
+    """D1: K1's terms (no epilogue) and the standalone K2 on wo's and
+    w_down's d_in shards at model = 2, K6 and K7 at the column-parallel
+    local shapes [4096, 9472] and [4096, 1792]; each against its plain
+    version within the tolerance it holds today, the same bits twice."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import dora_compose as kc
+    from repro_torch.kernels import factored_norm as kn
+    from repro_torch.kernels import norm_assembly as ka
+
+    mcfg = get_config(ARCH)
+    D, ff, qd = mcfg.d_model, mcfg.d_ff, mcfg.q_dim
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    bf, esz = torch.bfloat16, 2
+    s = ALPHA / math.sqrt(RANK)
+
+    def randn(*shape, scale=1.0, dtype=bf):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(
+            dtype)
+
+    out = {}
+    for name, d_in in (("wo", qd // 2), ("w_down", ff // 2)):
+        W = randn(D, d_in, scale=(2 * d_in) ** -0.5)
+        A = randn(RANK, d_in, scale=(2 * d_in) ** -0.5)
+        B = randn(D, RANK, scale=0.02)
+        base, cross = kn.norm_terms(W, A, B)
+        pb, pc = kn.norm_terms_plain(W, A, B)
+        e1, m1 = max_err(base, pb)
+        e2, m2 = max_err(cross, pc)
+        same = all(torch.equal(x, y) for x, y in zip(
+            (base, cross), kn.norm_terms(W, A, B)))
+        nbytes = (D * d_in + RANK * d_in + D * RANK) * esz + 2 * D * 4
+        ops_s = (2 * D * d_in * RANK) / PEAK_OPS[bf] \
+            + (2 * D * d_in + 2 * D * RANK) / F32_OPS
+        record_row(rows, "norm_terms", [D, d_in, RANK], max(e1, e2),
+                   max(m1, m2), 1e-4, time_ms(lambda: kn.norm_terms(W, A, B)),
+                   time_ms(lambda: kn.norm_terms_plain(W, A, B)), nbytes,
+                   ops_s, time_ms(lambda: W @ A.T), "W @ A.T",
+                   mesh_shard=f"{name} d_in shard at model=2",
+                   deterministic=bool(same))
+        check(same, f"norm_terms {name} shard: not the same bits twice")
+        A32, B32 = A.float(), B.float()
+        ba = ((B32 @ (A32 @ A32.T)) * B32).sum(dim=1)
+        w = ka.assemble_norm(base, cross, ba, s)
+        ref = ka.assemble_norm_plain(base, cross, ba, s)
+        e, mx = max_err(w, ref)
+        same2 = torch.equal(w, ka.assemble_norm(base, cross, ba, s))
+        record_row(rows, "assemble_norm", [D], e, mx, 1e-6,
+                   time_ms(lambda: ka.assemble_norm(base, cross, ba, s)),
+                   time_ms(lambda: ka.assemble_norm_plain(base, cross, ba,
+                                                          s)),
+                   4 * D * 4, 5 * D / F32_OPS,
+                   mesh_shard=f"{name} at model=2 (standalone)",
+                   bitwise=bool(torch.equal(w, ref)),
+                   deterministic=bool(same2))
+        check(same2, f"assemble_norm {name}: not the same bits twice")
+        out[name] = {"k1_err": max(e1, e2), "k2_err": e}
+    mm = kc.compose_mm_fwd
+    for m, n in ((TRAIN_BATCH * TRAIN_SEQ, ff // 2),
+                 (TRAIN_BATCH * TRAIN_SEQ, qd // 2)):
+        base = randn(m, n)
+        h = randn(m, RANK, scale=0.5)
+        B = randn(n, RANK, scale=0.02)
+        gm1 = randn(n, scale=0.05, dtype=torch.float32)
+        gs = (gm1 + 1.0) * s
+        mma0 = mm.mma_launches
+        delta = kc.compose_mm_fwd(base, h, B, gm1, s)
+        check(mm.mma_launches == mma0 + 1,
+              f"compose_mm_fwd [{m}, {n}] did not take the tensor cores")
+        e, mx = max_err(delta, kc.compose_mm_fwd_plain(base, h, B, gm1, s))
+        same = torch.equal(delta, kc.compose_mm_fwd(base, h, B, gm1, s))
+        record_row(rows, "compose_mm_fwd", [m, n, RANK], e, mx, 2.0 ** -7,
+                   time_ms(lambda: kc.compose_mm_fwd(base, h, B, gm1, s)),
+                   time_ms(lambda: kc.compose_mm_fwd_plain(base, h, B, gm1,
+                                                           s)),
+                   2 * m * n * esz + (m + n) * RANK * esz + n * 4,
+                   2 * m * n * RANK / PEAK_OPS[bf] + 5 * m * n / F32_OPS,
+                   time_ms(lambda: h @ B.T), "h @ B.T",
+                   mesh_shard="column-parallel local tile at model=2",
+                   deterministic=bool(same))
+        check(same, f"compose_mm_fwd [{m}, {n}]: not the same bits twice")
+        dy = randn(m, n)
+        d_base, d_h = kc.compose_mm_bwd(dy, B, gm1, gs)
+        ref_b, ref_h = kc.compose_mm_bwd_plain(dy, B, gm1, gs)
+        e2, m2 = max_err(d_h, ref_h)
+        same = torch.equal(d_h, kc.compose_mm_bwd(dy, B, gm1, gs)[1])
+        check(torch.equal(d_base, ref_b) and same,
+              f"compose_mm_bwd [{m}, {n}]: d_base bitwise "
+              f"{torch.equal(d_base, ref_b)}, same bits twice {same}")
+        dys = (dy.float() * gs).to(dy.dtype)
+        record_row(rows, "compose_mm_bwd", [m, n, RANK], e2, m2, 1e-4,
+                   time_ms(lambda: kc.compose_mm_bwd(dy, B, gm1, gs)),
+                   time_ms(lambda: kc.compose_mm_bwd_plain(dy, B, gm1, gs)),
+                   2 * m * n * esz + n * RANK * esz + m * RANK * 4
+                   + 2 * n * 4,
+                   2 * 2 * m * n * RANK / PEAK_OPS[bf] + 3 * m * n / F32_OPS,
+                   time_ms(lambda: dys @ B), "(dY*gs) @ B, bf16 product only",
+                   mesh_shard="column-parallel local tile at model=2",
+                   d_base_bitwise_equal_plain=True, deterministic=bool(same))
+        out[f"mm_{n}"] = {"k6_err": e, "k7_err": e2}
+    return out
+
+
+def _mesh_state(mcfg, dcfg, mesh, dev, seed: int):
+    """(params, adapters, adapter specs): the seeded full model and
+    perturbed adapters drawn on the card, and with a mesh this rank's
+    shards of them (the full trees freed)."""
+    from repro_torch.launch import sharding as S
+    from repro_torch.models import lm
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = lm.init_params(gen, mcfg)
+    adapters = perturb_adapters(lm.init_adapters(gen, mcfg, params, dcfg),
+                                gen)
+    if mesh is None:
+        return params, adapters, None
+    aspec = S.adapter_sharding(mcfg, dcfg, mesh)
+    local = (S.shard_tree(params, S.param_sharding(mcfg, mesh), mesh),
+             S.shard_tree(adapters, aspec, mesh))
+    del params, adapters
+    if torch.device(dev).type == "cuda":
+        torch.cuda.empty_cache()
+    return (*local, aspec)
+
+
+def _mesh_rank(rank: int, world: int, shape, store: str, out_dir: str,
+               run: dict):
+    """One rank of a D2/D3 run: its process group (gloo, file store), the
+    mesh on ``run["device"]``, ``run["steps"]`` bf16 train steps of
+    ``run["mcfg"]`` with their launch counts, collective bytes, ms and
+    peak; then the fp32 route's loss and gathered gradients, held by rank
+    0 against the unsharded port."""
+    import dataclasses
+    import torch.distributed as dist
+
+    dev = torch.device(run["device"])
+    on_card = dev.type == "cuda"
+    if on_card:
+        torch.cuda.set_device(dev)
+        torch.backends.cuda.matmul.allow_tf32 = False
+    else:
+        torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            world_size=world, rank=rank)
+    try:
+        from repro_torch import kernels
+        from repro_torch.core import sharding as csh
+        from repro_torch.core.config import DoRAConfig
+        from repro_torch.launch import sharding as S
+        from repro_torch.launch.mesh import make_debug_mesh
+        from repro_torch.launch.steps import (StepConfig, make_grad_step,
+                                              make_train_step)
+        from repro_torch.models import lm
+        from repro_torch.optim import adamw_init
+        from repro_torch.tree import flatten_paths
+
+        mesh = make_debug_mesh(*shape, device=dev, backend="gloo")
+        mcfg = run["mcfg"]
+        dcfg = DoRAConfig(rank=run["rank"], alpha=run["alpha"],
+                          mode=run["mode"])
+        batch, seq = run["batch"], run["seq"]
+        scfg = StepConfig(dora=dcfg, loss_tokens=run["loss_tokens"])
+        sync = torch.cuda.synchronize if on_card else (lambda: None)
+        params, adapters, _ = _mesh_state(mcfg, dcfg, mesh, dev, SEED)
+        bspec = S.batch_spec(mesh, batch=batch)
+        batches = [S.shard_tree(
+            {k: torch.as_tensor(v, device=dev) for k, v in b.items()},
+            {"tokens": bspec, "labels": bspec}, mesh)
+            for b in _train_batches(mcfg, run["steps"], batch, seq)]
+        step = make_train_step(mcfg, scfg, mesh, batch=batch, seq=seq)
+        opt = adamw_init(adapters)
+        sync()
+        if on_card:
+            torch.cuda.reset_peak_memory_stats(dev)
+        steps = []
+        mm = kernels.KERNELS["compose_mm_fwd"]
+        for b in batches:
+            kernels.reset_launch_counts()
+            csh.reset_collective_stats()
+            mma0 = mm.mma_launches
+            stats: dict = {}
+            adapters, opt, met = step(params, adapters, opt, b, stats=stats)
+            counts = launch_counts()
+            steps.append({
+                "loss": float(met["loss"]),
+                "grad_norm": float(met["grad_norm"]),
+                "ms": (stats["grad_s"] + stats["optim_s"]) * 1e3,
+                "launches": counts,
+                "k6_mma": mm.mma_launches - mma0,
+                "collectives": csh.collective_stats()})
+        peak = torch.cuda.max_memory_allocated(dev) if on_card else None
+        local_bytes = sum(t.numel() * t.element_size() for t in
+                          list(flatten_paths(params).values())
+                          + list(flatten_paths(adapters).values()))
+        del params, adapters, opt, batches
+        if on_card:
+            torch.cuda.empty_cache()
+
+        # D3: the fp32 route, sharded, gathered, against the unsharded
+        # port on rank 0.
+        m32 = dataclasses.replace(mcfg, dtype=torch.float32)
+        p32, a32, aspec32 = _mesh_state(m32, dcfg, mesh, dev, SEED + 3)
+        b0 = _train_batches(m32, 1, batch, seq)[0]
+        full_b = {k: torch.as_tensor(v, device=dev) for k, v in b0.items()}
+        loss_s, g_s = make_grad_step(m32, scfg, mesh, batch=batch,
+                                     seq=seq)(
+            p32, a32, S.shard_tree(full_b, {"tokens": bspec,
+                                            "labels": bspec}, mesh))
+        g_full = S.unshard_tree(g_s, aspec32, mesh)
+        del p32, a32, g_s
+        if on_card:
+            torch.cuda.empty_cache()
+        fp32 = None
+        if rank == 0:
+            p, a, _ = _mesh_state(m32, dcfg, None, dev, SEED + 3)
+            loss_u, g_u = make_grad_step(m32, scfg, batch=batch,
+                                         seq=seq)(p, a, full_b)
+            gs, gu = flatten_paths(g_full), flatten_paths(g_u)
+            va = torch.cat([gs[k].double().flatten() for k in sorted(gu)])
+            vb = torch.cat([gu[k].double().flatten() for k in sorted(gu)])
+            # Each leaf on its own: a fault in a leaf that is a small
+            # share of the tree's norm (the m leaves, one module's B)
+            # barely moves the whole tree's cosine.
+            leaf_rel = {k: _leaf_max_rel(gs[k], gu[k]) for k in sorted(gu)}
+            worst = max(leaf_rel, key=leaf_rel.get)
+            fp32 = {"loss_sharded": float(loss_s),
+                    "loss_unsharded": float(loss_u),
+                    "loss_rel": abs(float(loss_s) / float(loss_u) - 1),
+                    "grad_cosine": float(va @ vb / (va.norm() * vb.norm())),
+                    "grad_max_rel": float((va - vb).abs().max()
+                                          / vb.abs().max()),
+                    "grad_leaf_max_rel": leaf_rel[worst],
+                    "grad_leaf_worst": worst, "grad_leaves": len(leaf_rel)}
+            del p, a, g_u
+        dist.barrier()
+        rec = {"rank": rank, "coords": mesh.coords, "steps": steps,
+               "peak_bytes": peak, "local_state_bytes": local_bytes,
+               "fp32": fp32}
+        Path(out_dir, f"rank{rank}.json").write_text(json.dumps(rec))
+    finally:
+        dist.destroy_process_group()
+
+
+def _leaf_max_rel(got, want) -> float:
+    """max |got - want| / max |want| of one gradient leaf (0 where both
+    are all zeros, inf where only ``want`` is)."""
+    diff = float((got.double() - want.double()).abs().max())
+    ref = float(want.double().abs().max())
+    if ref == 0.0:
+        return 0.0 if diff == 0.0 else math.inf
+    return diff / ref
+
+
+def _spawn_ranks(shape, out_dir: Path, run: dict) -> list:
+    """Start the ranks of one mesh on the card (spawn), join them under
+    MESH_TIMEOUT_S (a hung collective kills them all and fails), and
+    return their records."""
+    import torch.multiprocessing as mp
+
+    world = shape[0] * shape[1]
+    out_dir.mkdir(parents=True, exist_ok=True)
+    for f in out_dir.glob("*"):
+        f.unlink()
+    store = out_dir / "store"
+    ctx = mp.start_processes(_mesh_rank,
+                             args=(world, shape, str(store), str(out_dir),
+                                   run),
+                             nprocs=world, join=False, start_method="spawn")
+    deadline = time.monotonic() + MESH_TIMEOUT_S
+    try:
+        while not ctx.join(timeout=5):
+            if time.monotonic() > deadline:
+                raise RuntimeError(f"mesh {shape}: ranks did not finish in "
+                                   f"{MESH_TIMEOUT_S} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    return [json.loads((out_dir / f"rank{r}.json").read_text())
+            for r in range(world)]
+
+
+def mesh_checks(dev, mcfg=None) -> dict:
+    """D2 and D3 on each mesh of MESH_SHAPES: qwen2-7b at full width on
+    its first AGREE_LAYERS layers, r = 384, ranks on this card under
+    gloo. Held per rank and step: the launch counts of ``mesh_counts``
+    exactly, every K6 on the tensor cores, the norm's collective bytes
+    (``mesh_norm_bytes``), a finite loss the same on every rank; the fp32
+    route's loss within 1e-5 relative and its gathered adapter gradient
+    at cosine >= GRAD_COSINE_MIN of the unsharded port's, each leaf within
+    MESH_LEAF_REL_MAX of its max."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.config import DoRAConfig
+
+    gc.collect()
+    if torch.device(dev).type == "cuda":
+        torch.cuda.empty_cache()
+    if mcfg is None:
+        mcfg = dataclasses.replace(get_config(ARCH),
+                                   num_layers=AGREE_LAYERS)
+    # A forced kernel mode on CPU ranks runs the plain versions (a
+    # rehearsal); auto on the card.
+    mode = "auto" if torch.device(dev).type == "cuda" else "fused"
+    dcfg = DoRAConfig(rank=RANK, alpha=ALPHA, mode=mode)
+    run = {"device": str(dev), "mcfg": mcfg, "rank": RANK, "alpha": ALPHA,
+           "mode": mode, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+           "loss_tokens": LOSS_TOKENS, "steps": TRAIN_STEPS}
+    D = mcfg.d_model
+    gathered = 2 * mcfg.num_layers * (D * mcfg.q_dim // 2
+                                      + D * mcfg.d_ff // 2)
+    print(f"mesh phases ({MESH_LABEL}): {mcfg.name} at full width, "
+          f"{mcfg.num_layers} layers ({mcfg.count_params():,} parameters, "
+          f"{mcfg.count_params() * 2:,} B in bf16), batch "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ}, loss on the last {LOSS_TOKENS}",
+          flush=True)
+    out = {"label": MESH_LABEL}
+    root = Path(__file__).resolve().parent / "build" / "mesh"
+    for shape in MESH_SHAPES:
+        t0 = time.perf_counter()
+        recs = _spawn_ranks(shape, root / f"{shape[0]}x{shape[1]}", run)
+        want = mesh_counts(mcfg, dcfg, shape, batch=TRAIN_BATCH,
+                           seq=TRAIN_SEQ)
+        norm_bytes = mesh_norm_bytes(mcfg, dcfg, shape[1])
+        losses = set()
+        for r in recs:
+            for i, st in enumerate(r["steps"]):
+                check(st["launches"] == want,
+                      f"mesh {shape} rank {r['rank']} step {i}: launches "
+                      f"{st['launches']} != {want}")
+                check(st["k6_mma"] == st["launches"]["compose_mm_fwd"],
+                      f"mesh {shape} rank {r['rank']}: {st['k6_mma']} of "
+                      f"{st['launches']['compose_mm_fwd']} K6 launches on "
+                      f"the tensor cores")
+                got = st["collectives"].get("norm", {}).get("bytes", 0)
+                check(got == norm_bytes,
+                      f"mesh {shape} rank {r['rank']}: norm bytes {got} "
+                      f"!= {norm_bytes}")
+                check(math.isfinite(st["loss"])
+                      and math.isfinite(st["grad_norm"])
+                      and st["grad_norm"] > 0,
+                      f"mesh {shape} rank {r['rank']} step {i}: {st}")
+            losses.add(tuple(st["loss"] for st in r["steps"]))
+        check(len(losses) == 1, f"mesh {shape}: ranks' losses differ "
+              f"{losses}")
+        fp32 = recs[0]["fp32"]
+        check(fp32["loss_rel"] <= 1e-5
+              and fp32["grad_cosine"] >= GRAD_COSINE_MIN
+              and fp32["grad_leaf_max_rel"] <= MESH_LEAF_REL_MAX,
+              f"mesh {shape} fp32 route: {fp32}")
+        warm = [st["ms"] for st in recs[0]["steps"][1:]]
+        rec = {"ranks": len(recs), "launches_per_step": want,
+               "norm_bytes_per_step": norm_bytes,
+               "gather_bytes_instead": gathered if shape[1] > 1 else 0,
+               "step_ms_by_rank": [
+                   sum(st["ms"] for st in r["steps"][1:])
+                   / max(len(r["steps"]) - 1, 1) for r in recs],
+               "peak_bytes_by_rank": [r["peak_bytes"] for r in recs],
+               "local_state_bytes_by_rank": [r["local_state_bytes"]
+                                             for r in recs],
+               "losses": recs[0]["steps"] and [st["loss"] for st in
+                                                recs[0]["steps"]],
+               "collectives_step": recs[0]["steps"][-1]["collectives"],
+               "fp32": fp32, "seconds": time.perf_counter() - t0}
+        out[f"{shape[0]}x{shape[1]}"] = rec
+        print(f"mesh (data {shape[0]}, model {shape[1]}) [{MESH_LABEL}]: "
+              f"launches a step {want}; norm sums {norm_bytes:,} B a step "
+              f"a rank (gathering the other halves of wo and w_down: "
+              f"{rec['gather_bytes_instead']:,} B); step ms by rank "
+              f"{[round(x, 1) for x in rec['step_ms_by_rank']]} (rank 0 "
+              f"steps 2-3 {[round(x, 1) for x in warm]}); peak bytes by "
+              f"rank {rec['peak_bytes_by_rank']}; fp32 {fp32}; "
+              f"{rec['seconds']:.1f} s", flush=True)
+        print(f"  collectives of rank 0's last step: "
+              + json.dumps(rec["collectives_step"]), flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -5208,20 +5714,33 @@ def main() -> int:
     print("kernels vs plain versions at the other archs' shapes:",
           flush=True)
     arch_kernel_checks(dev, rows)
+    print("kernels vs plain versions at the mesh's local shapes (D1):",
+          flush=True)
+    mesh_kernels = mesh_kernel_checks(dev, rows)
     host = host_checks(dev)
     small_parity(dev)
     t0 = time.perf_counter()
+    mesh = mesh_checks(dev)
+    print(f"mesh phases D2-D3: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    t0 = time.perf_counter()
     served, mcfg, params, adapters = serve_checks(dev)
     print(f"serve phases: {time.perf_counter() - t0:.1f} s", flush=True)
+    # The host-bound engine, speculative, fault and FL2 phases run on the
+    # first ENGINE_LAYERS layers (views of the full model's stacks).
+    emcfg = dataclasses.replace(mcfg, num_layers=ENGINE_LAYERS)
+    eparams = _layer_views(params, ENGINE_LAYERS)
+    eadapters = _layer_views(adapters, ENGINE_LAYERS)
     t0 = time.perf_counter()
-    engine = engine_checks(dev, mcfg, params, adapters)
+    engine = engine_checks(dev, emcfg, eparams, eadapters)
     engine["parity"] = engine_parity(dev, mcfg, params, adapters)
     print(f"engine phases: {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
     plain_main = {**engine["engine_paged"],
                   "streams": engine.pop("realistic_streams")}
-    spec, spec_state = spec_checks(dev, mcfg, params, adapters, plain_main)
-    faults = fault_checks(dev, mcfg, params, spec_state)
+    spec, spec_state = spec_checks(dev, emcfg, eparams, eadapters,
+                                   plain_main)
+    faults = fault_checks(dev, emcfg, eparams, spec_state)
     del spec_state
     print(f"spec and fault phases: {time.perf_counter() - t0:.1f} s",
           flush=True)
@@ -5232,8 +5751,11 @@ def main() -> int:
     fleet = {"fl1": fleet_parity(dev, mcfg, params)}
     print(f"fleet FL1: {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
-    fleet["fl2"] = fleet_checks(dev, mcfg, params, adapters, plain_main)
+    fleet["fl2"] = fleet_checks(dev, emcfg, eparams, eadapters, plain_main)
     print(f"fleet FL2: {time.perf_counter() - t0:.1f} s", flush=True)
+    cli_reckoning = full_depth_reckoning(fleet["fl2"]["reckoning"], params,
+                                         mcfg.num_layers, ENGINE_LAYERS)
+    del eparams, eadapters
     t0 = time.perf_counter()
     trained = train_checks(dev, mcfg, params, adapters)
     del params, adapters
@@ -5241,7 +5763,7 @@ def main() -> int:
     parity = train_parity(dev)
     print(f"train phases: {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
-    cli = cli_checks(dev, fleet["fl2"]["reckoning"])
+    cli = cli_checks(dev, cli_reckoning)
     print(f"serve CLI phases: {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
     mamba = mamba_checks(dev)
@@ -5283,7 +5805,9 @@ def main() -> int:
                "serve_moe": moe["serve"]["launches"],
                "train_moe": moe["train"]["launches"],
                "serve_jamba": jamba["serve"]["launches"],
-               "train_jamba": jamba["train"]["launches"]}
+               "train_jamba": jamba["train"]["launches"],
+               **{f"train_mesh_{k}_per_step_per_rank": r["launches_per_step"]
+                  for k, r in mesh.items() if isinstance(r, dict)}}
     record = []
     for name, (src, replaces) in SOURCES.items():
         path, at = RECORD_PATH[name]
@@ -5351,11 +5875,17 @@ def main() -> int:
                                           "fp32_agreement")},
         "train_parity": parity, "mamba": mamba, "mamba_train": mamba_train,
         "serve_cli": cli, "vl": vl, "archs": archs, "moe": moe,
-        "jamba": jamba},
+        "jamba": jamba, "mesh": mesh, "mesh_kernels": mesh_kernels},
         indent=1))
     print(f"details: {detail.relative_to(root)}")
     print(smi)
     print(json.dumps({"kernels": record, "card": smi,
+                      "mesh": {k: ({f: r[f] for f in (
+                          "ranks", "launches_per_step",
+                          "norm_bytes_per_step", "gather_bytes_instead",
+                          "step_ms_by_rank", "peak_bytes_by_rank", "fp32")}
+                          if isinstance(r, dict) else r)
+                          for k, r in mesh.items()},
                       "serve": {k: served[k] for k in
                                 ("serve_auto", "serve_fused", "cosines")},
                       "engine": {k: v for k, v in engine["engine_paged"].items()

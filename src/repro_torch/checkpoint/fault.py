@@ -1,14 +1,15 @@
 """Fault-tolerance hooks of the training loop: the port's copy of
-``PreemptionHandler`` and ``Heartbeat`` from ``repro/checkpoint/fault.py``.
+``PreemptionHandler``, ``Heartbeat`` and ``StragglerMonitor`` from
+``repro/checkpoint/fault.py``.
 
   - **PreemptionHandler**: converts SIGTERM (the cloud preemption signal)
     into a checked flag; the train loop polls it each step and triggers an
     immediate checkpoint + clean exit instead of dying mid-step.
   - **Heartbeat**: each host touches ``<dir>/host_<i>`` with its step and
     wall time every step. Cheap (one small atomic file write).
-
-The reference's launcher-side ``StragglerMonitor`` (the reader of the
-heartbeat files) is not ported yet.
+  - **StragglerMonitor**: the launcher-side reader of those files: a host
+    is flagged when its beat is older than ``dead_after_s`` or its step
+    trails the median by more than ``step_slack``.
 """
 from __future__ import annotations
 
@@ -73,3 +74,47 @@ class Heartbeat:
 
     def beat(self, step: int) -> None:
         _atomic_write_json(self.path, {"step": step, "time": time.time()})
+
+
+class StragglerMonitor:
+    """Launcher-side detector over the heartbeat directory."""
+
+    def __init__(self, directory: str, *, step_slack: int = 5,
+                 dead_after_s: float = 300.0):
+        self.directory = directory
+        self.step_slack = step_slack
+        self.dead_after_s = dead_after_s
+
+    def read(self) -> dict[str, dict]:
+        out = {}
+        if not os.path.isdir(self.directory):
+            return out
+        for name in sorted(os.listdir(self.directory)):
+            if not name.startswith("host_"):
+                continue
+            try:
+                with open(os.path.join(self.directory, name)) as f:
+                    out[name] = json.load(f)
+            except (json.JSONDecodeError, OSError):
+                # A torn read of a beat in flight: stale, not fatal.
+                out[name] = {"step": -1, "time": 0.0}
+        return out
+
+    def stragglers(self, now: float | None = None) -> list[str]:
+        beats = self.read()
+        if not beats:
+            return []
+        now = time.time() if now is None else now
+        steps = sorted(b["step"] for b in beats.values())
+        median = steps[len(steps) // 2]
+        flagged = []
+        for name, b in beats.items():
+            if now - b["time"] > self.dead_after_s:
+                flagged.append(name)
+            elif median - b["step"] > self.step_slack:
+                flagged.append(name)
+        return flagged
+
+    def healthy(self, expected_hosts: int, now: float | None = None) -> bool:
+        beats = self.read()
+        return len(beats) == expected_hosts and not self.stragglers(now)

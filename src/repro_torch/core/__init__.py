@@ -1,7 +1,5 @@
 """Core DoRA library of the port (counterpart of ``repro/core``): the
-names ``repro/core/__init__.py`` exports that the port has (no
-``select_tier``, ``compose_naive`` or ``factored_norm_sharded`` yet),
-resolved on first use.
+names ``repro/core/__init__.py`` exports, resolved on first use.
 
 The exports are looked up lazily (PEP 562) because ``core.adapter``
 imports the kernel wrappers, which import ``core.compose``: an eager
@@ -22,9 +20,11 @@ _EXPORTS = {
     "adapter_cache": ("AdapterCacheMiss", "AdapterHandle", "AdapterKey",
                       "AdapterStateCache", "CacheStats"),
     "factored_norm": ("factored_norm_terms", "assemble_norm",
-                      "norm_peft_eye", "norm_dense_ba", "dtype_eps"),
-    "compose": ("compose_stable", "magnitude_scale", "select_tenant"),
-    "dispatch": ("Tier",),
+                      "factored_norm_sharded", "norm_peft_eye",
+                      "norm_dense_ba", "dtype_eps"),
+    "compose": ("compose_stable", "compose_naive", "magnitude_scale",
+                "select_tenant"),
+    "dispatch": ("Tier", "select_tier"),
 }
 _WHERE = {name: mod for mod, names in _EXPORTS.items() for name in names}
 

@@ -22,9 +22,16 @@ whose rows use different adapters, out of K folded serving states stacked
 leaf-wise (:func:`stack_adapter_states`). The base projection is one
 product over the whole batch; each tenant's rows then take the
 homogeneous serving path's delta (:func:`gsb_delta`).
+
+Under a mesh (``constrain``: a ``core/sharding.py`` plan, or an object
+carrying one as ``.plan``) the tensors are each rank's shards: the
+compose runs shard-local with the plan's collectives, and with
+``axis_name`` the norm's partials are summed over that axis
+(:func:`~repro_torch.core.factored_norm.factored_norm_sharded`).
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any
 
 import torch
@@ -32,6 +39,7 @@ import torch
 from repro_torch.core import compose as _compose
 from repro_torch.core import dispatch as _dispatch
 from repro_torch.core import factored_norm as _norm
+from repro_torch.core import sharding as _sh
 from repro_torch.core.config import DoRAConfig
 from repro_torch.kernels import ops as _kops
 from repro_torch.tree import tree_map
@@ -65,14 +73,27 @@ def init_dora_params(W, cfg: DoRAConfig, *, generator: torch.Generator,
 
 
 @torch.no_grad()
-def compute_weight_norm(W, A, B, cfg: DoRAConfig, *, base_sq_cache=None):
+def compute_weight_norm(W, A, B, cfg: DoRAConfig, *, axis_name=None,
+                        mesh=None, base_sq_cache=None):
     """Detached fp32 [d_out] row norm of the composed weight, routed
-    through the configured implementation and the norm plan."""
+    through the configured implementation and the norm plan.
+    ``axis_name``: W and A are this rank's d_in shards along that axis of
+    ``mesh``; only the factored algebra distributes, so the partials are
+    summed there (K1 without its epilogue and the standalone K2 on the
+    kernel route)."""
+    plan = _dispatch.plan_norm(cfg, d_out=W.shape[0], device=W.device)
+    if axis_name is not None:
+        if mesh is None:
+            raise ValueError("compute_weight_norm(axis_name=...) needs the "
+                             "mesh whose axis it sums over")
+        return _norm.factored_norm_sharded(
+            W, A, B, cfg.scaling, axis_name=axis_name, mesh=mesh,
+            chunk_mb=cfg.resolve_chunk_mb(), base_sq_cache=base_sq_cache,
+            kernels=plan.fused)
     if cfg.norm_impl == "peft_eye":
         return _norm.norm_peft_eye(W, A, B, cfg.scaling)
     if cfg.norm_impl == "dense_ba":
         return _norm.norm_dense_ba(W, A, B, cfg.scaling)
-    plan = _dispatch.plan_norm(cfg, d_out=W.shape[0], device=W.device)
     if plan.fused:
         return _kops.fused_norm(W, A, B, cfg.scaling,
                                 base_sq_cache=base_sq_cache)
@@ -88,14 +109,16 @@ def _row_count(shape) -> int:
     return rows
 
 
-def compose_delta(y_base, y_lora, g, cfg: DoRAConfig, *, training: bool):
+def compose_delta(y_base, y_lora, g, cfg: DoRAConfig, *, training: bool,
+                  shape: tuple[int, int] | None = None):
     """Compose a materialized y_lora through the dispatch (never
-    matmul-fused: the rank is unknown here)."""
+    matmul-fused: the rank is unknown here). ``shape``: the (rows, d_out)
+    the route is chosen for, when the tensors are one rank's shards of
+    it."""
     _compose.check_broadcast(g, y_base)
-    plan = _dispatch.plan_compose(cfg, training=training,
-                                  rows=_row_count(y_base.shape),
-                                  d_out=y_base.shape[-1],
-                                  device=y_base.device)
+    rows, d_out = shape or (_row_count(y_base.shape), y_base.shape[-1])
+    plan = _dispatch.plan_compose(cfg, training=training, rows=rows,
+                                  d_out=d_out, device=y_base.device)
     if plan.tier is _dispatch.Tier.EAGER:
         return _compose.compose_stable(y_base, y_lora, g, cfg.scaling)
     if plan.tier is _dispatch.Tier.FUSED_FWD:
@@ -108,24 +131,41 @@ def compose_delta(y_base, y_lora, g, cfg: DoRAConfig, *, training: bool):
 
 
 def compose_delta_factored(y_base, h, B, g, cfg: DoRAConfig, *,
-                           training: bool):
+                           training: bool, sharding=None):
     """Compose from the factored LoRA activation h = x·Aᵀ: matmul-fused
     (K6/K7, y_lora never written) when the plan allows, else y_lora is
-    materialized once and :func:`compose_delta` runs."""
+    materialized once and :func:`compose_delta` runs.
+
+    ``sharding``: the call site's mesh plan, the tensors this rank's
+    shards under it. The route is chosen for the whole tensor, as the
+    reference chooses it. A matmul-fused route runs shard-local with the
+    plan's collectives; the materialized route gets the same sums through
+    :func:`~repro_torch.core.sharding.grad_psum` (B's and g's gradients
+    over the row axes, d_h over the d_out axes where the plan sums it)."""
     _compose.check_broadcast(g, y_base)
-    plan = _dispatch.plan_compose(cfg, training=training,
-                                  rows=_row_count(y_base.shape),
-                                  d_out=y_base.shape[-1], rank=B.shape[-1],
-                                  device=y_base.device)
+    rows, d_out = _row_count(y_base.shape), y_base.shape[-1]
+    if sharding is not None:
+        rows, d_out = rows * sharding.row_shards, d_out * sharding.dout_shards
+    plan = _dispatch.plan_compose(cfg, training=training, rows=rows,
+                                  d_out=d_out, rank=B.shape[-1],
+                                  sharding=sharding, device=y_base.device)
     if plan.matmul_fused:
         mag_grad = cfg.magnitude_trainable
         if plan.tier is _dispatch.Tier.FUSED_FWD:
             g = g.detach()
             mag_grad = False
         return _kops.fused_compose_mm(y_base, h, B, g, cfg.scaling,
-                                      mag_grad=mag_grad)
+                                      mag_grad=mag_grad,
+                                      sharding=plan.sharding)
+    if sharding is not None and training:
+        mesh = sharding.mesh
+        B = _sh.grad_psum(B, sharding.row_axes, mesh, tag="compose.T")
+        g = _sh.grad_psum(g, sharding.row_axes, mesh, tag="compose.d_g")
+        if sharding.psum_dh:
+            h = _sh.grad_psum(h, sharding.dout_axes, mesh, tag="compose.d_h")
     y_lora = h @ B.T
-    return compose_delta(y_base, y_lora, g, cfg, training=training)
+    return compose_delta(y_base, y_lora, g, cfg, training=training,
+                         shape=(rows, d_out))
 
 
 def gsb_delta(y_base, h, g, gsB):
@@ -137,26 +177,64 @@ def gsb_delta(y_base, h, g, gsB):
 
 
 def dora_linear(x, W, adapter: dict[str, Any], cfg: DoRAConfig, *,
-                bias=None, training: bool = True, tenant_groups=None):
+                bias=None, training: bool = True, axis_name=None,
+                base_sq_cache=None, constrain=None, tenant_groups=None):
     """Adapted linear: x [..., d_in] → y [..., d_out].
 
     W: frozen [d_out, d_in]; adapter: {"A": [r, d_in], "B": [d_out, r],
-    "m": [d_out]} plus optional "base_sq" (precomputed ||W||²_row), the
-    serving state of :func:`precompute_adapter_state` ("g", optionally
-    "gsB") and "w_norm". A cached "g" skips the factored norm and is
-    refused under ``training=True``. "w_norm" is the detached norm of
-    this step's A and B, computed by the caller: the layer-remat training
-    forward computes it before the checkpointed layer so that the
-    recompute in the backward does no norm work (the reference's remat
-    policy saves it under the name "dora_wnorm").
+    "m": [d_out]} plus optional "base_sq" (precomputed ||W||²_row; also
+    ``base_sq_cache``), the serving state of
+    :func:`precompute_adapter_state` ("g", optionally "gsB") and
+    "w_norm". A cached "g" skips the factored norm and is refused under
+    ``training=True``. "w_norm" is the detached norm of this step's A and
+    B, computed by the caller: the layer-remat training forward computes
+    it before the checkpointed layer so that the recompute in the
+    backward does no norm work (the reference's remat policy saves it
+    under the name "dora_wnorm").
+
+    ``constrain``: the call site's mesh plan (a
+    :class:`~repro_torch.core.sharding.ComposeSharding` or an object
+    carrying one as ``.plan``); x, W and the adapter are then this rank's
+    shards and the compose runs under it. ``axis_name``: W and A are
+    split along d_in over that axis of the plan's mesh, and the norm's
+    partials are summed over it. Serving state and tenant groups are not
+    taken under a plan yet (ROADMAP queue 1 item 6, second half).
 
     ``tenant_groups``: multi-tenant serving, a tuple of ``(start, size)``
     row blocks or an int [B] tensor of per-row tenant positions, over an
     adapter tree whose leaves carry a leading tenant dim K (see
     :func:`dora_linear_grouped`)."""
+    plan_sh = _sh.as_compose_sharding(constrain)
+    if plan_sh is not None and (tenant_groups is not None
+                                or "gsB" in adapter):
+        raise NotImplementedError(
+            "serving under a mesh (folded gsB state, tenant groups) is "
+            "ROADMAP queue 1 item 6, second half")
+    if axis_name is not None and plan_sh is None:
+        raise ValueError("dora_linear(axis_name=...) needs a mesh plan "
+                         "(constrain=) to name the mesh")
     if tenant_groups is not None:
         return dora_linear_grouped(x, W, adapter, cfg, tenant_groups,
                                    bias=bias, training=training)
+    W = W.detach()
+    y_base = x @ W.T
+    h = x @ adapter["A"].T
+    if plan_sh is not None:
+        y_base, h = plan_sh(y_base), plan_sh.constrain_h(h)
+    return _adapted_output(
+        y_base, h, W, adapter, cfg, dtype=x.dtype, training=training,
+        bias=bias, axis_name=axis_name, sharding=plan_sh,
+        base_sq_cache=base_sq_cache)
+
+
+def _adapted_output(y_base, h, W, adapter, cfg: DoRAConfig, *, dtype,
+                    training: bool, bias=None, axis_name=None, sharding=None,
+                    base_sq_cache=None):
+    """y = y_base + delta (+ bias) from y_base = x·Wᵀ and h = x·Aᵀ: the
+    magnitude scale g (the serving state's, or m over the norm of W + s·BA:
+    the caller's "w_norm", else computed here, its partials summed over
+    ``axis_name`` of the plan's mesh when W and A are d_in shards), then
+    the compose under ``sharding``; the bias is re-added after it."""
     A, B, m = adapter["A"], adapter["B"], adapter["m"]
     if "g" in adapter:
         if training:
@@ -170,25 +248,74 @@ def dora_linear(x, W, adapter: dict[str, Any], cfg: DoRAConfig, *,
     else:
         w_norm = adapter.get("w_norm")
         if w_norm is None:
+            if base_sq_cache is None:
+                base_sq_cache = adapter.get("base_sq")
             w_norm = compute_weight_norm(
-                W, A, B, cfg, base_sq_cache=adapter.get("base_sq"))
+                W, A, B, cfg, axis_name=axis_name,
+                mesh=None if sharding is None else sharding.mesh,
+                base_sq_cache=base_sq_cache)
         g = _compose.magnitude_scale(m, w_norm.detach(),
-                                     _norm.dtype_eps(x.dtype))
+                                     _norm.dtype_eps(dtype))
     if not cfg.magnitude_trainable:
         g = g.detach()
-
-    W = W.detach()
-    y_base = x @ W.T
-    h = x @ A.T
     if "gsB" in adapter and not training:
         delta = gsb_delta(y_base, h, g, adapter["gsB"])
     else:
         delta = compose_delta_factored(y_base, h, B, g, cfg,
-                                       training=training)
+                                       training=training, sharding=sharding)
     y = y_base + delta
     if bias is not None:
         y = y + bias                 # re-added after the compose
     return y
+
+
+def dora_linear_row_parallel(x, W, adapter: dict[str, Any] | None,
+                             cfg: DoRAConfig | None, *, sp, bias=None,
+                             training: bool = True):
+    """A row-parallel adapted linear under the sequence-parallel layout
+    ``sp`` (``core/sharding.py SequenceParallel``): x [B, S, d_in_l] holds
+    this rank's d_in columns on every row, W [d_out, d_in_l] and A
+    [r, d_in_l] its d_in shards, B, m and the bias whole.
+
+    The partial y_base = x·Wᵀ and the rank-space h = x·Aᵀ are
+    reduce-scattered to the sequence split ([B, S/tp, ...]); the norm's
+    partials are summed over ``sp.axis``; the compose then runs on the
+    full d_out under ``sp.row_plan`` (rows split: T and d_g summed over
+    the axis in the backward). Returns y [B, S/tp, d_out]."""
+    y_base = sp.scatter(x @ W.detach().T, tag="sp.y_base")
+    if adapter is None:
+        return y_base if bias is None else y_base + bias
+    if "g" in adapter or "gsB" in adapter:
+        raise NotImplementedError(
+            "serving state under a mesh is ROADMAP queue 1 item 6, second "
+            "half")
+    plan = sp.row_plan
+    h = sp.scatter(x @ adapter["A"].T, tag="sp.h")
+    return _adapted_output(plan(y_base), plan.constrain_h(h), W, adapter,
+                           cfg, dtype=x.dtype, training=training, bias=bias,
+                           axis_name=sp.axis, sharding=plan)
+
+
+def dora_linear_column_parallel(x, W, adapter: dict[str, Any] | None,
+                                cfg: DoRAConfig | None, *, sp, bias=None,
+                                training: bool = True):
+    """A column-parallel adapted linear under ``sp``: x [B, S, d_in] the
+    gathered rows, W [d_out_l, d_in], B [d_out_l, r], m and the bias this
+    rank's d_out shards, A whole. The norm is local (W's rows are); the
+    compose runs under ``sp.col_plan``, which leaves d_h's partial to the
+    gather's backward, so A's gradient is summed over ``sp.axis``."""
+    if adapter is None:
+        y = x @ W.detach().T
+        return y if bias is None else y + bias
+    if "g" in adapter or "gsB" in adapter:
+        raise NotImplementedError(
+            "serving state under a mesh is ROADMAP queue 1 item 6, second "
+            "half")
+    A = adapter["A"]
+    if A.requires_grad:
+        adapter = {**adapter, "A": sp.reduce_grad(A)}
+    return dora_linear(x, W, adapter, cfg, bias=bias, training=training,
+                       constrain=sp.col_plan)
 
 
 def dora_linear_stacked(x, W, adapter: dict[str, Any], cfg: DoRAConfig, *,
@@ -376,22 +503,29 @@ def precompute_adapter_state(params, adapters, cfg: DoRAConfig, *,
 
 
 @torch.no_grad()
-def attach_weight_norms(params, adapters, cfg: DoRAConfig):
+def attach_weight_norms(params, adapters, cfg: DoRAConfig, *, sp=None,
+                        name: str | None = None):
     """A NEW adapter tree whose unstacked leaves also carry ``"w_norm"``,
-    the detached fp32 [d_out] norm of their current A and B (K1/K2 on the
-    kernel route). The training forward (``models/lm.py``) calls it before
-    each layer, which layer remat checkpoints, so the layer's recompute in
-    the backward reuses the norm instead of running the factored norm
-    again. Leaves carrying
-    serving state ("g") are left as they are, for
-    :func:`dora_linear` to refuse under training."""
+    the detached fp32 [d_out] norm of their current A and B (K1 with its
+    epilogue on the kernel route). The training forward
+    (``models/lm.py``) calls it before each layer, which layer remat
+    checkpoints, so the layer's recompute in the backward reuses the norm
+    instead of running the factored norm again. Leaves carrying serving
+    state ("g") are left as they are, for :func:`dora_linear` to refuse
+    under training.
+
+    ``sp``: the mesh layout (``core/sharding.py SequenceParallel``); a
+    module whose W is split along d_in (``sp.norm_axis(name)``) sums its
+    norm's partials over that axis."""
     if _is_adapter_leaf(adapters):
         if "g" in adapters:
             return adapters
+        axis = None if sp is None else sp.norm_axis(name)
         return {**adapters, "w_norm": compute_weight_norm(
-            params, adapters["A"], adapters["B"], cfg,
+            params, adapters["A"], adapters["B"], cfg, axis_name=axis,
+            mesh=None if axis is None else sp.mesh,
             base_sq_cache=adapters.get("base_sq"))}
-    return {k: attach_weight_norms(params[k], v, cfg)
+    return {k: attach_weight_norms(params[k], v, cfg, sp=sp, name=k)
             for k, v in adapters.items()}
 
 
@@ -401,3 +535,13 @@ def invalidate_adapter_state(adapters):
     if _is_adapter_leaf(adapters):
         return {k: v for k, v in adapters.items() if k not in ("g", "gsB")}
     return {k: invalidate_adapter_state(v) for k, v in adapters.items()}
+
+
+@dataclasses.dataclass(frozen=True)
+class DoRAParamSpec:
+    """Bookkeeping for one adapted weight (``repro/core/adapter.py:551``):
+    used by optimizer masking and sharding-rule generation."""
+    path: str
+    d_out: int
+    d_in: int
+    rank: int

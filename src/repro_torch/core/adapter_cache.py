@@ -43,8 +43,9 @@ import torch
 from repro_torch.core.adapter import invalidate_adapter_state
 from repro_torch.tree import tree_map
 
-# Where the port's refusals point: multi-device serving is not ported.
-_MESH_LATER = "ROADMAP queue 1 item 6 (multi-device)"
+# Where the port's refusals point: serving under a mesh is not ported
+# (the train step runs across ranks: the item's first half).
+_MESH_LATER = "ROADMAP queue 1 item 6, second half (serving under a mesh)"
 
 
 @dataclasses.dataclass(frozen=True)

@@ -48,6 +48,15 @@ def compose_stable(base, lora, g, s: float):
     return delta.to(base.dtype)
 
 
+def compose_naive(base, lora, g, s: float):
+    """The cancellation-prone form, g·(s·lora + base) − base, evaluated in
+    the input dtype (``repro/core/compose.py:52``): only the stability
+    comparison (paper Fig. 1) uses it; never dispatched."""
+    dt = base.dtype
+    inner = torch.tensor(s, dtype=dt, device=base.device) * lora + base
+    return g.to(dt) * inner - base
+
+
 def compose_reference_fp64(base, lora, g, s: float):
     """fp64 oracle for stability tests (paper Fig. 1 reference)."""
     b = base.to(torch.float64)

@@ -24,6 +24,7 @@ import enum
 import torch
 
 from repro_torch.core.config import DoRAConfig
+from repro_torch.core.sharding import ComposeSharding
 
 
 class Tier(enum.Enum):
@@ -39,6 +40,9 @@ class KernelPlan:
     backend: str                  # "cuda" | "eager"
     # The LoRA up-projection h@Bᵀ runs inside the compose kernel.
     matmul_fused: bool = False
+    # The call site's mesh plan, attached only to a matmul-fused plan
+    # whose shapes it can run shard-local (``kernel_expressible``).
+    sharding: ComposeSharding | None = None
 
     @property
     def fused(self) -> bool:
@@ -80,11 +84,27 @@ def mm_fused_eligible(rank: int | None, cfg: DoRAConfig,
 
 def plan_compose(cfg: DoRAConfig, *, training: bool, rows: int,
                  d_out: int, rank: int | None = None,
+                 sharding: ComposeSharding | None = None,
                  device="cuda") -> KernelPlan:
     """Resolve the compose call site. The shape constraint outranks a
     forced tier; ``rank`` is given when the caller still holds the
-    factored ``h = x@Aᵀ``."""
-    if not shape_supported(d_out):
+    factored ``h = x@Aᵀ``.
+
+    ``sharding``: the call site's plan (``rows`` and ``d_out`` are then
+    the whole tensor's, as in the reference). A plan whose local d_out
+    breaks the 128-lane rule, or whose row axes do not divide ``rows``,
+    takes the eager route; otherwise the route is chosen as the
+    reference's is (the crossover on the whole shape, the rank guard on
+    the local rows) and a matmul-fused plan carries the sharding."""
+    rows_local = rows
+    if sharding is not None:
+        row_shards = max(sharding.row_shards, 1)
+        if not sharding.kernel_expressible(d_out) or rows % row_shards:
+            return KernelPlan(Tier.EAGER, "eager")
+        rows_local = rows // row_shards
+    local_dout = sharding.local_dout(d_out) if sharding is not None \
+        else d_out
+    if not shape_supported(local_dout):
         return KernelPlan(Tier.EAGER, "eager")
     backend = resolve_backend(cfg, device)
     if backend == "eager":
@@ -93,8 +113,16 @@ def plan_compose(cfg: DoRAConfig, *, training: bool, rows: int,
                                                              cfg):
         return KernelPlan(Tier.EAGER, "eager")
     tier = Tier.FUSED_BWD if training else Tier.FUSED_FWD
-    return KernelPlan(tier, backend,
-                      matmul_fused=mm_fused_eligible(rank, cfg, rows))
+    mm = mm_fused_eligible(rank, cfg, rows_local)
+    return KernelPlan(tier, backend, matmul_fused=mm,
+                      sharding=sharding if mm else None)
+
+
+def select_tier(cfg: DoRAConfig, *, training: bool, rows: int,
+                d_out: int, device="cuda") -> Tier:
+    """The tier :func:`plan_compose` chooses (``repro/core/dispatch.py:221``)."""
+    return plan_compose(cfg, training=training, rows=rows, d_out=d_out,
+                        device=device).tier
 
 
 def _plan_fwd_only(cfg: DoRAConfig, device) -> KernelPlan:

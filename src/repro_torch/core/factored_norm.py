@@ -7,7 +7,9 @@
     ba_j    = rowsum((B @ G) ⊙ B)_j,  G = A @ Aᵀ   [r, r]
 
 All accumulation is fp32; the result is detached (DoRA §4.3). This module
-is the eager (Tier-3) implementation plus the two baselines and the fp64
+is the eager (Tier-3) implementation, the sharded variant (W and A split
+along d_in over mesh axes: three small sums replace a gather of the
+weight, the paper's §6 future work) and the two baselines and the fp64
 oracle.
 """
 from __future__ import annotations
@@ -102,6 +104,63 @@ def factored_norm(W, A, B, s: float, *, chunk_mb: int | None = None,
     else:
         base_sq, cross, ba_sq = factored_norm_terms(
             W, A, B, chunk_mb=chunk_mb, compute_cross=(s != 0.0))
+    return assemble_norm(base_sq, cross, ba_sq, s)
+
+
+@torch.no_grad()
+def factored_norm_sharded(W, A, B, s: float, *, axis_name, mesh,
+                          chunk_mb: int | None = None, base_sq_cache=None,
+                          kernels: bool = False):
+    """Factored norm with W [d_out, d_in_l] and A [r, d_in_l] this rank's
+    d_in shard along ``axis_name`` of ``mesh`` (counterpart of
+    ``repro/core/factored_norm.py:130``): each rank takes its partials of
+    base_sq and cross and its G_l = A_l·A_lᵀ, and three sums over the
+    axis ([d_out], [d_out], [r, r], in the reference's order) replace a
+    gather of the weight; B and the result are whole on every rank.
+
+    ``kernels``: the partials come from K1 without its epilogue
+    (``kernels.factored_norm.norm_terms``) and the assembly is the
+    standalone K2 (``kernels.norm_assembly.assemble_norm``), each
+    running its plain version on CPU tensors; else the eager terms.
+    ``base_sq_cache``: the already summed ||W||²_row; with it base_sq is
+    not summed, and the eager terms take no W² pass (K1 reads W for the
+    cross term and forms its base_sq partial from the same tiles, which
+    is then dropped). ``chunk_mb`` is taken for the reference's
+    signature: like the reference, only the s = 0 pass chunks."""
+    from repro_torch.core.sharding import psum
+    from repro_torch.kernels import factored_norm as _k1
+    from repro_torch.kernels import norm_assembly as _k2
+
+    tag = "norm"
+    if s == 0.0:
+        if base_sq_cache is not None:
+            return torch.sqrt(torch.clamp_min(base_sq_cache, 0.0))
+        base_l, _, _ = factored_norm_terms(W, A, B, chunk_mb=chunk_mb,
+                                           compute_cross=False)
+        base_sq = psum(base_l, axis_name, mesh, tag=tag)
+        return torch.sqrt(torch.clamp_min(base_sq, 0.0))
+    A32 = A.to(_F32)
+    B32 = B.to(_F32)
+    if kernels:
+        base_l, cross_l = _k1.norm_terms(W.contiguous(), A.contiguous(),
+                                         B.contiguous())
+    else:
+        W32 = W.to(_F32)
+        if base_sq_cache is None:
+            base_l = (W32 * W32).sum(dim=1)
+        cross_l = (B32 * (W32 @ A32.T)).sum(dim=1)
+    G_l = A32 @ A32.T
+    # rowsum(B ⊙ ΣU_s) = Σ rowsum(B ⊙ U_s): cross partials sum linearly.
+    if base_sq_cache is not None:
+        base_sq = base_sq_cache.to(_F32)
+    else:
+        base_sq = psum(base_l, axis_name, mesh, tag=tag)
+    cross = psum(cross_l, axis_name, mesh, tag=tag)
+    G = psum(G_l, axis_name, mesh, tag=tag)
+    ba_sq = ((B32 @ G) * B32).sum(dim=1)
+    if kernels:
+        return _k2.assemble_norm(base_sq.contiguous(), cross.contiguous(),
+                                 ba_sq.contiguous(), s)
     return assemble_norm(base_sq, cross, ba_sq, s)
 
 

@@ -12,6 +12,11 @@
     h = x·Aᵀ. Forward K6; backward K7 for d_base and d_h, then the cross
     product T = dYᵀ·h in fp32 (a plain matmul, as the reference leaves it
     outside its kernels) for d_B and the lora half of d_g.
+    Given a mesh plan (``core/sharding.py ComposeSharding``) the same
+    kernels run on each rank's [rows_local, d_out_local] tile: the
+    forward needs no collective; the backward sums d_h over the d_out
+    axes (unless the plan leaves that to its caller) and T and d_g's
+    base term over the row axes.
   - :func:`scan_fn`: a ``torch.autograd.Function`` on the Mamba-1 scan.
     Forward K9 with its chunk states; backward the scan's backward kernel
     (``selective_scan_bwd``) for d_dt, d_dtx, d_B and d_C.
@@ -26,6 +31,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.compose import f32
+from repro_torch.core import sharding as _sh
 from repro_torch.kernels.dora_compose import (compose_bwd, compose_fwd,
                                               compose_fwd_dual,
                                               compose_mm_bwd, compose_mm_fwd)
@@ -85,40 +91,59 @@ class _ComposeMM(torch.autograd.Function):
     """delta = (g-1)⊙base + g⊙s⊙(h·Bᵀ); mirrors ``_make_compose_mm``
     (``repro/kernels/ops.py:156-224``). The residuals are tensors already
     live in the layer (h, B, base), so nothing extra is written for the
-    backward."""
+    backward.
+
+    With a mesh ``plan`` (``_make_compose_mm_sharded``, ``:228``) base, h
+    and dY are this rank's [rows_l, d_out_l] / [rows_l, r] tiles, B
+    [d_out_l, r] and g [d_out_l] its d_out shard: the same kernels run on
+    the local tile, the forward needs no collective, and the backward sums
+    d_h over the d_out axes (``plan.psum_dh``), T = dY32ᵀ·h32 and d_g's
+    base term over the row axes, all in fp32."""
 
     @staticmethod
-    def forward(ctx, base, h, B, g, s, mag_grad):
+    def forward(ctx, base, h, B, g, s, mag_grad, plan):
         n, r = base.shape[-1], h.shape[-1]
         g32 = g.to(_F32).reshape(n)
         delta = compose_mm_fwd(_rows(base, n), _rows(h, r), B.contiguous(),
                                (g32 - 1.0).contiguous(), s)
         ctx.save_for_backward(g32, h, B, base if mag_grad else None)
-        ctx.s, ctx.mag_grad = s, mag_grad
+        ctx.s, ctx.mag_grad, ctx.plan = s, mag_grad, plan
         return delta.reshape(base.shape)
 
     @staticmethod
     def backward(ctx, dy):
         g32, h, B, base = ctx.saved_tensors
-        s, n, r = ctx.s, dy.shape[-1], h.shape[-1]
+        s, n, r, plan = ctx.s, dy.shape[-1], h.shape[-1], ctx.plan
+
+        def psum(x, axes, tag):
+            return x if plan is None else _sh.psum(x, axes, plan.mesh,
+                                                   tag=tag)
+
+        rows = douts = ()
+        if plan is not None:
+            rows = plan.row_axes
+            douts = plan.dout_axes if plan.psum_dh else ()
         gs = (g32 * f32(s)).contiguous()
         dy2 = _rows(dy, n)
         d_base, d_h = compose_mm_bwd(dy2, B.contiguous(),
                                      (g32 - 1.0).contiguous(), gs)
+        d_h = psum(d_h, douts, "compose.d_h")
         # d_B = (g·s) ⊙ (dYᵀ·h): the one cross product the backward cannot
         # avoid; it also carries the lora half of d_g, so it is taken once.
         dy32 = dy2.to(_F32)
-        T = dy32.T @ _rows(h, r).to(_F32)                     # [n, r]
+        T = psum(dy32.T @ _rows(h, r).to(_F32), rows,
+                 "compose.T")                                  # [n, r]
         d_B = (gs[:, None] * T).to(B.dtype)
         if not ctx.mag_grad:
             d_g = torch.zeros_like(g32)
         else:
             # d_g = Σ_rows dY⊙(base + s·lora); the lora term contracts
             # through T: Σ_m dY⊙(h·Bᵀ) = rowsum(B ⊙ T).
-            d_g = ((dy32 * _rows(base, n).to(_F32)).sum(dim=0)
+            d_g = (psum((dy32 * _rows(base, n).to(_F32)).sum(dim=0), rows,
+                        "compose.d_g")
                    + f32(s) * (B.to(_F32) * T).sum(dim=1))
         return (d_base.reshape(dy.shape), d_h.reshape(h.shape).to(h.dtype),
-                d_B, d_g, None, None)
+                d_B, d_g, None, None, None)
 
 
 def fused_compose(base, lora, g, s: float, *, save_inner: bool = True,
@@ -131,14 +156,39 @@ def fused_compose(base, lora, g, s: float, *, save_inner: bool = True,
                           bool(mag_grad))
 
 
-def fused_compose_mm(base, h, B, g, s: float, *, mag_grad: bool = True):
+def fused_compose_mm(base, h, B, g, s: float, *, mag_grad: bool = True,
+                     sharding=None):
     """delta = (g-1)⊙base + g⊙s⊙(h·Bᵀ) through K6 forward and K7
     backward. base [..., d_out], h = x·Aᵀ [..., r], B [d_out, r], g fp32
-    [d_out]. The [..., d_out] y_lora is never materialized."""
+    [d_out]. The [..., d_out] y_lora is never materialized.
+
+    ``sharding``: a :class:`~repro_torch.core.sharding.ComposeSharding`;
+    the tensors are then this rank's shards under it and the kernels run
+    shard-local with the plan's sums in the backward. A plan whose B is
+    sharded beyond the output's d_out, or whose local d_out breaks the
+    128-lane rule, is refused (the reference drops such a plan; its
+    dispatch routes it to the materialized lora, and so does the port's)."""
     if base.shape[:-1] != h.shape[:-1]:
         raise ValueError(f"base leading dims {tuple(base.shape[:-1])} != "
                          f"h leading dims {tuple(h.shape[:-1])}")
-    return _ComposeMM.apply(base, h, B, g, float(s), bool(mag_grad))
+    if sharding is not None:
+        if any(a not in sharding.dout_axes for a in sharding.b_dout_axes):
+            raise ValueError(
+                f"fused_compose_mm cannot run shard-local with B sharded "
+                f"beyond the output d_out: b_spec={sharding.b_spec} "
+                f"(b_dout_axes={sharding.b_dout_axes}) vs output spec "
+                f"{sharding.out_spec} — the plan is inexpressible; use the "
+                f"materialized-lora route instead")
+        if B.shape[0] != base.shape[-1]:
+            raise ValueError(f"B {tuple(B.shape)} is not congruent with "
+                             f"the local d_out {base.shape[-1]}")
+        if not sharding.kernel_expressible(base.shape[-1]
+                                           * sharding.dout_shards):
+            raise ValueError(
+                f"local d_out {base.shape[-1]} breaks the 128-lane block "
+                f"constraint (paper App. C, applied per shard)")
+    return _ComposeMM.apply(base, h, B, g, float(s), bool(mag_grad),
+                            sharding)
 
 
 class _Scan(torch.autograd.Function):

@@ -361,7 +361,8 @@ class DecodeEngine:
         if mesh is not None:
             raise NotImplementedError(
                 "DecodeEngine(mesh=...) is not ported yet: it comes with "
-                "multi-device serving (ROADMAP queue 1 item 6)")
+                "multi-device serving (ROADMAP queue 1 item 6, second "
+                "half)")
         if slots < 1:
             raise ValueError(f"need at least one slot, got {slots}")
         if (adapters is None) == (adapter_cache is None):

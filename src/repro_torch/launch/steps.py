@@ -3,7 +3,13 @@ step, and the serving steps precompute, padded prefill, decode, and the
 continuous-batching engine's prefill-into-slot, prefill-chunk, and the
 speculative draft and verify.
 
-Each builder returns a plain function over (params, adapters, ...). The
+Each ``make_*_step`` returns a plain function over (params, adapters,
+...). Given a mesh (``launch/mesh.py``), the train, grad and prefill
+steps run on this rank's shards (``launch/sharding.py shard_tree``): the
+batch rows of its data replica, tensor parallelism over ``model`` with
+the sequence split between blocks, the vocab-parallel head and its
+parallel cross entropy; the adapter gradients are averaged over the data
+axes in fp32 and the clip's global norm is summed over the shards. The
 train step updates the adapters and the optimizer state IN PLACE and
 returns the same trees. The decode cache is updated IN PLACE: the K/V
 buffers the prefill allocates are the ones every decode step writes, and
@@ -17,10 +23,12 @@ import time
 
 import torch
 
+from repro_torch.core import sharding as _sh
 from repro_torch.core.adapter import precompute_adapter_state
 from repro_torch.core.config import DoRAConfig
+from repro_torch.launch.mesh import axis_size
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.lm import forward, init_cache
+from repro_torch.models.lm import check_mesh_supported, forward, init_cache
 from repro_torch.optim.adamw import OptimizerConfig, adamw_update
 from repro_torch.tree import flatten_paths, tree_map, unflatten_paths
 
@@ -75,6 +83,124 @@ def cross_entropy(logits, labels):
     return (lse - gold).mean()
 
 
+class _VocabParallelCE(torch.autograd.Function):
+    """Mean token NLL over logits split along the vocab: the max, the sum
+    of exps and the target logit are each summed (the max: reduced by
+    max) over the vocab axis, so every rank of a replica holds the same
+    loss; the gradient is this rank's columns of softmax − one-hot."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, sp):
+        l32 = logits.to(_F32)
+        v_local = l32.shape[-1]
+        mx = _sh.pmax(l32.amax(dim=-1), (sp.axis,), sp.mesh, tag="ce.max")
+        ex = torch.exp(l32 - mx[..., None])
+        se = _sh.psum(ex.sum(dim=-1), (sp.axis,), sp.mesh, tag="ce.sumexp")
+        local = labels.long() - sp.mesh.axis_index(sp.axis) * v_local
+        hit = (local >= 0) & (local < v_local)
+        idx = local.clamp(0, v_local - 1)[..., None]
+        gold = torch.where(hit, torch.gather(l32, -1, idx)[..., 0],
+                           torch.zeros_like(mx))
+        gold = _sh.psum(gold, (sp.axis,), sp.mesh, tag="ce.target")
+        nll = torch.log(se) + mx - gold
+        ctx.save_for_backward(ex, se, idx, hit)
+        ctx.dtype = logits.dtype
+        return nll.mean()
+
+    @staticmethod
+    def backward(ctx, g):
+        ex, se, idx, hit = ctx.saved_tensors
+        grad = ex / se[..., None]
+        grad.scatter_add_(-1, idx, -hit.to(_F32)[..., None])
+        grad = grad * (g / (se.numel()))
+        return grad.to(ctx.dtype), None, None
+
+
+def vocab_parallel_cross_entropy(logits, labels, sp):
+    """:func:`cross_entropy` of logits [B, S, V/tp] split along the vocab
+    over ``sp.axis`` (the reference's V-sharded loss under SPMD)."""
+    if dict(sp.mesh.shape).get(sp.axis, 1) == 1:
+        return cross_entropy(logits, labels)
+    return _VocabParallelCE.apply(logits, labels, sp)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class MeshLayout:
+    """What a step under a mesh needs: the sequence-parallel layout, the
+    data axes and this rank's batch rows, and the adapter spec tree (for
+    the clip's norm across shards)."""
+    mesh: object
+    sp: _sh.SequenceParallel
+    dp_axes: tuple
+    local_batch: int
+    adapter_specs: dict
+
+    @property
+    def dp_size(self) -> int:
+        return axis_size(self.mesh, *self.dp_axes)
+
+    def mean_over_data(self, grads):
+        """fp32 mean of each gradient over the data axes."""
+        if self.dp_size == 1:
+            return grads
+        return tree_map(lambda g: _sh.psum(
+            g.to(_F32), self.dp_axes, self.mesh, tag="grad.dp")
+            / self.dp_size, grads)
+
+    def global_norm(self, grads):
+        """sqrt of the summed squares of the whole (unsharded) tree: the
+        squares of the leaves split over ``model`` are summed over it,
+        the replicated ones counted once."""
+        specs = flatten_paths(self.adapter_specs)
+        zero = torch.zeros((), dtype=_F32)
+        rep = shd = None
+        for name, g in flatten_paths(grads).items():
+            sq = g.to(_F32).square().sum()
+            axes = [a for e in specs[name] for a in _sh._entry_axes(e)]
+            if self.sp.axis in axes:
+                shd = sq if shd is None else shd + sq
+            else:
+                rep = sq if rep is None else rep + sq
+        dev = next(iter(flatten_paths(grads).values())).device
+        rep = zero.to(dev) if rep is None else rep
+        shd = zero.to(dev) if shd is None else shd
+        shd = _sh.psum(shd, (self.sp.axis,), self.mesh, tag="grad.norm")
+        return torch.sqrt(rep + shd)
+
+
+def mesh_layout(mcfg: ModelConfig, scfg: StepConfig, mesh, *, batch: int,
+                seq: int) -> MeshLayout:
+    """Check that the runtime honours the rules on ``mesh`` and return the
+    layout. Refused (ROADMAP queue 1 item 6, second half): a pod axis,
+    any weight whose spec names an axis other than ``model`` (FSDP,
+    ``fsdp_gather``, experts), non-dense stacks, and a sequence the model
+    axis does not split."""
+    from repro_torch.launch import sharding as S
+
+    check_mesh_supported(mcfg)
+    if "pod" in mesh.axis_names:
+        raise NotImplementedError(
+            "the pod axis (FSDP gathers, compression on the wire) is "
+            "ROADMAP queue 1 item 6, second half")
+    specs = {"params": S.param_sharding(mcfg, mesh),
+             "adapters": S.adapter_sharding(mcfg, scfg.dora, mesh)}
+    for name, spec in flatten_paths(specs).items():
+        axes = {a for e in spec for a in _sh._entry_axes(e)}
+        if axes - {"model"}:
+            raise NotImplementedError(
+                f"{mcfg.name} on mesh {dict(mesh.shape)}: {name} is laid "
+                f"out {tuple(spec)}; FSDP and gathered layouts are "
+                f"ROADMAP queue 1 item 6, second half")
+    tp = dict(mesh.shape).get("model", 1)
+    if seq % tp:
+        raise ValueError(f"seq {seq} does not split over model={tp}")
+    sp = S.make_boundary_constraint(mesh, batch=batch, seq=seq)
+    entry = S.batch_spec(mesh, batch=batch)[0]
+    dp = _sh._entry_axes(entry)
+    return MeshLayout(mesh, sp, dp, batch // axis_size(mesh, *dp),
+                      specs["adapters"])
+
+
 def _inputs(batch_in) -> dict:
     """The forward's input from a batch: {"embeds": ...} when the batch
     carries a frontend's precomputed embeddings, else {"tokens": ...}."""
@@ -83,8 +209,8 @@ def _inputs(batch_in) -> dict:
     return {"tokens": batch_in["tokens"]}
 
 
-def make_grad_step(mcfg: ModelConfig, scfg: StepConfig, *, batch: int,
-                   seq: int):
+def make_grad_step(mcfg: ModelConfig, scfg: StepConfig, mesh=None, *,
+                   batch: int, seq: int):
     """(params, adapters, batch_in) -> (loss, grads): the train step
     without its optimizer update.
 
@@ -97,19 +223,30 @@ def make_grad_step(mcfg: ModelConfig, scfg: StepConfig, *, batch: int,
     split into ga microbatches along its first dim, their gradients
     summed in fp32 and divided by ga, as the reference's scan does. The
     loss is the token-mean cross entropy plus the MoE layers' router loss
-    (zero without MoE or with ``router_aux_coef`` 0)."""
+    (zero without MoE or with ``router_aux_coef`` 0).
+
+    ``mesh``: params, adapters and batch are this rank's shards (the
+    batch rows [batch / data, seq]); the loss is the replica's (the same
+    on every rank of it) averaged over the data axes, and so are the
+    gradients, which are this rank's adapter shards."""
     lt = scfg.loss_tokens
     ga = max(scfg.grad_accum, 1)
-    if batch % ga:
-        raise ValueError(f"batch {batch} is not divisible by grad_accum "
+    lay = None if mesh is None else mesh_layout(mcfg, scfg, mesh,
+                                                batch=batch, seq=seq)
+    rows = batch if lay is None else lay.local_batch
+    if rows % ga:
+        raise ValueError(f"batch {rows} is not divisible by grad_accum "
                          f"{ga}")
+    sp = None if lay is None else lay.sp
 
     def loss_fn(params, adapters, inputs, labels):
         logits, _, aux = forward(mcfg, params, adapters, scfg.dora,
                                  **inputs, training=True, loss_slice=lt,
-                                 return_aux=True)
+                                 return_aux=True, boundary_constraint=sp)
         lbl = labels if lt is None or lt >= labels.shape[1] \
             else labels[:, -lt:]
+        if sp is not None:
+            return vocab_parallel_cross_entropy(logits, lbl, sp) + aux
         return cross_entropy(logits, lbl) + aux
 
     def value_and_grad(params, adapters, inputs, labels):
@@ -131,33 +268,42 @@ def make_grad_step(mcfg: ModelConfig, scfg: StepConfig, *, batch: int,
             name: torch.zeros_like(leaf) if g is None else g
             for (name, leaf), g in zip(leaves.items(), grads)})
 
-    def grad_step(params, adapters, batch_in):
+    def accumulate(params, adapters, batch_in):
         inputs, labels = _inputs(batch_in), batch_in["labels"]
         (name, x), = inputs.items()
-        if tuple(x.shape[:2]) != (batch, seq) \
-                or tuple(labels.shape) != (batch, seq):
-            raise ValueError(f"step built for [{batch}, {seq}] {name} and "
+        if tuple(x.shape[:2]) != (rows, seq) \
+                or tuple(labels.shape) != (rows, seq):
+            raise ValueError(f"step built for [{rows}, {seq}] {name} and "
                              f"labels, got {tuple(x.shape)} and "
                              f"{tuple(labels.shape)}")
         if ga == 1:
             return value_and_grad(params, adapters, inputs, labels)
-        mb = batch // ga
+        mb = rows // ga
         loss = torch.zeros((), dtype=_F32, device=x.device)
         grads = tree_map(lambda a: torch.zeros(a.shape, dtype=_F32,
                                                device=a.device), adapters)
         for i in range(ga):
-            rows = slice(i * mb, (i + 1) * mb)
+            sl = slice(i * mb, (i + 1) * mb)
             loss_i, g_i = value_and_grad(params, adapters,
-                                         {name: x[rows]}, labels[rows])
+                                         {name: x[sl]}, labels[sl])
             loss = loss + loss_i
             tree_map(lambda acc, g: acc.add_(g), grads, g_i)
         return loss / ga, tree_map(lambda g: g / ga, grads)
 
+    def grad_step(params, adapters, batch_in):
+        loss, grads = accumulate(params, adapters, batch_in)
+        if lay is None or lay.dp_size == 1:
+            return loss, grads
+        loss = _sh.psum(loss.to(_F32), lay.dp_axes, lay.mesh,
+                        tag="loss.dp") / lay.dp_size
+        return loss, lay.mean_over_data(grads)
+
+    grad_step.layout = lay
     return grad_step
 
 
-def make_train_step(mcfg: ModelConfig, scfg: StepConfig, *, batch: int,
-                    seq: int):
+def make_train_step(mcfg: ModelConfig, scfg: StepConfig, mesh=None, *,
+                    batch: int, seq: int):
     """(params, adapters, opt_state, batch_in, stats=None) -> (adapters',
     opt_state', metrics): :func:`make_grad_step`, then AdamW.
 
@@ -165,8 +311,14 @@ def make_train_step(mcfg: ModelConfig, scfg: StepConfig, *, batch: int,
     trees are the ones given). ``metrics``: {"loss", "grad_norm"} fp32 0-d
     tensors and the float "lr". ``stats``: when given, filled with the
     wall seconds of the forward+backward (``grad_s``) and of the optimizer
-    (``optim_s``), each ended by a device synchronisation."""
-    grad_step = make_grad_step(mcfg, scfg, batch=batch, seq=seq)
+    (``optim_s``), each ended by a device synchronisation.
+
+    ``mesh``: as :func:`make_grad_step`; AdamW keeps each rank's moments
+    beside its adapter shards (``launch/sharding.py opt_state_sharding``'s
+    ZeRO-1 layout is not honoured yet) and clips by the global norm of
+    the whole tree."""
+    grad_step = make_grad_step(mcfg, scfg, mesh, batch=batch, seq=seq)
+    lay = grad_step.layout
 
     def train_step(params, adapters, opt_state, batch_in, stats=None):
         clock = PhaseClock(stats, batch_in["labels"].device)
@@ -174,11 +326,14 @@ def make_train_step(mcfg: ModelConfig, scfg: StepConfig, *, batch: int,
         loss, grads = grad_step(params, adapters, batch_in)
         clock.stop("grad_s")
         clock.start()
+        norm = None if lay is None else lay.global_norm(grads)
         adapters, opt_state, ostats = adamw_update(grads, opt_state, adapters,
-                                                   scfg.optim)
+                                                   scfg.optim,
+                                                   grad_norm=norm)
         clock.stop("optim_s")
         return adapters, opt_state, {"loss": loss, **ostats}
 
+    train_step.layout = lay
     return train_step
 
 
@@ -201,8 +356,9 @@ def make_precompute_step(mcfg: ModelConfig, scfg: StepConfig, *,
     return precompute_step
 
 
-def make_prefill_step(mcfg: ModelConfig, scfg: StepConfig, *, batch: int,
-                      seq: int, padded: bool = False, tenant_groups=None):
+def make_prefill_step(mcfg: ModelConfig, scfg: StepConfig, mesh=None, *,
+                      batch: int, seq: int, padded: bool = False,
+                      tenant_groups=None):
     """(params, adapters, batch_in) -> (last_logits [B, V], cache).
 
     Runs the prompt and fills a fresh cache of ``seq`` positions on the
@@ -219,7 +375,18 @@ def make_prefill_step(mcfg: ModelConfig, scfg: StepConfig, *, batch: int,
 
     ``tenant_groups``: multi-tenant serving, static ``(start, size)`` row
     blocks grouping the batch by adapter; the adapter tree must be the
-    stacked folded serving state (see ``repro_torch.launch.serve``)."""
+    stacked folded serving state (see ``repro_torch.launch.serve``).
+
+    ``mesh``: the raw adapters' forward (no serving state) on this rank's
+    shards and batch rows [batch / data, P]; the logits are gathered over
+    the vocab, and the cache holds this rank's K/V heads (the port's
+    layout: ``launch/sharding.py cache_sharding``'s is not honoured
+    yet)."""
+    lay = None if mesh is None else mesh_layout(mcfg, scfg, mesh,
+                                                batch=batch, seq=seq)
+    rows = batch if lay is None else lay.local_batch
+    cache_cfg = mcfg if lay is None else dataclasses.replace(
+        mcfg, num_kv_heads=mcfg.num_kv_heads // lay.sp.tp)
     if padded and any(k != "attn" for k in mcfg.layer_kinds()):
         raise ValueError(
             "padded prefill requires attention-only caches: SSM layer "
@@ -234,23 +401,29 @@ def make_prefill_step(mcfg: ModelConfig, scfg: StepConfig, *, batch: int,
         p_max = shape[1] if len(shape) == (2 if name == "tokens" else 3) \
             else -1
         fits = p_max == seq if padded else 0 < p_max <= seq
-        if shape[:1] != (batch,) or not fits:
+        if shape[:1] != (rows,) or not fits:
             want = seq if padded else f"P <= {seq}"
-            raise ValueError(f"prefill built for {name} [{batch}, {want}], "
+            raise ValueError(f"prefill built for {name} [{rows}, {want}], "
                              f"got {shape}")
-        cache = init_cache(mcfg, batch, seq, device=x.device)
+        cache = init_cache(cache_cfg, rows, seq, device=x.device)
         kw = {}
         if padded:
             p_len = int(batch_in["prompt_len"])
             kw["gather_position"] = p_len - 1
         else:
             kw["loss_slice"] = 1
-        logits, new_cache = forward(mcfg, params, adapters, scfg.dora,
-                                    **inputs, cache=cache, training=False,
-                                    tenant_groups=tenant_groups, **kw)
+        logits, new_cache = forward(
+            mcfg, params, adapters, scfg.dora, **inputs, cache=cache,
+            training=False, tenant_groups=tenant_groups,
+            boundary_constraint=None if lay is None else lay.sp, **kw)
         if padded:
             new_cache["len"] = p_len
-        return logits[:, -1], new_cache
+        last = logits[:, -1]
+        if lay is not None and last.shape[-1] != mcfg.vocab_size:
+            last = _sh.all_gather(last.contiguous(), (lay.sp.axis,),
+                                  lay.mesh, -1 % last.ndim,
+                                  tag="prefill.logits")
+        return last, new_cache
 
     return prefill_step
 

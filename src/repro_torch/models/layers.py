@@ -3,6 +3,13 @@ RoPE (standard, partial, M-RoPE) and sinusoidal positions, GQA attention
 (qk-norm, QKV bias) with a rectangular or block-paged KV cache, SwiGLU
 MLP, with DoRA adaptation of every linear through ``maybe_dora``.
 
+Under a mesh (``sp``, the sequence-parallel layout of
+``core/sharding.py``) each block takes this rank's [B, S/tp, D] rows,
+all-gathers them before its column-parallel projections (wq, wk, wv,
+w_gate, w_up: local rows of W), runs attention on its local heads, and
+its row-parallel projection (wo, w_down: local columns of W)
+reduce-scatters back to [B, S/tp, D].
+
 Weights follow the paper's [d_out, d_in] convention, y = x @ Wᵀ.
 Attention is plain PyTorch that mirrors the reference's jnp code: every
 contraction runs on fp32 operands (the reference's
@@ -15,7 +22,9 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.adapter import dora_linear
+from repro_torch.core.adapter import (dora_linear,
+                                     dora_linear_column_parallel,
+                                     dora_linear_row_parallel)
 from repro_torch.core.config import DoRAConfig
 from repro_torch.core.dispatch import plan_gather
 from repro_torch.kernels.paged_gather import (paged_gather,
@@ -43,6 +52,22 @@ def maybe_dora(x, w, dora: dict | None, cfg: DoRAConfig | None, *,
         return linear(x, w.detach(), bias)
     return dora_linear(x, w, dora, cfg, bias=bias, training=training,
                        tenant_groups=tenant_groups)
+
+
+def _col(x, w, dora, cfg, sp, **kw):
+    """A column-parallel projection under ``sp``, else :func:`maybe_dora`."""
+    if sp is None:
+        return maybe_dora(x, w, dora, cfg, **kw)
+    kw.pop("tenant_groups", None)
+    return dora_linear_column_parallel(x, w, dora, cfg, sp=sp, **kw)
+
+
+def _row(x, w, dora, cfg, sp, **kw):
+    """A row-parallel projection under ``sp``, else :func:`maybe_dora`."""
+    if sp is None:
+        return maybe_dora(x, w, dora, cfg, **kw)
+    kw.pop("tenant_groups", None)
+    return dora_linear_row_parallel(x, w, dora, cfg, sp=sp, **kw)
 
 
 def rms_norm(x, scale, eps: float = 1e-5):
@@ -231,7 +256,7 @@ def _write_rows(buf, new, pos):
 
 def attention(x, params, dora, mcfg, dcfg: DoRAConfig | None, *,
               positions, cache=None, training: bool = True,
-              tenant_groups=None):
+              tenant_groups=None, sp=None):
     """Attention block: QKV (DoRA-adapted), qk-norm (an RMS norm of each
     head of q and k, before the rotation), the position rotation, core,
     O-proj.
@@ -257,19 +282,29 @@ def attention(x, params, dora, mcfg, dcfg: DoRAConfig | None, *,
     causal bias gives them a softmax weight of exactly 0.
 
     ``tenant_groups``: multi-tenant serving, forwarded to every adapted
-    projection (the attention core is row-local and adapter-free)."""
+    projection (the attention core is row-local and adapter-free).
+
+    ``sp``: the sequence-parallel layout; x is this rank's [B, S/tp, D]
+    rows, gathered before the projections, and the heads (and a cache's
+    K/V heads) are this rank's."""
+    if sp is not None:
+        if cache is not None and "pages" in cache:
+            raise NotImplementedError(
+                "a paged cache under a mesh is ROADMAP queue 1 item 6, "
+                "second half")
+        x = sp.gather(x)
     b, s, _ = x.shape
-    hq, hkv, hd = mcfg.num_heads, mcfg.num_kv_heads, mcfg.head_dim
+    hd = mcfg.head_dim
     dora = dora or {}
 
     def proj(name):
-        return maybe_dora(x, params[name], dora.get(name), dcfg,
-                          bias=params.get(name + "_bias"), training=training,
-                          tenant_groups=tenant_groups)
+        return _col(x, params[name], dora.get(name), dcfg, sp,
+                    bias=params.get(name + "_bias"), training=training,
+                    tenant_groups=tenant_groups)
 
-    q = proj("wq").reshape(b, s, hq, hd)
-    k = proj("wk").reshape(b, s, hkv, hd)
-    v = proj("wv").reshape(b, s, hkv, hd)
+    q = proj("wq").reshape(b, s, -1, hd)
+    k = proj("wk").reshape(b, s, -1, hd)
+    v = proj("wv").reshape(b, s, -1, hd)
     if mcfg.qk_norm:
         q = rms_norm(q, params["q_norm"], mcfg.norm_eps)
         k = rms_norm(k, params["k_norm"], mcfg.norm_eps)
@@ -287,7 +322,7 @@ def attention(x, params, dora, mcfg, dcfg: DoRAConfig | None, *,
             if not _per_row(pos):
                 raise ValueError("paged K/V requires per-row lengths "
                                  "(cache_shapes(..., row_lens=True))")
-            plan = plan_gather(dcfg, head_elems=hkv * hd,
+            plan = plan_gather(dcfg, head_elems=k.shape[2] * hd,
                                device=cache["k"].device)
             gather = paged_gather if plan.fused else paged_gather_plain
             ck = gather(cache["k"], pages)
@@ -311,31 +346,35 @@ def attention(x, params, dora, mcfg, dcfg: DoRAConfig | None, *,
         else:
             new_cache = {"k": ck, "v": cv, "len": pos + s}
 
-    out = out.reshape(b, s, hq * hd)
-    y = maybe_dora(out, params["wo"], dora.get("wo"), dcfg,
-                   training=training, tenant_groups=tenant_groups)
+    out = out.reshape(b, s, -1)
+    y = _row(out, params["wo"], dora.get("wo"), dcfg, sp,
+             training=training, tenant_groups=tenant_groups)
     return y, new_cache
 
 
 def mlp_swiglu(x, params, dora, dcfg: DoRAConfig | None, *,
-               training: bool = True, tenant_groups=None):
+               training: bool = True, tenant_groups=None, sp=None):
     d = dora or {}
-    gate = maybe_dora(x, params["w_gate"], d.get("w_gate"), dcfg,
-                      training=training, tenant_groups=tenant_groups)
-    up = maybe_dora(x, params["w_up"], d.get("w_up"), dcfg,
-                    training=training, tenant_groups=tenant_groups)
-    return maybe_dora(F.silu(gate) * up, params["w_down"], d.get("w_down"),
-                      dcfg, training=training, tenant_groups=tenant_groups)
+    if sp is not None:
+        x = sp.gather(x)
+    gate = _col(x, params["w_gate"], d.get("w_gate"), dcfg, sp,
+                training=training, tenant_groups=tenant_groups)
+    up = _col(x, params["w_up"], d.get("w_up"), dcfg, sp,
+              training=training, tenant_groups=tenant_groups)
+    return _row(F.silu(gate) * up, params["w_down"], d.get("w_down"),
+                dcfg, sp, training=training, tenant_groups=tenant_groups)
 
 
 def mlp_gelu(x, params, dora, dcfg: DoRAConfig | None, *,
-             training: bool = True, tenant_groups=None):
+             training: bool = True, tenant_groups=None, sp=None):
     """The plain 2-matrix MLP (MusicGen): up with bias, GELU in its tanh
     form (``jax.nn.gelu``'s default), down with bias."""
     d = dora or {}
-    y = maybe_dora(x, params["w_up"], d.get("w_up"), dcfg,
-                   bias=params["w_up_bias"], training=training,
-                   tenant_groups=tenant_groups)
-    return maybe_dora(F.gelu(y, approximate="tanh"), params["w_down"],
-                      d.get("w_down"), dcfg, bias=params["w_down_bias"],
-                      training=training, tenant_groups=tenant_groups)
+    if sp is not None:
+        x = sp.gather(x)
+    y = _col(x, params["w_up"], d.get("w_up"), dcfg, sp,
+             bias=params["w_up_bias"], training=training,
+             tenant_groups=tenant_groups)
+    return _row(F.gelu(y, approximate="tanh"), params["w_down"],
+                d.get("w_down"), dcfg, sp, bias=params["w_down_bias"],
+                training=training, tenant_groups=tenant_groups)

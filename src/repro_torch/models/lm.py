@@ -21,7 +21,7 @@ and K2 run once per adapted module per step.
 from __future__ import annotations
 
 import math
-from typing import Any
+from typing import Any, NamedTuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -133,6 +133,44 @@ def model_spec(mcfg: ModelConfig):
             "stack": unit_spec(mcfg),
             "final_norm": _norm_spec(mcfg),
             "head": ("linear", (V, D))}
+
+
+class ShapeDtype(NamedTuple):
+    """A leaf's shape and dtype, with nothing allocated (the reference's
+    ``jax.ShapeDtypeStruct``)."""
+    shape: tuple
+    dtype: Any
+
+
+def _map_spec(fn, spec):
+    if _is_leaf_spec(spec):
+        return fn(spec)
+    return {k: _map_spec(fn, v) for k, v in spec.items()}
+
+
+def param_shapes(mcfg: ModelConfig):
+    """The params tree as :class:`ShapeDtype` leaves; stacked leaves carry
+    the leading ``n_scan`` dim."""
+    spec = model_spec(mcfg)
+    return {k: _map_spec(
+        lambda leaf, st=(k == "stack"): ShapeDtype(
+            ((mcfg.n_scan,) if st else ()) + leaf[1], mcfg.dtype), v)
+            for k, v in spec.items()}
+
+
+def adapter_shapes(mcfg: ModelConfig, dcfg: DoRAConfig,
+                   targets=DEFAULT_DORA_TARGETS):
+    """The adapter tree as :class:`ShapeDtype` leaves (stacked)."""
+    n, r = mcfg.n_scan, dcfg.rank
+    tree: dict[str, Any] = {}
+    for path, (d_out, d_in) in _adapted_paths(mcfg, targets):
+        leaf = {"A": ShapeDtype((n, r, d_in), mcfg.dtype),
+                "B": ShapeDtype((n, d_out, r), mcfg.dtype),
+                "m": ShapeDtype((n, d_out), _F32)}
+        if dcfg.cache_base_norm:
+            leaf["base_sq"] = ShapeDtype((n, d_out), _F32)
+        _set_path(tree, path, leaf)
+    return {"stack": tree}
 
 
 def _is_leaf_spec(x) -> bool:
@@ -328,14 +366,16 @@ def _apply_norm(x, p, mcfg: ModelConfig):
 
 
 def _layer_apply(x, p, a, c, mcfg, dcfg, *, kind, ffn, positions, length,
-                 training, pages=None, tenant_groups=None):
+                 training, pages=None, tenant_groups=None, sp=None):
     """Pre-norm mixer (attention or Mamba) + pre-norm FFN (a dense MLP or
     MoE, when the layer has one), residual adds. Returns (x, aux): aux is
     the MoE layer's router loss (fp32 0-d), None for other layers. ``c``
     is this layer's cache slice, written in place, or None; ``pages`` the
     block table of a paged cache. ``tenant_groups``: multi-tenant
     serving, where the adapted linears apply the per-group folded adapter
-    state (attention and dense-MLP layers only)."""
+    state (attention and dense-MLP layers only). ``sp``: the
+    sequence-parallel layout of a mesh (attention and dense-MLP layers
+    only; :func:`forward` refuses the others)."""
     if tenant_groups is not None and (kind != "attn" or ffn == "moe"):
         raise NotImplementedError(
             f"multi-tenant grouped serving supports attention + dense-MLP "
@@ -351,7 +391,8 @@ def _layer_apply(x, p, a, c, mcfg, dcfg, *, kind, ffn, positions, length,
                 attn_cache["pages"] = pages
         y, _ = L.attention(h, p["mixer"], a.get("mixer"), mcfg, dcfg,
                            positions=positions, cache=attn_cache,
-                           training=training, tenant_groups=tenant_groups)
+                           training=training, tenant_groups=tenant_groups,
+                           sp=sp)
     else:
         y, new_c = M.mamba_block(h, p["mixer"], a.get("mixer"), mcfg, dcfg,
                                  cache=c, training=training)
@@ -368,7 +409,7 @@ def _layer_apply(x, p, a, c, mcfg, dcfg, *, kind, ffn, positions, length,
         return x + y, aux
     mlp = L.mlp_swiglu if mcfg.mlp_kind == "swiglu" else L.mlp_gelu
     return x + mlp(h, p["ffn"], a.get("ffn"), dcfg, training=training,
-                   tenant_groups=tenant_groups), None
+                   tenant_groups=tenant_groups, sp=sp), None
 
 
 def _slice_tree(tree, i: int):
@@ -387,11 +428,40 @@ def _unstack_tree(tree, n: int) -> list:
     return list(tree.unbind(0))
 
 
+def check_mesh_supported(mcfg: ModelConfig) -> None:
+    """A stack runs on a mesh in this slice only if every layer is
+    attention with a dense MLP."""
+    if any(k != "attn" for k in mcfg.layer_kinds()) or any(
+            f != "mlp" for f in mcfg.ffn_kinds()):
+        raise NotImplementedError(
+            f"{mcfg.name}: only dense attention stacks run on a mesh so "
+            f"far; Mamba and MoE layers across ranks are ROADMAP queue 1 "
+            f"item 6, second half")
+
+
+def _vocab_parallel_embed(embed, tokens, mcfg: ModelConfig, sp):
+    """The vocab-parallel lookup: each rank looks up the tokens its vocab
+    rows hold (zeros elsewhere), and the reduce-scatter over the model
+    axis sums the one non-zero row of each token into the sequence
+    split. A vocab the axis does not divide is replicated: a plain lookup
+    of the local rows."""
+    embed = embed.detach()
+    v_local = embed.shape[0]
+    if v_local == mcfg.vocab_size:
+        return sp.local_rows(embed[tokens])
+    off = sp.mesh.axis_index(sp.axis) * v_local
+    local = tokens.long() - off
+    hit = (local >= 0) & (local < v_local)
+    rows = embed[local.clamp(0, v_local - 1)]
+    x = torch.where(hit[..., None], rows, torch.zeros_like(rows))
+    return sp.scatter(x, tag="sp.embed")
+
+
 def forward(mcfg: ModelConfig, params, adapters, dcfg: DoRAConfig | None,
             *, tokens=None, embeds=None, cache=None, positions=None,
             training: bool = True, loss_slice: int | None = None,
             gather_position: int | None = None, tenant_groups=None,
-            return_aux: bool = False):
+            return_aux: bool = False, boundary_constraint=None):
     """Returns (logits [B, S, V], new_cache), or (logits, new_cache, aux)
     with ``return_aux``: aux is the MoE layers' router losses summed, fp32
     0-d (zero for a stack without MoE or with ``router_aux_coef`` 0), the
@@ -417,6 +487,15 @@ def forward(mcfg: ModelConfig, params, adapters, dcfg: DoRAConfig | None,
     folded serving tree (leaves [n_scan, K, ...], see
     ``repro_torch.core.adapter.stack_adapter_states``). Serving only:
     ``training=False`` is required.
+    ``boundary_constraint``: the sequence-parallel layout of a mesh
+    (``launch/sharding.py make_boundary_constraint``), the explicit form
+    of the reference's argument. ``params`` and ``adapters`` are then this
+    rank's shards (``launch/sharding.py shard_tree``), the batch rows
+    this data replica's; the embedding is a masked lookup of the local
+    vocab rows summed over the model axis, the residual stream is split
+    along the sequence, and the logits are this rank's vocab columns
+    [B, S', V/tp] (``launch/steps.py vocab_parallel_cross_entropy``).
+    Dense attention stacks only.
     """
     if tenant_groups is not None and training:
         raise ValueError("tenant_groups is a serving-only path "
@@ -424,12 +503,24 @@ def forward(mcfg: ModelConfig, params, adapters, dcfg: DoRAConfig | None,
     check_supported(mcfg)
     if (tokens is None) == (embeds is None):
         raise ValueError("forward takes exactly one of tokens and embeds")
+    sp = boundary_constraint
+    if sp is not None:
+        check_mesh_supported(mcfg)
+        if tenant_groups is not None or (cache is not None
+                                         and "pages" in cache):
+            raise NotImplementedError(
+                "tenant groups and paged caches under a mesh are ROADMAP "
+                "queue 1 item 6, second half")
     adapters = adapters or {}
     if embeds is None:
-        x = params["embed"].detach()[tokens]
+        x = (params["embed"].detach()[tokens] if sp is None
+             else _vocab_parallel_embed(params["embed"], tokens, mcfg, sp))
     else:
         x = embeds.detach().to(mcfg.dtype)
-    B, S = x.shape[:2]
+        if sp is not None:
+            x = sp.local_rows(x)
+    B = x.shape[0]
+    S = (tokens if embeds is None else embeds).shape[1]
     length = cache["len"] if cache is not None else None
     row_lens = isinstance(length, torch.Tensor) and length.ndim == 1
     if positions is None:
@@ -440,7 +531,8 @@ def forward(mcfg: ModelConfig, params, adapters, dcfg: DoRAConfig | None,
             base = 0 if length is None else int(length)
             positions = (base + steps).expand(B, S)
     if mcfg.pos_mode == "sinusoidal":
-        x = x + L.sinusoidal_embedding(positions, mcfg.d_model).to(x.dtype)
+        pos = positions if sp is None else sp.local_rows(positions)
+        x = x + L.sinusoidal_embedding(pos, mcfg.d_model).to(x.dtype)
     # The block table of a paged cache rides beside "len": one table
     # addresses every layer's pool, read-only inside the forward.
     pages = cache.get("pages") if cache is not None else None
@@ -461,11 +553,11 @@ def forward(mcfg: ModelConfig, params, adapters, dcfg: DoRAConfig | None,
             li = f"l{j}"
             a = unit_a.get(li)
             if training and a is not None:
-                a = attach_weight_norms(unit_p[li], a, dcfg)
+                a = attach_weight_norms(unit_p[li], a, dcfg, sp=sp)
             c = unit_c[li] if unit_c is not None else None
             kw = dict(mcfg=mcfg, dcfg=dcfg, kind=kind, ffn=ffn,
                       positions=positions, length=length, training=training,
-                      pages=pages, tenant_groups=tenant_groups)
+                      pages=pages, tenant_groups=tenant_groups, sp=sp)
             if remat:
                 x, aux_l = checkpoint(_layer_apply, x, unit_p[li], a, c,
                                       use_reentrant=False,
@@ -481,6 +573,8 @@ def forward(mcfg: ModelConfig, params, adapters, dcfg: DoRAConfig | None,
         if pages is not None:
             new_cache["pages"] = pages
 
+    if sp is not None:
+        x = sp.gather(x, tag="sp.final")
     if gather_position is not None:
         x = x[:, gather_position:gather_position + 1]
     elif loss_slice is not None and loss_slice < x.shape[1]:

@@ -57,10 +57,11 @@ def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(sum(leaf.to(_F32).square().sum() for leaf in leaves))
 
 
-def clip_by_global_norm(grads, max_norm: float):
+def clip_by_global_norm(grads, max_norm: float, *, norm=None):
     """(grads scaled by min(1, max_norm/norm) in fp32 and cast back,
-    norm)."""
-    norm = global_norm(grads)
+    norm). ``norm``: the global norm when the caller took it across
+    shards."""
+    norm = global_norm(grads) if norm is None else norm
     scale = torch.clamp(max_norm / torch.clamp_min(norm, 1e-12), max=1.0)
     return tree_map(lambda g: (g.to(_F32) * scale).to(g.dtype), grads), norm
 
@@ -80,9 +81,11 @@ def adamw_init(params) -> dict[str, Any]:
 
 @torch.no_grad()
 def adamw_update(grads, state, params, cfg: OptimizerConfig, *,
-                 wd_mask=None):
+                 wd_mask=None, grad_norm=None):
     """One AdamW step, in place. Returns (params, state, stats) with
     stats {"lr": float, "grad_norm": fp32 0-d tensor (before the clip)}.
+    ``grad_norm``: the global norm when the trees are one rank's shards
+    and the caller summed it across them.
 
     ``wd_mask(path, leaf) -> bool``: True = apply weight decay (default:
     everything except ``m`` and ``base_sq``); ``path`` is the tuple of
@@ -91,9 +94,9 @@ def adamw_update(grads, state, params, cfg: OptimizerConfig, *,
     count = int(state["count"]) + 1
     lr = cosine_warmup_schedule(cfg, count)
 
-    pre_norm = global_norm(grads)
+    pre_norm = global_norm(grads) if grad_norm is None else grad_norm
     if cfg.clip_norm is not None:
-        grads, _ = clip_by_global_norm(grads, cfg.clip_norm)
+        grads, _ = clip_by_global_norm(grads, cfg.clip_norm, norm=pre_norm)
 
     b1, b2 = cfg.betas
     c1 = float(_f32(1.0) - _f32(b1) ** _f32(count))

@@ -1,0 +1,383 @@
+"""The port across gloo CPU ranks against the reference's single-device
+functions.
+
+Each world size (2 and 4 ranks) is one spawn (``tests/torch_dist_ranks.py``,
+which imports no ``jax``), started before the reference runs and joined
+after it under a timeout of its own; its cases are then read by the
+tests below. The reference runs in this process on numpy inputs; the
+ranks get copies of the same arrays, never the arrays the reference
+holds.
+
+Held, in fp32 (tolerances of the largest magnitude, never elementwise):
+``factored_norm_sharded`` (s != 0, s = 0, with and without the summed
+base term, on the kernel wrappers and on the eager terms) within 1e-5 of
+the reference's ``factored_norm`` and of ``norm_reference_fp64``, and
+its three sums' bytes; the shard-local compose's delta, d_base, d_h, d_B
+and d_g within 1e-5 of the reference's single-device
+``fused_compose_mm`` VJP (Pallas in interpret mode) for the TP, SP and
+2-D layouts, its forward with no collective; a 2-layer dense LM (d_model
+512, 4 heads, 2 KV heads, d_ff 1024, vocab 512, QKV bias, r = 16) on
+meshes (1, 2), (2, 1) and (2, 2), by every compose route, its loss within
+1e-5 relative of the reference's ``make_train_step`` and its gathered
+adapter gradients within 1e-4 of the reference's; the mesh prefill's
+logits and cached K against the reference's prefill; the cross-pod
+gradient sync on a (pod, data) mesh against the reference's int8
+error-feedback compression.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+from repro.core import factored_norm as jnorm
+from repro.core.config import DoRAConfig as JConfig
+from repro.kernels import ops as jops
+from repro.launch.steps import StepConfig as JStep
+from repro.launch.steps import cross_entropy as jcross_entropy
+from repro.launch.steps import make_prefill_step as jmake_prefill_step
+from repro.launch.steps import make_train_step as jmake_train_step
+from repro.launch.train import build_state as jbuild_state
+from repro.models import forward as jforward
+from repro.models.config import ModelConfig as JModel
+from repro.optim import OptimizerConfig as JOpt
+from repro.optim import compression as jcomp
+from repro_torch.bridge import flatten_paths
+
+import torch_dist_ranks as R
+
+WIDTHS = dict(name="dist-2l", family="dense", num_layers=2, d_model=512,
+              num_heads=4, num_kv_heads=2, d_ff=1024, vocab_size=512,
+              qkv_bias=True)
+RANK, ALPHA = 16, 32.0
+BATCH, SEQ, LOSS_TOKENS = 2, 16, 8
+OPTIM = dict(lr=1e-2, warmup_steps=2, total_steps=3, eps=1e-4)
+ROUTES = {"mm": dict(mode="fused", mm_fused_max_rank=128),
+          "elementwise": dict(mode="fused", compose_matmul_fused=False),
+          "eager": dict(mode="eager")}
+TRAIN = {2: [((1, 2), "mm"), ((1, 2), "elementwise"), ((1, 2), "eager"),
+             ((2, 1), "mm")],
+         4: [((2, 2), "mm"), ((2, 2), "eager")]}
+COMPOSE = {2: {"tp": (1, 2, (None, "model")), "sp": (1, 2, ("model", None))},
+           4: {"tp": (2, 2, (None, ("data", "model"))),
+               "sp": (2, 2, ("model", None)),
+               "2d": (2, 2, ("data", "model"))}}
+NORM = {2: ((1, 2), ("model",)), 4: ((2, 2), ("data", "model"))}
+PREFILL = {2: (1, 2), 4: (2, 2)}
+
+
+def _max_rel(got, want) -> float:
+    got = np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    assert got.shape == want.shape, (got.shape, want.shape)
+    return np.abs(got - want).max() / max(np.abs(want).max(), 1e-30)
+
+
+def _np_tree(tree):
+    return jax.tree_util.tree_map(np.array, tree)
+
+
+# --- the inputs and the reference's results ---------------------------------
+
+def _norm_inputs():
+    rng = np.random.default_rng(3)
+    d_out, d_in = 256, 512
+    W = (rng.standard_normal((d_out, d_in)) / np.sqrt(d_in)).astype(
+        np.float32)
+    A = (rng.uniform(-1, 1, (RANK, d_in)) / np.sqrt(d_in)).astype(np.float32)
+    B = (0.05 * rng.standard_normal((d_out, RANK))).astype(np.float32)
+    return {"W": W, "A": A, "B": B, "s": ALPHA / np.sqrt(RANK),
+            "base_sq": (W.astype(np.float64) ** 2).sum(1).astype(
+                np.float32)}
+
+
+def _compose_inputs():
+    rng = np.random.default_rng(4)
+    m, n = 64, 512
+    return {"base": rng.standard_normal((m, n)).astype(np.float32),
+            "h": (0.5 * rng.standard_normal((m, RANK))).astype(np.float32),
+            "B": (0.05 * rng.standard_normal((n, RANK))).astype(np.float32),
+            "g": (1 + 0.05 * rng.standard_normal(n)).astype(np.float32),
+            "dy": rng.standard_normal((m, n)).astype(np.float32),
+            "s": 0.7}
+
+
+def _compression_inputs():
+    """examples/grad_compression_dp.py's toy: d = 512, x of 16 rows."""
+    rng = np.random.default_rng(0)
+    d = 512
+    return {"w": (rng.normal(size=(d,)) * 0.1).astype(np.float32),
+            "t": rng.normal(size=(d,)).astype(np.float32),
+            "x": (rng.normal(size=(16, d)) ** 2).astype(np.float32)}
+
+
+def _model_state():
+    """The reference's build_state with nonzero B, m = ||W||·(1 + noise)
+    and nonzero QKV biases, as numpy trees."""
+    jm = JModel(**WIDTHS, dtype=jnp.float32)
+    params, adapters, _ = map(_np_tree, jbuild_state(
+        jm, JConfig(rank=RANK, alpha=ALPHA), 0))
+    rng = np.random.default_rng(5)
+    for name, leaf in flatten_paths(adapters).items():
+        if name.endswith("/B"):
+            leaf[...] = 0.05 * rng.standard_normal(leaf.shape)
+        elif name.endswith("/m"):
+            leaf *= 1 + 0.01 * rng.standard_normal(leaf.shape).astype(
+                np.float32)
+    for name, leaf in flatten_paths(params).items():
+        if name.endswith("_bias"):
+            leaf[...] = 0.1 * rng.standard_normal(leaf.shape)
+    toks = np.random.default_rng(6).integers(
+        0, WIDTHS["vocab_size"], (BATCH, SEQ + 1)).astype(np.int32)
+    return jm, params, adapters, toks[:, :-1], toks[:, 1:]
+
+
+@pytest.fixture(scope="module")
+def inputs():
+    """numpy inputs of every case: the ranks get copies of these."""
+    return {"norm": _norm_inputs(), "compose": _compose_inputs(),
+            "state": _model_state()[1:], "compression":
+            _compression_inputs()}
+
+
+@pytest.fixture(scope="module")
+def spawned(inputs, tmp_path_factory):
+    """Both world sizes' ranks, started before the reference runs."""
+    handles = {w: R.Ranks(w, _cases(w, inputs),
+                          tmp_path_factory.mktemp(f"world{w}"))
+               for w in (2, 4)}
+    yield handles
+    for h in handles.values():
+        h.kill()
+
+
+@pytest.fixture(scope="module")
+def reference(inputs, spawned):
+    """The reference's single-device results, computed while the ranks
+    run."""
+    ni = inputs["norm"]
+    W, A, B = (jnp.asarray(ni[k]) for k in ("W", "A", "B"))
+    norm = {}
+    for s in (ni["s"], 0.0):
+        for cache in (None, jnp.asarray(ni["base_sq"])):
+            norm[(s != 0.0, cache is not None)] = np.asarray(
+                jnorm.factored_norm(W, A, B, s, base_sq_cache=cache))
+    with jax.enable_x64(True):
+        fp64 = {s != 0.0: np.asarray(jnorm.norm_reference_fp64(
+            jnp.asarray(ni["W"], jnp.float64),
+            jnp.asarray(ni["A"], jnp.float64),
+            jnp.asarray(ni["B"], jnp.float64), s))
+            for s in (ni["s"], 0.0)}
+
+    ci = inputs["compose"]
+    args = tuple(jnp.asarray(ci[k]) for k in ("base", "h", "B", "g"))
+    delta, vjp = jax.vjp(lambda b, h, bb, g: jops.fused_compose_mm(
+        b, h, bb, g, ci["s"], interpret=True), *args)
+    grads = vjp(jnp.asarray(ci["dy"]))
+    compose = {"delta": np.asarray(delta),
+               **{k: np.asarray(v) for k, v in zip(
+                   ("d_base", "d_h", "d_B", "d_g"), grads)}}
+
+    params, adapters, tokens, labels = inputs["state"]
+    jm = JModel(**WIDTHS, dtype=jnp.float32)
+    jcfg = JConfig(rank=RANK, alpha=ALPHA, mode="eager")
+    jp = jax.tree_util.tree_map(jnp.asarray, params)
+    ja = jax.tree_util.tree_map(jnp.asarray, adapters)
+
+    def loss_fn(a):
+        logits, _, aux = jforward(jm, jp, a, jcfg, tokens=jnp.asarray(tokens),
+                                  training=True, loss_slice=LOSS_TOKENS)
+        return jcross_entropy(logits, jnp.asarray(labels)[:, -LOSS_TOKENS:]) \
+            + aux
+
+    loss, jg = jax.value_and_grad(loss_fn)(ja)
+    step = jmake_train_step(jm, JStep(dora=jcfg, optim=JOpt(**OPTIM),
+                                      loss_tokens=LOSS_TOKENS), None,
+                            batch=BATCH, seq=SEQ)
+    from repro.optim import adamw_init
+    _, _, met = step(jp, ja, adamw_init(ja),
+                     {"tokens": jnp.asarray(tokens),
+                      "labels": jnp.asarray(labels)})
+    last, cache = jmake_prefill_step(jm, JStep(dora=jcfg), None, batch=BATCH,
+                                     seq=SEQ)(jp, ja, {"tokens": jnp.asarray(
+                                         tokens)})
+    return {"norm": norm, "fp64": fp64, "compose": compose,
+            "loss": float(loss), "grads": flatten_paths(_np_tree(jg)),
+            "step": {k: float(met[k]) for k in ("loss", "grad_norm")},
+            "prefill": (np.asarray(last),
+                        np.asarray(cache["stack"]["l0"]["k"]))}
+
+
+def _cases(world, inputs):
+    """Every case of one world size, with copies of the inputs."""
+    params, adapters, tokens, labels = inputs["state"]
+    model = {"widths": WIDTHS, "params": _np_tree(params),
+             "adapters": _np_tree(adapters)}
+    shape, axes = NORM[world]
+    cases = [("norm", "norm_case", {**{k: np.array(v) for k, v in
+                                       inputs["norm"].items()},
+                                    "shape": shape, "axes": axes})]
+    for name, (d, t, spec) in COMPOSE[world].items():
+        cases.append((f"compose_{name}", "compose_case",
+                      {**{k: np.array(v) for k, v in
+                          inputs["compose"].items()},
+                       "shape": (d, t), "spec": spec}))
+    for mshape, route in TRAIN[world]:
+        cases.append((f"train_{mshape}_{route}", "train_case",
+                      {**model, "shape": mshape, "optim": OPTIM,
+                       "loss_tokens": LOSS_TOKENS,
+                       "dora": dict(rank=RANK, alpha=ALPHA, **ROUTES[route]),
+                       "tokens": tokens.copy(), "labels": labels.copy()}))
+    cases.append(("prefill", "prefill_case",
+                  {**model, "shape": PREFILL[world], "batch": BATCH,
+                   "seq": SEQ, "dora": dict(rank=RANK, alpha=ALPHA,
+                                            **ROUTES["mm"]),
+                   "tokens": tokens.copy()}))
+    if world == 4:
+        cases.append(("compression", "compression_case",
+                      {k: np.array(v) for k, v in
+                       inputs["compression"].items()}))
+    cases.append(("placements", "placements_case", {}))
+    cases.append(("roundtrip", "roundtrip_case",
+                  {**model, "shape": PREFILL[world],
+                   "dora": dict(rank=RANK, alpha=ALPHA)}))
+    return cases
+
+
+@pytest.fixture(scope="module")
+def ranks(spawned, reference):
+    """{world: rank 0's results}, joined after the reference ran."""
+    return {w: h.join() for w, h in spawned.items()}
+
+
+# --- the tests -------------------------------------------------------------
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_factored_norm_sharded_matches_reference(world, ranks, reference,
+                                                  inputs):
+    """Every variant within 1e-5 of max of the reference's unsharded norm
+    and of its fp64 oracle; the sums' bytes: base_sq and cross [d_out]
+    and G [r, r] in fp32 (base_sq's left out with the cache, one sum at
+    s = 0 without it, none with it)."""
+    d_out = inputs["norm"]["W"].shape[0]
+    for (kernels, s_nz, cached), (w, stats) in ranks[world]["norm"].items():
+        key = (s_nz, cached)
+        assert _max_rel(w, reference["norm"][key]) <= 1e-5, (kernels, key)
+        if not cached:
+            assert _max_rel(w, reference["fp64"][s_nz]) <= 1e-5
+        want = ((0 if cached else d_out * 4) + d_out * 4 + RANK * RANK * 4
+                if s_nz else (0 if cached else d_out * 4))
+        assert stats["bytes"] == want, (kernels, key, stats)
+
+
+@pytest.mark.parametrize("world,layout", [(w, name) for w in COMPOSE
+                                          for name in COMPOSE[w]])
+def test_shard_local_compose_matches_reference_vjp(world, layout, ranks,
+                                                   reference):
+    got = ranks[world][f"compose_{layout}"]
+    for k, want in reference["compose"].items():
+        assert _max_rel(got[k], want) <= 1e-5, (layout, k)
+    assert got["fwd_collectives"] == 0
+    tags = set(got["collectives"])
+    spec = COMPOSE[world][layout][2]
+    assert ("compose.d_h" in tags) == (spec[-1] is not None)
+    assert ("compose.T" in tags) == (spec[0] is not None)
+
+
+def _train_cases():
+    return [(w, s, r) for w, cases in TRAIN.items() for s, r in cases]
+
+
+@pytest.mark.parametrize("world,shape,route", _train_cases(), ids=str)
+def test_mesh_train_step_matches_reference(world, shape, route, ranks,
+                                           reference):
+    """Loss within 1e-5 relative of the reference's, the gathered adapter
+    gradients within 1e-4 of max, one AdamW step's loss and grad norm
+    (its clip's norm summed across shards) within 1e-5; the norm's sums
+    move base_sq, cross and G of each row-parallel module at model > 1."""
+    got = ranks[world][f"train_{shape}_{route}"]
+    assert abs(got["loss"] / reference["loss"] - 1) <= 1e-5
+    assert abs(got["step_loss"] / reference["step"]["loss"] - 1) <= 1e-5
+    assert abs(got["grad_norm"] / reference["step"]["grad_norm"] - 1) \
+        <= 1e-5
+    assert set(got["grads"]) == set(reference["grads"])
+    for name, want in reference["grads"].items():
+        assert _max_rel(got["grads"][name], want) <= 1e-4, name
+    # Each of the 7 modules a layer: its norm (K1; with the epilogue, or
+    # the standalone K2 on wo and w_down), and the compose forward twice
+    # (the layer and its recompute) and backward once.
+    per = 7 * WIDTHS["num_layers"]
+    compose = {"mm": {"compose_mm_fwd_plain": 2 * per,
+                      "compose_mm_bwd_plain": per},
+               "elementwise": {"compose_fwd_dual_plain": 2 * per,
+                               "compose_bwd_plain": per}}.get(route)
+    assert got["plain_calls"] == ({} if compose is None else {
+        "norm_terms_plain": per, "assemble_norm_plain": per, **compose})
+    norm = got["collectives"].get("norm", {"bytes": 0})["bytes"]
+    d = WIDTHS["d_model"]
+    per_module = 2 * d * 4 + RANK * RANK * 4
+    assert norm == (2 * WIDTHS["num_layers"] * per_module if shape[1] > 1
+                    else 0)
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_mesh_prefill_matches_reference(world, ranks, reference):
+    got = ranks[world]["prefill"]
+    last, k0 = reference["prefill"]
+    assert _max_rel(got["logits"], last) <= 1e-5
+    assert got["len"] == SEQ
+    d, t = PREFILL[world]
+    coords = got["coords"]
+    kv = WIDTHS["num_kv_heads"] // t
+    rows = BATCH // d
+    want = k0[:, coords["data"] * rows:(coords["data"] + 1) * rows, :,
+              coords["model"] * kv:(coords["model"] + 1) * kv]
+    assert _max_rel(got["k0"], want) <= 1e-5
+
+
+def test_cross_pod_sync_matches_reference_compression(ranks):
+    """On a (pod=2, data=2) mesh: each pod's fp32 data mean quantized by
+    the reference's int8_ef_compress, dequantized and averaged over the
+    pods gives the port's synced gradient (1e-6 of max), which is within
+    the example's 2 % of the fp32 mean over all ranks; the pod axis moves
+    one int8 byte an element a pod; the residual carries to the next
+    step."""
+    got = ranks[4]["compression"]
+    c = _compression_inputs()
+    quarter = c["x"].reshape(4, 4, -1).mean(axis=1) * (c["w"] - c["t"])
+    pods = quarter.reshape(2, 2, -1).mean(axis=1)          # fp32 over data
+    ef = jcomp.init_error_feedback({"g": jnp.zeros(pods.shape[1])})
+    deqs, new_efs = [], []
+    for p in pods:
+        q, scale, corr = jcomp.int8_ef_compress({"g": jnp.asarray(p)}, ef)
+        deq, new_ef = jcomp.int8_ef_decompress(q, scale, corr)
+        deqs.append(np.asarray(deq["g"]))
+        new_efs.append(np.asarray(new_ef["g"]))
+    assert _max_rel(got["synced"], np.mean(deqs, axis=0)) <= 1e-6
+    exact = quarter.mean(axis=0)
+    rel = np.linalg.norm(got["synced"] - exact) / np.linalg.norm(exact)
+    assert rel < 0.02, rel
+    d = exact.shape[0]
+    assert got["stats"]["grad.pod"]["bytes"] == 2 * d
+    assert got["stats"]["grad.data"]["bytes"] == 4 * d
+    assert any(_max_rel(got["ef"], e) <= 1e-6 for e in new_efs)
+    assert np.linalg.norm(got["ef2"]) > 0 and np.isfinite(got["again"]).all()
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_shard_then_unshard_is_the_tree(world, ranks):
+    assert ranks[world]["roundtrip"] is True
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_nccl_mesh_gathers_placements_and_refuses_a_shared_card(world,
+                                                                 ranks):
+    """make_mesh's NCCL check on real ranks: each rank's (host, card) is
+    gathered in rank order; ranks that all name card 0 are refused,
+    naming the first two and backend='gloo'; one card a rank passes."""
+    got = ranks[world]["placements"]
+    hosts = {h for h, _ in got["shared"]}
+    assert len(hosts) == 1 and len(got["shared"]) == world
+    assert [c for _, c in got["shared"]] == [0] * world
+    assert [c for _, c in got["own"]] == list(range(world))
+    assert "ranks 0 and 1 would share card 0" in got["refused"]
+    assert "backend='gloo'" in got["refused"]

@@ -1,0 +1,515 @@
+"""The port's sharding rules, compose plans and mesh refusals against the
+reference, with no ranks: the rules read only ``axis_names`` and a
+``shape`` dict, so both packages run them on the duck-typed meshes of
+``tests/test_sharding_rules.py``.
+
+The reference's rule functions wrap each spec in a ``NamedSharding``,
+which needs devices; here its ``NamedSharding`` is replaced (in the
+reference module's namespace, for the test's duration) by a holder of
+the spec, so its trees come from ``spec_for(shape, leaf_roles(...))``
+over ``param_shapes``/``adapter_shapes`` exactly as it computes them.
+The port's trees must equal them leaf for leaf, for every registered
+arch on four meshes. Also here: ``ComposeSharding``'s derived specs and
+``plan_compose``'s route, the refusals of ``launch/mesh.py``, and the
+small ports of this slice (``compose_naive``, ``select_tier``,
+``DoRAParamSpec``, the gradient compression, ``StragglerMonitor``) on
+the reference's own test cases.
+"""
+import dataclasses
+import json
+import os
+import time
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.sharding import PartitionSpec as JP
+
+from repro.checkpoint.fault import Heartbeat as JHeartbeat
+from repro.checkpoint.fault import StragglerMonitor as JMonitor
+from repro.configs import get_config as jget_config
+from repro.core import adapter as jadapter
+from repro.core import compose as jcompose
+from repro.core import dispatch as jdispatch
+from repro.core import sharding as jsh
+from repro.core.config import DoRAConfig as JConfig
+from repro.launch import sharding as JS
+from repro.models import adapter_shapes as jadapter_shapes
+from repro.optim import compression as jcomp
+from repro_torch.checkpoint.fault import Heartbeat, StragglerMonitor
+from repro_torch.configs import _MODULES, get_config
+from repro_torch.core import adapter as tadapter
+from repro_torch.core import compose as tcompose
+from repro_torch.core import dispatch as tdispatch
+from repro_torch.core import sharding as tsh
+from repro_torch.core.config import DoRAConfig
+from repro_torch.launch import mesh as tmesh
+from repro_torch.launch import sharding as TS
+from repro_torch.models import lm as tlm
+from repro_torch.optim import compression as tcomp
+from repro_torch.tree import flatten_paths
+
+
+class FakeMesh:
+    def __init__(self, **axes):
+        self.axis_names = tuple(axes)
+        self.shape = dict(axes)
+
+
+ARCHS = sorted(_MODULES)
+MESHES = {"pod2_data16_model16": dict(pod=2, data=16, model=16),
+          "data16_model16": dict(data=16, model=16),
+          "data2_model2": dict(data=2, model=2),
+          "data1_model1": dict(data=1, model=1)}
+
+
+class _Holder:
+    """What the reference's rules read of a NamedSharding: its spec."""
+
+    def __init__(self, mesh, spec):
+        self.mesh, self.spec = mesh, spec
+
+
+@pytest.fixture
+def ref_rules(monkeypatch):
+    monkeypatch.setattr(JS, "NamedSharding", _Holder)
+    return JS
+
+
+def _specs(tree):
+    """"/"-path → spec as a plain tuple, from either package's tree."""
+    out = {}
+    for name, leaf in flatten_paths(tree).items():
+        spec = leaf.spec if isinstance(leaf, _Holder) else leaf
+        out[name] = tuple(spec)
+    return out
+
+
+def _dcfg(cache_base_norm=False):
+    return (JConfig(rank=384, alpha=192.0, cache_base_norm=cache_base_norm),
+            DoRAConfig(rank=384, alpha=192.0,
+                       cache_base_norm=cache_base_norm))
+
+
+@pytest.mark.parametrize("mesh_name", sorted(MESHES))
+@pytest.mark.parametrize("arch", ARCHS)
+def test_param_and_adapter_rules_match_reference(arch, mesh_name,
+                                                 ref_rules):
+    """param_sharding and adapter_sharding (training, serving, with the
+    cached base term) leaf by leaf, and the shape trees they walk."""
+    mesh = FakeMesh(**MESHES[mesh_name])
+    jm, tm = jget_config(arch), get_config(arch)
+    assert _specs(TS.param_sharding(tm, mesh)) == _specs(
+        ref_rules.param_sharding(jm, mesh))
+    for cache in (False, True):
+        jd, td = _dcfg(cache)
+        for serving in (False, True):
+            assert _specs(TS.adapter_sharding(tm, td, mesh,
+                                              serving=serving)) == _specs(
+                ref_rules.adapter_sharding(jm, jd, mesh, serving=serving))
+        want = {k: tuple(v.shape) for k, v in flatten_paths(
+            jadapter_shapes(jm, jd)).items()}
+        got = {k: tuple(v.shape) for k, v in flatten_paths(
+            tlm.adapter_shapes(tm, td)).items()}
+        assert got == want
+
+
+@pytest.mark.parametrize("mesh_name", sorted(MESHES))
+@pytest.mark.parametrize("arch", ARCHS)
+def test_step_rules_match_reference(arch, mesh_name, ref_rules):
+    """row_parallel_b_axes, activation_spec, batch_spec, cache_sharding
+    (rectangular and paged), opt_state_sharding (with and without the
+    shapes) and fleet_stack_sharding."""
+    mesh = FakeMesh(**MESHES[mesh_name])
+    jm, tm = jget_config(arch), get_config(arch)
+    jd, td = _dcfg()
+    assert TS.row_parallel_b_axes(tm, mesh) == \
+        ref_rules.row_parallel_b_axes(jm, mesh)
+    for batch, seq in ((1, 1), (2, 2048), (32, 4096), (48, 100)):
+        assert tuple(TS.activation_spec(mesh, batch=batch, seq=seq)) == \
+            tuple(ref_rules.activation_spec(mesh, batch=batch, seq=seq))
+        assert tuple(TS.batch_spec(mesh, batch=batch)) == \
+            tuple(ref_rules.batch_spec(mesh, batch=batch))
+        for bs in (None, 16):
+            assert _specs(TS.cache_sharding(tm, mesh, batch=batch,
+                                            block_size=bs)) == _specs(
+                ref_rules.cache_sharding(jm, mesh, batch=batch,
+                                         block_size=bs))
+    t_ad = TS.adapter_sharding(tm, td, mesh)
+    j_ad = ref_rules.adapter_sharding(jm, jd, mesh)
+    for with_shapes in (False, True):
+        t_sh = tlm.adapter_shapes(tm, td) if with_shapes else None
+        j_sh = jadapter_shapes(jm, jd) if with_shapes else None
+        assert _specs(TS.opt_state_sharding(t_ad, mesh, t_sh)) == _specs(
+            ref_rules.opt_state_sharding(j_ad, mesh, j_sh))
+    serving = ref_rules.adapter_sharding(jm, jd, mesh, serving=True)
+    assert _specs(TS.fleet_stack_sharding(
+        TS.adapter_sharding(tm, td, mesh, serving=True), mesh)) == _specs(
+        ref_rules.fleet_stack_sharding(serving, mesh))
+
+
+def test_boundary_constraint_carries_the_reference_plan():
+    """make_boundary_constraint's spec and .plan equal the reference's
+    (its plan's derived specs included) on every duck mesh."""
+    for axes in MESHES.values():
+        mesh = FakeMesh(**axes)
+        for b_axes in ((), ("pod",) if "pod" in axes else ()):
+            t = TS.make_boundary_constraint(mesh, batch=32, seq=4096,
+                                            b_dout_axes=b_axes)
+            want = jsh.plan_for_output(
+                mesh, JS.activation_spec(mesh, batch=32, seq=4096),
+                b_dout_axes=b_axes)
+            assert tuple(t.spec) == tuple(want.out_spec)
+            _same_plan(t.plan, want, 4096)
+
+
+OUT_SPECS = [(None, "model"), ("data", None), ("data", "model"),
+             (("data", "model"), None), ("data", "model", None),
+             (None, None, "model"), (("pod", "data"), "model"),
+             (("pod", "data"), None, "model"), ("model", None), (None,),
+             ()]
+
+
+def _same_plan(t, j, d_out):
+    for attr in ("row_axes", "dout_axes", "dout_shards", "row_shards"):
+        assert getattr(t, attr) == getattr(j, attr), attr
+    for attr in ("h_spec", "b_spec", "vec_spec"):
+        assert tuple(getattr(t, attr)) == tuple(getattr(j, attr)), attr
+    assert t.flat2d() == j.flat2d()
+    for n in (d_out, 128, 256, 384, 512, 1000, 3584, 18944):
+        assert t.local_dout(n) == j.local_dout(n)
+        assert t.kernel_expressible(n) == j.kernel_expressible(n), n
+
+
+@pytest.mark.parametrize("b_axes", [(), ("data",), ("pod",), ("model",)])
+@pytest.mark.parametrize("spec", OUT_SPECS, ids=str)
+def test_compose_sharding_derived_specs_match_reference(spec, b_axes):
+    for axes in MESHES.values():
+        if any(a not in axes for e in spec + (b_axes,)
+               for a in ((e,) if isinstance(e, str) else (e or ()))):
+            continue
+        mesh = FakeMesh(**axes)
+        t = tsh.plan_for_output(mesh, spec, b_dout_axes=b_axes)
+        j = jsh.plan_for_output(mesh, JP(*spec), b_dout_axes=b_axes)
+        _same_plan(t, j, 4096)
+        assert tsh.as_compose_sharding(t) is t
+        assert tsh.as_compose_sharding(TS.make_boundary_constraint(
+            mesh, batch=2, seq=16)).out_spec == tuple(
+            JS.activation_spec(mesh, batch=2, seq=16))
+
+
+def test_compose_sharding_checks_local_shards():
+    """The port's constraints check a local shard's shape against the
+    plan (there is no GSPMD to place it)."""
+    mesh = FakeMesh(data=2, model=4)
+    plan = tsh.plan_for_output(mesh, ("data", "model"))
+    y = torch.zeros(8, 32)
+    assert plan(y, (16, 128)) is y
+    with pytest.raises(ValueError, match="does not agree"):
+        plan(y, (16, 64))
+    with pytest.raises(ValueError, match="cannot constrain"):
+        plan(torch.zeros(4))
+    assert plan.constrain_h(torch.zeros(8, 16), (16, 16)).shape == (8, 16)
+    assert plan.constrain_vec(torch.zeros(32), (128,)).shape == (32,)
+    with pytest.raises(ValueError, match="unstacked"):
+        plan.constrain_b(torch.zeros(2, 32, 16))
+
+
+@pytest.fixture
+def ref_auto_on_accelerator(monkeypatch):
+    """The reference's auto mode routes by its crossover only where its
+    accelerator probe passes; the port's plan runs for CUDA tensors."""
+    tpu = jdispatch.DISPATCH_TABLE["tpu"]
+    monkeypatch.setitem(jdispatch.DISPATCH_TABLE, "tpu",
+                        dataclasses.replace(tpu, available=lambda: True))
+    for name in ("REPRO_FORCE_TIER", "REPRO_DORA_MODE",
+                 "REPRO_TORCH_FORCE_TIER"):
+        monkeypatch.delenv(name, raising=False)
+
+
+@pytest.mark.parametrize("mode", ["auto", "fused"])
+@pytest.mark.parametrize("spec", [None, (None, "model"), ("data", "model"),
+                                  ("data", "model", None),
+                                  (None, None, "model")], ids=str)
+def test_plan_compose_route_matches_reference(spec, mode,
+                                              ref_auto_on_accelerator):
+    """Tier, matmul fusion and the attached plan of plan_compose under a
+    plan, on the whole shape, for both packages' configs."""
+    for axes in (MESHES["data2_model2"], MESHES["data16_model16"]):
+        mesh = FakeMesh(**axes)
+        for b_axes in ((), ("data",)):
+            t_plan = j_plan = None
+            if spec is not None:
+                t_plan = tsh.plan_for_output(mesh, spec, b_dout_axes=b_axes)
+                j_plan = jsh.plan_for_output(mesh, JP(*spec),
+                                             b_dout_axes=b_axes)
+            for rows, d_out, rank, training in (
+                    (4096, 3584, 384, True), (4096, 18944, 384, False),
+                    (2048, 3584, 384, True), (4096, 512, 384, True),
+                    (64, 4096, 16, True), (4100, 4096, 384, True),
+                    (8192, 2048, 640, True), (4096, 3584, None, True),
+                    (32768, 18944, 128, False), (16, 256, 16, True)):
+                t = tdispatch.plan_compose(
+                    DoRAConfig(rank=384, mode=mode), training=training,
+                    rows=rows, d_out=d_out, rank=rank, sharding=t_plan,
+                    device="cuda")
+                j = jdispatch.plan_compose(
+                    JConfig(rank=384, mode=mode), training=training,
+                    rows=rows, d_out=d_out, rank=rank, sharding=j_plan)
+                case = (axes, spec, b_axes, rows, d_out, rank, training)
+                assert t.tier.value == j.tier.value, case
+                assert t.matmul_fused == j.matmul_fused, case
+                assert (t.sharding is None) == (j.sharding is None), case
+                assert tdispatch.select_tier(
+                    DoRAConfig(rank=384, mode=mode), training=training,
+                    rows=rows, d_out=d_out).value == jdispatch.select_tier(
+                    JConfig(rank=384, mode=mode), training=training,
+                    rows=rows, d_out=d_out).value
+
+
+def test_local_block_shape_refuses_a_ragged_shard():
+    """The shard-local compose takes the local shapes the reference's
+    ``local_block_shape`` takes and refuses the ones it refuses (a local
+    d_out off the 128-lane rule); an accepted local tile runs K6's plain
+    version unchanged."""
+    from repro.kernels.dora_compose import local_block_shape as jlocal
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.dora_compose import compose_mm_fwd_plain
+
+    assert jlocal(4096, 3584, row_shards=2, dout_shards=2)[1] % 128 == 0
+    gen = torch.Generator().manual_seed(0)
+    mesh = FakeMesh(data=2, model=2)
+    plan = tsh.plan_for_output(mesh, ("data", "model"))
+    base, h = torch.randn(8, 256, generator=gen), torch.randn(8, 16,
+                                                              generator=gen)
+    B, g = torch.randn(256, 16, generator=gen), torch.rand(256,
+                                                           generator=gen)
+    got = ops.fused_compose_mm(base, h, B, g, 0.5, sharding=plan)
+    assert torch.equal(got, compose_mm_fwd_plain(base, h, B, g - 1.0, 0.5))
+    for n, shards in ((3584, 8), (1000, 1), (512, 3)):
+        with pytest.raises(ValueError, match="128-lane"):
+            jlocal(64, n, dout_shards=shards)
+        n_l = -(-n // shards)
+        plan = tsh.plan_for_output(FakeMesh(data=1, model=shards),
+                                   (None, "model"))
+        with pytest.raises(ValueError, match="128-lane"):
+            ops.fused_compose_mm(torch.zeros(4, n_l), torch.zeros(4, 8),
+                                 torch.zeros(n_l, 8), torch.ones(n_l), 1.0,
+                                 sharding=plan)
+
+
+def test_fused_compose_mm_refuses_b_sharded_beyond_the_output():
+    from repro_torch.kernels import ops
+
+    mesh = FakeMesh(data=2, model=2)
+    plan = tsh.plan_for_output(mesh, ("data", "model"), b_dout_axes=("data",))
+    x = torch.zeros(4, 128)
+    with pytest.raises(ValueError, match="inexpressible"):
+        ops.fused_compose_mm(x, torch.zeros(4, 8), torch.zeros(128, 8),
+                             torch.ones(128), 1.0, sharding=plan)
+
+
+# --- launch/mesh.py refusals ---------------------------------------------
+
+def test_make_mesh_with_no_device_means_the_card_and_raises_without_one():
+    assert not torch.cuda.is_available()
+    for make in (lambda: tmesh.make_mesh((1, 2), ("data", "model")),
+                 lambda: tmesh.make_debug_mesh(1, 1),
+                 lambda: tmesh.make_mesh((1,), ("model",), backend="gloo")):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+
+
+def test_nccl_is_refused_where_ranks_would_share_a_card(monkeypatch):
+    """NCCL refuses two ranks on one card: the mesh says so and names
+    gloo; a CPU mesh under NCCL is refused the same way. Nothing switches
+    backend on its own. The check reads every rank's (host, card), so a
+    world of 2 nodes x 8 cards passes on a node that sees 8 cards, and
+    ranks that all stayed on card 0 are refused however many cards the
+    node has."""
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 8)
+    dev = torch.device("cuda", 0)
+    two_nodes = [(f"node{n}", c) for n in range(2) for c in range(8)]
+    tmesh.check_backend("nccl", dev, two_nodes)
+    tmesh.check_backend("nccl", dev, [("node0", 0)])
+    tmesh.check_backend("nccl", dev)
+    for placements, first, second in (
+            ([("node0", 0), ("node0", 0)], 0, 1),
+            ([("node0", c % 8) for c in range(16)], 0, 8),
+            ([(f"node{n}", 0) for n in range(2) for _ in range(8)], 0, 1),
+            (two_nodes[:15] + [("node1", 3)], 11, 15)):
+        with pytest.raises(ValueError, match=f"ranks {first} and {second} "
+                           f"would share card .*backend='gloo'"):
+            tmesh.check_backend("nccl", dev, placements)
+        tmesh.check_backend("gloo", dev, placements)
+    with pytest.raises(ValueError, match="backend='gloo'"):
+        tmesh.make_mesh((1, 2), ("data", "model"), device="cpu")
+    with pytest.raises(ValueError, match="'nccl' or 'gloo'"):
+        tmesh.make_mesh((1, 2), ("data", "model"), device="cpu",
+                        backend="mpi")
+
+
+def test_one_rank_mesh_needs_no_process_group_and_bigger_ones_do():
+    mesh = tmesh.make_debug_mesh(1, 1, device="cpu", backend="gloo")
+    assert mesh.shape == {"data": 1, "model": 1} and mesh.size == 1
+    assert mesh.group(("data", "model")) is None
+    assert tmesh.data_axes(mesh) == ("data",)
+    assert tmesh.axis_size(mesh, "data", "model", "pod") == 1
+    x = torch.arange(4.0)
+    assert tsh.psum(x, ("model",), mesh) is x
+    assert tsh.all_gather(x, ("model",), mesh, 0) is x
+    with pytest.raises(RuntimeError, match="init_process_group"):
+        tmesh.make_debug_mesh(2, 1, device="cpu", backend="gloo")
+    with pytest.raises(RuntimeError, match="torch.distributed"):
+        tmesh.make_production_mesh(device="cpu", backend="gloo")
+
+
+def test_mesh_step_refuses_what_the_runtime_does_not_honour():
+    """FSDP-laid weights, a pod axis and non-dense stacks are refused by
+    the mesh step with the ROADMAP item; the rules still cover them."""
+    from repro_torch.launch.steps import StepConfig, mesh_layout
+
+    scfg = StepConfig(dora=DoRAConfig(rank=16, alpha=32.0))
+    for arch, axes in (("qwen2-7b", dict(data=2, model=2)),
+                       ("llama4-scout-17b-a16e", dict(data=2, model=16)),
+                       ("qwen2-moe-a2.7b", dict(data=1, model=2)),
+                       ("falcon-mamba-7b", dict(data=1, model=2)),
+                       ("qwen2-7b", dict(pod=2, data=1, model=2))):
+        with pytest.raises(NotImplementedError, match="item 6, second half"):
+            mesh_layout(get_config(arch), scfg, FakeMesh(**axes), batch=2,
+                        seq=64)
+    small = dataclasses.replace(get_config("qwen2-7b"), num_layers=4)
+    lay = mesh_layout(small, scfg, FakeMesh(data=2, model=2), batch=2,
+                      seq=64)
+    assert lay.dp_axes == ("data",) and lay.local_batch == 1
+    assert lay.sp.tp == 2 and lay.sp.row_plan.row_axes == ("model",)
+    assert lay.sp.col_plan.dout_axes == ("model",)
+    assert not lay.sp.col_plan.psum_dh
+    with pytest.raises(ValueError, match="does not split"):
+        mesh_layout(small, scfg, FakeMesh(data=1, model=2), batch=2, seq=7)
+
+
+# --- the small ports, on the reference's own cases ------------------------
+
+def test_compose_naive_matches_reference_and_collapses_near_unity():
+    rng = np.random.default_rng(0)
+    for dtype, tdtype in ((jnp.bfloat16, torch.bfloat16),
+                          (jnp.float32, torch.float32)):
+        base = rng.standard_normal((64, 256)).astype(np.float32)
+        lora = (0.1 * rng.standard_normal((64, 256))).astype(np.float32)
+        g = (1.0 + 0.0015 * rng.standard_normal(256)).astype(np.float32)
+        want = np.asarray(jcompose.compose_naive(
+            jnp.asarray(base, dtype), jnp.asarray(lora, dtype),
+            jnp.asarray(g), 0.5).astype(jnp.float32))
+        got = tcompose.compose_naive(
+            torch.from_numpy(base).to(tdtype),
+            torch.from_numpy(lora).to(tdtype), torch.from_numpy(g),
+            0.5).float().numpy()
+        assert np.array_equal(got, want)
+    g = torch.full((256,), 1.0 + 1e-4)
+    base = torch.full((4, 256), 100.0, dtype=torch.bfloat16)
+    lora = torch.zeros((4, 256), dtype=torch.bfloat16)
+    assert tcompose.compose_naive(base, lora, g, 1.0).abs().max() == 0
+    assert tcompose.compose_stable(base, lora, g, 1.0).abs().max() > 0
+
+
+def test_select_tier_and_param_spec_match_reference():
+    for mode in ("eager", "fused"):
+        for rows, d_out, training in ((4096, 3584, True), (16, 100, False),
+                                      (4096, 18944, False)):
+            t = tdispatch.select_tier(DoRAConfig(mode=mode),
+                                      training=training, rows=rows,
+                                      d_out=d_out)
+            j = jdispatch.select_tier(
+                JConfig(mode="interpret" if mode == "fused" else mode),
+                training=training, rows=rows, d_out=d_out)
+            assert t.value == j.value
+    spec = tadapter.DoRAParamSpec("stack/l0/mixer/wq", 3584, 3584, 384)
+    ref = jadapter.DoRAParamSpec("stack/l0/mixer/wq", 3584, 3584, 384)
+    assert dataclasses.asdict(spec) == dataclasses.asdict(ref)
+    with pytest.raises(dataclasses.FrozenInstanceError):
+        spec.rank = 8
+    from repro_torch import core
+    for name in ("compose_naive", "select_tier", "factored_norm_sharded"):
+        assert getattr(core, name) is not None
+
+
+def test_bf16_compression_roundtrip():
+    g = {"a": torch.tensor([1.0, 2.0, 3.0])}
+    out = tcomp.decompress_bf16(tcomp.compress_bf16(g))
+    ref = jcomp.decompress_bf16(jcomp.compress_bf16(
+        {"a": jnp.asarray([1.0, 2.0, 3.0])}))
+    assert out["a"].dtype == torch.float32
+    assert np.array_equal(out["a"].numpy(), np.asarray(ref["a"]))
+
+
+def test_int8_error_feedback_matches_reference_step_by_step():
+    """50 steps of the reference's case: q, scale, the dequantized value
+    and the residual equal the reference's (one fp32 rounding of a
+    division apart at most), and the accumulated error stays within one
+    step's quantization error."""
+    rng = np.random.default_rng(0)
+    raw = [(rng.normal(size=64) * 0.3).astype(np.float32)
+           for _ in range(50)]
+    ef_t = tcomp.init_error_feedback({"g": torch.zeros(64)})
+    ef_j = jcomp.init_error_feedback({"g": jnp.zeros(64)})
+    acc_q, acc_raw = np.zeros(64), np.zeros(64)
+    for g in raw:
+        q_t, s_t, c_t = tcomp.int8_ef_compress({"g": torch.from_numpy(g)},
+                                               ef_t)
+        q_j, s_j, c_j = jcomp.int8_ef_compress({"g": jnp.asarray(g)}, ef_j)
+        assert q_t["g"].dtype == torch.int8
+        assert np.abs(q_t["g"].numpy().astype(int)
+                      - np.asarray(q_j["g"]).astype(int)).max() <= 1
+        assert float(s_t["g"]) == pytest.approx(float(s_j["g"]), rel=1e-6)
+        deq_t, ef_t = tcomp.int8_ef_decompress(q_t, s_t, c_t)
+        deq_j, ef_j = jcomp.int8_ef_decompress(q_j, s_j, c_j)
+        scale = float(s_t["g"])
+        assert np.abs(deq_t["g"].numpy() - np.asarray(deq_j["g"])).max() \
+            <= scale * 1.0001
+        ef_j = {"g": jnp.asarray(ef_t["g"].numpy())}
+        acc_q += deq_t["g"].numpy()
+        acc_raw += g
+    assert np.abs(acc_q - acc_raw).max() <= scale / 2 * 1.5
+
+
+def test_cross_pod_sync_without_a_pod_axis_is_the_data_mean():
+    mesh = tmesh.make_debug_mesh(1, 1, device="cpu", backend="gloo")
+    g = {"a": torch.tensor([1.0, 2.0], dtype=torch.bfloat16)}
+    out, ef = tcomp.cross_pod_sync(g, mesh)
+    assert out["a"].dtype == torch.float32 and ef is None
+    assert torch.equal(out["a"], torch.tensor([1.0, 2.0]))
+
+
+def test_heartbeat_and_straggler_monitor(tmp_path):
+    """tests/test_checkpoint.py's cases, with either package writing the
+    beats and both monitors reading them."""
+    for hb in (Heartbeat, JHeartbeat):
+        d = str(tmp_path / hb.__module__.replace(".", "_"))
+        for i in range(4):
+            hb(d, i).beat(step=100)
+        hb(d, 4).beat(step=50)
+        for mon_cls in (StragglerMonitor, JMonitor):
+            mon = mon_cls(d, step_slack=5, dead_after_s=1e9)
+            assert mon.stragglers() == ["host_00004.json"]
+            assert not mon.healthy(expected_hosts=5)
+        hb(d, 4).beat(step=101)
+        assert StragglerMonitor(d, step_slack=5,
+                                dead_after_s=1e9).healthy(expected_hosts=5)
+
+
+def test_straggler_dead_host_and_torn_beat(tmp_path):
+    d = str(tmp_path / "hb")
+    Heartbeat(d, 0).beat(step=10)
+    with open(os.path.join(d, "host_00001.json"), "w") as f:
+        json.dump({"step": 10, "time": time.time() - 1e4}, f)
+    with open(os.path.join(d, "host_00002.json"), "w") as f:
+        f.write("{\"step\": 1")
+    got, want = (cls(d, dead_after_s=300) for cls in (StragglerMonitor,
+                                                      JMonitor))
+    assert got.read() == want.read()
+    assert got.stragglers(now=time.time()) == want.stragglers(
+        now=time.time())
+    assert "host_00001.json" in got.stragglers()
+    assert StragglerMonitor(str(tmp_path / "none")).stragglers() == []

@@ -1,0 +1,316 @@
+"""Rank programs of ``tests/test_torch_dist.py``: the port on gloo CPU
+ranks. This module imports no ``jax`` and nothing of the reference: the
+reference's results are computed in the test process, and the ranks get
+numpy copies of the inputs through the spawn.
+
+:class:`Ranks` starts ``world`` ranks (``torch.multiprocessing``,
+spawn, a ``file://`` store) that run every case of one world size in
+order; its ``join`` waits under a timeout of its own (a hung collective
+kills the group and fails the one test) and returns rank 0's results.
+"""
+from __future__ import annotations
+
+import contextlib
+import os
+import pickle
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+TIMEOUT_S = 120
+
+
+class Ranks:
+    """``world`` gloo ranks running ``cases`` ([(name, function name in
+    this module, payload)]) in order, started at construction: the caller
+    may compute while they run, then :meth:`join` them."""
+
+    def __init__(self, world: int, cases: list, workdir,
+                 timeout: float = TIMEOUT_S):
+        self.workdir = Path(workdir)
+        self.workdir.mkdir(parents=True, exist_ok=True)
+        self.world = world
+        self.deadline = time.monotonic() + timeout
+        self.timeout = timeout
+        self.ctx = mp.start_processes(_rank_main,
+                                      args=(world, str(self.workdir), cases),
+                                      nprocs=world, join=False,
+                                      start_method="spawn")
+
+    def join(self) -> dict:
+        """{name: rank 0's result}; a rank that raised fails here, and
+        ranks still running at the deadline are killed."""
+        try:
+            while not self.ctx.join(timeout=1):
+                if time.monotonic() > self.deadline:
+                    raise TimeoutError(f"{self.world} ranks did not finish "
+                                       f"in {self.timeout} s")
+        finally:
+            self.kill()
+        return pickle.loads((self.workdir / "rank0.pkl").read_bytes())
+
+    def kill(self) -> None:
+        for p in self.ctx.processes:
+            if p.is_alive():
+                p.kill()
+                p.join()
+
+
+def _rank_main(rank: int, world: int, workdir: str, cases: list):
+    torch.set_num_threads(1)
+    os.environ.pop("REPRO_TORCH_FORCE_TIER", None)
+    dist.init_process_group("gloo", init_method=f"file://{workdir}/store",
+                            world_size=world, rank=rank)
+    try:
+        out = {name: globals()[fn](payload) for name, fn, payload in cases}
+        (Path(workdir) / f"rank{rank}.pkl").write_bytes(pickle.dumps(out))
+    finally:
+        dist.destroy_process_group()
+
+
+def _mesh(shape):
+    from repro_torch.launch.mesh import make_debug_mesh
+    return make_debug_mesh(*shape, device="cpu", backend="gloo")
+
+
+def _np(t):
+    return t.detach().cpu().numpy()
+
+
+def _cut(x, dim, axes, mesh):
+    """This rank's slice of ``x`` along ``dim`` over ``axes``."""
+    n = mesh.axis_size(axes) if axes else 1
+    step = x.shape[dim] // n
+    return x.narrow(dim, mesh.axis_index(axes) * step, step) if axes else x
+
+
+# --- the sharded norm -------------------------------------------------------
+
+def norm_case(p):
+    """factored_norm_sharded with W and A cut along d_in over p["axes"]:
+    s != 0 and s = 0, with and without the summed base term, on the
+    kernel wrappers (their plain versions here) and the eager terms."""
+    from repro_torch.core import sharding as csh
+    from repro_torch.core.factored_norm import factored_norm_sharded
+
+    mesh = _mesh(p["shape"])
+    axes = p["axes"]
+    W, A, B = (torch.from_numpy(p[k].copy()) for k in ("W", "A", "B"))
+    Wl, Al = _cut(W, 1, axes, mesh), _cut(A, 1, axes, mesh)
+    base_sq = torch.from_numpy(p["base_sq"].copy())
+    out = {}
+    for kernels in (True, False):
+        for s in (p["s"], 0.0):
+            for cache in (None, base_sq):
+                csh.reset_collective_stats()
+                w = factored_norm_sharded(Wl, Al, B, s, axis_name=axes,
+                                          mesh=mesh, base_sq_cache=cache,
+                                          kernels=kernels)
+                key = (kernels, s != 0.0, cache is not None)
+                out[key] = (_np(w), csh.collective_stats().get(
+                    "norm", {"calls": 0, "bytes": 0}))
+    return out
+
+
+# --- the shard-local compose ------------------------------------------------
+
+def compose_case(p):
+    """fused_compose_mm under a 2-D plan (p["spec"] over [M, N]) on each
+    rank's tiles; delta and the gradients of (base, h, B, g) for dY,
+    gathered back to whole tensors."""
+    from repro_torch.core import sharding as csh
+    from repro_torch.kernels import ops
+
+    mesh = _mesh(p["shape"])
+    plan = csh.plan_for_output(mesh, p["spec"])
+    row_axes, dout_axes = plan.row_axes, plan.dout_axes
+    base, h, B, g, dy = (torch.from_numpy(p[k].copy())
+                         for k in ("base", "h", "B", "g", "dy"))
+
+    def tile(x):
+        return _cut(_cut(x, 0, row_axes, mesh), 1, dout_axes, mesh)
+
+    bl = tile(base).requires_grad_(True)
+    hl = _cut(h, 0, row_axes, mesh).requires_grad_(True)
+    Bl = _cut(B, 0, dout_axes, mesh).requires_grad_(True)
+    gl = _cut(g, 0, dout_axes, mesh).requires_grad_(True)
+    csh.reset_collective_stats()
+    delta = ops.fused_compose_mm(bl, hl, Bl, gl, p["s"], sharding=plan)
+    fwd_calls = sum(v["calls"] for v in csh.collective_stats().values())
+    delta.backward(tile(dy))
+
+    def whole(x, rows, cols):
+        if rows:
+            x = csh.all_gather(x.contiguous(), rows, mesh, 0)
+        if cols:
+            x = csh.all_gather(x.contiguous(), cols, mesh, 1)
+        return _np(x)
+
+    stats = csh.collective_stats()
+    return {"delta": whole(delta, row_axes, dout_axes),
+            "d_base": whole(bl.grad, row_axes, dout_axes),
+            "d_h": whole(hl.grad, row_axes, ()),
+            "d_B": whole(Bl.grad, dout_axes, ()),
+            "d_g": _np(csh.all_gather(gl.grad, dout_axes, mesh, 0)),
+            "fwd_collectives": fwd_calls, "collectives": stats}
+
+
+# --- the train and prefill steps ---------------------------------------------
+
+def _model(p):
+    from repro_torch.core.config import DoRAConfig
+    from repro_torch.models.config import ModelConfig
+
+    return (ModelConfig(**p["widths"], dtype=torch.float32),
+            DoRAConfig(**p["dora"]))
+
+
+def _shards(p, mesh, mcfg, dcfg):
+    from repro_torch.bridge import tree_from_numpy
+    from repro_torch.launch import sharding as S
+
+    params = S.shard_tree(tree_from_numpy(p["params"]),
+                          S.param_sharding(mcfg, mesh), mesh)
+    aspec = S.adapter_sharding(mcfg, dcfg, mesh)
+    adapters = S.shard_tree(tree_from_numpy(p["adapters"]), aspec, mesh)
+    return params, adapters, aspec
+
+
+@contextlib.contextmanager
+def _counting_plain_calls():
+    """{plain version: calls} while the block runs: the kernel wrappers
+    run their plain versions on CPU tensors, once a launch."""
+    from repro_torch.kernels import dora_compose, factored_norm, norm_assembly
+
+    calls: dict = {}
+    saved = []
+    for mod in (factored_norm, norm_assembly, dora_compose):
+        for name in dir(mod):
+            fn = getattr(mod, name)
+            if name.endswith("_plain") and not name.startswith("_"):
+                def counted(*a, _fn=fn, _name=name, **k):
+                    calls[_name] = calls.get(_name, 0) + 1
+                    return _fn(*a, **k)
+                saved.append((mod, name, fn))
+                setattr(mod, name, counted)
+    try:
+        yield calls
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def train_case(p):
+    """One make_grad_step on the mesh (loss, gradients gathered, the
+    collectives' bytes) and one make_train_step from the same shards
+    (loss, grad norm, lr)."""
+    from repro_torch.core import sharding as csh
+    from repro_torch.launch import sharding as S
+    from repro_torch.launch.steps import (StepConfig, make_grad_step,
+                                          make_train_step)
+    from repro_torch.optim import OptimizerConfig, adamw_init
+    from repro_torch.tree import flatten_paths
+
+    mesh = _mesh(p["shape"])
+    mcfg, dcfg = _model(p)
+    scfg = StepConfig(dora=dcfg, optim=OptimizerConfig(**p["optim"]),
+                      loss_tokens=p["loss_tokens"])
+    batch, seq = p["tokens"].shape
+    bspec = S.batch_spec(mesh, batch=batch)
+    bt = S.shard_tree({"tokens": torch.from_numpy(p["tokens"].copy()),
+                       "labels": torch.from_numpy(p["labels"].copy())},
+                      {"tokens": bspec, "labels": bspec}, mesh)
+    params, adapters, aspec = _shards(p, mesh, mcfg, dcfg)
+    csh.reset_collective_stats()
+    with _counting_plain_calls() as calls:
+        loss, grads = make_grad_step(mcfg, scfg, mesh, batch=batch,
+                                     seq=seq)(params, adapters, bt)
+    stats = csh.collective_stats()
+    full = S.unshard_tree(grads, aspec, mesh)
+    step = make_train_step(mcfg, scfg, mesh, batch=batch, seq=seq)
+    _, _, met = step(params, adapters, adamw_init(adapters), bt)
+    return {"loss": float(loss), "plain_calls": calls,
+            "grads": {k: _np(v) for k, v in flatten_paths(full).items()},
+            "collectives": stats, "step_loss": float(met["loss"]),
+            "grad_norm": float(met["grad_norm"]), "lr": met["lr"]}
+
+
+def prefill_case(p):
+    """make_prefill_step on the mesh: the last logits (gathered over the
+    vocab) and layer 0's cached K of this rank's heads and rows."""
+    from repro_torch.launch import sharding as S
+    from repro_torch.launch.steps import StepConfig, make_prefill_step
+
+    mesh = _mesh(p["shape"])
+    mcfg, dcfg = _model(p)
+    batch, seq = p["batch"], p["seq"]
+    bspec = S.batch_spec(mesh, batch=batch)
+    toks = S.shard_tree({"tokens": torch.from_numpy(p["tokens"].copy())},
+                        {"tokens": bspec}, mesh)
+    params, adapters, _ = _shards(p, mesh, mcfg, dcfg)
+    logits, cache = make_prefill_step(mcfg, StepConfig(dora=dcfg), mesh,
+                                      batch=batch, seq=seq)(
+        params, adapters, toks)
+    from repro_torch.core import sharding as csh
+    rows = csh._entry_axes(bspec[0])
+    return {"logits": _np(csh.all_gather(logits, rows, mesh, 0)),
+            "k0": _np(cache["stack"]["l0"]["k"]), "len": cache["len"],
+            "coords": dict(mesh.coords)}
+
+
+def roundtrip_case(p):
+    """shard_tree then unshard_tree gives back the tree, bit for bit."""
+    from repro_torch.bridge import tree_from_numpy
+    from repro_torch.launch import sharding as S
+    from repro_torch.tree import flatten_paths
+
+    mesh = _mesh(p["shape"])
+    mcfg, dcfg = _model(p)
+    full = tree_from_numpy(p["params"])
+    spec = S.param_sharding(mcfg, mesh)
+    back = S.unshard_tree(S.shard_tree(full, spec, mesh), spec, mesh)
+    return all(np.array_equal(_np(a), _np(b)) for a, b in zip(
+        flatten_paths(full).values(), flatten_paths(back).values()))
+
+
+def compression_case(p):
+    """cross_pod_sync on a (pod=2, data=2) mesh: each rank's toy gradient
+    of examples/grad_compression_dp.py from its quarter of x, synced fp32
+    over data and int8 with error feedback over pod, twice."""
+    from repro_torch.core import sharding as csh
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.optim import compression as C
+
+    mesh = make_mesh((2, 2), ("pod", "data"), device="cpu", backend="gloo")
+    x, w, t = (torch.from_numpy(p[k].copy()) for k in ("x", "w", "t"))
+    rows = x.shape[0] // mesh.size
+    r = mesh.axis_index(("pod", "data"))
+    g = {"g": x[r * rows:(r + 1) * rows].mean(dim=0) * (w - t)}
+    csh.reset_collective_stats()
+    synced, ef = C.cross_pod_sync(g, mesh)
+    stats = csh.collective_stats()
+    again, ef2 = C.cross_pod_sync(g, mesh, ef)
+    return {"synced": _np(synced["g"]), "ef": _np(ef["g"]),
+            "again": _np(again["g"]), "ef2": _np(ef2["g"]),
+            "stats": stats}
+
+
+def placements_case(p):
+    """The (host, card) pairs that ``make_mesh`` gathers under NCCL, here
+    over the gloo ranks: every rank naming card 0 (as ranks that never
+    called ``set_device`` would) is refused; one card a rank passes."""
+    from repro_torch.launch import mesh as M
+
+    shared = M._placements(torch.device("cuda", 0))
+    own = M._placements(torch.device("cuda", dist.get_rank()))
+    refused = None
+    try:
+        M.check_backend("nccl", torch.device("cuda", 0), shared)
+    except ValueError as e:
+        refused = str(e)
+    M.check_backend("nccl", torch.device("cuda", 0), own)
+    return {"shared": shared, "own": own, "refused": refused}
