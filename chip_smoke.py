@@ -239,21 +239,26 @@ odd ones), r=384 DoRA on the 30 modules a unit that the reference adapts:
       model): kernel vs eager route, trained and served, with the routing
       flips counted.
 
-Between the kernel phase and serving, the train step across a (data,
-model) mesh (see mesh_kernel_checks and mesh_checks), as ranks that
-share this card (``torch.multiprocessing`` spawn, gloo on ``cuda:0``,
-collectives built on ``all_reduce``); this measures no multi-card speed:
+Between the kernel phase and serving, the train step and single-tenant
+serving across a (data, model) mesh (see mesh_kernel_checks and
+mesh_checks), as ranks that share this card (``torch.multiprocessing``
+spawn, gloo on ``cuda:0``, collectives built on ``all_reduce``); this
+measures no multi-card speed:
 
   D1. K1's terms (no epilogue) and the standalone K2 on wo's and
-      w_down's d_in shards at model = 2, K6 and K7 at the column-parallel
-      local shapes [4096, 9472] and [4096, 1792]: each against its plain
-      version, the same bits twice, K6 on the tensor cores;
+      w_down's d_in shards at model = 2, K1 with its epilogue on wq's,
+      wk's and w_gate's local rows at model = 2 ([1792 | 256 | 9472,
+      3584]), K6 and K7 at the column-parallel local shapes [4096, 9472]
+      and [4096, 1792] and the row-parallel prefill rows [2048, 3584]:
+      each against its plain version, the same bits twice, K6 on the
+      tensor cores;
   D2. qwen2-7b at full width on its first AGREE_LAYERS = 4 layers, batch
       2 x 2048, loss on the last 1024, 3 AdamW steps in bf16 on the
       meshes (data 1, model 2), (2, 1) and (2, 2) (2, 2 and 4 ranks):
       per rank and step the launch counts of ``mesh_counts`` exactly (K1
       with its epilogue on the column-parallel modules, K1's terms and the
-      standalone K2 on wo and w_down), every K6 on the tensor cores, the
+      standalone K2 on wo and w_down at model = 2, with its epilogue on
+      every module at model = 1), every K6 on the tensor cores, the
       norm's sums 8 x (2 x 14,336 + 589,824) = 4,947,968 B at model = 2
       (printed beside the 322,961,408 B that gathering the other halves
       of wo and w_down would move), the same loss on every rank; printed:
@@ -261,7 +266,26 @@ collectives built on ``all_reduce``); this measures no multi-card speed:
   D3. the same meshes in fp32: the sharded step's loss within 1e-5
       relative and its gathered adapter gradients at cosine >= 0.99999 of
       the unsharded port's on the card, and each adapter leaf within 1e-4
-      of its max.
+      of its max;
+  D4. in the same ranks, ``generate(mesh=)`` of the same 4 layers, r =
+      384, on 4 x 960 prompts padded to 1024 plus 32 tokens (the mesh
+      precompute, the sequence-parallel padded prefill, the
+      tensor-parallel decode): per rank the launch counts of
+      ``mesh_serve_counts`` exactly (K1 = 28: with its epilogue on the 20
+      column-parallel modules, terms only and the standalone K2 on the 8
+      wo and w_down at model = 2, with its epilogue on all 28 at model =
+      1; K6 = 20 at model 2 and data 1, else 8), every K6 on
+      the tensor cores, each decode step's collective bytes by tag
+      exactly ``mesh_decode_bytes``, the whole token matrix on every
+      rank; the bf16 prefill logits within twice the unsharded bf16
+      route's own distance (1 - cosine) from the fp32 logits of the same
+      weights, both from the unsharded bf16 logits (each data replica's
+      rows served as their own batch) and from the fp32 logits (the
+      cosine against 0.9999 and the bf16 noise floor printed); in fp32
+      the gathered g and every step's logits within 1e-5 of max of the
+      unsharded port's, each step's top-2 gap at least 2e-5 of max
+      |logit| and the tokens equal; printed: precompute, prefill and
+      decode-step ms, peak memory by rank.
 
 With ``--kernel-phase-vs DIR`` it runs only the kernel phase, of the
 checkout at DIR (a ``git archive`` of another commit) and of this one, in
@@ -5218,6 +5242,19 @@ MESH_LABEL = "ranks sharing one card, collectives staged by gloo"
 # D3's bound on every adapter leaf's max |sharded - unsharded| / max
 # |unsharded| gradient, the CPU tests' tolerance against the reference.
 MESH_LEAF_REL_MAX = 1e-4
+# D4: the fp32 route's logits and gathered g within 1e-5 of max of the
+# unsharded port's (the CPU tests' tolerance against the reference), and
+# each greedy step's least top-1 - top-2 gap over max |logit| at least
+# twice that, so that equal tokens are a check and not luck.
+MESH_SERVE_TOL = 1e-5
+MESH_GAP_MIN = 2 * MESH_SERVE_TOL
+# D4's bf16 route: the unsharded bf16 prefill is itself about 1.4e-4 of
+# cosine from the fp32 logits of the same weights, and a change of
+# rounding alone (g scaled by 1 + 1e-7·N) moves it about 1e-4, so a
+# sharded bf16 run cannot be held at 1 - 1e-4 of the unsharded one. It
+# is held within MESH_BF16_FACTOR times the unsharded route's own
+# distance from the fp32 logits, both from them and from that route.
+MESH_BF16_FACTOR = 2.0
 
 
 class _DuckMesh:
@@ -5233,7 +5270,8 @@ def mesh_counts(mcfg, dcfg, shape, *, batch: int, seq: int) -> dict:
     from the port's dispatch plans at the shapes ``models/layers.py``
     gives each module: column-parallel modules (local d_out, all rows)
     take K1 with its epilogue; row-parallel ones K1's terms and the
-    standalone K2; a matmul-fused compose K6 twice (the layer and its
+    standalone K2 where ``model`` splits their d_in, else K1 with its
+    epilogue; a matmul-fused compose K6 twice (the layer and its
     recompute) and K7 once."""
     from repro_torch.core import dispatch
     from repro_torch.core.sharding import COLUMN_PARALLEL, P, plan_for_output
@@ -5252,7 +5290,7 @@ def mesh_counts(mcfg, dcfg, shape, *, batch: int, seq: int) -> dict:
         local = d_out // tp if is_col else d_out
         if dispatch.plan_norm(dcfg, d_out=local).fused:
             c["norm_terms"] += 1
-            if is_col:
+            if is_col or tp == 1:
                 c["assembled"] += 1
             else:
                 c["assemble_norm"] += 1
@@ -5268,6 +5306,67 @@ def mesh_counts(mcfg, dcfg, shape, *, batch: int, seq: int) -> dict:
     return {k: v * mcfg.num_layers for k, v in c.items()}
 
 
+def mesh_serve_counts(mcfg, dcfg, shape, *, batch: int, seq: int,
+                      decode_steps: int) -> dict:
+    """Launches a rank makes in one ``generate(mesh=)`` on a (data, model)
+    mesh, from the port's dispatch plans at the shapes ``models/layers.py``
+    gives each module: the precompute takes K1 with its epilogue on the
+    column-parallel modules' local rows and K1's terms and the standalone
+    K2 on wo and w_down (with its epilogue where ``model`` has one rank);
+    the padded prefill's compose runs under the
+    sequence-parallel plans and each decode step's under the decode plans
+    (``make_boundary_constraint(decode=True)``), K6 where matmul-fused,
+    K3 where element-wise."""
+    from repro_torch.core import dispatch
+    from repro_torch.core.sharding import COLUMN_PARALLEL
+    from repro_torch.launch.sharding import make_boundary_constraint
+
+    data, tp = shape
+    mesh = _DuckMesh(data, tp)
+    rows = batch // data
+    sp = make_boundary_constraint(mesh, batch=batch, seq=seq)
+    dec = make_boundary_constraint(mesh, batch=batch, seq=1, decode=True)
+    D, qd, kvd, ff = mcfg.d_model, mcfg.q_dim, mcfg.kv_dim, mcfg.d_ff
+    dims = {"wq": qd, "wk": kvd, "wv": kvd, "w_gate": ff, "w_up": ff,
+            "wo": D, "w_down": D}
+    c = counts_of()
+    for name, d_out in dims.items():
+        is_col = name in COLUMN_PARALLEL
+        if dispatch.plan_norm(dcfg, d_out=d_out // tp if is_col
+                              else d_out).fused:
+            c["norm_terms"] += 1
+            c["assembled" if is_col or tp == 1 else "assemble_norm"] += 1
+        for lay, m, times in ((sp, rows * seq, 1), (dec, rows, decode_steps)):
+            plan = dispatch.plan_compose(
+                dcfg, training=False, rows=m, d_out=d_out, rank=dcfg.rank,
+                sharding=lay.col_plan if is_col else lay.row_plan)
+            c["compose_mm_fwd"] += times * plan.matmul_fused
+            c["compose_fwd"] += times * (plan.fused and not plan.matmul_fused)
+    return {k: v * mcfg.num_layers for k, v in c.items()}
+
+
+def mesh_decode_bytes(mcfg, dcfg, shape, *, batch: int) -> dict:
+    """Bytes a rank's collectives move in one decode step, by tag (one
+    all-reduce of the tensor's bytes each): per layer y_base [B/data,
+    d_model] and h [B/data, r] of wo and w_down all-reduced in fp32, the
+    vocab-parallel embedding's rows, the head's local vocab columns
+    gathered over ``model`` and the last logits over ``data`` (these in
+    the model dtype); none over an axis of one rank."""
+    data, tp = shape
+    rows, esz = batch // data, torch.tensor([], dtype=mcfg.dtype
+                                            ).element_size()
+    out = {}
+    if tp > 1:
+        n = 2 * mcfg.num_layers
+        out["tp.y_base"] = n * rows * mcfg.d_model * 4
+        out["tp.h"] = n * rows * dcfg.rank * 4
+        out["tp.embed"] = rows * mcfg.d_model * esz
+        out["decode.logits"] = rows * mcfg.vocab_size * esz
+    if data > 1:
+        out["generate.logits"] = batch * mcfg.vocab_size * esz
+    return out
+
+
 def mesh_norm_bytes(mcfg, dcfg, tp: int) -> int:
     """Bytes a rank's norm sums move per step: base_sq and cross [d_model]
     and G [r, r], fp32, for each row-parallel module (none on one model
@@ -5280,9 +5379,11 @@ def mesh_norm_bytes(mcfg, dcfg, tp: int) -> int:
 
 def mesh_kernel_checks(dev, rows) -> dict:
     """D1: K1's terms (no epilogue) and the standalone K2 on wo's and
-    w_down's d_in shards at model = 2, K6 and K7 at the column-parallel
-    local shapes [4096, 9472] and [4096, 1792]; each against its plain
-    version within the tolerance it holds today, the same bits twice."""
+    w_down's d_in shards at model = 2, K1 with its epilogue on the
+    column-parallel modules' local rows at model = 2 (the mesh
+    precompute's), K6 and K7 at the column-parallel local shapes
+    [4096, 9472] and [4096, 1792]; each against its plain version within
+    the tolerance it holds today, the same bits twice."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import dora_compose as kc
     from repro_torch.kernels import factored_norm as kn
@@ -5335,9 +5436,58 @@ def mesh_kernel_checks(dev, rows) -> dict:
                    deterministic=bool(same2))
         check(same2, f"assemble_norm {name}: not the same bits twice")
         out[name] = {"k1_err": max(e1, e2), "k2_err": e}
+    for name, d_out in (("wq", qd // 2), ("wk", mcfg.kv_dim // 2),
+                        ("w_gate", ff // 2)):
+        W = randn(d_out, D, scale=D ** -0.5)
+        A = randn(RANK, D, scale=D ** -0.5)
+        B = randn(d_out, RANK, scale=0.02)
+        ep = check_epilogue(W, A, B, s, f"{name} local rows [{d_out}, {D}]")
+        A32 = A.float()
+        BG = B.float() @ (A32 @ A32.T)
+        asm = kn.Assembly(BG, s)
+        w = kn.norm_terms(W, A, B, asm)
+        ref = ka.assemble_norm_plain(*kn.norm_terms_plain(W, A, B),
+                                     (BG * B.float()).sum(dim=1), s)
+        e, mx = max_err(w, ref)
+        nbytes = (d_out * D + RANK * D + d_out * RANK) * esz \
+            + d_out * RANK * 4 + d_out * 4
+        ops_s = (2 * d_out * D * RANK) / PEAK_OPS[bf] \
+            + (2 * d_out * D + 4 * d_out * RANK) / F32_OPS
+        record_row(rows, "norm_terms", [d_out, D, RANK], e, mx, 1e-6,
+                   time_ms(lambda: kn.norm_terms(W, A, B, asm)),
+                   time_ms(lambda: ka.assemble_norm_plain(
+                       *kn.norm_terms_plain(W, A, B),
+                       (BG * B.float()).sum(dim=1), s)),
+                   nbytes, ops_s, time_ms(lambda: W @ A.T), "W @ A.T",
+                   mesh_shard=f"{name} local rows at model=2 (with its "
+                              f"epilogue)",
+                   with_epilogue=True, epilogue=ep,
+                   deterministic=ep["deterministic"])
+        out[f"{name}_epilogue"] = {"w_norm_err": e}
     mm = kc.compose_mm_fwd
-    for m, n in ((TRAIN_BATCH * TRAIN_SEQ, ff // 2),
-                 (TRAIN_BATCH * TRAIN_SEQ, qd // 2)):
+    # The row-parallel partial product in fp32 (core/sharding.py
+    # partial_product) against the bf16 product, at w_down's shard.
+    from repro_torch.core.sharding import partial_product
+    xp = randn(BATCH * MAX_LEN, ff // 2)
+    wp = randn(D, ff // 2, scale=(2 * ff) ** -0.5)
+    yp = partial_product(xp, wp)
+    e, mx = max_err(yp, xp.float() @ wp.float().T)
+    out["partial_product"] = {
+        "shape": [BATCH * MAX_LEN, ff // 2, D],
+        "ms": time_ms(lambda: partial_product(xp, wp)),
+        "bf16_product_ms": time_ms(lambda: xp @ wp.T),
+        "fp32_product_ms": time_ms(lambda: xp.float() @ wp.float().T),
+        "max_rel_to_fp32": e / mx}
+    print("  partial_product (fp32 sums) at w_down's shard: "
+          + json.dumps(out["partial_product"]), flush=True)
+    check(yp.dtype == torch.float32 and e <= 1e-4 * mx,
+          f"partial_product: {out['partial_product']}")
+    del xp, wp, yp
+    col = "column-parallel local tile at model=2"
+    for m, n, where in ((TRAIN_BATCH * TRAIN_SEQ, ff // 2, col),
+                        (TRAIN_BATCH * TRAIN_SEQ, qd // 2, col),
+                        (BATCH * MAX_LEN // 2, D,
+                         "row-parallel prefill rows at model=2")):
         base = randn(m, n)
         h = randn(m, RANK, scale=0.5)
         B = randn(n, RANK, scale=0.02)
@@ -5356,8 +5506,7 @@ def mesh_kernel_checks(dev, rows) -> dict:
                    2 * m * n * esz + (m + n) * RANK * esz + n * 4,
                    2 * m * n * RANK / PEAK_OPS[bf] + 5 * m * n / F32_OPS,
                    time_ms(lambda: h @ B.T), "h @ B.T",
-                   mesh_shard="column-parallel local tile at model=2",
-                   deterministic=bool(same))
+                   mesh_shard=where, deterministic=bool(same))
         check(same, f"compose_mm_fwd [{m}, {n}]: not the same bits twice")
         dy = randn(m, n)
         d_base, d_h = kc.compose_mm_bwd(dy, B, gm1, gs)
@@ -5375,7 +5524,7 @@ def mesh_kernel_checks(dev, rows) -> dict:
                    + 2 * n * 4,
                    2 * 2 * m * n * RANK / PEAK_OPS[bf] + 3 * m * n / F32_OPS,
                    time_ms(lambda: dys @ B), "(dY*gs) @ B, bf16 product only",
-                   mesh_shard="column-parallel local tile at model=2",
+                   mesh_shard=where,
                    d_base_bitwise_equal_plain=True, deterministic=bool(same))
         out[f"mm_{n}"] = {"k6_err": e, "k7_err": e2}
     return out
@@ -5405,11 +5554,11 @@ def _mesh_state(mcfg, dcfg, mesh, dev, seed: int):
 
 def _mesh_rank(rank: int, world: int, shape, store: str, out_dir: str,
                run: dict):
-    """One rank of a D2/D3 run: its process group (gloo, file store), the
+    """One rank of a D2-D4 run: its process group (gloo, file store), the
     mesh on ``run["device"]``, ``run["steps"]`` bf16 train steps of
     ``run["mcfg"]`` with their launch counts, collective bytes, ms and
     peak; then the fp32 route's loss and gathered gradients, held by rank
-    0 against the unsharded port."""
+    0 against the unsharded port; then D4's serving (:func:`_mesh_serve`)."""
     import dataclasses
     import torch.distributed as dist
 
@@ -5511,14 +5660,155 @@ def _mesh_rank(rank: int, world: int, shape, store: str, out_dir: str,
                                           / vb.abs().max()),
                     "grad_leaf_max_rel": leaf_rel[worst],
                     "grad_leaf_worst": worst, "grad_leaves": len(leaf_rel)}
-            del p, a, g_u
+            del p, a, g_u, gs, gu, va, vb
+        del g_full, full_b
+        dist.barrier()
+        # D4: single-tenant serving across the same mesh.
+        serve = _mesh_serve(rank, mesh, run, dev)
         dist.barrier()
         rec = {"rank": rank, "coords": mesh.coords, "steps": steps,
                "peak_bytes": peak, "local_state_bytes": local_bytes,
-               "fp32": fp32}
+               "fp32": fp32, "serve": serve}
         Path(out_dir, f"rank{rank}.json").write_text(json.dumps(rec))
     finally:
         dist.destroy_process_group()
+
+
+def _mesh_serve(rank: int, mesh, run: dict, dev) -> dict:
+    """D4 on one rank: ``generate(mesh=)`` of ``run["mcfg"]`` in bf16 on
+    BATCH x PROMPT prompts padded to MAX_LEN plus GEN tokens (precompute
+    on the mesh, sequence-parallel prefill, tensor-parallel decode) with
+    its launch counts, K6's tensor-core launches, collective bytes by
+    tag, phase times and peak; then the fp32 route: the mesh precompute's
+    g gathered and the mesh generate's tokens and logits. Rank 0 holds
+    both against the unsharded port on the whole trees (bf16: the prefill
+    logits' cosine, each data replica's rows served as their own batch,
+    and both routes' cosine to the fp32 logits of the same weights;
+    fp32: g, every step's logits and top-2 gap, the tokens)."""
+    import dataclasses
+
+    from repro_torch import kernels
+    from repro_torch.core import sharding as csh
+    from repro_torch.core.config import DoRAConfig
+    from repro_torch.launch import serve as SV
+    from repro_torch.launch import sharding as S
+    from repro_torch.launch.steps import StepConfig, make_precompute_step
+    from repro_torch.tree import flatten_paths
+
+    t0 = time.perf_counter()
+    on_card = dev.type == "cuda"
+    mcfg = run["mcfg"]
+    dcfg = DoRAConfig(rank=run["rank"], alpha=run["alpha"], mode=run["mode"])
+    scfg = StepConfig(dora=dcfg)
+    prompts = np.random.default_rng(SEED + 21).integers(
+        0, mcfg.vocab_size, (run["serve_batch"], run["prompt"]))
+    kw = dict(gen_len=run["gen"], max_len=run["max_len"])
+    params, adapters, _ = _mesh_state(mcfg, dcfg, mesh, dev, SEED + 5)
+    if on_card:
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    mm = kernels.KERNELS["compose_mm_fwd"]
+    kernels.reset_launch_counts()
+    csh.reset_collective_stats()
+    mma0 = mm.mma_launches
+    stats: dict = {}
+    toks, logits = SV.generate(mcfg, params, adapters, scfg, prompts,
+                               mesh=mesh, stats=stats, return_logits=True,
+                               **kw)
+    counts = launch_counts()
+    k6_mma = mm.mma_launches - mma0
+    coll = csh.collective_stats()
+    peak = torch.cuda.max_memory_allocated(dev) if on_card else None
+    first = logits[0].float()
+    del params, adapters, logits
+    rec = {"launches": counts, "k6_mma": k6_mma, "collectives": coll,
+           "precompute_ms": stats["precompute_s"] * 1e3,
+           "prefill_ms": stats["prefill_s"] * 1e3,
+           "decode_ms_per_step": stats["decode_s"] * 1e3 / run["gen"],
+           "peak_bytes": peak, "tokens_shape": list(toks.shape),
+           "tokens_finite": bool(((toks >= 0)
+                                  & (toks < mcfg.vocab_size)).all())}
+    if rank == 0:
+        # Each data replica serves its rows as one card serves that
+        # batch (the compose route reads the rows of the call), so the
+        # unsharded reference runs each replica's rows as its own batch.
+        p, a, _ = _mesh_state(mcfg, dcfg, None, dev, SEED + 5)
+        data = dict(mesh.shape)["data"]
+        per = len(prompts) // data if len(prompts) % data == 0 else None
+        parts = [prompts] if per is None else [
+            prompts[i * per:(i + 1) * per] for i in range(data)]
+        lu = torch.cat([SV.generate(mcfg, p, a, scfg, part, gen_len=1,
+                                    max_len=run["max_len"], device=dev,
+                                    return_logits=True)[1][0].float()
+                        for part in parts])
+        rec["bf16_prefill_cosine"] = cosine(first, lu)
+        # The bf16 route's noise floor: the same unsharded prefill with
+        # every g scaled by 1 + 1e-7·N(0, 1), a change of rounding alone.
+        state = make_precompute_step(mcfg, scfg)(p, a)
+        gen = torch.Generator(device=dev).manual_seed(SEED + 22)
+        for leaf in _adapter_leaves(state):
+            leaf["g"] = leaf["g"] * (1.0 + 1e-7 * torch.randn(
+                leaf["g"].shape, generator=gen, device=dev))
+        lz = torch.cat([SV.generate(mcfg, p, state, scfg, part, gen_len=1,
+                                    max_len=run["max_len"], device=dev,
+                                    cache_adapters=False,
+                                    return_logits=True)[1][0].float()
+                        for part in parts])
+        rec["bf16_noise_floor_cosine"] = cosine(lu, lz)
+        del state, lz
+        # Where the bf16 route itself stands: the unsharded port's fp32
+        # logits on the same weights (recorded, not gated).
+        m32 = dataclasses.replace(mcfg, dtype=torch.float32)
+        up = _tree_map(lambda t: t.float(), p)
+        ua = _tree_map(lambda t: t.float(), a)
+        del p, a
+        l32 = SV.generate(m32, up, ua, scfg, prompts, gen_len=1,
+                          max_len=run["max_len"], device=dev,
+                          return_logits=True)[1][0].float()
+        rec["bf16_vs_fp32_cosine"] = {"mesh": cosine(first, l32),
+                                      "unsharded": cosine(lu, l32)}
+        del up, ua, lu, l32
+    if on_card:
+        torch.cuda.empty_cache()
+
+    m32 = dataclasses.replace(mcfg, dtype=torch.float32)
+    p32, a32, _ = _mesh_state(m32, dcfg, mesh, dev, SEED + 6)
+    state = make_precompute_step(m32, scfg, mesh)(p32, a32)
+    serving = flatten_paths(S.adapter_sharding(m32, dcfg, mesh,
+                                               serving=True))
+    g_mesh = {k: S.unshard_tree({"x": v}, {"x": serving[k]}, mesh)["x"]
+              for k, v in flatten_paths(state).items()
+              if k.endswith("/g")}
+    t32, l32 = SV.generate(m32, p32, state, scfg, prompts, mesh=mesh,
+                           cache_adapters=False, return_logits=True, **kw)
+    del p32, a32, state
+    if on_card:
+        torch.cuda.empty_cache()
+    if rank == 0:
+        p, a, _ = _mesh_state(m32, dcfg, None, dev, SEED + 6)
+        su = make_precompute_step(m32, scfg)(p, a)
+        tu, lu = SV.generate(m32, p, su, scfg, prompts, device=dev,
+                             cache_adapters=False, return_logits=True, **kw)
+        gu = {k: v for k, v in flatten_paths(su).items() if k.endswith("/g")}
+        g_rel = {k: _leaf_max_rel(g_mesh[k], gu[k]) for k in sorted(gu)}
+        gaps = []
+        for w in lu:
+            top2 = w.float().topk(2, dim=-1).values
+            gaps.append(float((top2[:, 0] - top2[:, 1]).min()
+                              / w.abs().max()))
+        rec["fp32"] = {
+            "g_max_rel": max(g_rel.values()),
+            "g_leaves": len(g_rel),
+            "logit_max_rel": max(_leaf_max_rel(x, w)
+                                 for x, w in zip(l32, lu)),
+            "least_top2_gap": min(gaps),
+            "tokens_equal": bool(torch.equal(t32, tu)),
+            "generated": int(t32.shape[1] - run["prompt"])}
+        del p, a, su, lu
+    if on_card:
+        torch.cuda.empty_cache()
+    rec["seconds"] = time.perf_counter() - t0
+    return rec
 
 
 def _leaf_max_rel(got, want) -> float:
@@ -5562,14 +5852,22 @@ def _spawn_ranks(shape, out_dir: Path, run: dict) -> list:
 
 
 def mesh_checks(dev, mcfg=None) -> dict:
-    """D2 and D3 on each mesh of MESH_SHAPES: qwen2-7b at full width on
-    its first AGREE_LAYERS layers, r = 384, ranks on this card under
-    gloo. Held per rank and step: the launch counts of ``mesh_counts``
-    exactly, every K6 on the tensor cores, the norm's collective bytes
+    """D2-D4 on each mesh of MESH_SHAPES: qwen2-7b at full width on its
+    first AGREE_LAYERS layers, r = 384, ranks on this card under gloo.
+    Held per rank and step: the launch counts of ``mesh_counts`` exactly,
+    every K6 on the tensor cores, the norm's collective bytes
     (``mesh_norm_bytes``), a finite loss the same on every rank; the fp32
     route's loss within 1e-5 relative and its gathered adapter gradient
     at cosine >= GRAD_COSINE_MIN of the unsharded port's, each leaf within
-    MESH_LEAF_REL_MAX of its max."""
+    MESH_LEAF_REL_MAX of its max. D4, per rank: ``generate(mesh=)``'s
+    launches exactly ``mesh_serve_counts``, every K6 on the tensor cores,
+    each decode step's collective bytes by tag exactly
+    ``mesh_decode_bytes``, the whole token matrix on every rank; the bf16
+    prefill logits within MESH_BF16_FACTOR times the unsharded bf16
+    route's own distance from the fp32 logits; the fp32 route's gathered
+    g and logits within MESH_SERVE_TOL of max, every
+    step's top-2 gap at least MESH_GAP_MIN, and its tokens equal to the
+    unsharded port's."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -5587,7 +5885,9 @@ def mesh_checks(dev, mcfg=None) -> dict:
     dcfg = DoRAConfig(rank=RANK, alpha=ALPHA, mode=mode)
     run = {"device": str(dev), "mcfg": mcfg, "rank": RANK, "alpha": ALPHA,
            "mode": mode, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
-           "loss_tokens": LOSS_TOKENS, "steps": TRAIN_STEPS}
+           "loss_tokens": LOSS_TOKENS, "steps": TRAIN_STEPS,
+           "serve_batch": BATCH, "prompt": PROMPT, "gen": GEN,
+           "max_len": MAX_LEN}
     D = mcfg.d_model
     gathered = 2 * mcfg.num_layers * (D * mcfg.q_dim // 2
                                       + D * mcfg.d_ff // 2)
@@ -5630,6 +5930,7 @@ def mesh_checks(dev, mcfg=None) -> dict:
               and fp32["grad_cosine"] >= GRAD_COSINE_MIN
               and fp32["grad_leaf_max_rel"] <= MESH_LEAF_REL_MAX,
               f"mesh {shape} fp32 route: {fp32}")
+        serve = mesh_serve_record(mcfg, dcfg, shape, recs)
         warm = [st["ms"] for st in recs[0]["steps"][1:]]
         rec = {"ranks": len(recs), "launches_per_step": want,
                "norm_bytes_per_step": norm_bytes,
@@ -5643,7 +5944,8 @@ def mesh_checks(dev, mcfg=None) -> dict:
                "losses": recs[0]["steps"] and [st["loss"] for st in
                                                 recs[0]["steps"]],
                "collectives_step": recs[0]["steps"][-1]["collectives"],
-               "fp32": fp32, "seconds": time.perf_counter() - t0}
+               "fp32": fp32, "serve": serve,
+               "seconds": time.perf_counter() - t0}
         out[f"{shape[0]}x{shape[1]}"] = rec
         print(f"mesh (data {shape[0]}, model {shape[1]}) [{MESH_LABEL}]: "
               f"launches a step {want}; norm sums {norm_bytes:,} B a step "
@@ -5655,7 +5957,72 @@ def mesh_checks(dev, mcfg=None) -> dict:
               f"{rec['seconds']:.1f} s", flush=True)
         print(f"  collectives of rank 0's last step: "
               + json.dumps(rec["collectives_step"]), flush=True)
+        print(f"  D4 serving (data {shape[0]}, model {shape[1]}) "
+              f"[{MESH_LABEL}]: " + json.dumps(
+                  {k: v for k, v in serve.items()
+                   if k not in ("launches_per_rank",)}), flush=True)
     return out
+
+
+def mesh_serve_record(mcfg, dcfg, shape, recs) -> dict:
+    """D4's checks over one mesh's rank records (``_mesh_serve``) and the
+    numbers kept of them."""
+    want = mesh_serve_counts(mcfg, dcfg, shape, batch=BATCH, seq=MAX_LEN,
+                             decode_steps=GEN)
+    want_bytes = mesh_decode_bytes(mcfg, dcfg, shape, batch=BATCH)
+    per_step = []
+    for r in recs:
+        sv = r["serve"]
+        check(sv["launches"] == want,
+              f"D4 mesh {shape} rank {r['rank']}: launches "
+              f"{sv['launches']} != {want}")
+        check(sv["k6_mma"] == sv["launches"]["compose_mm_fwd"],
+              f"D4 mesh {shape} rank {r['rank']}: {sv['k6_mma']} of "
+              f"{sv['launches']['compose_mm_fwd']} K6 launches on the "
+              f"tensor cores")
+        coll = sv["collectives"]
+        got = {t: coll[t]["bytes"] // (GEN + 1 if t == "generate.logits"
+                                       else GEN)
+               for t in coll if t.startswith(("tp.", "decode.",
+                                              "generate."))}
+        check(got == want_bytes,
+              f"D4 mesh {shape} rank {r['rank']}: decode bytes a step "
+              f"{got} != {want_bytes}")
+        check(sv["tokens_shape"] == [BATCH, PROMPT + GEN]
+              and sv["tokens_finite"],
+              f"D4 mesh {shape} rank {r['rank']}: tokens {sv}")
+        per_step.append(got)
+    r0 = recs[0]["serve"]
+    fp32 = r0["fp32"]
+    check(fp32["g_max_rel"] <= MESH_SERVE_TOL
+          and fp32["logit_max_rel"] <= MESH_SERVE_TOL
+          and fp32["least_top2_gap"] >= MESH_GAP_MIN
+          and fp32["tokens_equal"] and fp32["generated"] == GEN,
+          f"D4 mesh {shape} fp32 route: {fp32}")
+    own = 1 - r0["bf16_vs_fp32_cosine"]["unsharded"]
+    check(1 - r0["bf16_prefill_cosine"] <= MESH_BF16_FACTOR * own
+          and 1 - r0["bf16_vs_fp32_cosine"]["mesh"]
+          <= MESH_BF16_FACTOR * own + 1e-9,
+          f"D4 mesh {shape}: bf16 prefill logit cosine "
+          f"{r0['bf16_prefill_cosine']} to the unsharded port, "
+          f"{r0['bf16_vs_fp32_cosine']} to the fp32 logits: further than "
+          f"{MESH_BF16_FACTOR} x the unsharded route's {own:.3g}")
+    return {"launches_per_rank": want,
+            "decode_bytes_per_step_per_rank": want_bytes,
+            "precompute_ms_by_rank": [r["serve"]["precompute_ms"]
+                                      for r in recs],
+            "prefill_ms_by_rank": [r["serve"]["prefill_ms"] for r in recs],
+            "decode_ms_per_step_by_rank": [
+                r["serve"]["decode_ms_per_step"] for r in recs],
+            "peak_bytes_by_rank": [r["serve"]["peak_bytes"] for r in recs],
+            "seconds_by_rank": [r["serve"]["seconds"] for r in recs],
+            "collectives_rank0": r0["collectives"],
+            "bf16_prefill_cosine": r0["bf16_prefill_cosine"],
+            "bf16_prefill_cosine_at_least_0.9999":
+                r0["bf16_prefill_cosine"] >= COSINE_MIN,
+            "bf16_vs_fp32_cosine": r0["bf16_vs_fp32_cosine"],
+            "bf16_noise_floor_cosine": r0["bf16_noise_floor_cosine"],
+            "fp32": fp32}
 
 
 def main() -> int:
@@ -5721,7 +6088,7 @@ def main() -> int:
     small_parity(dev)
     t0 = time.perf_counter()
     mesh = mesh_checks(dev)
-    print(f"mesh phases D2-D3: {time.perf_counter() - t0:.1f} s",
+    print(f"mesh phases D2-D4: {time.perf_counter() - t0:.1f} s",
           flush=True)
     t0 = time.perf_counter()
     served, mcfg, params, adapters = serve_checks(dev)
@@ -5807,6 +6174,8 @@ def main() -> int:
                "serve_jamba": jamba["serve"]["launches"],
                "train_jamba": jamba["train"]["launches"],
                **{f"train_mesh_{k}_per_step_per_rank": r["launches_per_step"]
+                  for k, r in mesh.items() if isinstance(r, dict)},
+               **{f"serve_mesh_{k}_per_rank": r["serve"]["launches_per_rank"]
                   for k, r in mesh.items() if isinstance(r, dict)}}
     record = []
     for name, (src, replaces) in SOURCES.items():
@@ -5884,6 +6253,8 @@ def main() -> int:
                           "ranks", "launches_per_step",
                           "norm_bytes_per_step", "gather_bytes_instead",
                           "step_ms_by_rank", "peak_bytes_by_rank", "fp32")}
+                          | {"serve": {f: v for f, v in r["serve"].items()
+                                       if f != "collectives_rank0"}}
                           if isinstance(r, dict) else r)
                           for k, r in mesh.items()},
                       "serve": {k: served[k] for k in

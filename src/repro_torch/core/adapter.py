@@ -27,7 +27,9 @@ Under a mesh (``constrain``: a ``core/sharding.py`` plan, or an object
 carrying one as ``.plan``) the tensors are each rank's shards: the
 compose runs shard-local with the plan's collectives, and with
 ``axis_name`` the norm's partials are summed over that axis
-(:func:`~repro_torch.core.factored_norm.factored_norm_sharded`).
+(:func:`~repro_torch.core.factored_norm.factored_norm_sharded`). The
+serving state is precomputed on the same shards
+(:func:`precompute_adapter_state` with ``sp``).
 """
 from __future__ import annotations
 
@@ -197,19 +199,20 @@ def dora_linear(x, W, adapter: dict[str, Any], cfg: DoRAConfig, *,
     carrying one as ``.plan``); x, W and the adapter are then this rank's
     shards and the compose runs under it. ``axis_name``: W and A are
     split along d_in over that axis of the plan's mesh, and the norm's
-    partials are summed over it. Serving state and tenant groups are not
-    taken under a plan yet (ROADMAP queue 1 item 6, second half).
+    partials are summed over it. The serving state ("g", "gsB") is taken
+    under a plan as this rank's shards (:func:`precompute_adapter_state`
+    with ``sp``); tenant groups are not (ROADMAP queue 1 item 6, second
+    half).
 
     ``tenant_groups``: multi-tenant serving, a tuple of ``(start, size)``
     row blocks or an int [B] tensor of per-row tenant positions, over an
     adapter tree whose leaves carry a leading tenant dim K (see
     :func:`dora_linear_grouped`)."""
     plan_sh = _sh.as_compose_sharding(constrain)
-    if plan_sh is not None and (tenant_groups is not None
-                                or "gsB" in adapter):
+    if plan_sh is not None and tenant_groups is not None:
         raise NotImplementedError(
-            "serving under a mesh (folded gsB state, tenant groups) is "
-            "ROADMAP queue 1 item 6, second half")
+            "tenant groups under a mesh are ROADMAP queue 1 item 6, second "
+            "half")
     if axis_name is not None and plan_sh is None:
         raise ValueError("dora_linear(axis_name=...) needs a mesh plan "
                          "(constrain=) to name the mesh")
@@ -272,25 +275,25 @@ def _adapted_output(y_base, h, W, adapter, cfg: DoRAConfig, *, dtype,
 def dora_linear_row_parallel(x, W, adapter: dict[str, Any] | None,
                              cfg: DoRAConfig | None, *, sp, bias=None,
                              training: bool = True):
-    """A row-parallel adapted linear under the sequence-parallel layout
-    ``sp`` (``core/sharding.py SequenceParallel``): x [B, S, d_in_l] holds
-    this rank's d_in columns on every row, W [d_out, d_in_l] and A
-    [r, d_in_l] its d_in shards, B, m and the bias whole.
+    """A row-parallel adapted linear under the mesh layout ``sp``
+    (``core/sharding.py SequenceParallel``): x [B, S, d_in_l] holds this
+    rank's d_in columns on every row, W [d_out, d_in_l] and A [r, d_in_l]
+    its d_in shards, B, m, the bias and the serving state (g, gsB) whole.
 
-    The partial y_base = x·Wᵀ and the rank-space h = x·Aᵀ are
-    reduce-scattered to the sequence split ([B, S/tp, ...]); the norm's
-    partials are summed over ``sp.axis``; the compose then runs on the
-    full d_out under ``sp.row_plan`` (rows split: T and d_g summed over
-    the axis in the backward). Returns y [B, S/tp, d_out]."""
-    y_base = sp.scatter(x @ W.detach().T, tag="sp.y_base")
+    The partial y_base = x·Wᵀ and the rank-space h = x·Aᵀ, in fp32
+    (``sp.partial``) when ``sp.axis`` splits d_in, are reduce-scattered
+    to the sequence split ([B, S/tp, ...]), or, with no split (decode),
+    all-reduced, then rounded to x's dtype; the norm's partials are
+    summed over ``sp.axis`` unless the serving state's g is given; the
+    compose then runs on the full d_out under ``sp.row_plan`` (rows
+    split: T and d_g summed over the axis in the backward). Returns y
+    [B, S/tp, d_out], or [B, S, d_out] with no split."""
+    _check_serving_state(adapter, sp)
+    y_base = sp.scatter(sp.partial(x, W.detach()), tag="y_base").to(x.dtype)
     if adapter is None:
         return y_base if bias is None else y_base + bias
-    if "g" in adapter or "gsB" in adapter:
-        raise NotImplementedError(
-            "serving state under a mesh is ROADMAP queue 1 item 6, second "
-            "half")
     plan = sp.row_plan
-    h = sp.scatter(x @ adapter["A"].T, tag="sp.h")
+    h = sp.scatter(sp.partial(x, adapter["A"]), tag="h").to(x.dtype)
     return _adapted_output(plan(y_base), plan.constrain_h(h), W, adapter,
                            cfg, dtype=x.dtype, training=training, bias=bias,
                            axis_name=sp.axis, sharding=plan)
@@ -300,22 +303,33 @@ def dora_linear_column_parallel(x, W, adapter: dict[str, Any] | None,
                                 cfg: DoRAConfig | None, *, sp, bias=None,
                                 training: bool = True):
     """A column-parallel adapted linear under ``sp``: x [B, S, d_in] the
-    gathered rows, W [d_out_l, d_in], B [d_out_l, r], m and the bias this
-    rank's d_out shards, A whole. The norm is local (W's rows are); the
-    compose runs under ``sp.col_plan``, which leaves d_h's partial to the
-    gather's backward, so A's gradient is summed over ``sp.axis``."""
+    gathered (or, with no split, whole) rows, W [d_out_l, d_in], B and
+    gsB [d_out_l, r], m, g and the bias this rank's d_out shards, A
+    whole. The norm is local (W's rows are), or the serving state's g is
+    given; the compose runs under ``sp.col_plan``, which leaves d_h's
+    partial to the gather's backward, so A's gradient is summed over
+    ``sp.axis``."""
+    _check_serving_state(adapter, sp)
     if adapter is None:
         y = x @ W.detach().T
         return y if bias is None else y + bias
-    if "g" in adapter or "gsB" in adapter:
-        raise NotImplementedError(
-            "serving state under a mesh is ROADMAP queue 1 item 6, second "
-            "half")
     A = adapter["A"]
     if A.requires_grad:
         adapter = {**adapter, "A": sp.reduce_grad(A)}
     return dora_linear(x, W, adapter, cfg, bias=bias, training=training,
                        constrain=sp.col_plan)
+
+
+def _check_serving_state(adapter, sp) -> None:
+    """The decode layout (``sp.seq_split`` False) expects the serving
+    state: a raw leaf would redo its norm, and its sums over the model
+    axis, on every token."""
+    if adapter is not None and not sp.seq_split and "g" not in adapter:
+        raise ValueError(
+            "the decode step under a mesh takes the serving state: an "
+            "adapter leaf without 'g' reached it; precompute it with "
+            "make_precompute_step(mcfg, scfg, mesh) (generate and "
+            "AdapterStateCache.for_serving(mesh=) do)")
 
 
 def dora_linear_stacked(x, W, adapter: dict[str, Any], cfg: DoRAConfig, *,
@@ -469,35 +483,47 @@ def _is_adapter_leaf(node) -> bool:
 
 @torch.no_grad()
 def precompute_adapter_state(params, adapters, cfg: DoRAConfig, *,
-                             act_dtype=None, fold_gsb: bool = False):
+                             act_dtype=None, fold_gsb: bool = False,
+                             sp=None):
     """A NEW adapter tree whose leaves also carry ``"g"`` (fp32 [d_out],
     with the eps of ``act_dtype``) and, with ``fold_gsb``, ``"gsB"``
     (fp32 [d_out, r], g·s folded into B). Stacked leaves ([n_scan, ...])
     are handled slice by slice. Serving only: any update to A/B/m makes
-    the state stale."""
+    the state stale.
+
+    ``sp``: the mesh layout (``core/sharding.py SequenceParallel``);
+    params and adapters are this rank's shards. A module whose W is split
+    along d_in (``sp.norm_axis(name)``: wo, w_down) sums its norm's
+    partials over that axis (K1's terms, three sums, the standalone K2 on
+    the kernel route); a column-parallel one takes its local rows' norm
+    (K1 with its epilogue), with no collective. g lands laid out like m
+    and gsB like B (``launch/sharding.py adapter_sharding(serving=
+    True)``)."""
     eps = _norm.dtype_eps(act_dtype if act_dtype is not None else _F32)
 
-    def leaf_g(W, ad):
+    def leaf_g(W, ad, axis):
         if W.ndim > 2:
             return torch.stack([
-                leaf_g(W[i], {k: v[i] for k, v in ad.items()})
+                leaf_g(W[i], {k: v[i] for k, v in ad.items()}, axis)
                 for i in range(W.shape[0])])
-        w_norm = compute_weight_norm(W, ad["A"], ad["B"], cfg,
-                                     base_sq_cache=ad.get("base_sq"))
+        w_norm = compute_weight_norm(
+            W, ad["A"], ad["B"], cfg, axis_name=axis,
+            mesh=None if axis is None else sp.mesh,
+            base_sq_cache=ad.get("base_sq"))
         return _compose.magnitude_scale(ad["m"], w_norm, eps)
 
-    def leaf_state(W, ad):
+    def leaf_state(W, ad, name):
         out = {k: v for k, v in ad.items() if k not in ("g", "gsB")}
-        out["g"] = leaf_g(W, out)
+        out["g"] = leaf_g(W, out, None if sp is None else sp.norm_axis(name))
         if fold_gsb:
             gs = out["g"] * _compose.f32(cfg.scaling)
             out["gsB"] = gs[..., :, None] * ad["B"].to(_F32)
         return out
 
-    def walk(p_node, a_node):
+    def walk(p_node, a_node, name=None):
         if _is_adapter_leaf(a_node):
-            return leaf_state(p_node, a_node)
-        return {k: walk(p_node[k], v) for k, v in a_node.items()}
+            return leaf_state(p_node, a_node, name)
+        return {k: walk(p_node[k], v, k) for k, v in a_node.items()}
 
     return walk(params, adapters)
 

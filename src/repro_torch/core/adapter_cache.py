@@ -14,9 +14,8 @@ Why those key fields: the rsLoRA scaling ``s`` is folded into both the
 norm and ``gsB`` and rides in through the precompute function's
 ``DoRAConfig``, so one cache is bound to one config; the activation dtype
 picks the ``eps`` the cached ``g`` was computed with; the sharding
-fingerprint names the layout the leaves were placed for (the port serves
-on one card, so it is ``None``: multi-device serving is ROADMAP queue 1
-item 6).
+fingerprint (:func:`mesh_fingerprint`) names the mesh the leaves were
+computed and laid out for, ``None`` on one card.
 
 Versioning composes with the training contract: ``register``/``update``
 strip any serving leaves (:func:`invalidate_adapter_state`), so the
@@ -27,7 +26,9 @@ naming the key fields, so a caller that swaps adapters without
 re-precomputing can never serve the wrong weights.
 
 Byte accounting counts every leaf of a state, as the reference does (its
-jitted precompute returns fresh A/B/m buffers). The port's precompute
+jitted precompute returns fresh A/B/m buffers). Under a mesh each rank
+keeps its own cache of its own shards, so the bytes it counts and its
+``max_bytes`` are this rank's. The port's precompute
 returns a tree whose A/B/m are the registry's own tensors, so a state
 adds only its ``g``/``gsB`` to what the card holds, and a spill to the
 host tier frees only those while the registry holds A/B/m.
@@ -42,11 +43,6 @@ import torch
 
 from repro_torch.core.adapter import invalidate_adapter_state
 from repro_torch.tree import tree_map
-
-# Where the port's refusals point: serving under a mesh is not ported
-# (the train step runs across ranks: the item's first half).
-_MESH_LATER = "ROADMAP queue 1 item 6, second half (serving under a mesh)"
-
 
 @dataclasses.dataclass(frozen=True)
 class AdapterHandle:
@@ -104,13 +100,13 @@ class AdapterCacheMiss(LookupError):
 
 
 def mesh_fingerprint(mesh) -> tuple | None:
-    """Hashable identity of a serving mesh's layout. The port serves on one
-    card: ``None`` is the only layout, and a mesh is refused."""
+    """Hashable identity of a mesh's layout (axis names x sizes), enough
+    to tell apart states laid out for different meshes; None for no
+    mesh."""
     if mesh is None:
         return None
-    raise NotImplementedError(
-        f"multi-device serving is not ported yet: a mesh comes with "
-        f"{_MESH_LATER}")
+    shape = dict(mesh.shape)
+    return tuple((a, shape[a]) for a in mesh.axis_names)
 
 
 def _tree_to_host(tree):
@@ -150,8 +146,10 @@ class AdapterStateCache:
 
     ``max_bytes`` bounds the bytes of the cached state trees (every leaf,
     :func:`serving_state_nbytes`); the least recently used states are
-    evicted past it. A single state larger than the whole budget is kept
-    (serving must proceed) and everything else is evicted around it.
+    evicted past it. Under a mesh the trees are one rank's shards, so the
+    bytes counted and the bound are that rank's. A single state larger
+    than the whole budget is kept (serving must proceed) and everything
+    else is evicted around it.
 
     ``host_max_bytes`` adds a host-memory spill tier under the device LRU.
     Device eviction then SPILLS the state to the host (``.to("cpu")``,
@@ -213,18 +211,21 @@ class AdapterStateCache:
                     fold_gsb: bool = True) -> "AdapterStateCache":
         """Model-level cache: precompute = ``make_precompute_step`` (K1 with
         its epilogue once per adapted module on the card), act_dtype = the
-        model dtype. ``device``: None is the card, which must be present;
-        ``"cpu"`` is the explicit CPU request. Params handed to
-        :meth:`get_state` must live there. ``mesh`` is refused: the port
-        serves on one card."""
+        model dtype, key fingerprint = the mesh's layout. ``device``: None
+        is the card, which must be present (the mesh's device when a mesh
+        is given); ``"cpu"`` is the explicit CPU request. Params handed to
+        :meth:`get_state` must live there.
+
+        ``mesh``: each rank builds its own cache over its own shards;
+        registered trees and the params handed to :meth:`get_state` are
+        this rank's, the precompute is the mesh's (the norm's partials of
+        wo and w_down summed over ``model``), and ``max_bytes`` bounds
+        this rank's bytes."""
         from repro_torch.launch.serve import resolve_device
         from repro_torch.launch.steps import make_precompute_step
-        if mesh is not None:
-            raise NotImplementedError(
-                f"AdapterStateCache.for_serving(mesh=...) is not ported "
-                f"yet: multi-device serving comes with {_MESH_LATER}")
-        dev = resolve_device(device)
-        step = make_precompute_step(mcfg, scfg, fold_gsb=fold_gsb)
+        dev = resolve_device(device if device is not None or mesh is None
+                             else mesh.device)
+        step = make_precompute_step(mcfg, scfg, mesh, fold_gsb=fold_gsb)
 
         def precompute(params, adapters):
             if params["embed"].device != dev:

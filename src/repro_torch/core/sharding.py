@@ -26,7 +26,8 @@ adds to a module-level count of calls and bytes under its tag
 layout are :func:`gather_rows` (all-gather forward, reduce-scatter
 backward), :func:`scatter_rows` (the reverse) and :func:`grad_psum`
 (identity forward, the gradient summed); :class:`SequenceParallel` is
-the layout the layers run under a mesh.
+the layout the layers run under a mesh, sequence-parallel (train step,
+prefill) or tensor-parallel with the sequence whole (decode).
 """
 from __future__ import annotations
 
@@ -36,6 +37,8 @@ from typing import Any
 
 import torch
 import torch.distributed as dist
+
+_F32 = torch.float32
 
 
 class PartitionSpec(tuple):
@@ -192,6 +195,48 @@ class _GradPsum(torch.autograd.Function):
     def backward(ctx, g):
         axes, mesh, tag = ctx.args
         return psum(g, axes, mesh, tag=tag), None, None, None
+
+
+def _mm_f32(x, w):
+    """x [..., k] · wᵀ ([n, k]) with the fp32 sums kept: on the card a
+    bf16/fp16 product on the tensor cores that writes its fp32
+    accumulators (``torch.mm(out_dtype=)``); on the CPU the exact
+    products of the upcast operands, summed in fp32."""
+    x2 = x.reshape(-1, x.shape[-1])
+    if x2.is_cuda:
+        y = torch.mm(x2, w.T, out_dtype=_F32)
+    else:
+        y = x2.to(_F32) @ w.to(_F32).T
+    return y.reshape(*x.shape[:-1], w.shape[0])
+
+
+class _PartialProduct(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return _mm_f32(x, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.to(x.dtype)
+        gx = g @ w if ctx.needs_input_grad[0] else None
+        gw = (g.reshape(-1, g.shape[-1]).T @ x.reshape(-1, x.shape[-1])
+              if ctx.needs_input_grad[1] else None)
+        return gx, gw
+
+
+def partial_product(x, w):
+    """x·wᵀ of a rank's d_in shards, a partial sum that the ranks add up:
+    in fp32 (the product's own accumulators, not rounded to x's dtype),
+    so that the sum across ranks is rounded once, as one card's product
+    is. fp32 operands take the plain product. The gradients are the plain
+    product's, in x's dtype."""
+    if x.dtype == _F32:
+        return x @ w.T
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return _PartialProduct.apply(x, w)
+    return _mm_f32(x, w)
 
 
 def gather_rows(x, axes, mesh, dim: int = 1, *, tag: str = "sp.gather"):
@@ -372,32 +417,55 @@ ROW_PARALLEL = ("wo", "w_down")
 @dataclasses.dataclass(frozen=True, eq=False)
 class SequenceParallel:
     """The explicit form of the reference's boundary constraint
-    (``repro/launch/sharding.py:364 make_boundary_constraint``).
+    (``repro/launch/sharding.py:364 make_boundary_constraint``), in one of
+    two modes that share the layer code and differ only in collectives.
 
-    Each data replica runs its own batch rows; inside it the residual
+    Sequence-parallel (``seq_split``, the train step and the prefill):
+    each data replica runs its own batch rows; inside it the residual
     stream is split along the sequence over ``axis`` ([B, S/tp, D] a
     rank). Column-parallel modules (:data:`COLUMN_PARALLEL`) take the
     all-gathered rows and their local rows of W; row-parallel ones
     (:data:`ROW_PARALLEL`) take their local columns of W and
     reduce-scatter y_base and h back to the sequence split, with the
-    norm summed over ``axis``. ``spec`` and ``plan`` are the reference's
-    (rows over the data axes and ``axis``); ``row_plan`` and
-    ``col_plan`` are what the layers run inside a replica, whose data
-    axes the train step's gradient all-reduce covers."""
+    norm summed over ``axis``.
+
+    Tensor-parallel with no sequence split (``seq_split=False``, the
+    decode step, whose S = 1 the axis cannot split; forward only): the
+    residual stream is whole on every rank of ``axis``, so the gather is
+    the identity, and the row-parallel modules all-reduce y_base and h
+    over ``axis`` before the compose.
+
+    In both modes the row-parallel partials are fp32
+    (:func:`partial_product`) and rounded to the activation dtype after
+    the sum, once, as one card rounds its product.
+    Column-parallel modules run on their local rows as in the other
+    mode.
+
+    ``spec`` and ``plan`` are the reference's (rows over the data axes
+    and, sequence-parallel, ``axis``); ``row_plan`` and ``col_plan`` are
+    what the layers run inside a replica, whose data axes the train
+    step's gradient all-reduce covers. Collective tags carry the mode's
+    prefix ("sp." or "tp.")."""
     mesh: Any
     spec: tuple
     plan: ComposeSharding
     axis: str = "model"
+    seq_split: bool = True
 
     @property
     def tp(self) -> int:
         return dict(self.mesh.shape).get(self.axis, 1)
 
     @property
+    def prefix(self) -> str:
+        return "sp" if self.seq_split else "tp"
+
+    @property
     def row_plan(self) -> ComposeSharding:
-        """Row-parallel modules: rows (the sequence) over ``axis``, d_out
-        whole."""
-        return plan_for_output(self.mesh, P(None, self.axis, None))
+        """Row-parallel modules: d_out whole, rows (the sequence) over
+        ``axis`` when it is split."""
+        return plan_for_output(
+            self.mesh, P(None, self.axis if self.seq_split else None, None))
 
     @property
     def col_plan(self) -> ComposeSharding:
@@ -406,18 +474,37 @@ class SequenceParallel:
         return plan_for_output(self.mesh, P(None, None, self.axis),
                                psum_dh=False)
 
-    def gather(self, x, *, tag: str = "sp.gather"):
-        """[B, S/tp, ...] → [B, S, ...]."""
-        return gather_rows(x, (self.axis,), self.mesh, 1, tag=tag)
+    def gather(self, x, *, tag: str = "gather"):
+        """[B, S/tp, ...] → [B, S, ...]; the identity with no split."""
+        if not self.seq_split:
+            return x
+        return gather_rows(x, (self.axis,), self.mesh, 1,
+                           tag=f"{self.prefix}.{tag}")
 
-    def scatter(self, x, *, tag: str = "sp.scatter"):
-        """[B, S, ...] partial sums → [B, S/tp, ...] summed."""
-        return scatter_rows(x, (self.axis,), self.mesh, 1, tag=tag)
+    def scatter(self, x, *, tag: str = "scatter"):
+        """[B, S, ...] partial sums → [B, S/tp, ...] summed; with no split,
+        [B, S, ...] summed over ``axis``. In x's dtype: the row-parallel
+        projections hand in fp32 partials (:func:`partial_product`)."""
+        if self.seq_split:
+            return scatter_rows(x, (self.axis,), self.mesh, 1,
+                                tag=f"{self.prefix}.{tag}")
+        if self.mesh.group((self.axis,)) is None:
+            return x
+        return psum(x, (self.axis,), self.mesh, tag=f"{self.prefix}.{tag}")
+
+    def partial(self, x, w):
+        """A row-parallel module's x·wᵀ over this rank's d_in shard:
+        :func:`partial_product` (fp32) when ``axis`` splits d_in, the
+        plain product when it holds one rank."""
+        if self.tp == 1:
+            return x @ w.T
+        return partial_product(x, w)
 
     def local_rows(self, x, dim: int = 1):
-        """This rank's slice of a replicated [B, S, ...] tensor."""
+        """This rank's slice of a replicated [B, S, ...] tensor: all of it
+        with no split."""
         n = self.tp
-        if n == 1:
+        if n == 1 or not self.seq_split:
             return x
         step = x.shape[dim] // n
         return x.narrow(dim, self.mesh.axis_index(self.axis) * step, step)
@@ -427,5 +514,6 @@ class SequenceParallel:
 
     def norm_axis(self, name: str) -> str | None:
         """The axis a module's norm partials sum over: ``axis`` for the
-        row-parallel modules (W's d_in is split), None otherwise."""
-        return self.axis if name in ROW_PARALLEL else None
+        row-parallel modules when it splits W's d_in (more than one
+        rank), None otherwise."""
+        return self.axis if name in ROW_PARALLEL and self.tp > 1 else None

@@ -122,18 +122,30 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+# Where the refusals of the serving paths not yet ported to a mesh point.
+_MESH_LATER = ("ROADMAP queue 1 item 6, second half (multi-device serving "
+               "of the grouped, engine and server paths)")
+
+
 def _check_cache_mesh(cache: AdapterStateCache, mesh) -> None:
-    """The cache keys states on the layout they were placed for; serving
-    them under another would re-lay them out every step. The port serves
-    on one card, so a mesh is refused (``mesh_fingerprint``) and a cache
-    keyed for any other layout than ``None`` is refused here."""
+    """The cache keys states on the mesh they were computed and laid out
+    for (``mesh_fingerprint``); serving them under another mesh would
+    serve shards of another layout. Refused."""
     want = mesh_fingerprint(mesh)
     if cache.sharding != want:
         raise ValueError(
             f"adapter cache is keyed for sharding {cache.sharding} but "
-            f"serving runs on layout {want} (one card) — build the cache "
-            f"with AdapterStateCache.for_serving(mcfg, scfg) so its states "
-            f"are placed for this layout")
+            f"serving runs on mesh {want} — build the cache with "
+            f"AdapterStateCache.for_serving(mcfg, scfg, mesh) for THIS "
+            f"mesh so its states are this layout's shards")
+
+
+def refuse_mesh(what: str, mesh) -> None:
+    """Refuse a mesh on a serving path that runs on one card only."""
+    if mesh is not None:
+        raise NotImplementedError(
+            f"{what}(mesh=...) is not ported yet: multi-device serving of "
+            f"it comes with {_MESH_LATER}")
 
 
 def _sample(last, temperature: float, generator):
@@ -145,19 +157,46 @@ def _sample(last, temperature: float, generator):
     return nxt[:, None]
 
 
+class _Rows:
+    """How a mesh's ranks split the batch rows: each data replica runs its
+    rows ([B / data, ...]), and every rank samples the whole batch from
+    the logits gathered over the data axes."""
+
+    def __init__(self, lay):
+        self.lay = lay
+
+    def local(self, t):
+        lay = self.lay
+        if lay.dp_size == 1:
+            return t
+        i = lay.mesh.axis_index(lay.dp_axes)
+        return t[i * lay.local_batch:(i + 1) * lay.local_batch]
+
+    def gather(self, logits):
+        from repro_torch.core.sharding import all_gather
+        lay = self.lay
+        return all_gather(logits.contiguous(), lay.dp_axes, lay.mesh, 0,
+                          tag="generate.logits")
+
+
 def _decode_loop(prefill, decode, params, adapters, toks, *, prompt_len,
                  gen_len, pad, temperature, seed, collect_logits=False,
-                 clock: PhaseClock | None = None):
+                 clock: PhaseClock | None = None, rows: _Rows | None = None):
     """The prefill → sample → decode loop. Returns (tokens [B, P+gen_len],
-    the logits each sampled token was drawn from, or None)."""
+    the logits each sampled token was drawn from, or None). ``rows``:
+    under a mesh the steps take this replica's rows of the batch, and
+    every rank samples the whole batch."""
     clock = clock or PhaseClock(None, toks.device)
+    local = (lambda t: t) if rows is None else rows.local
+    gather = (lambda t: t) if rows is None else rows.gather
     P = prompt_len
-    batch_in = {"tokens": toks}
+    batch_in = {"tokens": local(toks)}
     if pad:
-        batch_in = {"tokens": torch.nn.functional.pad(toks, (0, pad)),
+        batch_in = {"tokens": torch.nn.functional.pad(local(toks), (0, pad)),
                     "prompt_len": P}
     clock.start()
     logits, cache = prefill(params, adapters, batch_in)
+    logits = gather(logits)
     clock.stop("prefill_s")
     # The decode contract: the cache stands at exactly the true prompt
     # length, so the first generated token is written at position P.
@@ -174,7 +213,8 @@ def _decode_loop(prefill, decode, params, adapters, toks, *, prompt_len,
             steps_logits.append(last)
         nxt = _sample(last, temperature, generator)
         out.append(nxt)
-        last, cache = decode(params, adapters, cache, {"tokens": nxt})
+        last, cache = decode(params, adapters, cache, {"tokens": local(nxt)})
+        last = gather(last)
     clock.stop("decode_s")
     return torch.cat(out, dim=1), steps_logits
 
@@ -195,21 +235,33 @@ def generate(mcfg, params, adapters, scfg: StepConfig, prompts, *,
     ``allow_miss=False`` is refused with an error naming the key fields,
     and a stale handle (version behind the registry) always is.
 
-    ``device``: None is the card, which must be present; ``"cpu"`` is the
-    explicit CPU request. ``params``/``adapters`` must already live there.
+    ``device``: None is the card, which must be present (the mesh's
+    device when a mesh is given); ``"cpu"`` is the explicit CPU request.
+    ``params``/``adapters`` must already live there.
     ``cache_adapters``: precompute the frozen-adapter state (cached g)
     before prefill (a handle's state comes from the cache instead).
-    ``fold_gsb``: also fold g·s into B. ``mesh``: refused, the port serves
-    on one card.
+    ``fold_gsb``: also fold g·s into B.
+    ``mesh`` (``launch/mesh.py``): ``params`` and ``adapters`` are this
+    rank's shards (``launch/sharding.py shard_tree``) and ``prompts`` the
+    whole batch. The precompute runs on the mesh
+    (``make_precompute_step(mcfg, scfg, mesh)``), or a handle resolves
+    through a cache built for this mesh
+    (``AdapterStateCache.for_serving(mcfg, scfg, mesh)``); each data
+    replica prefills (padded, sequence-parallel) and decodes
+    (tensor-parallel) its rows; the last logits are gathered over the
+    data axes, so every rank samples the whole [B, V] with the same
+    generator and returns the whole token matrix: the single-card
+    ``generate``'s for the same seed.
     ``stats``: when given, filled with the wall seconds of each phase
     (``precompute_s``: the precompute, or the cache lookup of a handle;
-    ``prefill_s``, ``decode_s``), each ended by a device synchronisation.
+    ``prefill_s``, ``decode_s``), each ended by a device synchronisation;
+    under a mesh, this rank's.
     """
-    dev = resolve_device(device)
+    dev = resolve_device(device if device is not None or mesh is None
+                         else mesh.device)
     if params["embed"].device != dev:
         raise ValueError(f"params live on {params['embed'].device}, serving "
                          f"was asked on {dev}")
-    mesh_fingerprint(mesh)           # refuses a mesh: one card
     clock = PhaseClock(stats, dev)
     if isinstance(adapters, AdapterHandle):
         if adapter_cache is None:
@@ -223,7 +275,7 @@ def generate(mcfg, params, adapters, scfg: StepConfig, prompts, *,
         clock.stop("precompute_s")
     elif cache_adapters:
         clock.start()
-        adapters = make_precompute_step(mcfg, scfg, fold_gsb=fold_gsb)(
+        adapters = make_precompute_step(mcfg, scfg, mesh, fold_gsb=fold_gsb)(
             params, adapters)
         clock.stop("precompute_s")
 
@@ -238,13 +290,14 @@ def generate(mcfg, params, adapters, scfg: StepConfig, prompts, *,
     # rewind, so stacks with Mamba layers prefill at the exact P.
     can_pad = all(k == "attn" for k in mcfg.layer_kinds())
     pad = max_len - P if can_pad else 0
-    prefill = make_prefill_step(mcfg, scfg, batch=B, seq=max_len,
+    prefill = make_prefill_step(mcfg, scfg, mesh, batch=B, seq=max_len,
                                 padded=bool(pad))
-    decode = make_decode_step(mcfg, scfg, batch=B)
+    decode = make_decode_step(mcfg, scfg, mesh, batch=B)
     tokens, logits = _decode_loop(
         prefill, decode, params, adapters, toks, prompt_len=P,
         gen_len=gen_len, pad=pad, temperature=temperature, seed=seed,
-        collect_logits=return_logits, clock=clock)
+        collect_logits=return_logits, clock=clock,
+        rows=None if mesh is None else _Rows(decode.layout))
     return (tokens, logits) if return_logits else tokens
 
 
@@ -288,7 +341,8 @@ class MultiTenantServer:
 
     ``device``: None is the card, which must be present; ``"cpu"`` is the
     explicit CPU request; ``params`` must live there. ``mesh`` is
-    refused: the port serves on one card.
+    refused (ROADMAP queue 1 item 6, second half): a single tenant is
+    served across a mesh by :func:`generate`.
     """
 
     def __init__(self, mcfg, scfg: StepConfig, params, *,
@@ -297,6 +351,7 @@ class MultiTenantServer:
                  dynamic_grouping: bool = False,
                  max_active_per_adapter: int | None = None,
                  trace=None, device=None):
+        refuse_mesh("MultiTenantServer", mesh)
         _check_cache_mesh(cache, mesh)
         self.device = resolve_device(device)
         if params["embed"].device != self.device:
@@ -512,7 +567,8 @@ class EngineServer:
 
     The keywords are the engine's. ``device``: None is the card, which
     must be present; ``"cpu"`` is the explicit CPU request; ``params``
-    must live there. ``mesh`` is refused: the port serves on one card.
+    must live there. ``mesh`` is refused (ROADMAP queue 1 item 6, second
+    half).
     """
 
     def __init__(self, mcfg, scfg: StepConfig, params, *,
@@ -527,7 +583,7 @@ class EngineServer:
                  max_active_per_adapter: int | None = None,
                  trace=None, device=None):
         from repro_torch.launch.engine import DecodeEngine
-        mesh_fingerprint(mesh)           # refuses a mesh: one card
+        refuse_mesh("EngineServer", mesh)
         _check_cache_mesh(cache, mesh)
         self.cache = cache
         self.engine = DecodeEngine(

@@ -20,11 +20,13 @@ full tree (``jax.device_put`` with shardings) and :func:`unshard_tree`
 gathers them back.
 
 What the runtime honours so far (``models/lm.py`` under a mesh): the TP
-over ``model`` and its sequence parallelism, the data axes as batch
-replicas. Specs that name an FSDP axis on a weight (``fsdp`` on a pod
+over ``model``, with its sequence parallelism in the train step and the
+prefill and with the sequence whole in the decode step, the data axes as
+batch replicas, and the serving leaves of ``adapter_sharding(serving=
+True)``. Specs that name an FSDP axis on a weight (``fsdp`` on a pod
 axis, ``fsdp_data``, ``fsdp_gather``, ``expert``), the ZeRO-1 layout of
-:func:`opt_state_sharding` and :func:`cache_sharding` are rules only:
-ROADMAP queue 1 item 6, second half.
+:func:`opt_state_sharding` and :func:`cache_sharding`'s T over ``model``
+are rules only: ROADMAP queue 1 item 6, second half.
 """
 from __future__ import annotations
 
@@ -282,21 +284,35 @@ def row_parallel_b_axes(mcfg: ModelConfig, mesh) -> tuple[str, ...]:
 
 
 def make_boundary_constraint(mesh, *, batch: int, seq: int,
-                             b_dout_axes: tuple[str, ...] = ()):
-    """The sequence-parallel layout of [B, S, D] activations
+                             b_dout_axes: tuple[str, ...] = (),
+                             decode: bool = False):
+    """The layout of [B, S, D] activations
     (:class:`~repro_torch.core.sharding.SequenceParallel`); ``.plan`` is
-    the reference's compose plan for it, ``b_dout_axes`` threaded in."""
+    the reference's compose plan for it, ``b_dout_axes`` threaded in.
+    ``decode``: the tensor-parallel mode with no sequence split, for the
+    decode step's S = 1 (the reference's spec then leaves the sequence
+    whole too); refused for any other S."""
+    if decode and seq != 1:
+        raise ValueError(f"the decode layout runs S = 1, got seq {seq}")
     spec = activation_spec(mesh, batch=batch, seq=seq)
     plan = _csh.plan_for_output(mesh, spec, b_dout_axes=tuple(b_dout_axes))
-    return _csh.SequenceParallel(mesh, spec, plan)
+    return _csh.SequenceParallel(mesh, spec, plan, seq_split=not decode)
 
 
 def cache_sharding(mcfg: ModelConfig, mesh, *, batch: int,
                    block_size: int | None = None):
-    """Decode cache specs: KV [n_scan, B, T, Hkv, hd] batch over dp, seq
-    over model; Mamba h and conv d_inner over model; a paged pool's
-    in-block seq over model when it divides. A rule only (ROADMAP queue 1
-    item 6, second half)."""
+    """Decode cache specs, the reference's rule: KV [n_scan, B, T, Hkv,
+    hd] batch over dp, seq over model; Mamba h and conv d_inner over
+    model; a paged pool's in-block seq over model when it divides.
+
+    The rule is GSPMD's storage layout, not what the port's runtime
+    holds: under a mesh the prefill and decode steps lay K/V out by
+    heads, each rank keeping the K/V of its own ``Hkv / tp`` heads for
+    its data replica's rows, so attention needs no collective. Every mesh
+    the runtime accepts can do so: ``launch/steps.py mesh_layout``
+    refuses ``fsdp_gather``, so ``num_kv_heads % tp == 0`` holds. T over
+    model returns with the pod axis's ``fsdp_gather`` layouts (ROADMAP
+    queue 1 item 6, second half)."""
     b_ax = _dp_entry(mesh, batch)
     tp = dict(mesh.shape).get("model", 1)
     kinds = mcfg.layer_kinds()

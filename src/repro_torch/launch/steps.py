@@ -4,12 +4,13 @@ continuous-batching engine's prefill-into-slot, prefill-chunk, and the
 speculative draft and verify.
 
 Each ``make_*_step`` returns a plain function over (params, adapters,
-...). Given a mesh (``launch/mesh.py``), the train, grad and prefill
-steps run on this rank's shards (``launch/sharding.py shard_tree``): the
-batch rows of its data replica, tensor parallelism over ``model`` with
-the sequence split between blocks, the vocab-parallel head and its
-parallel cross entropy; the adapter gradients are averaged over the data
-axes in fp32 and the clip's global norm is summed over the shards. The
+...). Given a mesh (``launch/mesh.py``), the train, grad, precompute,
+prefill and decode steps run on this rank's shards (``launch/sharding.py
+shard_tree``): the batch rows of its data replica, tensor parallelism
+over ``model`` with the sequence split between blocks (the decode step:
+whole, its S = 1), the vocab-parallel head and its parallel cross
+entropy; the adapter gradients are averaged over the data axes in fp32
+and the clip's global norm is summed over the shards. The
 train step updates the adapters and the optimizer state IN PLACE and
 returns the same trees. The decode cache is updated IN PLACE: the K/V
 buffers the prefill allocates are the ones every decode step writes, and
@@ -28,7 +29,8 @@ from repro_torch.core.adapter import precompute_adapter_state
 from repro_torch.core.config import DoRAConfig
 from repro_torch.launch.mesh import axis_size
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.lm import check_mesh_supported, forward, init_cache
+from repro_torch.models.lm import (adapter_shapes, check_mesh_supported,
+                                   forward, init_cache)
 from repro_torch.optim.adamw import OptimizerConfig, adamw_update
 from repro_torch.tree import flatten_paths, tree_map, unflatten_paths
 
@@ -168,13 +170,12 @@ class MeshLayout:
         return torch.sqrt(rep + shd)
 
 
-def mesh_layout(mcfg: ModelConfig, scfg: StepConfig, mesh, *, batch: int,
-                seq: int) -> MeshLayout:
-    """Check that the runtime honours the rules on ``mesh`` and return the
-    layout. Refused (ROADMAP queue 1 item 6, second half): a pod axis,
-    any weight whose spec names an axis other than ``model`` (FSDP,
-    ``fsdp_gather``, experts), non-dense stacks, and a sequence the model
-    axis does not split."""
+def _mesh_rules(mcfg: ModelConfig, scfg: StepConfig, mesh) -> dict:
+    """The spec trees of the params and adapters on ``mesh``, after
+    checking that the runtime honours them. Refused (ROADMAP queue 1 item
+    6, second half): a pod axis, any weight whose spec names an axis
+    other than ``model`` (FSDP, ``fsdp_gather``, experts) and non-dense
+    stacks."""
     from repro_torch.launch import sharding as S
 
     check_mesh_supported(mcfg)
@@ -191,10 +192,24 @@ def mesh_layout(mcfg: ModelConfig, scfg: StepConfig, mesh, *, batch: int,
                 f"{mcfg.name} on mesh {dict(mesh.shape)}: {name} is laid "
                 f"out {tuple(spec)}; FSDP and gathered layouts are "
                 f"ROADMAP queue 1 item 6, second half")
+    return specs
+
+
+def mesh_layout(mcfg: ModelConfig, scfg: StepConfig, mesh, *, batch: int,
+                seq: int, decode: bool = False) -> MeshLayout:
+    """Check that the runtime honours the rules on ``mesh``
+    (:func:`_mesh_rules`) and return the layout: sequence-parallel, which
+    refuses a sequence the model axis does not split, or with ``decode``
+    the tensor-parallel layout with the sequence whole, which takes
+    S = 1 only."""
+    from repro_torch.launch import sharding as S
+
+    specs = _mesh_rules(mcfg, scfg, mesh)
     tp = dict(mesh.shape).get("model", 1)
-    if seq % tp:
+    if not decode and seq % tp:
         raise ValueError(f"seq {seq} does not split over model={tp}")
-    sp = S.make_boundary_constraint(mesh, batch=batch, seq=seq)
+    sp = S.make_boundary_constraint(mesh, batch=batch, seq=seq,
+                                    decode=decode)
     entry = S.batch_spec(mesh, batch=batch)[0]
     dp = _sh._entry_axes(entry)
     return MeshLayout(mesh, sp, dp, batch // axis_size(mesh, *dp),
@@ -342,16 +357,48 @@ def make_train_step(mcfg: ModelConfig, scfg: StepConfig, mesh=None, *,
 # ---------------------------------------------------------------------------
 
 
-def make_precompute_step(mcfg: ModelConfig, scfg: StepConfig, *,
-                         fold_gsb: bool = False):
+def make_precompute_step(mcfg: ModelConfig, scfg: StepConfig, mesh=None,
+                         *, fold_gsb: bool = False):
     """(params, adapters) -> serving adapter tree: every adapter leaf gains
     a cached "g" (and "gsB" when folded), so prefill and decode do no norm
-    work. The eps is the model dtype's, as the uncached forward uses."""
+    work. The eps is the model dtype's, as the uncached forward uses.
+
+    ``mesh``: params and adapters are this rank's shards, and so is the
+    state: g laid out like m, the folded gsB like B (row-sharded for the
+    column-parallel modules, whole on every rank for wo and w_down), as
+    ``launch/sharding.py adapter_sharding(serving=True)`` specifies and
+    as each leaf's shape is checked against. The row-parallel modules sum
+    their norm's partials over ``model`` (``precompute_adapter_state``'s
+    ``sp``)."""
+    from repro_torch.launch import sharding as S
+
+    sp = serving = shapes = None
+    if mesh is not None:
+        _mesh_rules(mcfg, scfg, mesh)
+        sp = S.make_boundary_constraint(mesh, batch=1, seq=1, decode=True)
+        serving = flatten_paths(S.adapter_sharding(mcfg, scfg.dora, mesh,
+                                                   serving=True))
+        shapes = flatten_paths(adapter_shapes(mcfg, scfg.dora))
+
+    def check_layout(tree):
+        for name, leaf in flatten_paths(tree).items():
+            like = {"g": "m", "gsB": "B"}.get(name.rsplit("/", 1)[1])
+            full = shapes[name if like is None
+                          else f"{name.rsplit('/', 1)[0]}/{like}"].shape
+            want = _sh.local_shape(full, serving[name], mesh)
+            if tuple(leaf.shape) != want:
+                raise ValueError(
+                    f"serving leaf {name} {tuple(leaf.shape)} is not "
+                    f"{full} laid out {tuple(serving[name])} on mesh "
+                    f"{dict(mesh.shape)}: want {want}")
 
     def precompute_step(params, adapters):
-        return precompute_adapter_state(params, adapters, scfg.dora,
+        tree = precompute_adapter_state(params, adapters, scfg.dora,
                                         act_dtype=mcfg.dtype,
-                                        fold_gsb=fold_gsb)
+                                        fold_gsb=fold_gsb, sp=sp)
+        if mesh is not None:
+            check_layout(tree)
+        return tree
 
     return precompute_step
 
@@ -377,11 +424,18 @@ def make_prefill_step(mcfg: ModelConfig, scfg: StepConfig, mesh=None, *,
     blocks grouping the batch by adapter; the adapter tree must be the
     stacked folded serving state (see ``repro_torch.launch.serve``).
 
-    ``mesh``: the raw adapters' forward (no serving state) on this rank's
-    shards and batch rows [batch / data, P]; the logits are gathered over
-    the vocab, and the cache holds this rank's K/V heads (the port's
-    layout: ``launch/sharding.py cache_sharding``'s is not honoured
-    yet)."""
+    ``mesh``: the forward on this rank's shards and batch rows
+    [batch / data, P], sequence-parallel over ``model``, padded or not.
+    The adapters are the raw tree (each module's norm computed here, its
+    partials summed over ``model`` for wo and w_down) or the serving state
+    of ``make_precompute_step(mcfg, scfg, mesh)``. The logits are
+    gathered over the vocab ([batch / data, V]). The cache holds the K/V
+    of this rank's ``Hkv / tp`` heads for its data replica's rows: the
+    runtime lays K/V out by heads, so attention needs no collective, and
+    ``launch/sharding.py cache_sharding``'s T over ``model`` is a storage
+    rule it does not take (every mesh ``mesh_layout`` accepts splits the
+    KV heads). ``prefill_step.layout`` is the :class:`MeshLayout`, None
+    without a mesh."""
     lay = None if mesh is None else mesh_layout(mcfg, scfg, mesh,
                                                 batch=batch, seq=seq)
     rows = batch if lay is None else lay.local_batch
@@ -425,6 +479,7 @@ def make_prefill_step(mcfg: ModelConfig, scfg: StepConfig, mesh=None, *,
                                   tag="prefill.logits")
         return last, new_cache
 
+    prefill_step.layout = lay
     return prefill_step
 
 
@@ -504,8 +559,9 @@ def make_prefill_chunk_step(mcfg: ModelConfig, scfg: StepConfig, *,
     return prefill_chunk
 
 
-def make_decode_step(mcfg: ModelConfig, scfg: StepConfig, *, batch: int,
-                     tenant_groups=None, dynamic_groups: bool = False):
+def make_decode_step(mcfg: ModelConfig, scfg: StepConfig, mesh=None, *,
+                     batch: int, tenant_groups=None,
+                     dynamic_groups: bool = False):
     """(params, adapters, cache, batch_in) -> (logits [B, V], cache'): one
     new token ``batch_in["tokens"]`` [B, 1] (or a frontend's
     ``batch_in["embeds"]`` [B, 1, d_model]) against the cache, written in
@@ -518,27 +574,53 @@ def make_decode_step(mcfg: ModelConfig, scfg: StepConfig, *, batch: int,
     state; the step does no norm work (no K1 launch).
     ``dynamic_groups``: each row's adapter is the int [B] stack position
     ``batch_in["adapter_idx"]``, so the tenant mix changes values, not the
-    step. Mutually exclusive with a static ``tenant_groups``."""
+    step. Mutually exclusive with a static ``tenant_groups``.
+
+    ``mesh``: this rank's shards, its data replica's rows [batch / data,
+    1] and the cache its prefill filled (this rank's K/V heads). Decode's
+    S = 1 cannot be split, so the step runs the tensor-parallel layout
+    with the sequence whole (``mesh_layout(decode=True)``): the masked
+    vocab-parallel lookup summed over ``model``, the column-parallel
+    projections on their local rows, attention on the local heads with no
+    collective, the row-parallel ones all-reducing y_base and the r-wide
+    h over ``model`` (fp32) before the compose, and the head's local
+    vocab columns gathered ([batch / data, V]). The adapters must be the
+    serving state of ``make_precompute_step(mcfg, scfg, mesh)``. Tenant
+    groups are refused by the forward (ROADMAP queue 1 item 6, second
+    half).
+    ``decode_step.layout`` is the :class:`MeshLayout`, None without a
+    mesh."""
     if dynamic_groups and tenant_groups is not None:
         raise ValueError(
             "dynamic_groups=True takes the per-row adapter index from "
             "batch_in['adapter_idx']; a static tenant_groups signature "
             "cannot be given at the same time")
+    lay = None if mesh is None else mesh_layout(mcfg, scfg, mesh,
+                                                batch=batch, seq=1,
+                                                decode=True)
+    rows = batch if lay is None else lay.local_batch
 
     @torch.no_grad()
     def decode_step(params, adapters, cache, batch_in):
         inputs = _inputs(batch_in)
         (name, x), = inputs.items()
-        if tuple(x.shape[:2]) != (batch, 1):
-            raise ValueError(f"decode built for {name} [{batch}, 1], got "
+        if tuple(x.shape[:2]) != (rows, 1):
+            raise ValueError(f"decode built for {name} [{rows}, 1], got "
                              f"{tuple(x.shape)}")
         tg = (torch.as_tensor(batch_in["adapter_idx"], device=x.device)
               if dynamic_groups else tenant_groups)
-        logits, new_cache = forward(mcfg, params, adapters, scfg.dora,
-                                    **inputs, cache=cache, training=False,
-                                    tenant_groups=tg)
-        return logits[:, -1], new_cache
+        logits, new_cache = forward(
+            mcfg, params, adapters, scfg.dora, **inputs, cache=cache,
+            training=False, tenant_groups=tg,
+            boundary_constraint=None if lay is None else lay.sp)
+        last = logits[:, -1]
+        if lay is not None and last.shape[-1] != mcfg.vocab_size:
+            last = _sh.all_gather(last.contiguous(), (lay.sp.axis,),
+                                  lay.mesh, last.ndim - 1,
+                                  tag="decode.logits")
+        return last, new_cache
 
+    decode_step.layout = lay
     return decode_step
 
 

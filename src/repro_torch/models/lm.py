@@ -454,7 +454,7 @@ def _vocab_parallel_embed(embed, tokens, mcfg: ModelConfig, sp):
     hit = (local >= 0) & (local < v_local)
     rows = embed[local.clamp(0, v_local - 1)]
     x = torch.where(hit[..., None], rows, torch.zeros_like(rows))
-    return sp.scatter(x, tag="sp.embed")
+    return sp.scatter(x, tag="embed")
 
 
 def forward(mcfg: ModelConfig, params, adapters, dcfg: DoRAConfig | None,
@@ -574,7 +574,7 @@ def forward(mcfg: ModelConfig, params, adapters, dcfg: DoRAConfig | None,
             new_cache["pages"] = pages
 
     if sp is not None:
-        x = sp.gather(x, tag="sp.final")
+        x = sp.gather(x, tag="final")
     if gather_position is not None:
         x = x[:, gather_position:gather_position + 1]
     elif loss_slice is not None and loss_slice < x.shape[1]:

@@ -162,8 +162,14 @@ def test_key_fields_and_mesh_fingerprint():
     assert hash(key) == hash(ac.AdapterKey("t", 0, "bfloat16", False,
                                            (("model", 4),)))
     assert ac.mesh_fingerprint(None) is None
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        ac.mesh_fingerprint(object())
+
+    class DuckMesh:
+        axis_names = ("data", "model")
+        shape = {"model": 4, "data": 2}
+
+    assert ac.mesh_fingerprint(DuckMesh()) == (("data", 2), ("model", 4))
+    assert jcore.adapter_cache.mesh_fingerprint(DuckMesh()) == \
+        ac.mesh_fingerprint(DuckMesh())
 
 
 def test_host_tier_spill_reload_and_drop():

@@ -22,7 +22,18 @@ meshes (1, 2), (2, 1) and (2, 2), by every compose route, its loss within
 adapter gradients within 1e-4 of the reference's; the mesh prefill's
 logits and cached K against the reference's prefill; the cross-pod
 gradient sync on a (pod, data) mesh against the reference's int8
-error-feedback compression.
+error-feedback compression. Single-tenant serving on the same meshes by
+the ``mm`` and ``eager`` routes: the mesh precompute's gathered g and
+gsB (folded and not) within 1e-5 of max of the reference's
+``make_precompute_step``; ``generate(mesh=)`` (padded prefill, 4 greedy
+tokens) with every step's logits within 1e-5 of max |logit| of the
+reference's ``generate(return_logits=True)``, its tokens equal after a
+least top-2 gap of GAP_MIN at each step, the gathered K/V after the
+prefill and after the last decode step within 1e-5 of the reference's
+cache; temperature sampling equal to the port's single-card
+``generate``; a handle through ``AdapterStateCache.for_serving(mesh=)``
+serving the same tokens, a cache keyed for another mesh refused; and
+``mesh_fingerprint`` against the reference's.
 """
 import jax
 import jax.numpy as jnp
@@ -36,12 +47,17 @@ from repro.launch.steps import StepConfig as JStep
 from repro.launch.steps import cross_entropy as jcross_entropy
 from repro.launch.steps import make_prefill_step as jmake_prefill_step
 from repro.launch.steps import make_train_step as jmake_train_step
+from repro.core.adapter_cache import mesh_fingerprint as jmesh_fingerprint
+from repro.launch.serve import generate as jgenerate
+from repro.launch.steps import make_decode_step as jmake_decode_step
+from repro.launch.steps import make_precompute_step as jmake_precompute_step
 from repro.launch.train import build_state as jbuild_state
 from repro.models import forward as jforward
 from repro.models.config import ModelConfig as JModel
 from repro.optim import OptimizerConfig as JOpt
 from repro.optim import compression as jcomp
 from repro_torch.bridge import flatten_paths
+from repro_torch.core.adapter_cache import mesh_fingerprint
 
 import torch_dist_ranks as R
 
@@ -63,6 +79,14 @@ COMPOSE = {2: {"tp": (1, 2, (None, "model")), "sp": (1, 2, ("model", None))},
                "2d": (2, 2, ("data", "model"))}}
 NORM = {2: ((1, 2), ("model",)), 4: ((2, 2), ("data", "model"))}
 PREFILL = {2: (1, 2), 4: (2, 2)}
+SERVE = {2: [((1, 2), "mm"), ((1, 2), "eager"), ((2, 1), "mm"),
+             ((2, 1), "eager")],
+         4: [((2, 2), "mm"), ((2, 2), "eager")]}
+PROMPT, GEN, MAX_LEN = 12, 4, SEQ
+TEMPERATURE, SAMPLE_SEED = 0.8, 7
+# Each greedy step's least top-1 - top-2 gap, over its max |logit|: ten
+# times the logits' tolerance, so equal tokens are a check and not luck.
+GAP_MIN = 1e-4
 
 
 def _max_rel(got, want) -> float:
@@ -204,7 +228,46 @@ def reference(inputs, spawned):
             "loss": float(loss), "grads": flatten_paths(_np_tree(jg)),
             "step": {k: float(met[k]) for k in ("loss", "grad_norm")},
             "prefill": (np.asarray(last),
-                        np.asarray(cache["stack"]["l0"]["k"]))}
+                        np.asarray(cache["stack"]["l0"]["k"])),
+            "serve": _reference_serving(jm, jcfg, jp, ja, tokens)}
+
+
+def _reference_serving(jm, jcfg, jp, ja, tokens):
+    """The reference's single-device serving: the precompute's g and gsB
+    (folded and not), greedy generate with its per-step logits, and its
+    cache after the padded prefill and after each generated token is
+    decoded."""
+    jscfg = JStep(dora=jcfg)
+    state = {}
+    for fold in (True, False):
+        tree = flatten_paths(_np_tree(jmake_precompute_step(
+            jm, jscfg, None, fold_gsb=fold)(jp, ja)))
+        state[fold] = {k: v for k, v in tree.items()
+                       if k.rsplit("/", 1)[1] in ("g", "gsB")}
+    prompts = tokens[:, :PROMPT]
+    toks, logits = jgenerate(jm, jp, ja, jscfg, jnp.asarray(prompts),
+                             gen_len=GEN, max_len=MAX_LEN,
+                             return_logits=True)
+    toks = np.asarray(toks)
+    st = jmake_precompute_step(jm, jscfg, None)(jp, ja)
+    padded = np.pad(prompts, ((0, 0), (0, MAX_LEN - PROMPT)))
+    _, cache = jmake_prefill_step(jm, jscfg, None, batch=BATCH, seq=MAX_LEN,
+                                  padded=True)(
+        jp, st, {"tokens": jnp.asarray(padded),
+                 "prompt_len": jnp.asarray(PROMPT, jnp.int32)})
+
+    def kv(c):
+        return {f"{li}/{n}": np.asarray(t)
+                for li, layer in c["stack"].items() for n, t in layer.items()}
+
+    kv_prefill = kv(cache)
+    decode = jmake_decode_step(jm, jscfg, None, batch=BATCH)
+    for t in range(GEN):
+        _, cache = decode(jp, st, cache, {"tokens": jnp.asarray(
+            toks[:, PROMPT + t:PROMPT + t + 1])})
+    return {"state": state, "tokens": toks,
+            "logits": [np.asarray(x) for x in logits],
+            "kv_prefill": kv_prefill, "kv_last": kv(cache)}
 
 
 def _cases(world, inputs):
@@ -232,6 +295,13 @@ def _cases(world, inputs):
                    "seq": SEQ, "dora": dict(rank=RANK, alpha=ALPHA,
                                             **ROUTES["mm"]),
                    "tokens": tokens.copy()}))
+    for mshape, route in SERVE[world]:
+        cases.append((f"serve_{mshape}_{route}", "serve_case",
+                      {**model, "shape": mshape,
+                       "dora": dict(rank=RANK, alpha=ALPHA, **ROUTES[route]),
+                       "prompts": tokens[:, :PROMPT].copy(),
+                       "gen_len": GEN, "max_len": MAX_LEN,
+                       "temperature": TEMPERATURE, "seed": SAMPLE_SEED}))
     if world == 4:
         cases.append(("compression", "compression_case",
                       {k: np.array(v) for k, v in
@@ -381,3 +451,89 @@ def test_nccl_mesh_gathers_placements_and_refuses_a_shared_card(world,
     assert [c for _, c in got["own"]] == list(range(world))
     assert "ranks 0 and 1 would share card 0" in got["refused"]
     assert "backend='gloo'" in got["refused"]
+
+
+def _serve_cases():
+    return [(w, s, r) for w, cases in SERVE.items() for s, r in cases]
+
+
+@pytest.mark.parametrize("world,shape,route", _serve_cases(), ids=str)
+def test_mesh_precompute_matches_reference(world, shape, route, ranks,
+                                           reference):
+    """(a) Every g and gsB leaf of make_precompute_step(mesh=), folded
+    and not, gathered over its serving spec, within 1e-5 of max of the
+    reference's unsharded make_precompute_step."""
+    got = ranks[world][f"serve_{shape}_{route}"]["state"]
+    for fold, want in reference["serve"]["state"].items():
+        assert set(got[fold]) == set(want), fold
+        for name, w in want.items():
+            assert _max_rel(got[fold][name], w) <= 1e-5, (fold, name)
+
+
+@pytest.mark.parametrize("world,shape,route", _serve_cases(), ids=str)
+def test_mesh_generate_matches_reference(world, shape, route, ranks,
+                                         reference):
+    """(b) generate(mesh=): the prefill's and every decode step's logits
+    within 1e-5 of max |logit| of the reference's; each step's least
+    top-2 gap at least GAP_MIN, then the tokens equal and the same on
+    every rank; the gathered K/V after the prefill and after the last
+    decode step within 1e-5 of the reference's cache. On the kernel
+    route, the wrappers' plain versions ran as the serving path launches
+    its kernels: K1 (with its epilogue on the column-parallel modules,
+    its terms and the standalone K2 on wo and w_down) once per module in
+    the precompute, K6 per module in the prefill and each decode step."""
+    got = ranks[world][f"serve_{shape}_{route}"]
+    ref = reference["serve"]
+    assert len(got["logits"]) == len(ref["logits"]) == GEN
+    for step, (g, w) in enumerate(zip(got["logits"], ref["logits"])):
+        assert _max_rel(g, w) <= 1e-5, step
+        top2 = np.sort(w, axis=-1)[:, -2:]
+        gap = (top2[:, 1] - top2[:, 0]).min() / np.abs(w).max()
+        assert gap >= GAP_MIN, (step, gap)
+    np.testing.assert_array_equal(got["tokens"], ref["tokens"])
+    assert got["same_on_every_rank"]
+    for when in ("kv_prefill", "kv_last"):
+        assert set(got[when]) == set(ref[when])
+        for name, w in ref[when].items():
+            assert _max_rel(got[when][name], w) <= 1e-5, (when, name)
+    assert got["len"] == PROMPT + GEN
+    per = 7 * WIDTHS["num_layers"]
+    assert got["plain_calls"] == ({} if route == "eager" else {
+        "norm_terms_plain": per, "assemble_norm_plain": per,
+        "compose_mm_fwd_plain": (1 + GEN) * per})
+
+
+@pytest.mark.parametrize("world,shape,route", _serve_cases(), ids=str)
+def test_mesh_generate_samples_as_one_card(world, shape, route, ranks):
+    """(c) With temperature > 0 every rank samples the whole batch with
+    the same generator: the tokens are the port's single-card
+    generate's for the same seed."""
+    got = ranks[world][f"serve_{shape}_{route}"]
+    assert got["sampled"].shape == (BATCH, PROMPT + GEN)
+    np.testing.assert_array_equal(got["sampled"], got["sampled_single"])
+    assert not np.array_equal(got["sampled"], got["tokens"])
+
+
+@pytest.mark.parametrize("world,shape,route", _serve_cases(), ids=str)
+def test_mesh_generate_through_for_serving(world, shape, route, ranks,
+                                           reference):
+    """(d) A handle through AdapterStateCache.for_serving(mesh=), keyed
+    on the mesh's fingerprint, serves the reference's tokens; a cache
+    keyed for another mesh is refused."""
+    got = ranks[world][f"serve_{shape}_{route}"]
+    np.testing.assert_array_equal(got["handle_tokens"],
+                                  reference["serve"]["tokens"])
+    assert got["cache_key"] == (("data", shape[0]), ("model", shape[1]))
+    assert "keyed for sharding" in got["other_mesh_refused"]
+
+
+@pytest.mark.parametrize("shape", [dict(data=2, model=2),
+                                   dict(model=4, data=1),
+                                   dict(pod=2, data=4, model=16)], ids=str)
+def test_mesh_fingerprint_matches_reference(shape):
+    """(e) The port's mesh_fingerprint is the reference's on a duck
+    mesh: the axes in mesh order with their sizes; None for no mesh."""
+    mesh = R._DuckMesh(**shape)
+    assert mesh_fingerprint(mesh) == jmesh_fingerprint(mesh)
+    assert mesh_fingerprint(mesh) == tuple(shape.items())
+    assert mesh_fingerprint(None) is jmesh_fingerprint(None) is None

@@ -443,18 +443,20 @@ def test_server_refusals():
     with pytest.raises(ValueError, match="adapter_cache"):
         tserve.generate(tm, tparams, cache.current_handle("t1"), scfg,
                         prompts, gen_len=2, max_len=MAX_LEN, device="cpu")
-    # a mesh: the port serves on one card (ROADMAP queue 1 item 6)
-    for call in (
-            lambda: tserve.MultiTenantServer(tm, scfg, tparams, cache=cache,
-                                             mesh=object(), device="cpu"),
-            lambda: tserve.generate(tm, tparams, cache.current_handle("t1"),
-                                    scfg, prompts, gen_len=2,
-                                    max_len=MAX_LEN, adapter_cache=cache,
-                                    mesh=object(), device="cpu"),
-            lambda: tcore.AdapterStateCache.for_serving(
-                tm, scfg, mesh=object(), device="cpu")):
-        with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-            call()
+    # a mesh: the grouped server is not ported to one (ROADMAP queue 1
+    # item 6); a single tenant is served across one by generate, whose
+    # handle must come from a cache keyed for that mesh
+    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
+        tserve.MultiTenantServer(tm, scfg, tparams, cache=cache,
+                                 mesh=object(), device="cpu")
+    from repro_torch.launch.mesh import make_debug_mesh
+    one = make_debug_mesh(1, 1, device="cpu", backend="gloo")
+    meshed = tcore.AdapterStateCache.for_serving(tm, scfg, mesh=one)
+    assert meshed.sharding == (("data", 1), ("model", 1))
+    with pytest.raises(ValueError, match="keyed for sharding"):
+        tserve.generate(tm, tparams, cache.current_handle("t1"), scfg,
+                        prompts, gen_len=2, max_len=MAX_LEN,
+                        adapter_cache=cache, mesh=one)
     other = tcore.AdapterStateCache(lambda p, a: a,
                                     sharding=(("model", 4),))
     with pytest.raises(ValueError, match="keyed for sharding"):

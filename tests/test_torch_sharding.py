@@ -513,3 +513,100 @@ def test_straggler_dead_host_and_torn_beat(tmp_path):
         now=time.time())
     assert "host_00001.json" in got.stragglers()
     assert StragglerMonitor(str(tmp_path / "none")).stragglers() == []
+
+
+def test_decode_layout_keeps_the_sequence_whole():
+    """The decode mode of the mesh plan: S = 1 only; the residual stream
+    whole on every model rank (gather and local rows the identity), the
+    row-parallel compose on whole rows and d_out, the column-parallel one
+    as in the sequence-parallel mode, the norm's axis the same; the
+    sequence-parallel mode still refuses S = 1 on two model ranks, and
+    the decode mode keeps every refusal of the rules."""
+    from repro_torch.launch.steps import StepConfig, mesh_layout
+
+    scfg = StepConfig(dora=DoRAConfig(rank=16, alpha=32.0))
+    small = dataclasses.replace(get_config("qwen2-7b"), num_layers=4)
+    mesh = FakeMesh(data=2, model=2)
+    lay = mesh_layout(small, scfg, mesh, batch=4, seq=1, decode=True)
+    sp = lay.sp
+    assert not sp.seq_split and sp.prefix == "tp" and sp.tp == 2
+    assert lay.dp_axes == ("data",) and lay.local_batch == 2
+    assert tuple(sp.spec) == ("data", None, None)
+    assert sp.row_plan.row_axes == () and sp.row_plan.dout_axes == ()
+    assert sp.col_plan.dout_axes == ("model",) and not sp.col_plan.psum_dh
+    assert sp.norm_axis("wo") == "model" and sp.norm_axis("wq") is None
+    x = torch.ones(2, 1, 8)
+    assert sp.gather(x) is x and sp.local_rows(x) is x
+    sp_train = mesh_layout(small, scfg, mesh, batch=4, seq=64).sp
+    assert sp_train.seq_split and sp_train.prefix == "sp"
+    with pytest.raises(ValueError, match="does not split"):
+        mesh_layout(small, scfg, mesh, batch=4, seq=1)
+    with pytest.raises(ValueError, match="S = 1"):
+        mesh_layout(small, scfg, mesh, batch=4, seq=2, decode=True)
+    for arch, axes in (("qwen2-7b", dict(data=2, model=2)),
+                       ("falcon-mamba-7b", dict(data=1, model=2)),
+                       ("qwen2-7b", dict(pod=2, data=1, model=2))):
+        with pytest.raises(NotImplementedError, match="item 6, second half"):
+            mesh_layout(get_config(arch), scfg, FakeMesh(**axes), batch=2,
+                        seq=1, decode=True)
+
+
+def test_partial_product_keeps_fp32_sums_and_the_plain_gradients():
+    """A row-parallel rank's partial x·wᵀ in bf16 keeps its fp32 sums
+    (the upcast operands' exact products, summed in fp32), so two ranks'
+    halves added and rounded once are one product rounded once; its
+    gradients are the plain bf16 product's, bit for bit; fp32 operands
+    and a model axis of one rank take the plain product (and sum no
+    norm partials)."""
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn(3, 5, 64, generator=gen).bfloat16()
+    w = torch.randn(24, 64, generator=gen).bfloat16()
+    y = tsh.partial_product(x, w)
+    assert y.dtype == torch.float32
+    assert torch.equal(y, x.float() @ w.float().T)
+    halves = (tsh.partial_product(x[..., :32], w[:, :32])
+              + tsh.partial_product(x[..., 32:], w[:, 32:]))
+    whole = (x.float() @ w.float().T).bfloat16()
+    assert (halves.bfloat16() != whole).float().mean() < 0.01
+    dy = torch.randn(3, 5, 24, generator=gen).bfloat16()
+    xa, wa = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+    tsh.partial_product(xa, wa).backward(dy.float())
+    xb, wb = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+    (xb @ wb.T).backward(dy)
+    assert torch.equal(xa.grad, xb.grad) and torch.equal(wa.grad, wb.grad)
+    x32, w32 = x.float(), w.float()
+    assert torch.equal(tsh.partial_product(x32, w32), x32 @ w32.T)
+    one = TS.make_boundary_constraint(FakeMesh(data=2, model=1), batch=2,
+                                      seq=8)
+    assert torch.equal(one.partial(x, w), x @ w.T)
+    assert one.norm_axis("wo") is None
+
+
+def test_grouped_and_paged_serving_on_a_mesh_are_refused():
+    """The decode step on a mesh refuses what this slice leaves to the
+    next (ROADMAP queue 1 item 6, second half): static and dynamic tenant
+    groups, and a paged cache."""
+    from repro_torch.launch.steps import StepConfig, make_decode_step
+    from repro_torch.models.config import ModelConfig
+
+    mcfg = ModelConfig(name="t", family="dense", num_layers=1, d_model=64,
+                       num_heads=2, num_kv_heads=1, d_ff=128,
+                       vocab_size=64, dtype=torch.float32)
+    scfg = StepConfig(dora=DoRAConfig(rank=4, alpha=8.0))
+    mesh = tmesh.make_debug_mesh(1, 1, device="cpu", backend="gloo")
+    params = tlm.init_params(torch.Generator().manual_seed(0), mcfg)
+    tokens = torch.zeros((2, 1), dtype=torch.long)
+    cache = tlm.init_cache(mcfg, 2, 8)
+    paged = tlm.init_cache(mcfg, 2, 8, row_lens=True, block_size=4)
+    calls = (
+        lambda: make_decode_step(mcfg, scfg, mesh, batch=2,
+                                 tenant_groups=((0, 1), (1, 1)))(
+            params, {}, cache, {"tokens": tokens}),
+        lambda: make_decode_step(mcfg, scfg, mesh, batch=2,
+                                 dynamic_groups=True)(
+            params, {}, cache, {"tokens": tokens, "adapter_idx": [0, 1]}),
+        lambda: make_decode_step(mcfg, scfg, mesh, batch=2)(
+            params, {}, paged, {"tokens": tokens}))
+    for call in calls:
+        with pytest.raises(NotImplementedError, match="item 6, second half"):
+            call()

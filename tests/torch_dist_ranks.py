@@ -314,3 +314,113 @@ def placements_case(p):
         refused = str(e)
     M.check_backend("nccl", torch.device("cuda", 0), own)
     return {"shared": shared, "own": own, "refused": refused}
+
+
+# --- single-tenant serving across the mesh -----------------------------------
+
+class _DuckMesh:
+    """``axis_names`` and ``shape`` of a mesh no process group backs."""
+
+    def __init__(self, **shape):
+        self.axis_names = tuple(shape)
+        self.shape = dict(shape)
+
+
+def _gather_spec(x, spec, mesh):
+    from repro_torch.launch import sharding as S
+    return S.unshard_tree({"x": x}, {"x": spec}, mesh)["x"]
+
+
+def serve_case(p):
+    """The serving path on the mesh: (a) the mesh precompute's g and gsB,
+    folded and not, gathered; (b) greedy generate(mesh=) with its per-step
+    logits, the kernel wrappers' plain calls it made, the tokens the same
+    on every rank, and the K/V after the padded prefill and after the last
+    decode step (the steps run again on the same tokens), gathered over
+    the data rows and the heads; (c) temperature sampling against the
+    port's single-card generate on the whole trees; (d) the same prompts
+    through a handle of AdapterStateCache.for_serving(mesh=), and a cache
+    keyed for another mesh refused."""
+    import torch.nn.functional as F
+
+    from repro_torch.bridge import tree_from_numpy
+    from repro_torch.core import sharding as csh
+    from repro_torch.core.adapter_cache import AdapterStateCache
+    from repro_torch.launch import serve
+    from repro_torch.launch import sharding as S
+    from repro_torch.launch.steps import (StepConfig, make_decode_step,
+                                          make_precompute_step,
+                                          make_prefill_step)
+    from repro_torch.tree import flatten_paths
+
+    mesh = _mesh(p["shape"])
+    mcfg, dcfg = _model(p)
+    scfg = StepConfig(dora=dcfg)
+    params, adapters, _ = _shards(p, mesh, mcfg, dcfg)
+    serving = flatten_paths(S.adapter_sharding(mcfg, dcfg, mesh,
+                                               serving=True))
+    prompts, G, L = p["prompts"], p["gen_len"], p["max_len"]
+    B, P = prompts.shape
+    out = {"state": {}}
+    for fold in (True, False):
+        st = make_precompute_step(mcfg, scfg, mesh, fold_gsb=fold)(
+            params, adapters)
+        out["state"][fold] = {
+            name: _np(_gather_spec(leaf, serving[name], mesh))
+            for name, leaf in flatten_paths(st).items()
+            if name.rsplit("/", 1)[1] in ("g", "gsB")}
+    kw = dict(gen_len=G, max_len=L, mesh=mesh)
+    with _counting_plain_calls() as calls:
+        toks, logits = serve.generate(mcfg, params, adapters, scfg, prompts,
+                                      return_logits=True, **kw)
+    out["plain_calls"] = dict(calls)
+    out["tokens"], out["logits"] = _np(toks), [_np(x) for x in logits]
+    every = ("data", "model")
+    out["same_on_every_rank"] = bool(torch.equal(
+        csh.pmax(toks, every, mesh), -csh.pmax(-toks, every, mesh)))
+
+    state = make_precompute_step(mcfg, scfg, mesh)(params, adapters)
+    prefill = make_prefill_step(mcfg, scfg, mesh, batch=B, seq=L,
+                                padded=True)
+    rows = serve._Rows(prefill.layout)
+    dp = csh.P(None, S.batch_spec(mesh, batch=B)[0], None, "model", None)
+
+    def kv(cache):
+        return {f"{li}/{n}": _np(_gather_spec(t, dp, mesh))
+                for li, layer in cache["stack"].items()
+                for n, t in layer.items()}
+
+    _, cache = prefill(params, state, {
+        "tokens": F.pad(rows.local(toks[:, :P]), (0, L - P)),
+        "prompt_len": P})
+    out["kv_prefill"] = kv(cache)
+    decode = make_decode_step(mcfg, scfg, mesh, batch=B)
+    for t in range(G):
+        _, cache = decode(params, state, cache,
+                          {"tokens": rows.local(toks[:, P + t:P + t + 1])})
+    out["kv_last"], out["len"] = kv(cache), cache["len"]
+
+    hot = dict(temperature=p["temperature"], seed=p["seed"])
+    out["sampled"] = _np(serve.generate(mcfg, params, adapters, scfg,
+                                        prompts, **kw, **hot))
+    out["sampled_single"] = _np(serve.generate(
+        mcfg, tree_from_numpy(p["params"]), tree_from_numpy(p["adapters"]),
+        scfg, prompts, gen_len=G, max_len=L, device="cpu", **hot))
+
+    cache_s = AdapterStateCache.for_serving(mcfg, scfg, mesh=mesh)
+    handle = cache_s.register("tenant", adapters)
+    out["handle_tokens"] = _np(serve.generate(
+        mcfg, params, handle, scfg, prompts, adapter_cache=cache_s, **kw))
+    out["cache_key"] = cache_s.make_key(handle).sharding
+    d, t = p["shape"]
+    d, t = (t, d) if d != t else (d * t, 1)
+    other = AdapterStateCache.for_serving(
+        mcfg, scfg, mesh=_DuckMesh(data=d, model=t), device="cpu")
+    other.register("tenant", adapters)
+    try:
+        serve.generate(mcfg, params, other.current_handle("tenant"), scfg,
+                       prompts, adapter_cache=other, **kw)
+        out["other_mesh_refused"] = None
+    except ValueError as e:
+        out["other_mesh_refused"] = str(e)
+    return out
