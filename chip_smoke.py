@@ -239,11 +239,11 @@ odd ones), r=384 DoRA on the 30 modules a unit that the reference adapts:
       model): kernel vs eager route, trained and served, with the routing
       flips counted.
 
-Between the kernel phase and serving, the train step and single-tenant
-serving across a (data, model) mesh (see mesh_kernel_checks and
-mesh_checks), as ranks that share this card (``torch.multiprocessing``
-spawn, gloo on ``cuda:0``, collectives built on ``all_reduce``); this
-measures no multi-card speed:
+Between the kernel phase and serving, the train step, single-tenant
+serving and the continuous-batching engine across a (data, model) mesh
+(see mesh_kernel_checks and mesh_checks), as ranks that share this card
+(``torch.multiprocessing`` spawn, gloo on ``cuda:0``, collectives built
+on ``all_reduce``); this measures no multi-card speed:
 
   D1. K1's terms (no epilogue) and the standalone K2 on wo's and
       w_down's d_in shards at model = 2, K1 with its epilogue on wq's,
@@ -251,7 +251,9 @@ measures no multi-card speed:
       3584]), K6 and K7 at the column-parallel local shapes [4096, 9472]
       and [4096, 1792] and the row-parallel prefill rows [2048, 3584]:
       each against its plain version, the same bits twice, K6 on the
-      tensor cores;
+      tensor cores; K8 at D5's local views [4, 1024, 2, 128], [2, 1024,
+      4, 128] and [2, 1024, 2, 128], bitwise, timed beside
+      ``index_select``;
   D2. qwen2-7b at full width on its first AGREE_LAYERS = 4 layers, batch
       2 x 2048, loss on the last 1024, 3 AdamW steps in bf16 on the
       meshes (data 1, model 2), (2, 1) and (2, 2) (2, 2 and 4 ranks):
@@ -285,7 +287,27 @@ measures no multi-card speed:
       the gathered g and every step's logits within 1e-5 of max of the
       unsharded port's, each step's top-2 gap at least 2e-5 of max
       |logit| and the tokens equal; printed: precompute, prefill and
-      decode-step ms, peak memory by rank.
+      decode-step ms, peak memory by rank;
+  D5. in the same ranks, on the same weights, ``DecodeEngine(mesh=)``
+      with 4 slots of 1024 positions on 8 requests (one every 2 ticks,
+      prompts of 64-768 tokens, 16 new tokens each), rectangular and
+      paged (blocks of 16, chunks of 256, a pool of 72 blocks that forces
+      a preemption), each from its own mesh precompute: per rank the
+      launch counts of ``mesh_engine_counts`` exactly (K1 = 28 split as
+      in D4, K6 by the plans, K8 = 2 x 4 x (chunk + decode steps) on the
+      paged engine and 0 on the rectangular one), every K6 on the tensor
+      cores, each decode step's collective bytes by tag exactly
+      ``mesh_decode_bytes`` (the engine's data gather "engine.logits"),
+      ``stats()``, ``device_steps()`` and ``pool_stats()`` those of the
+      unsharded engine on the same trace, the streams those of rank 0; on
+      (2, 2) ``EngineServer(mesh=)`` serving the same requests with the
+      streams of the paged engine given them at once; in fp32 on the
+      first 4 requests with 8 new tokens, paged == rectangular streams
+      on every rank, and on (2, 2) both engines' fetched logits within
+      1e-5 of max |logit| of the unsharded port's, each top-2 gap at
+      least 2e-5 and the tokens equal; printed: ms a tick, decode-step,
+      chunk and prefill-into-slot ms, decode bytes a step by tag, peak
+      memory and D5's seconds by rank.
 
 With ``--kernel-phase-vs DIR`` it runs only the kernel phase, of the
 checkout at DIR (a ``git archive`` of another commit) and of this one, in
@@ -453,16 +475,17 @@ def time_ms(fn, *, target_ms: float = 150.0) -> float:
     return start.elapsed_time(end) / iters
 
 
-def paged_table(b: int, table_rng, device) -> tuple[torch.Tensor, int]:
-    """A block table of the paged engine's shape, b rows x max_len / 16
-    slots over a pool of ENGINE_BLOCKS: three quarters of the slots (at
-    most the pool) hold distinct ids out of order, the rest -1. Returns
-    the int32 table and the number of allocated slots."""
-    mb = ENGINE_MAX_LEN // ENGINE_BLOCK
+def paged_table(b: int, table_rng, device, *,
+                mb: int = ENGINE_MAX_LEN // ENGINE_BLOCK,
+                n_blocks: int = ENGINE_BLOCKS) -> tuple[torch.Tensor, int]:
+    """A block table of b rows x ``mb`` slots (the paged engine's
+    max_len / 16) over a pool of ``n_blocks``: three quarters of the slots
+    (at most the pool) hold distinct ids out of order, the rest -1.
+    Returns the int32 table and the number of allocated slots."""
     table = np.full(b * mb, -1, np.int32)
-    n_valid = min(ENGINE_BLOCKS, b * mb * 3 // 4)
+    n_valid = min(n_blocks, b * mb * 3 // 4)
     table[table_rng.permutation(b * mb)[:n_valid]] = \
-        table_rng.permutation(ENGINE_BLOCKS)[:n_valid]
+        table_rng.permutation(n_blocks)[:n_valid]
     return torch.as_tensor(table.reshape(b, mb), device=device), n_valid
 
 
@@ -2095,15 +2118,17 @@ def drive_engine(engine, trace, vocab: int, *, timed: bool = False,
     """Submit each request of ``trace`` as its arrival step comes due and
     tick once per step (the arrival loop of the committed models). Returns
     the token streams and the wall seconds; with ``timed``, also the wall
-    ms of every decode, chunk, draft and verify step and of every logits
-    fetch (the verify's apart), each between device synchronisations.
+    ms of every decode, chunk, prefill-into-slot, draft and verify step
+    and of every logits fetch (the verify's apart), each between device
+    synchronisations.
     ``adapters``: the adapter id of each request (a cache-routed
     engine)."""
     rng = np.random.default_rng(SEED + 1)
     prompts = [rng.integers(0, vocab, r["prompt_len"]) for r in trace]
     streams: dict = {}
-    times: dict = {"decode": [], "prefill_chunk": [], "draft": [],
-                   "verify": [], "fetch": [], "verify_fetch": []}
+    times: dict = {"decode": [], "prefill_chunk": [], "prefill_into_slot": [],
+                   "draft": [], "verify": [], "fetch": [],
+                   "verify_fetch": []}
     if timed:
         dev = engine.device     # not the engine: no reference cycle
 
@@ -2121,6 +2146,8 @@ def drive_engine(engine, trace, vocab: int, *, timed: bool = False,
         if engine._paged:
             engine._chunk_prefill = timer("prefill_chunk",
                                           engine._chunk_prefill)
+        else:
+            engine._prefill = timer("prefill_into_slot", engine._prefill)
         if engine.speculative_k:
             engine._draft = timer("draft", engine._draft)
             engine._verify = timer("verify", engine._verify)
@@ -5255,6 +5282,16 @@ MESH_GAP_MIN = 2 * MESH_SERVE_TOL
 # is held within MESH_BF16_FACTOR times the unsharded route's own
 # distance from the fp32 logits, both from them and from that route.
 MESH_BF16_FACTOR = 2.0
+# D5: the continuous-batching engine across the same meshes, on D4's
+# model: 4 slots of 1024 positions, 8 requests arriving one every 2 ticks
+# with prompts of 64-768 tokens and 16 new tokens each (no EOS, so the
+# schedule is the same whatever the tokens); paged: blocks of 16, chunks
+# of 256 and a pool of 72 blocks (one slot's 64 and 8 more), small enough
+# that a decoding row preempts another once. The fp32 checks run the
+# first D5_FP32_REQUESTS requests for D5_FP32_NEW tokens.
+D5_SLOTS, D5_MAX_LEN, D5_BLOCK, D5_CHUNK, D5_BLOCKS = 4, 1024, 16, 256, 72
+D5_REQUESTS, D5_EVERY, D5_PROMPT, D5_NEW = 8, 2, (64, 768), 16
+D5_FP32_REQUESTS, D5_FP32_NEW = 4, 8
 
 
 class _DuckMesh:
@@ -5306,26 +5343,18 @@ def mesh_counts(mcfg, dcfg, shape, *, batch: int, seq: int) -> dict:
     return {k: v * mcfg.num_layers for k, v in c.items()}
 
 
-def mesh_serve_counts(mcfg, dcfg, shape, *, batch: int, seq: int,
-                      decode_steps: int) -> dict:
-    """Launches a rank makes in one ``generate(mesh=)`` on a (data, model)
-    mesh, from the port's dispatch plans at the shapes ``models/layers.py``
-    gives each module: the precompute takes K1 with its epilogue on the
+def _mesh_step_counts(mcfg, dcfg, tp: int, runs) -> dict:
+    """Launches a rank makes on a (data, model) mesh from the port's
+    dispatch plans at the shapes ``models/layers.py`` gives each module:
+    the mesh precompute takes K1 with its epilogue on the
     column-parallel modules' local rows and K1's terms and the standalone
     K2 on wo and w_down (with its epilogue where ``model`` has one rank);
-    the padded prefill's compose runs under the
-    sequence-parallel plans and each decode step's under the decode plans
-    (``make_boundary_constraint(decode=True)``), K6 where matmul-fused,
-    K3 where element-wise."""
+    ``runs`` = (layout, rows, steps) of the steps that follow, whose
+    compose runs under that layout's plans, K6 where matmul-fused, K3
+    where element-wise."""
     from repro_torch.core import dispatch
     from repro_torch.core.sharding import COLUMN_PARALLEL
-    from repro_torch.launch.sharding import make_boundary_constraint
 
-    data, tp = shape
-    mesh = _DuckMesh(data, tp)
-    rows = batch // data
-    sp = make_boundary_constraint(mesh, batch=batch, seq=seq)
-    dec = make_boundary_constraint(mesh, batch=batch, seq=1, decode=True)
     D, qd, kvd, ff = mcfg.d_model, mcfg.q_dim, mcfg.kv_dim, mcfg.d_ff
     dims = {"wq": qd, "wk": kvd, "wv": kvd, "w_gate": ff, "w_up": ff,
             "wo": D, "w_down": D}
@@ -5336,7 +5365,7 @@ def mesh_serve_counts(mcfg, dcfg, shape, *, batch: int, seq: int,
                               else d_out).fused:
             c["norm_terms"] += 1
             c["assembled" if is_col or tp == 1 else "assemble_norm"] += 1
-        for lay, m, times in ((sp, rows * seq, 1), (dec, rows, decode_steps)):
+        for lay, m, times in runs:
             plan = dispatch.plan_compose(
                 dcfg, training=False, rows=m, d_out=d_out, rank=dcfg.rank,
                 sharding=lay.col_plan if is_col else lay.row_plan)
@@ -5345,13 +5374,33 @@ def mesh_serve_counts(mcfg, dcfg, shape, *, batch: int, seq: int,
     return {k: v * mcfg.num_layers for k, v in c.items()}
 
 
-def mesh_decode_bytes(mcfg, dcfg, shape, *, batch: int) -> dict:
+def mesh_serve_counts(mcfg, dcfg, shape, *, batch: int, seq: int,
+                      decode_steps: int) -> dict:
+    """Launches a rank makes in one ``generate(mesh=)`` on a (data, model)
+    mesh (:func:`_mesh_step_counts`): the mesh precompute, the padded
+    prefill under the sequence-parallel plans and each decode step under
+    the decode plans (``make_boundary_constraint(decode=True)``)."""
+    from repro_torch.launch.sharding import make_boundary_constraint
+
+    data, tp = shape
+    mesh = _DuckMesh(data, tp)
+    rows = batch // data
+    sp = make_boundary_constraint(mesh, batch=batch, seq=seq)
+    dec = make_boundary_constraint(mesh, batch=batch, seq=1, decode=True)
+    return _mesh_step_counts(mcfg, dcfg, tp, ((sp, rows * seq, 1),
+                                              (dec, rows, decode_steps)))
+
+
+def mesh_decode_bytes(mcfg, dcfg, shape, *, batch: int,
+                      logits_tag: str = "generate.logits") -> dict:
     """Bytes a rank's collectives move in one decode step, by tag (one
     all-reduce of the tensor's bytes each): per layer y_base [B/data,
     d_model] and h [B/data, r] of wo and w_down all-reduced in fp32, the
     vocab-parallel embedding's rows, the head's local vocab columns
     gathered over ``model`` and the last logits over ``data`` (these in
-    the model dtype); none over an axis of one rank."""
+    the model dtype, under ``logits_tag``: ``generate``'s gather, or the
+    engine's decode step's, "engine.logits"); none over an axis of one
+    rank."""
     data, tp = shape
     rows, esz = batch // data, torch.tensor([], dtype=mcfg.dtype
                                             ).element_size()
@@ -5363,7 +5412,7 @@ def mesh_decode_bytes(mcfg, dcfg, shape, *, batch: int) -> dict:
         out["tp.embed"] = rows * mcfg.d_model * esz
         out["decode.logits"] = rows * mcfg.vocab_size * esz
     if data > 1:
-        out["generate.logits"] = batch * mcfg.vocab_size * esz
+        out[logits_tag] = batch * mcfg.vocab_size * esz
     return out
 
 
@@ -5382,8 +5431,10 @@ def mesh_kernel_checks(dev, rows) -> dict:
     w_down's d_in shards at model = 2, K1 with its epilogue on the
     column-parallel modules' local rows at model = 2 (the mesh
     precompute's), K6 and K7 at the column-parallel local shapes
-    [4096, 9472] and [4096, 1792]; each against its plain version within
-    the tolerance it holds today, the same bits twice."""
+    [4096, 9472] and [4096, 1792], K8 at D5's local views [4, 1024, 2,
+    128], [2, 1024, 4, 128] and [2, 1024, 2, 128] (bitwise, timed beside
+    ``index_select``); each against its plain version within the
+    tolerance it holds today, the same bits twice."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import dora_compose as kc
     from repro_torch.kernels import factored_norm as kn
@@ -5527,6 +5578,53 @@ def mesh_kernel_checks(dev, rows) -> dict:
                    mesh_shard=where,
                    d_base_bitwise_equal_plain=True, deterministic=bool(same))
         out[f"mm_{n}"] = {"k6_err": e, "k7_err": e2}
+    out.update(mesh_paged_gather_checks(dev, rows, mcfg))
+    return out
+
+
+def mesh_paged_gather_checks(dev, rows, mcfg) -> dict:
+    """K8 at D5's local views: a rank's pool of its Hkv / tp heads
+    gathered through its replica's slot rows of the table, bitwise the
+    plain version and the same bits twice, timed beside
+    ``index_select`` (medians of alternating windows; both host-paced)."""
+    from repro_torch.kernels import paged_gather as kp
+
+    hd, hkv, mb = mcfg.head_dim, mcfg.num_kv_heads, D5_MAX_LEN // D5_BLOCK
+    gen = torch.Generator(device=dev).manual_seed(SEED + 12)
+    table_rng = np.random.default_rng(SEED + 12)
+    esz = 2
+    out = {}
+    for b, heads, at in ((D5_SLOTS, hkv // 2, "(data 1, model 2)"),
+                         (D5_SLOTS // 2, hkv, "(data 2, model 1)"),
+                         (D5_SLOTS // 2, hkv // 2, "(data 2, model 2)")):
+        pool = torch.randn((D5_BLOCKS, D5_BLOCK, heads, hd), generator=gen,
+                           device=dev).to(torch.bfloat16)
+        pages, n_valid = paged_table(b, table_rng, dev, mb=mb,
+                                     n_blocks=D5_BLOCKS)
+        got = kp.paged_gather(pool, pages)
+        ref = kp.paged_gather_plain(pool, pages)
+        bitwise = torch.equal(got.view(torch.int16), ref.view(torch.int16))
+        same = torch.equal(got.view(torch.int16),
+                           kp.paged_gather(pool, pages).view(torch.int16))
+        check(bitwise and same, f"paged_gather at D5's view {at}: bitwise "
+              f"{bitwise}, the same bits twice {same}")
+        e, mx = max_err(got, ref)
+        ids = pages.clamp_min(0).long().reshape(-1)
+        ms_k8, ms_lib = alternating_ms(
+            lambda: kp.paged_gather(pool, pages),
+            lambda: pool.index_select(0, ids))
+        record_row(rows, "paged_gather", [b, mb * D5_BLOCK, heads, hd], e,
+                   mx, 0.0, float(np.median(ms_k8)),
+                   time_ms(lambda: kp.paged_gather_plain(pool, pages)),
+                   (b * mb + n_valid) * D5_BLOCK * heads * hd * esz
+                   + b * mb * 4, 0.0, float(np.median(ms_lib)),
+                   "pool.index_select(0, clamped ids), no zero fill",
+                   mesh_shard=f"D5's local view at {at}",
+                   bitwise_equal_plain=bitwise, deterministic=same,
+                   valid_entries=n_valid, ms_windows=ms_k8,
+                   library_ms_windows=ms_lib)
+        out[f"k8_{b}x{heads}"] = {"bitwise": bitwise, "deterministic": same}
+        del pool, got, ref
     return out
 
 
@@ -5720,7 +5818,7 @@ def _mesh_serve(rank: int, mesh, run: dict, dev) -> dict:
     coll = csh.collective_stats()
     peak = torch.cuda.max_memory_allocated(dev) if on_card else None
     first = logits[0].float()
-    del params, adapters, logits
+    del logits
     rec = {"launches": counts, "k6_mma": k6_mma, "collectives": coll,
            "precompute_ms": stats["precompute_s"] * 1e3,
            "prefill_ms": stats["prefill_s"] * 1e3,
@@ -5728,6 +5826,11 @@ def _mesh_serve(rank: int, mesh, run: dict, dev) -> dict:
            "peak_bytes": peak, "tokens_shape": list(toks.shape),
            "tokens_finite": bool(((toks >= 0)
                                   & (toks < mcfg.vocab_size)).all())}
+    # D5: the continuous-batching engine on the same weights and mesh.
+    rec["engine"] = _mesh_engine(rank, mesh, run, dev, params, adapters)
+    del params, adapters
+    if on_card:
+        torch.cuda.empty_cache()
     if rank == 0:
         # Each data replica serves its rows as one card serves that
         # batch (the compose route reads the rows of the call), so the
@@ -5809,6 +5912,190 @@ def _mesh_serve(rank: int, mesh, run: dict, dev) -> dict:
         torch.cuda.empty_cache()
     rec["seconds"] = time.perf_counter() - t0
     return rec
+
+
+def d5_trace(n: int = D5_REQUESTS, new: int = D5_NEW) -> list:
+    """D5's arrivals (``drive_engine``'s form): request i at tick D5_EVERY
+    x i with a prompt length drawn from a seed in D5_PROMPT and ``new``
+    new tokens; the first ``n`` of them."""
+    lo, hi = D5_PROMPT
+    lens = np.random.default_rng(SEED + 31).integers(lo, hi + 1,
+                                                     D5_REQUESTS)
+    return [{"arrival_step": D5_EVERY * i, "prompt_len": int(lens[i]),
+             "gen_len": new} for i in range(n)]
+
+
+def d5_kwargs(paged: bool) -> dict:
+    """D5's engine geometry, rectangular or paged."""
+    kw = {"slots": D5_SLOTS, "max_len": D5_MAX_LEN}
+    if paged:
+        kw.update(paged=True, block_size=D5_BLOCK, n_blocks=D5_BLOCKS,
+                  prefill_chunk=D5_CHUNK)
+    return kw
+
+
+def mesh_engine_counts(mcfg, dcfg, shape, steps: dict, *,
+                       paged: bool) -> dict:
+    """Launches a rank makes in one D5 run (:func:`_mesh_step_counts`):
+    the mesh precompute of the engine's state, each prefill-into-slot (a
+    row padded to D5_MAX_LEN) and each chunk (D5_CHUNK rows) under the
+    sequence-parallel plans of a batch of one, each decode step over this
+    replica's slot rows under the decode plans, and on the paged engine
+    K8 twice a layer in every chunk and decode step (``steps``: the
+    engine's ``device_steps()``)."""
+    from repro_torch.launch.sharding import make_boundary_constraint
+
+    data, tp = shape
+    mesh = _DuckMesh(data, tp)
+    rows = D5_SLOTS // data if D5_SLOTS % data == 0 else D5_SLOTS
+    runs = ((make_boundary_constraint(mesh, batch=1, seq=D5_MAX_LEN),
+             D5_MAX_LEN, steps["prefill_into_slot"]),
+            (make_boundary_constraint(mesh, batch=1, seq=D5_CHUNK),
+             D5_CHUNK, steps["prefill_chunk"]),
+            (make_boundary_constraint(mesh, batch=D5_SLOTS, seq=1,
+                                      decode=True), rows, steps["decode"]))
+    c = _mesh_step_counts(mcfg, dcfg, tp, runs)
+    c["paged_gather"] = paged * 2 * mcfg.num_layers * (
+        steps["decode"] + steps["prefill_chunk"])
+    return c
+
+
+def _mesh_engine(rank: int, mesh, run: dict, dev, params, adapters) -> dict:
+    """D5 on one rank: ``DecodeEngine(mesh=)`` of ``run["mcfg"]`` in bf16
+    on :func:`d5_trace`, rectangular and paged, each from its own mesh
+    precompute (g cached, B unfolded, as ``generate`` serves: the
+    compose takes K6 where the plans say), with its launch counts, K6's tensor-core
+    launches, collective bytes by tag, stats, device steps, pool, streams,
+    ms a tick and a step, and peak; on rank 0 the unsharded engine's
+    schedule on the same trace; on (2, 2) ``EngineServer(mesh=)`` on the
+    same requests against the paged engine given them at once; then the
+    fp32 route on the first D5_FP32_REQUESTS requests: paged == rect
+    streams, and on (2, 2) rank 0 holds both engines' fetched logits and
+    streams against the unsharded port's."""
+    import dataclasses
+
+    from repro_torch import kernels
+    from repro_torch.core import sharding as csh
+    from repro_torch.core.adapter_cache import AdapterStateCache
+    from repro_torch.core.config import DoRAConfig
+    from repro_torch.launch import serve as SV
+    from repro_torch.launch.engine import DecodeEngine
+    from repro_torch.launch.steps import StepConfig, make_precompute_step
+
+    t0 = time.perf_counter()
+    mcfg, vocab = run["mcfg"], run["mcfg"].vocab_size
+    dcfg = DoRAConfig(rank=run["rank"], alpha=run["alpha"], mode=run["mode"])
+    scfg = StepConfig(dora=dcfg)
+    square = dict(mesh.shape) == {"data": 2, "model": 2}
+    trace = d5_trace()
+    mm = kernels.KERNELS["compose_mm_fwd"]
+    out = {}
+    for name in ("rect", "paged"):
+        _sync(dev)
+        _reset_peak(dev)
+        kernels.reset_launch_counts()
+        csh.reset_collective_stats()
+        mma0 = mm.mma_launches
+        state = make_precompute_step(mcfg, scfg, mesh)(
+            params, adapters)
+        engine = DecodeEngine(mcfg, scfg, params, adapters=state, mesh=mesh,
+                              **d5_kwargs(name == "paged"))
+        r = drive_engine(engine, trace, vocab, timed=True)
+        st = engine.stats()
+        out[name] = {
+            "launches": launch_counts(), "k6_mma": mm.mma_launches - mma0,
+            "collectives": csh.collective_stats(), "stats": st.as_dict(),
+            "device_steps": engine.device_steps(),
+            "pool": engine.pool_stats() if name == "paged" else None,
+            "streams": {str(k): v for k, v in r["streams"].items()},
+            "ms_per_tick": r["wall_s"] * 1e3 / st.steps,
+            "decode_ms": _mean(r["times_ms"]["decode"]),
+            "chunk_ms": _mean(r["times_ms"]["prefill_chunk"]),
+            "prefill_into_slot_ms": _mean(
+                r["times_ms"]["prefill_into_slot"]),
+            "fetch_ms": _mean(r["times_ms"]["fetch"]),
+            "wall_s": r["wall_s"], "peak_bytes": _peak(dev)}
+        del engine, state
+        _empty_cache(dev)
+    if rank == 0:
+        p, a, _ = _mesh_state(mcfg, dcfg, None, dev, SEED + 5)
+        state = make_precompute_step(mcfg, scfg)(p, a)
+        for name in ("rect", "paged"):
+            engine = DecodeEngine(mcfg, scfg, p, adapters=state, device=dev,
+                                  **d5_kwargs(name == "paged"))
+            drive_engine(engine, trace, vocab)
+            out[name]["one_card"] = {
+                "stats": engine.stats().as_dict(),
+                "device_steps": engine.device_steps(),
+                "pool": engine.pool_stats() if name == "paged" else None}
+            del engine
+        del p, a, state
+        _empty_cache(dev)
+    if square:
+        # The server submits every request at once: the paged engine is
+        # given them the same way.
+        rng = np.random.default_rng(SEED + 1)
+        prompts = [rng.integers(0, vocab, q["prompt_len"]) for q in trace]
+        cache = AdapterStateCache.for_serving(mcfg, scfg, mesh,
+                                              fold_gsb=False)
+        cache.register("t0", adapters)
+        server = SV.EngineServer(mcfg, scfg, params, cache=cache, mesh=mesh,
+                                 **d5_kwargs(True))
+        ts = time.perf_counter()
+        res = server.run([SV.Request(q, "t0") for q in prompts],
+                         gen_len=D5_NEW)
+        wall = time.perf_counter() - ts
+        state = make_precompute_step(mcfg, scfg, mesh)(
+            params, adapters)
+        engine = DecodeEngine(mcfg, scfg, params, adapters=state, mesh=mesh,
+                              **d5_kwargs(True))
+        for i, q in enumerate(prompts):
+            engine.submit(q, max_new_tokens=D5_NEW, key_id=i)
+        alone = engine.run()
+        out["server"] = {
+            "requests": len(res), "wall_s": wall,
+            "ticks": server.engine.stats().steps,
+            "reasons": sorted({x.finish_reason for x in res}),
+            "streams_equal_engine": [x.tokens.tolist() for x in res]
+            == [x.tokens.tolist() for x in alone]}
+        del server, cache, engine, state
+        _empty_cache(dev)
+
+    m32 = dataclasses.replace(mcfg, dtype=torch.float32)
+    short = d5_trace(D5_FP32_REQUESTS, D5_FP32_NEW)
+    p32, a32, _ = _mesh_state(m32, dcfg, mesh, dev, SEED + 6)
+    state = make_precompute_step(m32, scfg, mesh)(p32, a32)
+    got = {}
+    for name in ("rect", "paged"):
+        engine = DecodeEngine(m32, scfg, p32, adapters=state, mesh=mesh,
+                              **d5_kwargs(name == "paged"))
+        seen = capture_logits(engine)
+        got[name] = (drive_engine(engine, short, vocab)["streams"], seen)
+        del engine
+    del p32, a32, state
+    _empty_cache(dev)
+    out["fp32_paged_equals_rect"] = got["paged"][0] == got["rect"][0]
+    if rank == 0 and square:
+        p, a, _ = _mesh_state(m32, dcfg, None, dev, SEED + 6)
+        state = make_precompute_step(m32, scfg)(p, a)
+        fp32 = {}
+        for name in ("rect", "paged"):
+            engine = DecodeEngine(m32, scfg, p, adapters=state, device=dev,
+                                  **d5_kwargs(name == "paged"))
+            seen = capture_logits(engine)
+            streams = drive_engine(engine, short, vocab)["streams"]
+            del engine
+            gaps = [float(np.diff(np.sort(w)[-2:])[0] / np.abs(w).max())
+                    for w in seen.values()]
+            fp32[name] = {"rows": len(seen),
+                          "logit_max_rel": max_rel_logits(got[name][1], seen),
+                          "least_top2_gap": min(gaps),
+                          "tokens_equal": got[name][0] == streams}
+        out["fp32"] = fp32
+        del p, a, state
+        _empty_cache(dev)
+    out["seconds"] = time.perf_counter() - t0
+    return out
 
 
 def _leaf_max_rel(got, want) -> float:
@@ -5931,6 +6218,7 @@ def mesh_checks(dev, mcfg=None) -> dict:
               and fp32["grad_leaf_max_rel"] <= MESH_LEAF_REL_MAX,
               f"mesh {shape} fp32 route: {fp32}")
         serve = mesh_serve_record(mcfg, dcfg, shape, recs)
+        engine = mesh_engine_record(mcfg, dcfg, shape, recs)
         warm = [st["ms"] for st in recs[0]["steps"][1:]]
         rec = {"ranks": len(recs), "launches_per_step": want,
                "norm_bytes_per_step": norm_bytes,
@@ -5944,7 +6232,7 @@ def mesh_checks(dev, mcfg=None) -> dict:
                "losses": recs[0]["steps"] and [st["loss"] for st in
                                                 recs[0]["steps"]],
                "collectives_step": recs[0]["steps"][-1]["collectives"],
-               "fp32": fp32, "serve": serve,
+               "fp32": fp32, "serve": serve, "engine": engine,
                "seconds": time.perf_counter() - t0}
         out[f"{shape[0]}x{shape[1]}"] = rec
         print(f"mesh (data {shape[0]}, model {shape[1]}) [{MESH_LABEL}]: "
@@ -5961,6 +6249,9 @@ def mesh_checks(dev, mcfg=None) -> dict:
               f"[{MESH_LABEL}]: " + json.dumps(
                   {k: v for k, v in serve.items()
                    if k not in ("launches_per_rank",)}), flush=True)
+        print(f"  D5 engine (data {shape[0]}, model {shape[1]}) "
+              f"[{MESH_LABEL}; no multi-card speed]: " + json.dumps(engine),
+              flush=True)
     return out
 
 
@@ -6023,6 +6314,89 @@ def mesh_serve_record(mcfg, dcfg, shape, recs) -> dict:
             "bf16_vs_fp32_cosine": r0["bf16_vs_fp32_cosine"],
             "bf16_noise_floor_cosine": r0["bf16_noise_floor_cosine"],
             "fp32": fp32}
+
+
+def mesh_engine_record(mcfg, dcfg, shape, recs) -> dict:
+    """D5's checks over one mesh's rank records (``_mesh_engine``) and the
+    numbers kept of them: per rank and engine the launches of
+    :func:`mesh_engine_counts` exactly (K8 = 2 x layers x (chunk +
+    decode steps) on the paged engine, 0 on the rectangular), every K6
+    on the tensor cores, each decode step's collective bytes by tag
+    exactly ``mesh_decode_bytes`` (the engine's data gather
+    "engine.logits"), the stats, device steps and pool of the unsharded
+    engine on the same trace, rank 0's streams, a preemption on the paged
+    engine and its pool drained; the fp32 paged == rect streams on every
+    rank; on (2, 2) the server's streams equal the paged engine's, and the
+    fp32 engines' fetched logits within MESH_SERVE_TOL of max |logit| of
+    the unsharded port's, each top-2 gap at least MESH_GAP_MIN, and their
+    tokens equal."""
+    out = {}
+    for name in ("rect", "paged"):
+        r0 = recs[0]["serve"]["engine"][name]
+        one = r0["one_card"]
+        want_bytes = mesh_decode_bytes(mcfg, dcfg, shape, batch=D5_SLOTS,
+                                       logits_tag="engine.logits")
+        for r in recs:
+            e = r["serve"]["engine"][name]
+            where = f"D5 mesh {shape} rank {r['rank']} {name}"
+            for key in ("stats", "device_steps", "pool"):
+                check(e[key] == one[key], f"{where}: {key} {e[key]} != the "
+                      f"unsharded engine's {one[key]}")
+            want = mesh_engine_counts(mcfg, dcfg, shape, e["device_steps"],
+                                      paged=name == "paged")
+            check(e["launches"] == want,
+                  f"{where}: launches {e['launches']} != {want}")
+            check(e["k6_mma"] == e["launches"]["compose_mm_fwd"],
+                  f"{where}: {e['k6_mma']} of "
+                  f"{e['launches']['compose_mm_fwd']} K6 launches on the "
+                  f"tensor cores")
+            n = e["device_steps"]["decode"]
+            coll = e["collectives"]
+            got = {t: coll[t]["bytes"] / n for t in coll
+                   if t.startswith(("tp.", "decode.", "engine."))}
+            check(got == want_bytes, f"{where}: decode bytes a step {got} "
+                  f"!= {want_bytes}")
+            check(e["streams"] == r0["streams"],
+                  f"{where}: streams differ from rank 0's")
+            check(len(e["streams"]) == D5_REQUESTS and all(
+                len(v) == D5_NEW and all(0 <= t < mcfg.vocab_size for t in v)
+                for v in e["streams"].values()),
+                f"{where}: streams {e['streams']}")
+        if name == "paged":
+            check(r0["stats"]["preemptions"] >= 1
+                  and r0["pool"]["used_blocks"] == 0,
+                  f"D5 mesh {shape} paged: stats {r0['stats']}, pool "
+                  f"{r0['pool']}")
+        out[name] = {
+            "launches_per_rank": want, "decode_bytes_per_step": want_bytes,
+            "ticks": r0["stats"]["steps"],
+            "device_steps": r0["device_steps"],
+            "preemptions": r0["stats"]["preemptions"],
+            "peak_used_blocks": (r0["pool"] or {}).get("peak_used_blocks"),
+            **{f"{k}_by_rank": [r["serve"]["engine"][name][k] for r in recs]
+               for k in ("ms_per_tick", "decode_ms", "chunk_ms",
+                         "prefill_into_slot_ms", "fetch_ms", "wall_s",
+                         "peak_bytes")}}
+    for r in recs:
+        check(r["serve"]["engine"]["fp32_paged_equals_rect"],
+              f"D5 mesh {shape} rank {r['rank']}: fp32 paged streams "
+              f"differ from the rectangular engine's")
+    e0 = recs[0]["serve"]["engine"]
+    if "server" in e0:
+        check(e0["server"]["streams_equal_engine"]
+              and e0["server"]["reasons"] == ["length"],
+              f"D5 mesh {shape}: EngineServer {e0['server']}")
+        out["server"] = e0["server"]
+    if "fp32" in e0:
+        for name, f in e0["fp32"].items():
+            check(f["least_top2_gap"] >= MESH_GAP_MIN
+                  and f["logit_max_rel"] <= MESH_SERVE_TOL
+                  and f["tokens_equal"],
+                  f"D5 mesh {shape} fp32 {name} engine against one card: "
+                  f"{f}")
+        out["fp32"] = e0["fp32"]
+    out["seconds_by_rank"] = [r["serve"]["engine"]["seconds"] for r in recs]
+    return out
 
 
 def main() -> int:
@@ -6088,7 +6462,7 @@ def main() -> int:
     small_parity(dev)
     t0 = time.perf_counter()
     mesh = mesh_checks(dev)
-    print(f"mesh phases D2-D4: {time.perf_counter() - t0:.1f} s",
+    print(f"mesh phases D2-D5: {time.perf_counter() - t0:.1f} s",
           flush=True)
     t0 = time.perf_counter()
     served, mcfg, params, adapters = serve_checks(dev)
@@ -6176,7 +6550,11 @@ def main() -> int:
                **{f"train_mesh_{k}_per_step_per_rank": r["launches_per_step"]
                   for k, r in mesh.items() if isinstance(r, dict)},
                **{f"serve_mesh_{k}_per_rank": r["serve"]["launches_per_rank"]
-                  for k, r in mesh.items() if isinstance(r, dict)}}
+                  for k, r in mesh.items() if isinstance(r, dict)},
+               **{f"engine_mesh_{k}_{e}_per_rank":
+                  r["engine"][e]["launches_per_rank"]
+                  for k, r in mesh.items() if isinstance(r, dict)
+                  for e in ("rect", "paged")}}
     record = []
     for name, (src, replaces) in SOURCES.items():
         path, at = RECORD_PATH[name]
@@ -6211,7 +6589,11 @@ def main() -> int:
                 "deterministic": top["deterministic"], "ptxas": k6_ptxas[0]}
                if name == "compose_mm_fwd" else {}),
             **({"device_ms": top["device_ms"],
-                "index_select_host_us": host["index_select (PyTorch op)"]}
+                "index_select_host_us": host["index_select (PyTorch op)"],
+                "mesh_local_views": [
+                    {k: r[k] for k in ("shape", "ms", "library_ms",
+                                       "bound_ms", "mesh_shard")}
+                    for r in rows[name] if "mesh_shard" in r]}
                if name == "paged_gather" else {}),
             **({k: top[k] for k in ("device_ms", "lanes", "lane_sweep_ms",
                                     "deterministic", "train_shape",
@@ -6254,7 +6636,8 @@ def main() -> int:
                           "norm_bytes_per_step", "gather_bytes_instead",
                           "step_ms_by_rank", "peak_bytes_by_rank", "fp32")}
                           | {"serve": {f: v for f, v in r["serve"].items()
-                                       if f != "collectives_rank0"}}
+                                       if f != "collectives_rank0"},
+                             "engine": r["engine"]}
                           if isinstance(r, dict) else r)
                           for k, r in mesh.items()},
                       "serve": {k: served[k] for k in

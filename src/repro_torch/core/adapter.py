@@ -202,7 +202,7 @@ def dora_linear(x, W, adapter: dict[str, Any], cfg: DoRAConfig, *,
     partials are summed over it. The serving state ("g", "gsB") is taken
     under a plan as this rank's shards (:func:`precompute_adapter_state`
     with ``sp``); tenant groups are not (ROADMAP queue 1 item 6, second
-    half).
+    half, point 1c).
 
     ``tenant_groups``: multi-tenant serving, a tuple of ``(start, size)``
     row blocks or an int [B] tensor of per-row tenant positions, over an
@@ -212,7 +212,7 @@ def dora_linear(x, W, adapter: dict[str, Any], cfg: DoRAConfig, *,
     if plan_sh is not None and tenant_groups is not None:
         raise NotImplementedError(
             "tenant groups under a mesh are ROADMAP queue 1 item 6, second "
-            "half")
+            "half, point 1c")
     if axis_name is not None and plan_sh is None:
         raise ValueError("dora_linear(axis_name=...) needs a mesh plan "
                          "(constrain=) to name the mesh")

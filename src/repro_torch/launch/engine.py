@@ -65,9 +65,20 @@ reference's lifecycle, fault and cache events from host scalars.
 The reference's ``compile_counts()`` counts XLA executables, which
 PyTorch does not have: :meth:`DecodeEngine.device_steps` counts the
 device steps the engine ran, and :meth:`DecodeEngine.step_signatures`
-the decode and verify steps run under each group signature. A device
-mesh (``mesh``) is refused: multi-device serving is ROADMAP queue 1
-item 6.
+the decode and verify steps run under each group signature.
+
+Across a (data, model) mesh (``mesh``, ``launch/mesh.py``) every rank
+runs the same engine over its shards: the params and the adapter states
+are this rank's (the mesh precompute's, ``make_precompute_step(mesh=)``
+or ``AdapterStateCache.for_serving(mesh=)``), the cache holds this rank's
+K/V heads for its data replica's slot rows (a paged pool whole on every
+replica; ``init_cache(mesh=)``), the admissions prefill in the
+sequence-parallel layout and decode runs tensor-parallel on each
+replica's rows. The decode logits come back gathered over the data axes,
+so the host scheduler, replicated unchanged, makes the same decisions on
+every rank. One adapter at a time: speculation, dynamic grouping and a
+slot layout of two or more handles under a mesh are ROADMAP queue 1
+item 6, second half, point 1c.
 
 SSM/Mamba archs are refused (their states integrate every processed
 token and cannot rewind to a slot's true prompt length), and MoE FFNs
@@ -87,7 +98,7 @@ from repro_torch.core.adapter import stack_adapter_states
 from repro_torch.core.adapter_cache import (AdapterHandle, AdapterStateCache,
                                             mesh_fingerprint)
 from repro_torch.launch.faults import FaultPlan
-from repro_torch.launch.serve import resolve_device
+from repro_torch.launch.serve import _MESH_LATER, resolve_device
 from repro_torch.launch.steps import (StepConfig, make_decode_step,
                                       make_draft_step,
                                       make_prefill_chunk_step,
@@ -114,6 +125,18 @@ FINISH_REASONS = ("eos", "length", "max_len", "error", "timeout",
 # and m are folded into gsB and g, and stacking them would add their
 # bytes per stack position without changing an output.
 _GROUPED_LEAVES = ("A", "g", "gsB")
+
+
+def _raw_leaf(tree, path: str = "") -> str | None:
+    """The path of the first adapter leaf of ``tree`` that carries no
+    serving state ("g"), or None."""
+    if "A" in tree:
+        return None if "g" in tree else path
+    for k, v in tree.items():
+        found = _raw_leaf(v, f"{path}/{k}" if path else k)
+        if found is not None:
+            return found
+    return None
 
 
 def _grouped_view(state):
@@ -269,8 +292,21 @@ class DecodeEngine:
     (then on its slot) for its lifetime, so a tenant ``update()`` never
     swaps weights under a submitted request. ``allow_miss=False`` refuses
     a request whose state would need a precompute. ``device``: None is
-    the card, which must be present; ``"cpu"`` is the explicit CPU
-    request; ``params`` and the states must live there.
+    the card, which must be present (the mesh's device when a mesh is
+    given); ``"cpu"`` is the explicit CPU request; ``params`` and the
+    states must live there.
+
+    ``mesh``: ``params`` are this rank's shards, ``adapters`` the mesh
+    precompute's serving state (this rank's shards; a raw tree is
+    refused) or ``adapter_cache`` a cache of
+    ``AdapterStateCache.for_serving(mcfg, scfg, mesh)``. Every rank
+    submits the same requests and steps the same ticks; each returns the
+    same results. No wall clock enters a decision: the ``slow`` fault
+    only sleeps. Refused under a mesh (ROADMAP queue 1 item 6, second
+    half, point 1c): ``speculative_k > 0``, ``dynamic_grouping`` and an
+    admission that would seat a second distinct handle beside the
+    occupied slots' (refused before its prefill, so no device step runs
+    under a two-handle layout).
 
     ``step()`` is one scheduler tick: apply the fault plan's events →
     expire deadlines → admit into free slots (preempting lower-priority
@@ -358,11 +394,12 @@ class DecodeEngine:
                 f"capacity dispatch couples batch rows, so a retired "
                 f"slot's garbage tokens could evict a live row's tokens "
                 f"from an expert (arch {mcfg.name!r})")
-        if mesh is not None:
+        if mesh is not None and (speculative_k or dynamic_grouping):
             raise NotImplementedError(
-                "DecodeEngine(mesh=...) is not ported yet: it comes with "
-                "multi-device serving (ROADMAP queue 1 item 6, second "
-                "half)")
+                f"DecodeEngine(mesh=...) serves one adapter at a time with "
+                f"plain decode: "
+                f"{'speculative_k' if speculative_k else 'dynamic_grouping'}"
+                f" under a mesh is {_MESH_LATER}")
         if slots < 1:
             raise ValueError(f"need at least one slot, got {slots}")
         if (adapters is None) == (adapter_cache is None):
@@ -380,8 +417,16 @@ class DecodeEngine:
                 f"adapter cache is keyed for sharding "
                 f"{adapter_cache.sharding} but the engine runs on mesh "
                 f"{mesh_fingerprint(mesh)} — build the cache with "
-                f"AdapterStateCache.for_serving(mcfg, scfg) for THIS "
+                f"AdapterStateCache.for_serving(mcfg, scfg, mesh) for THIS "
                 f"layout")
+        if mesh is not None and adapters is not None:
+            raw = _raw_leaf(adapters)
+            if raw is not None:
+                raise ValueError(
+                    f"DecodeEngine(mesh=...) takes the mesh precompute's "
+                    f"serving state: adapter leaf {raw} has no 'g'; "
+                    f"precompute it with make_precompute_step(mcfg, scfg, "
+                    f"mesh)")
         if dynamic_grouping and adapter_cache is None:
             raise ValueError(
                 "dynamic_grouping=True requires an adapter_cache: the fleet "
@@ -397,10 +442,12 @@ class DecodeEngine:
         if not 0.0 <= spec_accept_floor <= 1.0:
             raise ValueError(
                 f"spec_accept_floor={spec_accept_floor} not in [0, 1]")
-        self.device = resolve_device(device)
+        self.device = resolve_device(device if device is not None
+                                     or mesh is None else mesh.device)
         if params["embed"].device != self.device:
             raise ValueError(f"params live on {params['embed'].device}, "
                              f"the engine was asked on {self.device}")
+        self.mesh = mesh
         self.mcfg = mcfg
         self.scfg = scfg
         self.params = params
@@ -452,13 +499,13 @@ class DecodeEngine:
         self.cache = init_cache(
             mcfg, self.slots, self.max_len, row_lens=True,
             block_size=self._block_size if self._paged else None,
-            n_blocks=self._n_blocks if self._paged else None,
+            n_blocks=self._n_blocks if self._paged else None, mesh=mesh,
             device=self.device)
         if self._paged:
-            self._chunk_prefill = make_prefill_chunk_step(mcfg, scfg,
-                                                          chunk=self._chunk)
+            self._chunk_prefill = make_prefill_chunk_step(
+                mcfg, scfg, mesh, chunk=self._chunk)
         else:
-            self._prefill = make_prefill_into_slot_step(mcfg, scfg,
+            self._prefill = make_prefill_into_slot_step(mcfg, scfg, mesh,
                                                         seq=self.max_len)
         self._draft = make_draft_step(mcfg, scfg, batch=self.slots)
         self._device_steps = {"prefill_into_slot": 0, "prefill_chunk": 0,
@@ -1077,6 +1124,14 @@ class DecodeEngine:
         paged admission is DEFERRED (the pool cannot hold the prompt now:
         the request goes back to the queue head and this tick admits no
         more)."""
+        if self.mesh is not None and req.adapter is not None and any(
+                s.occupied and s.handle != req.adapter for s in self._slots):
+            self._queue.appendleft(req)
+            raise NotImplementedError(
+                f"DecodeEngine(mesh=...) serves one adapter at a time: "
+                f"admitting {req.adapter} beside another handle's slots "
+                f"would decode a grouped layout, which under a mesh is "
+                f"{_MESH_LATER}")
         if self._stale_pending and req.adapter is not None:
             # Fault injection: a handle one version past the registry's,
             # pinned state stripped, so the resolution below raises the
@@ -1278,7 +1333,8 @@ class DecodeEngine:
     def _decode(self, params, adapters, cache, batch_in, groups=None):
         """One batched decode under the group signature ``groups``."""
         dyn = groups == "dynamic"
-        step = make_decode_step(self.mcfg, self.scfg, batch=self.slots,
+        step = make_decode_step(self.mcfg, self.scfg, self.mesh,
+                                batch=self.slots,
                                 tenant_groups=None if dyn else groups,
                                 dynamic_groups=dyn)
         return step(params, adapters, cache, batch_in)
@@ -1546,6 +1602,10 @@ class DecodeEngine:
         every active slot. Returns the requests that FINISHED during this
         tick. ``on_token(request_id, token)`` streams every sampled
         token."""
+        if self.mesh is not None and self.speculative_k:
+            raise NotImplementedError(
+                f"DecodeEngine(mesh=...) decodes plainly: speculative_k "
+                f"under a mesh is {_MESH_LATER}")
         before = set(self._results)
         self._apply_tick_faults()
         self._expire_deadlines()

@@ -105,6 +105,7 @@ from repro_torch.core.adapter import stack_adapter_states
 from repro_torch.core.adapter_cache import (AdapterHandle, AdapterStateCache,
                                             mesh_fingerprint)
 from repro_torch.core.config import DoRAConfig
+from repro_torch.launch.sharding import local_rows
 from repro_torch.launch.steps import (PhaseClock, StepConfig,
                                       make_decode_step, make_precompute_step,
                                       make_prefill_step)
@@ -123,8 +124,10 @@ def resolve_device(device=None) -> torch.device:
 
 
 # Where the refusals of the serving paths not yet ported to a mesh point.
-_MESH_LATER = ("ROADMAP queue 1 item 6, second half (multi-device serving "
-               "of the grouped, engine and server paths)")
+_MESH_LATER = ("ROADMAP queue 1 item 6, second half, point 1c "
+               "(multi-device serving of tenant groups, the grouped "
+               "server, the engine's multi-handle layouts, dynamic "
+               "grouping and speculation)")
 
 
 def _check_cache_mesh(cache: AdapterStateCache, mesh) -> None:
@@ -138,14 +141,6 @@ def _check_cache_mesh(cache: AdapterStateCache, mesh) -> None:
             f"serving runs on mesh {want} — build the cache with "
             f"AdapterStateCache.for_serving(mcfg, scfg, mesh) for THIS "
             f"mesh so its states are this layout's shards")
-
-
-def refuse_mesh(what: str, mesh) -> None:
-    """Refuse a mesh on a serving path that runs on one card only."""
-    if mesh is not None:
-        raise NotImplementedError(
-            f"{what}(mesh=...) is not ported yet: multi-device serving of "
-            f"it comes with {_MESH_LATER}")
 
 
 def _sample(last, temperature: float, generator):
@@ -166,11 +161,7 @@ class _Rows:
         self.lay = lay
 
     def local(self, t):
-        lay = self.lay
-        if lay.dp_size == 1:
-            return t
-        i = lay.mesh.axis_index(lay.dp_axes)
-        return t[i * lay.local_batch:(i + 1) * lay.local_batch]
+        return t[local_rows(self.lay.mesh, t.shape[0])]
 
     def gather(self, logits):
         from repro_torch.core.sharding import all_gather
@@ -341,8 +332,9 @@ class MultiTenantServer:
 
     ``device``: None is the card, which must be present; ``"cpu"`` is the
     explicit CPU request; ``params`` must live there. ``mesh`` is
-    refused (ROADMAP queue 1 item 6, second half): a single tenant is
-    served across a mesh by :func:`generate`.
+    refused (ROADMAP queue 1 item 6, second half, point 1c): a single
+    tenant is served across a mesh by :func:`generate`, and by
+    :class:`EngineServer` through the continuous-batching engine.
     """
 
     def __init__(self, mcfg, scfg: StepConfig, params, *,
@@ -351,7 +343,11 @@ class MultiTenantServer:
                  dynamic_grouping: bool = False,
                  max_active_per_adapter: int | None = None,
                  trace=None, device=None):
-        refuse_mesh("MultiTenantServer", mesh)
+        if mesh is not None:
+            raise NotImplementedError(
+                f"MultiTenantServer(mesh=...) is not ported yet: it comes "
+                f"with {_MESH_LATER}; one tenant is served across a mesh "
+                f"by generate(mesh=) and EngineServer(mesh=)")
         _check_cache_mesh(cache, mesh)
         self.device = resolve_device(device)
         if params["embed"].device != self.device:
@@ -566,9 +562,13 @@ class EngineServer:
     :class:`AdapterStateCache` LRU as the static server.
 
     The keywords are the engine's. ``device``: None is the card, which
-    must be present; ``"cpu"`` is the explicit CPU request; ``params``
-    must live there. ``mesh`` is refused (ROADMAP queue 1 item 6, second
-    half).
+    must be present (the mesh's device when a mesh is given); ``"cpu"``
+    is the explicit CPU request; ``params`` must live there. ``mesh``:
+    the engine runs across it (``DecodeEngine(mesh=)``): ``params`` are
+    this rank's shards, ``cache`` is keyed for this mesh
+    (``AdapterStateCache.for_serving(mcfg, scfg, mesh)``), every rank
+    runs the same requests and returns the same results; one adapter at
+    a time, with plain decode.
     """
 
     def __init__(self, mcfg, scfg: StepConfig, params, *,
@@ -583,13 +583,12 @@ class EngineServer:
                  max_active_per_adapter: int | None = None,
                  trace=None, device=None):
         from repro_torch.launch.engine import DecodeEngine
-        refuse_mesh("EngineServer", mesh)
         _check_cache_mesh(cache, mesh)
         self.cache = cache
         self.engine = DecodeEngine(
             mcfg, scfg, params, slots=slots, max_len=max_len,
-            adapter_cache=cache, temperature=temperature, seed=seed,
-            allow_miss=allow_miss, speculative_k=speculative_k,
+            adapter_cache=cache, mesh=mesh, temperature=temperature,
+            seed=seed, allow_miss=allow_miss, speculative_k=speculative_k,
             fault_plan=fault_plan, spec_accept_floor=spec_accept_floor,
             paged=paged, block_size=block_size, n_blocks=n_blocks,
             prefill_chunk=prefill_chunk, dynamic_grouping=dynamic_grouping,
@@ -636,6 +635,10 @@ class EngineServer:
         if speculative_k is not None:
             if speculative_k < 0:
                 raise ValueError(f"speculative_k={speculative_k} < 0")
+            if speculative_k and self.engine.mesh is not None:
+                raise NotImplementedError(
+                    f"EngineServer(mesh=...) decodes plainly: "
+                    f"speculative_k under a mesh is {_MESH_LATER}")
             self.engine.speculative_k = int(speculative_k)
         return _serve_on_engine(
             self.engine, [(r.prompt, r.adapter) for r in requests],

@@ -253,6 +253,18 @@ def _dp_entry(mesh, batch: int):
     return dp if len(dp) > 1 else (dp[0] if dp else None)
 
 
+def local_rows(mesh, batch: int) -> slice:
+    """This data replica's rows of a batch laid out by :func:`batch_spec`:
+    a block of ``batch / dp`` rows where :func:`_dp_entry` splits the
+    batch, else every row (each replica holds the whole batch)."""
+    axes = _csh._entry_axes(_dp_entry(mesh, batch))
+    n = 1
+    for a in axes:
+        n *= mesh.shape[a]
+    i = mesh.axis_index(axes) if axes else 0
+    return slice(i * batch // n, (i + 1) * batch // n)
+
+
 def batch_spec(mesh, *, batch: int) -> P:
     return P(_dp_entry(mesh, batch), None)
 
@@ -306,13 +318,15 @@ def cache_sharding(mcfg: ModelConfig, mesh, *, batch: int,
     model; a paged pool's in-block seq over model when it divides.
 
     The rule is GSPMD's storage layout, not what the port's runtime
-    holds: under a mesh the prefill and decode steps lay K/V out by
-    heads, each rank keeping the K/V of its own ``Hkv / tp`` heads for
-    its data replica's rows, so attention needs no collective. Every mesh
-    the runtime accepts can do so: ``launch/steps.py mesh_layout``
-    refuses ``fsdp_gather``, so ``num_kv_heads % tp == 0`` holds. T over
-    model returns with the pod axis's ``fsdp_gather`` layouts (ROADMAP
-    queue 1 item 6, second half)."""
+    holds: under a mesh the prefill, decode and engine steps lay K/V out
+    by heads, each rank keeping the K/V of its own ``Hkv / tp`` heads for
+    its data replica's rows (``models/lm.py cache_shapes(mesh=)``; a
+    paged pool whole on every replica, as this rule keeps it), so
+    attention needs no collective. Every mesh the runtime accepts can do
+    so: ``launch/steps.py mesh_layout`` refuses ``fsdp_gather``, so
+    ``num_kv_heads % tp == 0`` holds. T over model returns with the pod
+    axis's ``fsdp_gather`` layouts (ROADMAP queue 1 item 6, second half,
+    point 2)."""
     b_ax = _dp_entry(mesh, batch)
     tp = dict(mesh.shape).get("model", 1)
     kinds = mcfg.layer_kinds()

@@ -5,11 +5,11 @@ speculative draft and verify.
 
 Each ``make_*_step`` returns a plain function over (params, adapters,
 ...). Given a mesh (``launch/mesh.py``), the train, grad, precompute,
-prefill and decode steps run on this rank's shards (``launch/sharding.py
-shard_tree``): the batch rows of its data replica, tensor parallelism
-over ``model`` with the sequence split between blocks (the decode step:
-whole, its S = 1), the vocab-parallel head and its parallel cross
-entropy; the adapter gradients are averaged over the data axes in fp32
+prefill, decode and engine admission steps run on this rank's shards
+(``launch/sharding.py shard_tree``): the batch rows of its data replica,
+tensor parallelism over ``model`` with the sequence split between blocks
+(the decode step: whole, its S = 1), the vocab-parallel head and its
+parallel cross entropy; the adapter gradients are averaged over the data axes in fp32
 and the clip's global norm is summed over the shards. The
 train step updates the adapters and the optimizer state IN PLACE and
 returns the same trees. The decode cache is updated IN PLACE: the K/V
@@ -439,8 +439,6 @@ def make_prefill_step(mcfg: ModelConfig, scfg: StepConfig, mesh=None, *,
     lay = None if mesh is None else mesh_layout(mcfg, scfg, mesh,
                                                 batch=batch, seq=seq)
     rows = batch if lay is None else lay.local_batch
-    cache_cfg = mcfg if lay is None else dataclasses.replace(
-        mcfg, num_kv_heads=mcfg.num_kv_heads // lay.sp.tp)
     if padded and any(k != "attn" for k in mcfg.layer_kinds()):
         raise ValueError(
             "padded prefill requires attention-only caches: SSM layer "
@@ -459,7 +457,7 @@ def make_prefill_step(mcfg: ModelConfig, scfg: StepConfig, mesh=None, *,
             want = seq if padded else f"P <= {seq}"
             raise ValueError(f"prefill built for {name} [{rows}, {want}], "
                              f"got {shape}")
-        cache = init_cache(cache_cfg, rows, seq, device=x.device)
+        cache = init_cache(mcfg, batch, seq, mesh=mesh, device=x.device)
         kw = {}
         if padded:
             p_len = int(batch_in["prompt_len"])
@@ -472,19 +470,15 @@ def make_prefill_step(mcfg: ModelConfig, scfg: StepConfig, mesh=None, *,
             boundary_constraint=None if lay is None else lay.sp, **kw)
         if padded:
             new_cache["len"] = p_len
-        last = logits[:, -1]
-        if lay is not None and last.shape[-1] != mcfg.vocab_size:
-            last = _sh.all_gather(last.contiguous(), (lay.sp.axis,),
-                                  lay.mesh, -1 % last.ndim,
-                                  tag="prefill.logits")
-        return last, new_cache
+        return _gather_vocab(logits[:, -1], mcfg, lay,
+                             "prefill.logits"), new_cache
 
     prefill_step.layout = lay
     return prefill_step
 
 
-def make_prefill_into_slot_step(mcfg: ModelConfig, scfg: StepConfig, *,
-                                seq: int):
+def make_prefill_into_slot_step(mcfg: ModelConfig, scfg: StepConfig,
+                                mesh=None, *, seq: int):
     """(params, adapters, cache, batch_in) -> (logits [1, V], cache).
 
     Continuous-batching admission (``launch/engine.py``): prefill ONE new
@@ -496,8 +490,18 @@ def make_prefill_into_slot_step(mcfg: ModelConfig, scfg: StepConfig, *,
     [seq] are copied into the slot's row in place and ``len[slot]``
     becomes P, so the first decoded token writes at position P. The
     engine also re-admits a preempted request through this step, with
-    prompt + the tokens generated so far."""
-    row_prefill = make_prefill_step(mcfg, scfg, batch=1, seq=seq,
+    prompt + the tokens generated so far.
+
+    ``mesh``: the cache is this rank's (``init_cache(mesh=)``). Every data
+    replica prefills the row (a batch of one takes no data axis), in the
+    sequence-parallel layout over ``model``, so ``seq`` must split over
+    it; the replica that holds slot ``slot`` (``launch/sharding.py
+    local_rows``) copies the row's K/V of this rank's heads into its
+    cache, the others drop them. ``len`` is whole on every rank and the
+    logits are gathered over the vocab, the same on every rank."""
+    from repro_torch.launch.sharding import local_rows
+
+    row_prefill = make_prefill_step(mcfg, scfg, mesh, batch=1, seq=seq,
                                     padded=True)
 
     @torch.no_grad()
@@ -510,17 +514,20 @@ def make_prefill_into_slot_step(mcfg: ModelConfig, scfg: StepConfig, *,
         logits, row = row_prefill(params, adapters,
                                   {"tokens": batch_in["tokens"],
                                    "prompt_len": p_len})
-        for li, layer in cache["stack"].items():
-            for name, big in layer.items():
-                big[:, slot] = row["stack"][li][name][:, 0]
+        n = cache["len"].shape[0]
+        mine = slice(0, n) if mesh is None else local_rows(mesh, n)
+        if mine.start <= slot < mine.stop:
+            for li, layer in cache["stack"].items():
+                for name, big in layer.items():
+                    big[:, slot - mine.start] = row["stack"][li][name][:, 0]
         cache["len"][slot] = p_len
         return logits, cache
 
     return prefill_into_slot
 
 
-def make_prefill_chunk_step(mcfg: ModelConfig, scfg: StepConfig, *,
-                            chunk: int):
+def make_prefill_chunk_step(mcfg: ModelConfig, scfg: StepConfig, mesh=None,
+                            *, chunk: int):
     """(params, adapters, cache, batch_in) -> (logits [1, V], cache).
 
     Chunked admission into the PAGED cache (``launch/engine.py``): run
@@ -535,7 +542,15 @@ def make_prefill_chunk_step(mcfg: ModelConfig, scfg: StepConfig, *,
     over a batch-1 view (the shared pools, the slot's row of the table,
     ``len = [start]``), the K/V land in the pools in place, ``len[slot]``
     becomes ``start + chunk_len``, and the logits are taken at
-    ``chunk_len - 1``: on the final chunk, the first token's."""
+    ``chunk_len - 1``: on the final chunk, the first token's.
+
+    ``mesh``: the cache is this rank's (``init_cache(mesh=)``): every data
+    replica runs the chunk (a batch of one takes no data axis) in the
+    sequence-parallel layout over ``model``, so ``chunk`` must split over
+    it, and writes its K/V heads into its own copy of the pools; the
+    logits are gathered over the vocab, the same on every rank."""
+    lay = None if mesh is None else mesh_layout(mcfg, scfg, mesh, batch=1,
+                                                seq=chunk)
 
     @torch.no_grad()
     def prefill_chunk(params, adapters, cache, batch_in):
@@ -552,11 +567,24 @@ def make_prefill_chunk_step(mcfg: ModelConfig, scfg: StepConfig, *,
                 "pages": cache["pages"][slot:slot + 1]}
         logits, _ = forward(mcfg, params, adapters, scfg.dora,
                             tokens=tokens, cache=view, training=False,
-                            gather_position=c_len - 1)
+                            gather_position=c_len - 1,
+                            boundary_constraint=None if lay is None
+                            else lay.sp)
         lens[slot] = start + c_len
-        return logits[:, -1], cache
+        last = _gather_vocab(logits[:, -1], mcfg, lay, "chunk.logits")
+        return last, cache
 
     return prefill_chunk
+
+
+def _gather_vocab(last, mcfg: ModelConfig, lay, tag: str):
+    """A step's last logits [B, V/tp] under ``lay`` gathered over the
+    vocab ([B, V]); as they are without a mesh or with the head
+    replicated."""
+    if lay is None or last.shape[-1] == mcfg.vocab_size:
+        return last
+    return _sh.all_gather(last.contiguous(), (lay.sp.axis,), lay.mesh,
+                          last.ndim - 1, tag=tag)
 
 
 def make_decode_step(mcfg: ModelConfig, scfg: StepConfig, mesh=None, *,
@@ -587,7 +615,14 @@ def make_decode_step(mcfg: ModelConfig, scfg: StepConfig, mesh=None, *,
     vocab columns gathered ([batch / data, V]). The adapters must be the
     serving state of ``make_precompute_step(mcfg, scfg, mesh)``. Tenant
     groups are refused by the forward (ROADMAP queue 1 item 6, second
-    half).
+    half, point 1c).
+    The engine's cache (``init_cache(row_lens=True, mesh=)``: "len"
+    [batch] and a paged cache's "pages" [batch, max_blocks] whole on
+    every rank) takes the whole batch's tokens [batch, 1] instead: the
+    step runs this replica's rows of the tokens, "len" and "pages"
+    (``launch/sharding.py local_rows``), advances every row's "len" as
+    one card does, and returns the logits gathered over the data axes
+    too ([batch, V] on every rank).
     ``decode_step.layout`` is the :class:`MeshLayout`, None without a
     mesh."""
     if dynamic_groups and tenant_groups is not None:
@@ -598,26 +633,41 @@ def make_decode_step(mcfg: ModelConfig, scfg: StepConfig, mesh=None, *,
     lay = None if mesh is None else mesh_layout(mcfg, scfg, mesh,
                                                 batch=batch, seq=1,
                                                 decode=True)
-    rows = batch if lay is None else lay.local_batch
 
     @torch.no_grad()
     def decode_step(params, adapters, cache, batch_in):
         inputs = _inputs(batch_in)
         (name, x), = inputs.items()
+        # Under a mesh the engine's per-row cache holds the whole batch's
+        # lengths: the step takes the whole batch and runs its rows.
+        whole = lay is not None and isinstance(cache["len"], torch.Tensor) \
+            and cache["len"].ndim == 1
+        rows = batch if lay is None or whole else lay.local_batch
         if tuple(x.shape[:2]) != (rows, 1):
             raise ValueError(f"decode built for {name} [{rows}, 1], got "
                              f"{tuple(x.shape)}")
         tg = (torch.as_tensor(batch_in["adapter_idx"], device=x.device)
               if dynamic_groups else tenant_groups)
+        view = cache
+        if whole:
+            from repro_torch.launch.sharding import local_rows
+            mine = local_rows(mesh, batch)
+            inputs = {name: x[mine]}
+            view = {**cache, "len": cache["len"][mine]}
+            if "pages" in cache:
+                view["pages"] = cache["pages"][mine]
         logits, new_cache = forward(
-            mcfg, params, adapters, scfg.dora, **inputs, cache=cache,
+            mcfg, params, adapters, scfg.dora, **inputs, cache=view,
             training=False, tenant_groups=tg,
             boundary_constraint=None if lay is None else lay.sp)
-        last = logits[:, -1]
-        if lay is not None and last.shape[-1] != mcfg.vocab_size:
-            last = _sh.all_gather(last.contiguous(), (lay.sp.axis,),
-                                  lay.mesh, last.ndim - 1,
-                                  tag="decode.logits")
+        last = _gather_vocab(logits[:, -1], mcfg, lay, "decode.logits")
+        if whole:
+            new_cache = {**new_cache, "len": cache["len"] + 1}
+            if "pages" in cache:
+                new_cache["pages"] = cache["pages"]
+            if lay.dp_size > 1:
+                last = _sh.all_gather(last.contiguous(), lay.dp_axes,
+                                      lay.mesh, 0, tag="engine.logits")
         return last, new_cache
 
     decode_step.layout = lay

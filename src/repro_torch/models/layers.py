@@ -286,12 +286,9 @@ def attention(x, params, dora, mcfg, dcfg: DoRAConfig | None, *,
 
     ``sp``: the sequence-parallel layout; x is this rank's [B, S/tp, D]
     rows, gathered before the projections, and the heads (and a cache's
-    K/V heads) are this rank's."""
+    K/V heads, or a paged pool's, gathered through the table rows of this
+    replica's slots) are this rank's."""
     if sp is not None:
-        if cache is not None and "pages" in cache:
-            raise NotImplementedError(
-                "a paged cache under a mesh is ROADMAP queue 1 item 6, "
-                "second half")
         x = sp.gather(x)
     b, s, _ = x.shape
     hd = mcfg.head_dim

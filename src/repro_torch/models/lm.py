@@ -271,7 +271,7 @@ def init_adapters(generator: torch.Generator, mcfg: ModelConfig, params,
 
 def cache_shapes(mcfg: ModelConfig, batch: int, max_len: int, dtype=None,
                  *, row_lens: bool = False, block_size: int | None = None,
-                 n_blocks: int | None = None):
+                 n_blocks: int | None = None, mesh=None):
     """{"stack": {"l0": {...}}, "len": ...} as (shape, dtype) pairs.
 
     An attention layer holds "k" and "v". Rectangular (the default): K/V
@@ -290,11 +290,32 @@ def cache_shapes(mcfg: ModelConfig, batch: int, max_len: int, dtype=None,
 
     A Mamba layer holds its recurrent state "h" [n_scan, batch, d_inner,
     ssm_state] fp32 and the conv window "conv" [n_scan, batch, ssm_conv -
-    1, d_inner], whatever ``max_len``."""
+    1, d_inner], whatever ``max_len``.
+
+    ``mesh``: this rank's cache of a batch served across a (data, model)
+    mesh, K/V laid out by heads: each rank holds its ``Hkv / tp`` heads;
+    the rectangular rows are its data replica's
+    (``launch/sharding.py local_rows``: ``batch / data`` where the data
+    axes split the batch, else all), a paged pool is whole on every
+    replica (a pool has no batch dim, so each replica keeps its own copy
+    and touches only its own rows' blocks), and "len" and "pages" are
+    whole on every rank, as the host's mirrors are. Dense attention
+    stacks only."""
     check_supported(mcfg)
     dtype = dtype or mcfg.dtype
     hkv, hd = mcfg.num_kv_heads, mcfg.head_dim
     kinds = [kind for kind, _ in unit_kinds(mcfg)]
+    rows = batch
+    if mesh is not None:
+        from repro_torch.launch.sharding import local_rows
+        check_mesh_supported(mcfg)
+        tp = dict(mesh.shape).get("model", 1)
+        if hkv % tp:
+            raise ValueError(f"{mcfg.name}: {hkv} KV heads do not split "
+                             f"over model={tp}")
+        hkv //= tp
+        sl = local_rows(mesh, batch)
+        rows = sl.stop - sl.start
     paged = block_size is not None
     if paged:
         if not row_lens:
@@ -311,7 +332,7 @@ def cache_shapes(mcfg: ModelConfig, batch: int, max_len: int, dtype=None,
             n_blocks = batch * max_blocks
         kv = ((mcfg.n_scan, n_blocks, block_size, hkv, hd), dtype)
     else:
-        kv = ((mcfg.n_scan, batch, max_len, hkv, hd), dtype)
+        kv = ((mcfg.n_scan, rows, max_len, hkv, hd), dtype)
     unit = {}
     for i in range(mcfg.period):
         if kinds[i] == "attn":
@@ -332,13 +353,14 @@ def cache_shapes(mcfg: ModelConfig, batch: int, max_len: int, dtype=None,
 
 def init_cache(mcfg: ModelConfig, batch: int, max_len: int, dtype=None, *,
                row_lens: bool = False, block_size: int | None = None,
-               n_blocks: int | None = None, device=None):
-    """A zeroed cache of :func:`cache_shapes` on ``device``. A scalar
-    "len" is the Python int 0; per-row lengths are a zeroed tensor, and
-    the block table starts all -1 (a zeroed table would alias every row to
-    block 0)."""
+               n_blocks: int | None = None, mesh=None, device=None):
+    """A zeroed cache of :func:`cache_shapes` on ``device`` (with
+    ``mesh``, this rank's). A scalar "len" is the Python int 0; per-row
+    lengths are a zeroed tensor, and the block table starts all -1 (a
+    zeroed table would alias every row to block 0)."""
     shapes = cache_shapes(mcfg, batch, max_len, dtype, row_lens=row_lens,
-                          block_size=block_size, n_blocks=n_blocks)
+                          block_size=block_size, n_blocks=n_blocks,
+                          mesh=mesh)
     unit = {li: {name: torch.zeros(shape, dtype=dt, device=device)
                  for name, (shape, dt) in layer.items()}
             for li, layer in shapes["stack"].items()}
@@ -495,7 +517,9 @@ def forward(mcfg: ModelConfig, params, adapters, dcfg: DoRAConfig | None,
     vocab rows summed over the model axis, the residual stream is split
     along the sequence, and the logits are this rank's vocab columns
     [B, S', V/tp] (``launch/steps.py vocab_parallel_cross_entropy``).
-    Dense attention stacks only.
+    A cache is this rank's (``cache_shapes(mesh=)``): its K/V heads, a
+    paged pool addressed through this replica's rows of the table. Dense
+    attention stacks only.
     """
     if tenant_groups is not None and training:
         raise ValueError("tenant_groups is a serving-only path "
@@ -506,11 +530,10 @@ def forward(mcfg: ModelConfig, params, adapters, dcfg: DoRAConfig | None,
     sp = boundary_constraint
     if sp is not None:
         check_mesh_supported(mcfg)
-        if tenant_groups is not None or (cache is not None
-                                         and "pages" in cache):
+        if tenant_groups is not None:
             raise NotImplementedError(
-                "tenant groups and paged caches under a mesh are ROADMAP "
-                "queue 1 item 6, second half")
+                "tenant groups under a mesh are ROADMAP queue 1 item 6, "
+                "second half, point 1c")
     adapters = adapters or {}
     if embeds is None:
         x = (params["embed"].detach()[tokens] if sp is None

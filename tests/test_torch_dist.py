@@ -34,6 +34,19 @@ cache; temperature sampling equal to the port's single-card
 ``generate``; a handle through ``AdapterStateCache.for_serving(mesh=)``
 serving the same tokens, a cache keyed for another mesh refused; and
 ``mesh_fingerprint`` against the reference's.
+
+The continuous-batching engine across the same meshes, in a spawn of its
+own per world size (under ``ENGINE_TIMEOUT_S``), on the same model, by
+the ``mm`` route: ``DecodeEngine(mesh=)`` with the rectangular cache on
+the committed ``BENCH_serve.json`` ``continuous`` trace and with the
+paged cache on its ``paged`` trace, each with a fixed serving tree of the
+mesh precompute and with a one-handle cache of
+``AdapterStateCache.for_serving(mesh=)``; the priority and deadline trace
+of ``tests/test_torch_engine.py`` on (2, 2); ``EngineServer(mesh=).run``.
+Their streams, ``stats()`` and ``pool_stats()`` equal the reference's
+single-device ``DecodeEngine`` and ``EngineServer`` and the committed
+schedule models, K8's plain version runs twice a layer in every chunk
+and decode step of each rank, and every rank returns rank 0's results.
 """
 import jax
 import jax.numpy as jnp
@@ -60,6 +73,11 @@ from repro_torch.bridge import flatten_paths
 from repro_torch.core.adapter_cache import mesh_fingerprint
 
 import torch_dist_ranks as R
+from repro import core as jcore
+from repro.launch.engine import DecodeEngine as JEngine
+from repro.launch.serve import EngineServer as JServer
+from repro.launch.serve import Request as JRequest
+from test_torch_engine import _bench, _drive, _prompts
 
 WIDTHS = dict(name="dist-2l", family="dense", num_layers=2, d_model=512,
               num_heads=4, num_kv_heads=2, d_ff=1024, vocab_size=512,
@@ -87,6 +105,18 @@ TEMPERATURE, SAMPLE_SEED = 0.8, 7
 # Each greedy step's least top-1 - top-2 gap, over its max |logit|: ten
 # times the logits' tolerance, so equal tokens are a check and not luck.
 GAP_MIN = 1e-4
+# The engine's meshes, a spawn of their own per world size.
+ENGINE = {2: [(1, 2), (2, 1)], 4: [(2, 2)]}
+ENGINE_TIMEOUT_S = 240
+# tests/test_torch_engine.py test_priorities_and_deadlines_match_reference
+PRIORITY_TRACE = [(0, 6, 9), (0, 5, 9), (1, 4, 5), (2, 7, 3), (2, 5, 6),
+                  (3, 6, 4)]
+PRIORITY_SUBMIT = {"priority": [0, 0, 2, 0, 1, 0],
+                   "deadline_ticks": [None, None, None, 3, None, 6]}
+# EngineServer: mixed prompt lengths through the paged engine.
+SERVER_LENS, SERVER_GEN = (9, 5, 12, 7, 30, 4), 6
+SERVER_KW = dict(slots=4, max_len=48, paged=True, block_size=8,
+                 n_blocks=12, prefill_chunk=8)
 
 
 def _max_rel(got, want) -> float:
@@ -537,3 +567,152 @@ def test_mesh_fingerprint_matches_reference(shape):
     assert mesh_fingerprint(mesh) == jmesh_fingerprint(mesh)
     assert mesh_fingerprint(mesh) == tuple(shape.items())
     assert mesh_fingerprint(None) is jmesh_fingerprint(None) is None
+
+
+# --- the continuous-batching engine across the mesh --------------------------
+
+def _engine_traces(world):
+    """{name: (trace, prompts, engine kwargs, submit kwargs)} of one
+    world size: the committed traces, and on (2, 2) the priority and
+    deadline trace."""
+    out = {}
+    for section in ("continuous", "paged"):
+        trace, kw, _ = _bench(section)
+        out[section] = (trace, _prompts(trace), kw, {})
+    if world == 4:
+        out["priority"] = (PRIORITY_TRACE, _prompts(PRIORITY_TRACE, seed=4),
+                           {"slots": 2, "max_len": 16}, PRIORITY_SUBMIT)
+    return out
+
+
+def _server_prompts():
+    rng = np.random.default_rng(11)
+    return [rng.integers(0, WIDTHS["vocab_size"], n, dtype=np.int32)
+            for n in SERVER_LENS]
+
+
+def _engine_cases(world, inputs):
+    params, adapters, _, _ = inputs["state"]
+    model = {"widths": WIDTHS, "params": _np_tree(params),
+             "adapters": _np_tree(adapters)}
+    traces = {k: (list(t), [q.copy() for q in pr], dict(kw), dict(sub))
+              for k, (t, pr, kw, sub) in _engine_traces(world).items()}
+    return [(f"engine_{shape}", "engine_case",
+             {**model, "shape": shape,
+              "dora": dict(rank=RANK, alpha=ALPHA, **ROUTES["mm"]),
+              "traces": traces,
+              "server": ([q.copy() for q in _server_prompts()],
+                         dict(SERVER_KW), SERVER_GEN)})
+            for shape in ENGINE[world]]
+
+
+@pytest.fixture(scope="module")
+def engine_spawned(inputs, tmp_path_factory):
+    """The engine's ranks of both world sizes, started before the
+    reference's engines run."""
+    handles = {w: R.Ranks(w, _engine_cases(w, inputs),
+                          tmp_path_factory.mktemp(f"engine{w}"),
+                          timeout=ENGINE_TIMEOUT_S)
+               for w in ENGINE}
+    yield handles
+    for h in handles.values():
+        h.kill()
+
+
+@pytest.fixture(scope="module")
+def engine_reference(inputs, engine_spawned):
+    """The reference's single-device DecodeEngine on each trace (its
+    precompute's folded serving tree) and its EngineServer, computed while
+    the ranks run."""
+    params, adapters, _, _ = inputs["state"]
+    jm = JModel(**WIDTHS, dtype=jnp.float32)
+    jscfg = JStep(dora=JConfig(rank=RANK, alpha=ALPHA, mode="eager"))
+    jp = jax.tree_util.tree_map(jnp.asarray, params)
+    ja = jax.tree_util.tree_map(jnp.asarray, adapters)
+    serving = jax.jit(jmake_precompute_step(jm, jscfg, None, fold_gsb=True))(
+        jp, ja)
+    out = {}
+    for name, (trace, prompts, kw, submit) in _engine_traces(4).items():
+        eng = JEngine(jm, jscfg, jp, adapters=serving, **kw)
+        streams = _drive(eng, trace, prompts, **submit)
+        out[name] = {"streams": streams, "stats": eng.stats().as_dict(),
+                     "results": [(r.request_id, np.asarray(r.tokens).tolist(),
+                                  r.finish_reason, r.admitted_step,
+                                  r.finished_step, r.preempted)
+                                 for r in eng.pop_results()],
+                     "pool": eng.pool_stats() if kw.get("paged") else None}
+    cache = jcore.AdapterStateCache.for_serving(jm, jscfg)
+    cache.register("t0", adapters)
+    server = JServer(jm, jscfg, jp, cache=cache, **SERVER_KW)
+    res = server.run([JRequest(q, "t0") for q in _server_prompts()],
+                     gen_len=SERVER_GEN)
+    out["server"] = {"tokens": [np.asarray(r.tokens).tolist() for r in res],
+                     "reasons": [r.finish_reason for r in res],
+                     "stats": server.engine.stats().as_dict(),
+                     "pool": server.engine.pool_stats()}
+    return out
+
+
+@pytest.fixture(scope="module")
+def engine_ranks(engine_spawned, engine_reference):
+    return {w: h.join() for w, h in engine_spawned.items()}
+
+
+def _engine_runs():
+    return [(w, s, name, route) for w, shapes in ENGINE.items()
+            for s in shapes
+            for name in (("continuous", "paged", "priority") if w == 4
+                         else ("continuous", "paged"))
+            for route in ("fixed", "cache")]
+
+
+@pytest.mark.parametrize("world,shape,trace,route", _engine_runs(), ids=str)
+def test_mesh_engine_matches_reference(world, shape, trace, route,
+                                       engine_ranks, engine_reference):
+    """DecodeEngine(mesh=) on a trace, by a fixed serving tree of the mesh
+    precompute or a one-handle cache of for_serving(mesh=): the streams,
+    the results, stats() and pool_stats() equal the reference's
+    single-device engine; the committed traces' counters equal
+    BENCH_serve.json's schedule models (41 / 35 / 12 / 88 / 76; paged
+    41 / 35 / 13 / 94 / 81, a peak of 13 blocks, 18 chunk prefills); K8's
+    plain version ran 2 x layers x (decode + chunk steps) times on this
+    rank (none on the rectangular cache); every rank returned the same."""
+    got = engine_ranks[world][f"engine_{shape}"][f"{trace}_{route}"]
+    want = engine_reference[trace]
+    assert got["streams"] == want["streams"]
+    assert got["results"] == want["results"]
+    assert got["stats"] == want["stats"]
+    assert got["pool"] == want["pool"]
+    steps = got["device_steps"]
+    assert got["gathers"] == 2 * WIDTHS["num_layers"] * (
+        steps["decode"] + steps["prefill_chunk"]) * (trace == "paged")
+    assert got["same_on_every_rank"]
+    if trace == "priority":
+        assert got["stats"]["preemptions"] >= 1
+        assert got["stats"]["timeouts"] == 2
+        return
+    model = _bench(trace)[2]
+    for field in ("steps", "decode_steps", "prefills", "generated_tokens",
+                  "slot_steps", "mean_occupancy"):
+        assert got["stats"][field] == model[field], field
+    if trace == "paged":
+        assert got["pool"]["peak_used_blocks"] == model["peak_used_blocks"]
+        assert got["pool"]["used_blocks"] == 0
+        assert steps["prefill_chunk"] == 18
+
+
+@pytest.mark.parametrize("world,shape", [(w, s) for w, shapes in
+                                         ENGINE.items() for s in shapes],
+                         ids=str)
+def test_mesh_engine_server_matches_reference(world, shape, engine_ranks,
+                                              engine_reference):
+    """EngineServer(mesh=).run of mixed prompt lengths through the paged
+    engine: tokens, finish reasons, stats() and pool_stats() equal the
+    reference's EngineServer; every rank returned the same."""
+    got = engine_ranks[world][f"engine_{shape}"]["server"]
+    want = engine_reference["server"]
+    assert got["same_on_every_rank"]
+    assert got["reasons"] == want["reasons"] == ["length"] * len(SERVER_LENS)
+    assert got["tokens"] == want["tokens"]
+    assert got["stats"] == want["stats"]
+    assert got["pool"] == want["pool"]

@@ -37,6 +37,7 @@ from repro.launch.train import build_state
 from repro.models import init_cache as j_init_cache
 from repro.models.config import ModelConfig as JModel
 from repro_torch.kernels import paged_gather as tk_paged
+from repro_torch import core as tcore
 from repro_torch.bridge import flatten_paths, tree_from_numpy
 from repro_torch.configs import get_config
 from repro_torch.core.config import FORCE_TIER_ENV, DoRAConfig
@@ -465,12 +466,63 @@ def test_temperature_sampling_is_reproducible(state):
 # Contracts.
 # ---------------------------------------------------------------------------
 
+def _one_rank_mesh():
+    from repro_torch.launch.mesh import make_debug_mesh
+    return make_debug_mesh(1, 1, device="cpu", backend="gloo")
+
+
 @pytest.mark.parametrize("kw,item", [
-    ({"mesh": object()}, "multi-device"),
+    ({"speculative_k": 2}, "multi-device"),
 ])
 def test_later_slices_are_refused(state, kw, item):
-    with pytest.raises(NotImplementedError, match=item):
-        _port_engine(state, slots=2, max_len=16, **kw)
+    """Under a mesh (a real one-rank gloo mesh) the engine serves one
+    adapter at a time with plain decode: speculation, and an admission
+    that would seat a second handle beside another handle's slots, are
+    ROADMAP queue 1 item 6, second half, point 1c; the second handle is
+    refused before its prefill and stays queued."""
+    one = _one_rank_mesh()
+    with pytest.raises(NotImplementedError, match=item) as err:
+        _port_engine(state, slots=2, max_len=16, mesh=one, **kw)
+    assert "point 1c" in str(err.value)
+    _, _, _, tm, t_params, _ = state
+    scfg = _tstep()
+    cache = tcore.AdapterStateCache.for_serving(tm, scfg, mesh=one)
+    gen = torch.Generator().manual_seed(0)
+    for name in ("a", "b"):
+        cache.register(name, tlm.init_adapters(gen, tm, t_params, scfg.dora))
+    engine = DecodeEngine(tm, scfg, t_params, adapter_cache=cache, slots=2,
+                          max_len=16, mesh=one)
+    engine.submit(np.arange(4), adapter="a", max_new_tokens=4)
+    engine.submit(np.arange(5), adapter="b", max_new_tokens=4)
+    steps = engine.device_steps()
+    with pytest.raises(NotImplementedError, match="point 1c"):
+        engine.step()
+    assert engine.device_steps()["prefill_into_slot"] \
+        == steps["prefill_into_slot"] + 1
+    assert engine.has_work() and len(engine._queue) == 1
+
+
+def test_mesh_engine_refuses_a_raw_tree_and_a_foreign_cache(state):
+    """Under a mesh a fixed adapter tree must be the mesh precompute's
+    serving state (a raw leaf is refused, naming it), and a cache must be
+    keyed for that mesh (one keyed for no mesh is refused)."""
+    _, _, _, tm, t_params, _ = state
+    scfg = _tstep()
+    one = _one_rank_mesh()
+    raw = tlm.init_adapters(torch.Generator().manual_seed(0), tm, t_params,
+                            scfg.dora)
+    with pytest.raises(ValueError, match="stack/l0/.*has no 'g'"):
+        DecodeEngine(tm, scfg, t_params, adapters=raw, slots=2, max_len=16,
+                     mesh=one)
+    foreign = tcore.AdapterStateCache.for_serving(tm, scfg, device="cpu")
+    with pytest.raises(ValueError, match="keyed for sharding"):
+        DecodeEngine(tm, scfg, t_params, adapter_cache=foreign, slots=2,
+                     max_len=16, mesh=one)
+    served = tsteps.make_precompute_step(tm, scfg, one, fold_gsb=True)(
+        t_params, raw)
+    engine = DecodeEngine(tm, scfg, t_params, adapters=served, slots=2,
+                          max_len=16, mesh=one)
+    assert engine.device == torch.device("cpu")
 
 
 def test_constructor_and_submit_contracts(state):

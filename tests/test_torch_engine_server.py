@@ -30,6 +30,7 @@ import torch
 from repro.launch.faults import FaultPlan as JPlan
 from repro.launch.serve import EngineServer as JServer
 from repro.launch.serve import Request as JRequest
+from repro_torch.bridge import tree_from_numpy
 from repro_torch.launch import serve as tserve
 from repro_torch.launch.engine import FINISH_REASONS
 from repro_torch.launch.faults import FaultPlan
@@ -111,9 +112,28 @@ def test_bad_request_mid_batch_queues_nothing(fleet):
 
 
 def test_mesh_and_a_foreign_cache_are_refused(fleet):
+    """Under a (one-rank) mesh the server's engine decodes plainly:
+    speculation is ROADMAP queue 1 item 6, second half, point 1c, at
+    construction and at run(speculative_k=); a cache keyed for no mesh is
+    refused; an empty batch is."""
+    from repro_torch.core.adapter_cache import AdapterStateCache
+    from repro_torch.launch.mesh import make_debug_mesh
+
     cache = fleet.port_cache(1)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        _port_server(fleet, cache, slots=2, max_len=8, mesh=object())
+    one = make_debug_mesh(1, 1, device="cpu", backend="gloo")
+    meshed = AdapterStateCache.for_serving(fleet.tm, fleet.scfg, mesh=one)
+    with pytest.raises(NotImplementedError, match="item 6, second half, "
+                                                  "point 1c"):
+        _port_server(fleet, meshed, slots=2, max_len=8, mesh=one,
+                     speculative_k=2)
+    with pytest.raises(ValueError, match="keyed for sharding"):
+        _port_server(fleet, cache, slots=2, max_len=8, mesh=one)
+    server = _port_server(fleet, meshed, slots=2, max_len=8, mesh=one)
+    meshed.register("t0", tree_from_numpy(fleet.tenants[0]))
+    (req,), _ = _requests(fleet, 16, [(5, 0)])
+    with pytest.raises(NotImplementedError, match="point 1c"):
+        server.run([req], gen_len=2, speculative_k=2)
+    assert not server.engine.has_work() and server.engine.speculative_k == 0
     with pytest.raises(ValueError, match="empty request batch"):
         _port_server(fleet, cache, slots=2, max_len=8).run([], gen_len=2)
 

@@ -127,9 +127,18 @@ def test_cache_keyed_for_another_layout_is_refused(fleet):
                                     sharding=(("model", 4),))
     with pytest.raises(ValueError, match="keyed for sharding"):
         fleet.port_engine(other, slots=2, max_len=8)
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        fleet.port_engine(fleet.port_cache(1), slots=2, max_len=8,
-                          mesh=object())
+    # Under a (one-rank) mesh: a cache keyed for no mesh is refused, and
+    # dynamic grouping is ROADMAP queue 1 item 6, second half, point 1c.
+    from repro_torch.launch.mesh import make_debug_mesh
+    one = make_debug_mesh(1, 1, device="cpu", backend="gloo")
+    with pytest.raises(ValueError, match="keyed for sharding"):
+        fleet.port_engine(fleet.port_cache(1), slots=2, max_len=8, mesh=one)
+    meshed = tcore.AdapterStateCache.for_serving(fleet.tm, fleet.scfg,
+                                                 mesh=one)
+    with pytest.raises(NotImplementedError, match="queue 1 item 6, second "
+                                                  "half, point 1c"):
+        fleet.port_engine(meshed, slots=2, max_len=8, mesh=one,
+                          dynamic_grouping=True)
 
 
 # ---------------------------------------------------------------------------

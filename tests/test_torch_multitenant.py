@@ -444,13 +444,14 @@ def test_server_refusals():
         tserve.generate(tm, tparams, cache.current_handle("t1"), scfg,
                         prompts, gen_len=2, max_len=MAX_LEN, device="cpu")
     # a mesh: the grouped server is not ported to one (ROADMAP queue 1
-    # item 6); a single tenant is served across one by generate, whose
-    # handle must come from a cache keyed for that mesh
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        tserve.MultiTenantServer(tm, scfg, tparams, cache=cache,
-                                 mesh=object(), device="cpu")
+    # item 6, second half, point 1c); a single tenant is served across one
+    # by generate, whose handle must come from a cache keyed for that mesh
     from repro_torch.launch.mesh import make_debug_mesh
     one = make_debug_mesh(1, 1, device="cpu", backend="gloo")
+    with pytest.raises(NotImplementedError, match="queue 1 item 6, second "
+                                                  "half, point 1c"):
+        tserve.MultiTenantServer(tm, scfg, tparams, cache=cache, mesh=one,
+                                 device="cpu")
     meshed = tcore.AdapterStateCache.for_serving(tm, scfg, mesh=one)
     assert meshed.sharding == (("data", 1), ("model", 1))
     with pytest.raises(ValueError, match="keyed for sharding"):

@@ -583,9 +583,11 @@ def test_partial_product_keeps_fp32_sums_and_the_plain_gradients():
 
 
 def test_grouped_and_paged_serving_on_a_mesh_are_refused():
-    """The decode step on a mesh refuses what this slice leaves to the
-    next (ROADMAP queue 1 item 6, second half): static and dynamic tenant
-    groups, and a paged cache."""
+    """The decode step on a mesh refuses what is left to the next slice
+    (ROADMAP queue 1 item 6, second half, point 1c): static and dynamic
+    tenant groups. A paged cache is no longer refused: on a one-rank mesh
+    the engine's cache (``init_cache(mesh=)``, the whole batch's tokens)
+    decodes as on no mesh, bit for bit."""
     from repro_torch.launch.steps import StepConfig, make_decode_step
     from repro_torch.models.config import ModelConfig
 
@@ -597,16 +599,25 @@ def test_grouped_and_paged_serving_on_a_mesh_are_refused():
     params = tlm.init_params(torch.Generator().manual_seed(0), mcfg)
     tokens = torch.zeros((2, 1), dtype=torch.long)
     cache = tlm.init_cache(mcfg, 2, 8)
-    paged = tlm.init_cache(mcfg, 2, 8, row_lens=True, block_size=4)
     calls = (
         lambda: make_decode_step(mcfg, scfg, mesh, batch=2,
                                  tenant_groups=((0, 1), (1, 1)))(
             params, {}, cache, {"tokens": tokens}),
         lambda: make_decode_step(mcfg, scfg, mesh, batch=2,
                                  dynamic_groups=True)(
-            params, {}, cache, {"tokens": tokens, "adapter_idx": [0, 1]}),
-        lambda: make_decode_step(mcfg, scfg, mesh, batch=2)(
-            params, {}, paged, {"tokens": tokens}))
+            params, {}, cache, {"tokens": tokens, "adapter_idx": [0, 1]}))
     for call in calls:
-        with pytest.raises(NotImplementedError, match="item 6, second half"):
+        with pytest.raises(NotImplementedError,
+                           match="item 6, second half, point 1c"):
             call()
+    out = []
+    for m in (mesh, None):
+        paged = tlm.init_cache(mcfg, 2, 8, row_lens=True, block_size=4,
+                               mesh=m)
+        paged["pages"] = torch.tensor([[0, -1], [2, -1]], dtype=torch.int32)
+        paged["len"] = torch.tensor([1, 3], dtype=torch.int32)
+        logits, new = make_decode_step(mcfg, scfg, m, batch=2)(
+            params, {}, paged, {"tokens": tokens})
+        out.append((logits, new["len"], new["stack"]["l0"]["k"]))
+    for got, want in zip(*out):
+        assert torch.equal(got, want)

@@ -184,11 +184,12 @@ def _shards(p, mesh, mcfg, dcfg):
 def _counting_plain_calls():
     """{plain version: calls} while the block runs: the kernel wrappers
     run their plain versions on CPU tensors, once a launch."""
-    from repro_torch.kernels import dora_compose, factored_norm, norm_assembly
+    from repro_torch.kernels import (dora_compose, factored_norm,
+                                     norm_assembly, paged_gather)
 
     calls: dict = {}
     saved = []
-    for mod in (factored_norm, norm_assembly, dora_compose):
+    for mod in (factored_norm, norm_assembly, dora_compose, paged_gather):
         for name in dir(mod):
             fn = getattr(mod, name)
             if name.endswith("_plain") and not name.startswith("_"):
@@ -423,4 +424,97 @@ def serve_case(p):
         out["other_mesh_refused"] = None
     except ValueError as e:
         out["other_mesh_refused"] = str(e)
+    return out
+
+
+# --- the continuous-batching engine across the mesh --------------------------
+
+def _drive(engine, trace, prompts, **submit_kw):
+    """Submit each (arrival step, P, new tokens) request as its arrival
+    step comes due and tick once per step (``tests/test_torch_engine.py
+    _drive``); returns {request_id: [token, ...]} as on_token streamed
+    them."""
+    streams: dict = {}
+
+    def on_token(rid, tok):
+        streams.setdefault(rid, []).append(int(tok))
+
+    i, step = 0, 0
+    while i < len(trace) or engine.has_work():
+        while i < len(trace) and trace[i][0] <= step:
+            kw = {k: v[i] for k, v in submit_kw.items()}
+            engine.submit(prompts[i], max_new_tokens=trace[i][2], key_id=i,
+                          **kw)
+            i += 1
+        engine.step(on_token)
+        step += 1
+    return streams
+
+
+def _same_on_every_rank(obj) -> bool:
+    """Whether every rank of the world holds an ``obj`` equal to this
+    rank's."""
+    every: list = [None] * dist.get_world_size()
+    dist.all_gather_object(every, obj)
+    return all(o == obj for o in every)
+
+
+def engine_case(p):
+    """DecodeEngine(mesh=) on the committed traces, each with a fixed
+    serving tree from the mesh precompute (g cached, B unfolded, as
+    generate serves) and with a one-handle cache of
+    AdapterStateCache.for_serving(mesh=) (gsB folded): streams, stats,
+    pool stats, device steps and the plain gathers (K8's calls) a rank;
+    the priority and deadline trace's results; EngineServer(mesh=).run's
+    results; and whether every rank returned what this one did."""
+    from repro_torch.core.adapter_cache import AdapterStateCache
+    from repro_torch.launch import serve
+    from repro_torch.launch.engine import DecodeEngine
+    from repro_torch.launch.steps import StepConfig, make_precompute_step
+
+    mesh = _mesh(p["shape"])
+    mcfg, dcfg = _model(p)
+    scfg = StepConfig(dora=dcfg)
+    params, adapters, _ = _shards(p, mesh, mcfg, dcfg)
+    state = make_precompute_step(mcfg, scfg, mesh)(params, adapters)
+
+    def cache():
+        c = AdapterStateCache.for_serving(mcfg, scfg, mesh=mesh)
+        c.register("t0", adapters)
+        return c
+
+    out = {}
+    for name, (trace, prompts, kw, submit) in p["traces"].items():
+        for route in ("fixed", "cache"):
+            if route == "fixed":
+                eng = DecodeEngine(mcfg, scfg, params, adapters=state,
+                                   mesh=mesh, **kw)
+                sub = submit
+            else:
+                eng = DecodeEngine(mcfg, scfg, params, adapter_cache=cache(),
+                                   mesh=mesh, **kw)
+                sub = {**submit, "adapter": ["t0"] * len(trace)}
+            with _counting_plain_calls() as calls:
+                streams = _drive(eng, trace, prompts, **sub)
+            rec = {"streams": streams, "stats": eng.stats().as_dict(),
+                   "device_steps": eng.device_steps(),
+                   "results": [(r.request_id, r.tokens.tolist(),
+                                r.finish_reason, r.admitted_step,
+                                r.finished_step, r.preempted)
+                               for r in eng.pop_results()],
+                   "gathers": calls.get("paged_gather_plain", 0),
+                   "pool": eng.pool_stats() if kw.get("paged") else None}
+            rec["same_on_every_rank"] = _same_on_every_rank(rec)
+            out[f"{name}_{route}"] = rec
+    prompts, kw, gen = p["server"]
+    server = serve.EngineServer(mcfg, scfg, params, cache=cache(),
+                                mesh=mesh, **kw)
+    res = server.run([serve.Request(q, "t0") for q in prompts],
+                     gen_len=gen)
+    rec = {"tokens": [r.tokens.tolist() for r in res],
+           "reasons": [r.finish_reason for r in res],
+           "stats": server.engine.stats().as_dict(),
+           "pool": server.engine.pool_stats()}
+    rec["same_on_every_rank"] = _same_on_every_rank(rec)
+    out["server"] = rec
     return out
