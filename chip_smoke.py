@@ -307,7 +307,28 @@ on ``all_reduce``); this measures no multi-card speed:
       1e-5 of max |logit| of the unsharded port's, each top-2 gap at
       least 2e-5 and the tokens equal; printed: ms a tick, decode-step,
       chunk and prefill-into-slot ms, decode bytes a step by tag, peak
-      memory and D5's seconds by rank.
+      memory and D5's seconds by rank;
+  D6. in the same ranks, static tenant groups: serve_mt's three r = 384
+      tenants (this rank's shards, each state from a fresh
+      ``AdapterStateCache.for_serving(mesh=)``) on the same model.
+      ``MultiTenantServer(mesh=)`` cold then warm on 6 requests of 960
+      tokens with interleaved owners (padded to 1024, 32 new): per rank
+      launches exactly ``mesh_tenant_counts`` cold (3 x K1 = 28 split
+      as in D4, K6 = 0: the grouped compose is the plain fp32 h·gsBᵀ) and
+      none warm, each decode step's collective bytes by tag the
+      single-tenant step's at batch 6, 3 misses then 3 hits, the same
+      tokens warm, on every rank, and pairwise different on the shared
+      prompt; ``DecodeEngine(mesh=)`` rectangular and paged on D5's
+      geometry and trace with the requests spread over the tenants:
+      launches of ``mesh_tenant_counts`` (K8 as in D5, K6 = 0), D5's
+      decode bytes, D5's unsharded engine's schedule, rank 0's streams,
+      a grouped signature; on (2, 2) ``EngineServer(mesh=)`` with the
+      paged engine's streams; in fp32 paged == rectangular on every
+      rank, the server's every step's logits within 5e-6 of max |logit|
+      of one card's grouped run (top-2 gaps at least 2e-5, the tokens
+      equal), and on (2, 2) the engines' fetched logits likewise;
+      printed: server precompute, stack, prefill and decode-step ms, ms a
+      tick and decode ms, peak memory and D6's seconds by rank.
 
 With ``--kernel-phase-vs DIR`` it runs only the kernel phase, of the
 checkout at DIR (a ``git archive`` of another commit) and of this one, in
@@ -5292,6 +5313,10 @@ MESH_BF16_FACTOR = 2.0
 D5_SLOTS, D5_MAX_LEN, D5_BLOCK, D5_CHUNK, D5_BLOCKS = 4, 1024, 16, 256, 72
 D5_REQUESTS, D5_EVERY, D5_PROMPT, D5_NEW = 8, 2, (64, 768), 16
 D5_FP32_REQUESTS, D5_FP32_NEW = 4, 8
+# D6: static tenant groups on the same meshes and model, serve_mt's three
+# tenants: the fp32 logits within D6_TOL of max |logit| of one card's
+# grouped run (D4 measured 4.5e-6 and D5 3.3e-6 against one card).
+D6_TOL = 5e-6
 
 
 class _DuckMesh:
@@ -5831,6 +5856,8 @@ def _mesh_serve(rank: int, mesh, run: dict, dev) -> dict:
     del params, adapters
     if on_card:
         torch.cuda.empty_cache()
+    # D6: static tenant groups on the same mesh.
+    rec["tenants"] = _mesh_tenants(rank, mesh, run, dev)
     if rank == 0:
         # Each data replica serves its rows as one card serves that
         # batch (the compose route reads the rows of the call), so the
@@ -6098,6 +6125,262 @@ def _mesh_engine(rank: int, mesh, run: dict, dev, params, adapters) -> dict:
     return out
 
 
+def _mesh_tenant_state(mcfg, dcfg, mesh, dev, seed: int):
+    """(params, tenants): the seeded full model and serve_mt's MT_TENANTS
+    perturbed tenants (:func:`_tenant_adapters`), and with a mesh this
+    rank's shards of them (the full trees freed)."""
+    from repro_torch.launch import sharding as S
+    from repro_torch.models import lm
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = lm.init_params(gen, mcfg)
+    tenants = [_tenant_adapters(mcfg, params, dcfg, t, dev)
+               for t in range(MT_TENANTS)]
+    if mesh is None:
+        return params, tenants
+    aspec = S.adapter_sharding(mcfg, dcfg, mesh)
+    local = (S.shard_tree(params, S.param_sharding(mcfg, mesh), mesh),
+             [S.shard_tree(a, aspec, mesh) for a in tenants])
+    del params, tenants
+    _empty_cache(dev)
+    return local
+
+
+def _tenant_cache(mcfg, scfg, mesh, dev, tenants):
+    """An AdapterStateCache.for_serving of this mesh (or of ``dev``) with
+    the tenants registered as tenant-0, tenant-1, ..."""
+    from repro_torch.core.adapter_cache import AdapterStateCache
+
+    cache = AdapterStateCache.for_serving(
+        mcfg, scfg, mesh, device=None if mesh is not None else dev)
+    for t, ad in enumerate(tenants):
+        cache.register(f"tenant-{t}", ad)
+    return cache
+
+
+def d6_requests(vocab: int, prompt: int) -> list:
+    """D6's static batch: MT_TENANTS x MT_ROWS requests of ``prompt``
+    tokens with interleaved owners (the server's sort permutes them);
+    rows 0..MT_TENANTS-1 share one prompt under the MT_TENANTS tenants."""
+    from repro_torch.launch import serve as SV
+
+    n = MT_TENANTS * MT_ROWS
+    prompts = np.random.default_rng(SEED + 7).integers(0, vocab, (n, prompt))
+    prompts[1:MT_TENANTS] = prompts[0]
+    return [SV.Request(p, f"tenant-{i % MT_TENANTS}")
+            for i, p in enumerate(prompts)]
+
+
+def d6_owners(n: int) -> list:
+    """The adapter of each of D5's ``n`` requests in D6: spread over the
+    tenants in turn, so the slots hold two or three handles at once."""
+    return [f"tenant-{i % MT_TENANTS}" for i in range(n)]
+
+
+def mesh_tenant_counts(mcfg, dcfg, shape, steps: dict | None = None, *,
+                       paged: bool = False) -> dict:
+    """Launches a rank makes in one cold D6 run: MT_TENANTS mesh
+    precomputes (:func:`_mesh_step_counts` with no step after it; K1
+    with its epilogue on the column-parallel modules, K1's terms and the
+    standalone K2 on wo and w_down at model > 1) and no compose kernel:
+    every grouped prefill and decode step, and a folded state's admission,
+    composes with the plain fp32 h·gsBᵀ (``core/adapter.py gsb_delta``),
+    so K6 = 0. On the paged engine K8 twice a layer in every chunk and
+    decode step (``steps``: its ``device_steps()``)."""
+    c = _mesh_step_counts(mcfg, dcfg, shape[1], ())
+    c = {k: MT_TENANTS * v for k, v in c.items()}
+    if paged:
+        c["paged_gather"] = 2 * mcfg.num_layers * (
+            steps["decode"] + steps["prefill_chunk"])
+    return c
+
+
+def _mesh_tenants(rank: int, mesh, run: dict, dev) -> dict:
+    """D6 on one rank: static tenant groups across the mesh on
+    ``run["mcfg"]`` with serve_mt's three tenants (this rank's shards).
+    bf16: ``MultiTenantServer(mesh=)`` cold then warm on
+    :func:`d6_requests` padded to MAX_LEN plus GEN tokens (launches,
+    K6's tensor-core launches, collective bytes by tag, cache counters,
+    phase times, peak, tokens); ``DecodeEngine(mesh=)`` rectangular and
+    paged on D5's geometry and trace with the requests spread over the
+    tenants (:func:`d6_owners`), each over a fresh cache (launches, bytes,
+    stats, device steps, pool, decode signatures, streams, ms); on (2, 2)
+    ``EngineServer(mesh=)`` against the paged engine given the same
+    requests at once. fp32: the
+    server on D5_FP32_NEW tokens and the engines on the first
+    D5_FP32_REQUESTS requests (paged == rect); rank 0 holds the server's
+    every step's logits, and on (2, 2) the engines' fetched logits,
+    against the unsharded port's grouped run."""
+    import dataclasses
+
+    from repro_torch import kernels
+    from repro_torch.core import sharding as csh
+    from repro_torch.core.config import DoRAConfig
+    from repro_torch.launch import serve as SV
+    from repro_torch.launch.engine import DecodeEngine
+    from repro_torch.launch.steps import StepConfig
+
+    t0 = time.perf_counter()
+    mcfg, vocab = run["mcfg"], run["mcfg"].vocab_size
+    dcfg = DoRAConfig(rank=run["rank"], alpha=run["alpha"], mode=run["mode"])
+    scfg = StepConfig(dora=dcfg)
+    square = dict(mesh.shape) == {"data": 2, "model": 2}
+    requests = d6_requests(vocab, run["prompt"])
+    kw = dict(gen_len=run["gen"], max_len=run["max_len"])
+    mm = kernels.KERNELS["compose_mm_fwd"]
+    params, tenants = _mesh_tenant_state(mcfg, dcfg, mesh, dev, SEED + 5)
+    out: dict = {}
+
+    cache = _tenant_cache(mcfg, scfg, mesh, dev, tenants)
+    server = SV.MultiTenantServer(mcfg, scfg, params, cache=cache, mesh=mesh)
+    toks = {}
+    for name in ("cold", "warm"):
+        _sync(dev)
+        _reset_peak(dev)
+        kernels.reset_launch_counts()
+        csh.reset_collective_stats()
+        mma0 = mm.mma_launches
+        stats: dict = {}
+        toks[name] = server.serve(requests, stats=stats, **kw)
+        out[name] = {
+            "launches": launch_counts(), "k6_mma": mm.mma_launches - mma0,
+            "collectives": csh.collective_stats(),
+            "cache": cache.stats().as_dict(),
+            "precompute_ms": stats["precompute_s"] * 1e3,
+            "stack_ms": stats["stack_s"] * 1e3,
+            "prefill_ms": stats["prefill_s"] * 1e3,
+            "decode_ms_per_step": stats["decode_s"] * 1e3 / run["gen"],
+            "peak_bytes": _peak(dev)}
+    out["tokens"] = toks["warm"].tolist()
+    out["warm_equals_cold"] = bool(torch.equal(toks["cold"], toks["warm"]))
+    out["groups"] = [list(g) for g in list(server._steps)[-1][3]]
+    del server, cache, toks
+    _empty_cache(dev)
+
+    trace = d5_trace()
+    owners = d6_owners(len(trace))
+    for name in ("rect", "paged"):
+        cache = _tenant_cache(mcfg, scfg, mesh, dev, tenants)
+        _sync(dev)
+        _reset_peak(dev)
+        kernels.reset_launch_counts()
+        csh.reset_collective_stats()
+        mma0 = mm.mma_launches
+        engine = DecodeEngine(mcfg, scfg, params, adapter_cache=cache,
+                              mesh=mesh, **d5_kwargs(name == "paged"))
+        r = drive_engine(engine, trace, vocab, timed=True, adapters=owners)
+        st = engine.stats()
+        out[name] = {
+            "launches": launch_counts(), "k6_mma": mm.mma_launches - mma0,
+            "collectives": csh.collective_stats(), "stats": st.as_dict(),
+            "device_steps": engine.device_steps(),
+            "signatures": engine.step_signatures()["decode"],
+            "cache": cache.stats().as_dict(),
+            "pool": engine.pool_stats() if name == "paged" else None,
+            "streams": {str(k): v for k, v in r["streams"].items()},
+            "ms_per_tick": r["wall_s"] * 1e3 / st.steps,
+            "decode_ms": _mean(r["times_ms"]["decode"]),
+            "wall_s": r["wall_s"], "peak_bytes": _peak(dev)}
+        del engine, cache
+        _empty_cache(dev)
+    if square:
+        rng = np.random.default_rng(SEED + 1)
+        prompts = [rng.integers(0, vocab, q["prompt_len"]) for q in trace]
+        server = SV.EngineServer(
+            mcfg, scfg, params, mesh=mesh, **d5_kwargs(True),
+            cache=_tenant_cache(mcfg, scfg, mesh, dev, tenants))
+        ts = time.perf_counter()
+        res = server.run([SV.Request(q, o) for q, o in zip(prompts, owners)],
+                         gen_len=D5_NEW)
+        wall = time.perf_counter() - ts
+        engine = DecodeEngine(mcfg, scfg, params, mesh=mesh,
+                              adapter_cache=_tenant_cache(
+                                  mcfg, scfg, mesh, dev, tenants),
+                              **d5_kwargs(True))
+        for i, (q, o) in enumerate(zip(prompts, owners)):
+            engine.submit(q, max_new_tokens=D5_NEW, key_id=i, adapter=o)
+        alone = engine.run()
+        out["server"] = {
+            "requests": len(res), "wall_s": wall,
+            "ticks": server.engine.stats().steps,
+            "signatures": server.engine.step_signatures()["decode"],
+            "reasons": sorted({x.finish_reason for x in res}),
+            "streams_equal_engine": [x.tokens.tolist() for x in res]
+            == [x.tokens.tolist() for x in alone]}
+        del server, engine
+        _empty_cache(dev)
+    del params, tenants
+    _empty_cache(dev)
+
+    m32 = dataclasses.replace(mcfg, dtype=torch.float32)
+    short = d5_trace(D5_FP32_REQUESTS, D5_FP32_NEW)
+    kw32 = dict(gen_len=D5_FP32_NEW, max_len=run["max_len"])
+    p32, t32 = _mesh_tenant_state(m32, dcfg, mesh, dev, SEED + 6)
+    server = SV.MultiTenantServer(m32, scfg, p32, mesh=mesh,
+                                  cache=_tenant_cache(m32, scfg, mesh, dev,
+                                                      t32))
+    s_toks, s_logits = server.serve(requests, return_logits=True, **kw32)
+    got = {}
+    for name in ("rect", "paged"):
+        engine = DecodeEngine(m32, scfg, p32, mesh=mesh,
+                              adapter_cache=_tenant_cache(m32, scfg, mesh,
+                                                          dev, t32),
+                              **d5_kwargs(name == "paged"))
+        seen = capture_logits(engine)
+        got[name] = (drive_engine(engine, short, vocab,
+                                  adapters=owners)["streams"], seen)
+        del engine
+    del server, p32, t32
+    _empty_cache(dev)
+    out["fp32_paged_equals_rect"] = got["paged"][0] == got["rect"][0]
+    if rank == 0:
+        p, a = _mesh_tenant_state(m32, dcfg, None, dev, SEED + 6)
+        one = SV.MultiTenantServer(m32, scfg, p, device=dev,
+                                   cache=_tenant_cache(m32, scfg, None, dev,
+                                                       a))
+        u_toks, u_logits = one.serve(requests, return_logits=True, **kw32)
+        gaps = []
+        for w in u_logits:
+            top2 = w.float().topk(2, dim=-1).values
+            gaps.append(float((top2[:, 0] - top2[:, 1]).min()
+                              / w.abs().max()))
+        first = u_logits[0].double()
+        out["fp32_server"] = {
+            "logit_max_rel": max(_leaf_max_rel(x, w)
+                                 for x, w in zip(s_logits, u_logits)),
+            "least_top2_gap": min(gaps),
+            "tokens_equal": bool(torch.equal(s_toks, u_toks)),
+            "generated": int(s_toks.shape[1] - run["prompt"]),
+            "tenant_first_logits_min_rel": min(
+                _leaf_max_rel(first[a_], first[b_])
+                for a_ in range(MT_TENANTS)
+                for b_ in range(a_ + 1, MT_TENANTS))}
+        del one, u_logits
+        if square:
+            fp32 = {}
+            for name in ("rect", "paged"):
+                engine = DecodeEngine(m32, scfg, p, device=dev,
+                                      adapter_cache=_tenant_cache(
+                                          m32, scfg, None, dev, a),
+                                      **d5_kwargs(name == "paged"))
+                seen = capture_logits(engine)
+                streams = drive_engine(engine, short, vocab,
+                                       adapters=owners)["streams"]
+                del engine
+                gaps = [float(np.diff(np.sort(w)[-2:])[0] / np.abs(w).max())
+                        for w in seen.values()]
+                fp32[name] = {"rows": len(seen),
+                              "logit_max_rel": max_rel_logits(got[name][1],
+                                                              seen),
+                              "least_top2_gap": min(gaps),
+                              "tokens_equal": got[name][0] == streams}
+            out["fp32_engine"] = fp32
+        del p, a
+        _empty_cache(dev)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 def _leaf_max_rel(got, want) -> float:
     """max |got - want| / max |want| of one gradient leaf (0 where both
     are all zeros, inf where only ``want`` is)."""
@@ -6219,6 +6502,7 @@ def mesh_checks(dev, mcfg=None) -> dict:
               f"mesh {shape} fp32 route: {fp32}")
         serve = mesh_serve_record(mcfg, dcfg, shape, recs)
         engine = mesh_engine_record(mcfg, dcfg, shape, recs)
+        tenants = mesh_tenant_record(mcfg, dcfg, shape, recs)
         warm = [st["ms"] for st in recs[0]["steps"][1:]]
         rec = {"ranks": len(recs), "launches_per_step": want,
                "norm_bytes_per_step": norm_bytes,
@@ -6233,7 +6517,7 @@ def mesh_checks(dev, mcfg=None) -> dict:
                                                 recs[0]["steps"]],
                "collectives_step": recs[0]["steps"][-1]["collectives"],
                "fp32": fp32, "serve": serve, "engine": engine,
-               "seconds": time.perf_counter() - t0}
+               "tenants": tenants, "seconds": time.perf_counter() - t0}
         out[f"{shape[0]}x{shape[1]}"] = rec
         print(f"mesh (data {shape[0]}, model {shape[1]}) [{MESH_LABEL}]: "
               f"launches a step {want}; norm sums {norm_bytes:,} B a step "
@@ -6251,6 +6535,9 @@ def mesh_checks(dev, mcfg=None) -> dict:
                    if k not in ("launches_per_rank",)}), flush=True)
         print(f"  D5 engine (data {shape[0]}, model {shape[1]}) "
               f"[{MESH_LABEL}; no multi-card speed]: " + json.dumps(engine),
+              flush=True)
+        print(f"  D6 tenants (data {shape[0]}, model {shape[1]}) "
+              f"[{MESH_LABEL}; no multi-card speed]: " + json.dumps(tenants),
               flush=True)
     return out
 
@@ -6399,6 +6686,125 @@ def mesh_engine_record(mcfg, dcfg, shape, recs) -> dict:
     return out
 
 
+def mesh_tenant_record(mcfg, dcfg, shape, recs) -> dict:
+    """D6's checks over one mesh's rank records (``_mesh_tenants``) and
+    the numbers kept of them: per rank the cold server's launches
+    exactly :func:`mesh_tenant_counts` (K6 = 0) and the warm one's none,
+    each decode step's collective bytes by tag exactly the single-tenant
+    ``mesh_decode_bytes`` at the same batch (grouping adds no collective
+    byte), three misses then three hits, the same tokens warm as cold and
+    on every rank, the tenants' greedy tokens on the shared prompt
+    pairwise different; per rank and engine the launches of
+    :func:`mesh_tenant_counts` (K8 = 2 x layers x (chunk + decode steps)
+    on the paged engine, K6 = 0), the decode bytes of D5, the stats,
+    device steps and pool of D5's unsharded engine (the same trace and
+    geometry: the schedule does not depend on the adapters, so D6 does
+    not run it again), rank 0's streams, a grouped
+    decode signature, a preemption and a drained pool on the paged one;
+    the fp32 paged == rect streams on every rank; the fp32 server's every
+    step's logits within D6_TOL of max |logit| of one card's grouped run,
+    each top-2 gap at least MESH_GAP_MIN and the tokens equal, and the
+    tenants' first logits apart; on (2, 2) the server's streams equal the
+    paged engine's and the fp32 engines within D6_TOL of one card's."""
+    batch = MT_TENANTS * MT_ROWS
+    cold = mesh_tenant_counts(mcfg, dcfg, shape)
+    want_bytes = mesh_decode_bytes(mcfg, dcfg, shape, batch=batch)
+    r0 = recs[0]["serve"]["tenants"]
+    for r in recs:
+        t = r["serve"]["tenants"]
+        where = f"D6 mesh {shape} rank {r['rank']}"
+        for run, want in (("cold", cold), ("warm", counts_of())):
+            check(t[run]["launches"] == want,
+                  f"{where} server {run}: launches {t[run]['launches']} "
+                  f"!= {want}")
+            coll = t[run]["collectives"]
+            got = {k: coll[k]["bytes"] // (GEN + 1 if k == "generate.logits"
+                                           else GEN)
+                   for k in coll if k.startswith(("tp.", "decode.",
+                                                  "generate."))}
+            check(got == want_bytes, f"{where} server {run}: decode bytes "
+                  f"a step {got} != the single-tenant step's {want_bytes}")
+        check(t["cold"]["cache"]["misses"] == MT_TENANTS
+              and t["warm"]["cache"]["hits"] == MT_TENANTS,
+              f"{where}: cache {t['warm']['cache']}")
+        check(t["warm_equals_cold"] and t["tokens"] == r0["tokens"]
+              and t["groups"] == [[2 * k, 2] for k in range(MT_TENANTS)],
+              f"{where}: warm tokens, rank 0's tokens or groups differ "
+              f"({t['groups']})")
+        for name in ("rect", "paged"):
+            e = t[name]
+            one = recs[0]["serve"]["engine"][name]["one_card"]
+            for key in ("stats", "device_steps", "pool"):
+                check(e[key] == one[key], f"{where} {name}: {key} {e[key]} "
+                      f"!= the unsharded engine's {one[key]}")
+            want = mesh_tenant_counts(mcfg, dcfg, shape, e["device_steps"],
+                                      paged=name == "paged")
+            check(e["launches"] == want,
+                  f"{where} {name}: launches {e['launches']} != {want}")
+            n = e["device_steps"]["decode"]
+            got = {k: v["bytes"] / n for k, v in e["collectives"].items()
+                   if k.startswith(("tp.", "decode.", "engine."))}
+            d5_bytes = mesh_decode_bytes(mcfg, dcfg, shape, batch=D5_SLOTS,
+                                         logits_tag="engine.logits")
+            check(got == d5_bytes, f"{where} {name}: decode bytes a step "
+                  f"{got} != {d5_bytes}")
+            check(e["streams"] == r0[name]["streams"]
+                  and len(e["streams"]) == D5_REQUESTS
+                  and e["cache"]["misses"] == MT_TENANTS
+                  and any(k != "None" for k in e["signatures"]),
+                  f"{where} {name}: streams, cache {e['cache']} or "
+                  f"signatures {e['signatures']}")
+        check(t["fp32_paged_equals_rect"],
+              f"{where}: fp32 paged streams differ from the rectangular "
+              f"engine's")
+    gen_part = [row[PROMPT:] for row in r0["tokens"][:MT_TENANTS]]
+    check(all(gen_part[a] != gen_part[b] for a in range(MT_TENANTS)
+              for b in range(a + 1, MT_TENANTS)),
+          f"D6 mesh {shape}: tenants' greedy tokens on the shared prompt "
+          f"are not pairwise different")
+    check(r0["paged"]["stats"]["preemptions"] >= 1
+          and r0["paged"]["pool"]["used_blocks"] == 0,
+          f"D6 mesh {shape} paged: {r0['paged']['stats']}")
+    f = r0["fp32_server"]
+    check(f["logit_max_rel"] <= D6_TOL
+          and f["least_top2_gap"] >= MESH_GAP_MIN and f["tokens_equal"]
+          and f["generated"] == D5_FP32_NEW
+          and f["tenant_first_logits_min_rel"] > 1e-3,
+          f"D6 mesh {shape} fp32 server against one card: {f}")
+    out = {"server_launches_cold_per_rank": cold,
+           "decode_bytes_per_step": want_bytes,
+           "fp32_server": f,
+           **{f"server_{run}_{k}_by_rank": [
+               r["serve"]["tenants"][run][k] for r in recs]
+              for run in ("cold", "warm")
+              for k in ("precompute_ms", "stack_ms", "prefill_ms",
+                        "decode_ms_per_step", "peak_bytes")}}
+    for name in ("rect", "paged"):
+        e = r0[name]
+        out[name] = {
+            "launches_per_rank": e["launches"], "ticks": e["stats"]["steps"],
+            "device_steps": e["device_steps"],
+            "signatures": e["signatures"],
+            **{f"{k}_by_rank": [r["serve"]["tenants"][name][k]
+                                for r in recs]
+               for k in ("ms_per_tick", "decode_ms", "wall_s",
+                         "peak_bytes")}}
+    if "server" in r0:
+        check(r0["server"]["streams_equal_engine"]
+              and r0["server"]["reasons"] == ["length"],
+              f"D6 mesh {shape}: EngineServer {r0['server']}")
+        out["server"] = r0["server"]
+    if "fp32_engine" in r0:
+        for name, f in r0["fp32_engine"].items():
+            check(f["least_top2_gap"] >= MESH_GAP_MIN
+                  and f["logit_max_rel"] <= D6_TOL and f["tokens_equal"],
+                  f"D6 mesh {shape} fp32 {name} engine against one card: "
+                  f"{f}")
+        out["fp32_engine"] = r0["fp32_engine"]
+    out["seconds_by_rank"] = [r["serve"]["tenants"]["seconds"] for r in recs]
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -6462,7 +6868,7 @@ def main() -> int:
     small_parity(dev)
     t0 = time.perf_counter()
     mesh = mesh_checks(dev)
-    print(f"mesh phases D2-D5: {time.perf_counter() - t0:.1f} s",
+    print(f"mesh phases D2-D6: {time.perf_counter() - t0:.1f} s",
           flush=True)
     t0 = time.perf_counter()
     served, mcfg, params, adapters = serve_checks(dev)
@@ -6554,6 +6960,13 @@ def main() -> int:
                **{f"engine_mesh_{k}_{e}_per_rank":
                   r["engine"][e]["launches_per_rank"]
                   for k, r in mesh.items() if isinstance(r, dict)
+                  for e in ("rect", "paged")},
+               **{f"tenants_mesh_{k}_server_cold_per_rank":
+                  r["tenants"]["server_launches_cold_per_rank"]
+                  for k, r in mesh.items() if isinstance(r, dict)},
+               **{f"tenants_mesh_{k}_{e}_per_rank":
+                  r["tenants"][e]["launches_per_rank"]
+                  for k, r in mesh.items() if isinstance(r, dict)
                   for e in ("rect", "paged")}}
     record = []
     for name, (src, replaces) in SOURCES.items():
@@ -6637,7 +7050,7 @@ def main() -> int:
                           "step_ms_by_rank", "peak_bytes_by_rank", "fp32")}
                           | {"serve": {f: v for f, v in r["serve"].items()
                                        if f != "collectives_rank0"},
-                             "engine": r["engine"]}
+                             "engine": r["engine"], "tenants": r["tenants"]}
                           if isinstance(r, dict) else r)
                           for k, r in mesh.items()},
                       "serve": {k: served[k] for k in

@@ -201,18 +201,15 @@ def dora_linear(x, W, adapter: dict[str, Any], cfg: DoRAConfig, *,
     split along d_in over that axis of the plan's mesh, and the norm's
     partials are summed over it. The serving state ("g", "gsB") is taken
     under a plan as this rank's shards (:func:`precompute_adapter_state`
-    with ``sp``); tenant groups are not (ROADMAP queue 1 item 6, second
-    half, point 1c).
+    with ``sp``), and so is a K-stacked one with static tenant groups: a
+    column-parallel module's W, g and gsB are its local rows, and the
+    grouped compose is row-local, with no collective.
 
     ``tenant_groups``: multi-tenant serving, a tuple of ``(start, size)``
-    row blocks or an int [B] tensor of per-row tenant positions, over an
-    adapter tree whose leaves carry a leading tenant dim K (see
-    :func:`dora_linear_grouped`)."""
+    row blocks (or a data replica's ``(start, size, k)``) or an int [B]
+    tensor of per-row tenant positions, over an adapter tree whose leaves
+    carry a leading tenant dim K (see :func:`dora_linear_grouped`)."""
     plan_sh = _sh.as_compose_sharding(constrain)
-    if plan_sh is not None and tenant_groups is not None:
-        raise NotImplementedError(
-            "tenant groups under a mesh are ROADMAP queue 1 item 6, second "
-            "half, point 1c")
     if axis_name is not None and plan_sh is None:
         raise ValueError("dora_linear(axis_name=...) needs a mesh plan "
                          "(constrain=) to name the mesh")
@@ -274,7 +271,7 @@ def _adapted_output(y_base, h, W, adapter, cfg: DoRAConfig, *, dtype,
 
 def dora_linear_row_parallel(x, W, adapter: dict[str, Any] | None,
                              cfg: DoRAConfig | None, *, sp, bias=None,
-                             training: bool = True):
+                             training: bool = True, tenant_groups=None):
     """A row-parallel adapted linear under the mesh layout ``sp``
     (``core/sharding.py SequenceParallel``): x [B, S, d_in_l] holds this
     rank's d_in columns on every row, W [d_out, d_in_l] and A [r, d_in_l]
@@ -287,28 +284,57 @@ def dora_linear_row_parallel(x, W, adapter: dict[str, Any] | None,
     summed over ``sp.axis`` unless the serving state's g is given; the
     compose then runs on the full d_out under ``sp.row_plan`` (rows
     split: T and d_g summed over the axis in the backward). Returns y
-    [B, S/tp, d_out], or [B, S, d_out] with no split."""
+    [B, S/tp, d_out], or [B, S, d_out] with no split.
+
+    ``tenant_groups``: static groups over a K-stacked folded serving tree
+    (:func:`dora_linear_grouped`'s form). Each group's partial h is
+    computed with its own A, the groups' partials are concatenated along
+    the batch rows into one [B, S, r] tensor and go through the one
+    scatter of h, then each group takes :func:`gsb_delta` on its rows: a
+    grouped call moves exactly the bytes of a single-tenant one."""
     _check_serving_state(adapter, sp)
     y_base = sp.scatter(sp.partial(x, W.detach()), tag="y_base").to(x.dtype)
     if adapter is None:
         return y_base if bias is None else y_base + bias
     plan = sp.row_plan
+    if tenant_groups is not None:
+        return _row_parallel_grouped(x, plan(y_base), adapter, tenant_groups,
+                                     sp=sp, bias=bias, training=training)
     h = sp.scatter(sp.partial(x, adapter["A"]), tag="h").to(x.dtype)
     return _adapted_output(plan(y_base), plan.constrain_h(h), W, adapter,
                            cfg, dtype=x.dtype, training=training, bias=bias,
                            axis_name=sp.axis, sharding=plan)
 
 
+@torch.no_grad()
+def _row_parallel_grouped(x, y_base, adapter, tenant_groups, *, sp, bias,
+                          training: bool):
+    """The grouped compose of :func:`dora_linear_row_parallel` from its
+    scattered y_base: the per-group partial h, one scatter, then each
+    group's :func:`gsb_delta` with the whole g[k] and gsB[k]."""
+    A, g, gsB = _grouped_state(adapter, training)
+    groups = tenant_positions(tenant_groups, x.shape[0], A.shape[0])
+    h = torch.cat([sp.partial(x[s:s + n], A[k]) for s, n, k in groups])
+    h = sp.row_plan.constrain_h(sp.scatter(h, tag="h").to(x.dtype))
+    deltas = [gsb_delta(y_base[s:s + n], h[s:s + n], g[k].to(_F32), gsB[k])
+              for s, n, k in groups]
+    y = y_base + torch.cat(deltas, dim=0)
+    if bias is not None:
+        y = y + bias                 # re-added after the compose
+    return y
+
+
 def dora_linear_column_parallel(x, W, adapter: dict[str, Any] | None,
                                 cfg: DoRAConfig | None, *, sp, bias=None,
-                                training: bool = True):
+                                training: bool = True, tenant_groups=None):
     """A column-parallel adapted linear under ``sp``: x [B, S, d_in] the
     gathered (or, with no split, whole) rows, W [d_out_l, d_in], B and
     gsB [d_out_l, r], m, g and the bias this rank's d_out shards, A
     whole. The norm is local (W's rows are), or the serving state's g is
     given; the compose runs under ``sp.col_plan``, which leaves d_h's
     partial to the gather's backward, so A's gradient is summed over
-    ``sp.axis``."""
+    ``sp.axis``. ``tenant_groups``: the grouped compose on these shards
+    (:func:`dora_linear_grouped`), with no collective."""
     _check_serving_state(adapter, sp)
     if adapter is None:
         y = x @ W.detach().T
@@ -317,7 +343,7 @@ def dora_linear_column_parallel(x, W, adapter: dict[str, Any] | None,
     if A.requires_grad:
         adapter = {**adapter, "A": sp.reduce_grad(A)}
     return dora_linear(x, W, adapter, cfg, bias=bias, training=training,
-                       constrain=sp.col_plan)
+                       constrain=sp.col_plan, tenant_groups=tenant_groups)
 
 
 def _check_serving_state(adapter, sp) -> None:
@@ -372,33 +398,33 @@ def check_tenant_groups(tenant_groups, batch: int) -> tuple:
     return groups
 
 
-@torch.no_grad()
-def dora_linear_grouped(x, W, adapter: dict[str, Any], cfg: DoRAConfig,
-                        tenant_groups, *, bias=None, training: bool = False):
-    """Multi-tenant adapted linear: one call serves a batch whose rows use
-    per-row adapters out of a K-stacked serving tree (x [B, ..., d_in]).
+def tenant_positions(tenant_groups, batch: int, K: int) -> tuple:
+    """The static groups as ``(start, size, k)`` triples: whole-batch
+    ``(start, size)`` groups, one per stack position k in order, or a
+    data replica's triples (``launch/sharding.py local_tenant_groups``),
+    whose k name the positions of the groups that reach its rows. Either
+    form tiles ``[0, batch)`` contiguously (:func:`check_tenant_groups`)."""
+    groups = tuple(tuple(int(v) for v in grp) for grp in tenant_groups)
+    local = bool(groups) and len(groups[0]) == 3
+    if any(len(grp) != (3 if local else 2) for grp in groups):
+        raise ValueError(f"tenant_groups {groups} mix (start, size) pairs "
+                         f"and (start, size, k) triples")
+    check_tenant_groups([grp[:2] for grp in groups], batch)
+    if not local:
+        if len(groups) != K:
+            raise ValueError(
+                f"{len(groups)} tenant groups but the stacked adapter tree "
+                f"carries K={K} tenants")
+        return tuple((s, n, k) for k, (s, n) in enumerate(groups))
+    if any(not 0 <= k < K for *_, k in groups):
+        raise ValueError(f"tenant_groups {groups} name a stack position "
+                         f"outside the K={K} tenants")
+    return groups
 
-    ``adapter`` leaves carry a leading tenant dim K
-    (:func:`stack_adapter_states`) and must be a folded serving tree, with
-    ``"g"`` and ``"gsB"`` from ``precompute_adapter_state(fold_gsb=True)``,
-    so no tenant does norm work per token. ``cfg`` is unused: the folded
-    state carries s, and no kernel route applies.
 
-    ``tenant_groups`` selects one of two grouping contracts:
-
-    - **Static** (a tuple of ``(start, size)`` row blocks): the base
-      projection x·Wᵀ is one product over the whole batch, then each
-      group's rows take exactly the ops of the homogeneous serving path
-      (h = x_k·A_kᵀ, then :func:`gsb_delta`), so a group's delta is
-      bitwise the homogeneous path's on the same rows and the same
-      y_base rows.
-    - **Dynamic** (an int [B] tensor of per-row stack positions): every
-      tenant's contribution is computed by one K-batched contraction and
-      each row's result is then a pure gather
-      (:func:`repro_torch.core.compose.select_tenant`), at K times the
-      adapter FLOPs; see :func:`_dora_linear_dyn`.
-    """
-    del cfg
+def _grouped_state(adapter, training: bool):
+    """(A, g, gsB) of a K-stacked folded serving tree; refused under
+    training or without the folded state."""
     if training:
         raise ValueError(
             "dora_linear_grouped is a serving-only path: the grouped "
@@ -413,24 +439,50 @@ def dora_linear_grouped(x, W, adapter: dict[str, Any], cfg: DoRAConfig,
             f"tenant with precompute_adapter_state(..., fold_gsb=True) "
             f"(AdapterStateCache.for_serving does) and stack with "
             f"stack_adapter_states before building the grouped step.")
-    A, g, gsB = adapter["A"], adapter["g"], adapter["gsB"]
+    return adapter["A"], adapter["g"], adapter["gsB"]
+
+
+@torch.no_grad()
+def dora_linear_grouped(x, W, adapter: dict[str, Any], cfg: DoRAConfig,
+                        tenant_groups, *, bias=None, training: bool = False):
+    """Multi-tenant adapted linear: one call serves a batch whose rows use
+    per-row adapters out of a K-stacked serving tree (x [B, ..., d_in]).
+
+    ``adapter`` leaves carry a leading tenant dim K
+    (:func:`stack_adapter_states`) and must be a folded serving tree, with
+    ``"g"`` and ``"gsB"`` from ``precompute_adapter_state(fold_gsb=True)``,
+    so no tenant does norm work per token. ``cfg`` is unused: the folded
+    state carries s, and no kernel route applies.
+
+    ``tenant_groups`` selects one of two grouping contracts:
+
+    - **Static** (a tuple of ``(start, size)`` row blocks, one per stack
+      position in order, or a data replica's ``(start, size, k)``
+      triples, :func:`tenant_positions`): the base projection x·Wᵀ is
+      one product over the whole batch, then each group's rows take
+      exactly the ops of the homogeneous serving path (h = x_k·A_kᵀ,
+      then :func:`gsb_delta`), so a group's delta is bitwise the
+      homogeneous path's on the same rows and the same y_base rows.
+    - **Dynamic** (an int [B] tensor of per-row stack positions): every
+      tenant's contribution is computed by one K-batched contraction and
+      each row's result is then a pure gather
+      (:func:`repro_torch.core.compose.select_tenant`), at K times the
+      adapter FLOPs; see :func:`_dora_linear_dyn`.
+    """
+    del cfg
+    A, g, gsB = _grouped_state(adapter, training)
     if W.ndim > 2:
         raise NotImplementedError(
             "grouped multi-tenant serving of stacked/expert weights "
             f"(W rank {W.ndim}) is not supported")
     if not isinstance(tenant_groups, (tuple, list)):
         return _dora_linear_dyn(x, W, A, g, gsB, tenant_groups, bias=bias)
-    groups = check_tenant_groups(tenant_groups, x.shape[0])
-    K = A.shape[0]
-    if len(groups) != K:
-        raise ValueError(
-            f"{len(groups)} tenant groups but the stacked adapter tree "
-            f"carries K={K} tenants")
+    groups = tenant_positions(tenant_groups, x.shape[0], A.shape[0])
     y_base = x @ W.T
     deltas = [gsb_delta(y_base[start:start + size],
                         x[start:start + size] @ A[k].T,
                         g[k].to(_F32), gsB[k])
-              for k, (start, size) in enumerate(groups)]
+              for start, size, k in groups]
     y = y_base + torch.cat(deltas, dim=0)
     if bias is not None:
         y = y + bias                 # re-added after the compose

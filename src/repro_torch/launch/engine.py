@@ -76,9 +76,11 @@ replica; ``init_cache(mesh=)``), the admissions prefill in the
 sequence-parallel layout and decode runs tensor-parallel on each
 replica's rows. The decode logits come back gathered over the data axes,
 so the host scheduler, replicated unchanged, makes the same decisions on
-every rank. One adapter at a time: speculation, dynamic grouping and a
-slot layout of two or more handles under a mesh are ROADMAP queue 1
-item 6, second half, point 1c.
+every rank. A slot layout of two or more handles decodes under its
+static groups, each data replica under its share of them
+(``launch/sharding.py local_tenant_groups``); speculation and dynamic
+grouping under a mesh are ROADMAP queue 1 item 6, second half, point
+1c-ii.
 
 SSM/Mamba archs are refused (their states integrate every processed
 token and cannot rewind to a slot's true prompt length), and MoE FFNs
@@ -302,11 +304,10 @@ class DecodeEngine:
     ``AdapterStateCache.for_serving(mcfg, scfg, mesh)``. Every rank
     submits the same requests and steps the same ticks; each returns the
     same results. No wall clock enters a decision: the ``slow`` fault
-    only sleeps. Refused under a mesh (ROADMAP queue 1 item 6, second
-    half, point 1c): ``speculative_k > 0``, ``dynamic_grouping`` and an
-    admission that would seat a second distinct handle beside the
-    occupied slots' (refused before its prefill, so no device step runs
-    under a two-handle layout).
+    only sleeps. Slots of several handles decode under the static
+    groups of their layout, each data replica under its share. Refused
+    under a mesh (ROADMAP queue 1 item 6, second half, point 1c-ii):
+    ``speculative_k > 0`` and ``dynamic_grouping``.
 
     ``step()`` is one scheduler tick: apply the fault plan's events →
     expire deadlines → admit into free slots (preempting lower-priority
@@ -396,8 +397,8 @@ class DecodeEngine:
                 f"from an expert (arch {mcfg.name!r})")
         if mesh is not None and (speculative_k or dynamic_grouping):
             raise NotImplementedError(
-                f"DecodeEngine(mesh=...) serves one adapter at a time with "
-                f"plain decode: "
+                f"DecodeEngine(mesh=...) groups statically and decodes "
+                f"plainly: "
                 f"{'speculative_k' if speculative_k else 'dynamic_grouping'}"
                 f" under a mesh is {_MESH_LATER}")
         if slots < 1:
@@ -1124,14 +1125,6 @@ class DecodeEngine:
         paged admission is DEFERRED (the pool cannot hold the prompt now:
         the request goes back to the queue head and this tick admits no
         more)."""
-        if self.mesh is not None and req.adapter is not None and any(
-                s.occupied and s.handle != req.adapter for s in self._slots):
-            self._queue.appendleft(req)
-            raise NotImplementedError(
-                f"DecodeEngine(mesh=...) serves one adapter at a time: "
-                f"admitting {req.adapter} beside another handle's slots "
-                f"would decode a grouped layout, which under a mesh is "
-                f"{_MESH_LATER}")
         if self._stale_pending and req.adapter is not None:
             # Fault injection: a handle one version past the registry's,
             # pinned state stripped, so the resolution below raises the
@@ -1280,7 +1273,10 @@ class DecodeEngine:
         nothing reads), so the signature changes only when the handle
         layout of OCCUPIED slots changes (a paged slot mid-admission
         counts already), and (signature, stacked tree) is cached on that
-        layout: a token never triggers a restack."""
+        layout: a token never triggers a restack. Under a mesh the groups
+        are the whole slot batch's and the stack this rank's shards; the
+        decode step cuts the groups to each data replica's rows, where a
+        run (an absorbed free slot too) may span two replicas."""
         if self.adapter_cache is None:
             return None, self.adapters
         if self._dynamic:

@@ -107,7 +107,8 @@ from repro_torch.core.adapter_cache import (AdapterHandle, AdapterStateCache,
 from repro_torch.core.config import DoRAConfig
 from repro_torch.launch.sharding import local_rows
 from repro_torch.launch.steps import (PhaseClock, StepConfig,
-                                      make_decode_step, make_precompute_step,
+                                      check_serving_layout, make_decode_step,
+                                      make_precompute_step,
                                       make_prefill_step)
 from repro_torch.models.lm import init_adapters, init_params
 
@@ -124,10 +125,8 @@ def resolve_device(device=None) -> torch.device:
 
 
 # Where the refusals of the serving paths not yet ported to a mesh point.
-_MESH_LATER = ("ROADMAP queue 1 item 6, second half, point 1c "
-               "(multi-device serving of tenant groups, the grouped "
-               "server, the engine's multi-handle layouts, dynamic "
-               "grouping and speculation)")
+_MESH_LATER = ("ROADMAP queue 1 item 6, second half, point 1c-ii "
+               "(multi-device dynamic grouping and speculation)")
 
 
 def _check_cache_mesh(cache: AdapterStateCache, mesh) -> None:
@@ -330,11 +329,19 @@ class MultiTenantServer:
     Step closures are kept per (batch, max_len, pad, groups), at most
     ``max_cached_steps`` of them (least recently used dropped first).
 
-    ``device``: None is the card, which must be present; ``"cpu"`` is the
-    explicit CPU request; ``params`` must live there. ``mesh`` is
-    refused (ROADMAP queue 1 item 6, second half, point 1c): a single
-    tenant is served across a mesh by :func:`generate`, and by
-    :class:`EngineServer` through the continuous-batching engine.
+    ``device``: None is the card, which must be present (the mesh's
+    device when a mesh is given); ``"cpu"`` is the explicit CPU request;
+    ``params`` must live there. ``mesh``: ``params`` are this rank's
+    shards and ``cache`` is keyed for this mesh
+    (``AdapterStateCache.for_serving(mcfg, scfg, mesh)``), so every state
+    and their stack ([n_scan, K, ...], ``launch/sharding.py
+    fleet_stack_sharding``) are this rank's shards. Every rank serves the
+    same requests: each data replica prefills (padded to ``max_len``,
+    which must split over ``model``) and decodes its rows under its share
+    of the groups, and every rank samples the whole batch and returns the
+    same tokens. The engine route runs ``DecodeEngine(mesh=)``; dynamic
+    grouping and ``speculative_k`` under a mesh are refused
+    (ROADMAP queue 1 item 6, second half, point 1c-ii).
     """
 
     def __init__(self, mcfg, scfg: StepConfig, params, *,
@@ -343,16 +350,17 @@ class MultiTenantServer:
                  dynamic_grouping: bool = False,
                  max_active_per_adapter: int | None = None,
                  trace=None, device=None):
-        if mesh is not None:
+        if mesh is not None and dynamic_grouping:
             raise NotImplementedError(
-                f"MultiTenantServer(mesh=...) is not ported yet: it comes "
-                f"with {_MESH_LATER}; one tenant is served across a mesh "
-                f"by generate(mesh=) and EngineServer(mesh=)")
+                f"MultiTenantServer(mesh=...) groups statically: "
+                f"dynamic_grouping under a mesh is {_MESH_LATER}")
         _check_cache_mesh(cache, mesh)
-        self.device = resolve_device(device)
+        self.device = resolve_device(device if device is not None
+                                     or mesh is None else mesh.device)
         if params["embed"].device != self.device:
             raise ValueError(f"params live on {params['embed'].device}, "
                              f"serving was asked on {self.device}")
+        self.mesh = mesh
         self.mcfg = mcfg
         self.scfg = scfg
         self.params = params
@@ -376,11 +384,11 @@ class MultiTenantServer:
         if key in self._steps:
             self._steps.move_to_end(key)
             return self._steps[key]
-        prefill = make_prefill_step(self.mcfg, self.scfg, batch=batch,
-                                    seq=max_len, padded=pad,
+        prefill = make_prefill_step(self.mcfg, self.scfg, self.mesh,
+                                    batch=batch, seq=max_len, padded=pad,
                                     tenant_groups=groups)
-        decode = make_decode_step(self.mcfg, self.scfg, batch=batch,
-                                  tenant_groups=groups)
+        decode = make_decode_step(self.mcfg, self.scfg, self.mesh,
+                                  batch=batch, tenant_groups=groups)
         self._steps[key] = (prefill, decode)
         while len(self._steps) > self.max_cached_steps:
             self._steps.popitem(last=False)
@@ -396,7 +404,7 @@ class MultiTenantServer:
         else:
             eng = DecodeEngine(self.mcfg, self.scfg, self.params,
                                slots=slots, max_len=max_len,
-                               adapter_cache=self.cache,
+                               adapter_cache=self.cache, mesh=self.mesh,
                                dynamic_grouping=self.dynamic_grouping,
                                max_active_per_adapter=(
                                    self.max_active_per_adapter),
@@ -464,6 +472,10 @@ class MultiTenantServer:
                 "speculative_k requires the continuous-batching engine "
                 "path (its rewindable per-row cache): serve with "
                 "static=False/None, not static=True")
+        if speculative_k and self.mesh is not None:
+            raise NotImplementedError(
+                f"MultiTenantServer(mesh=...) decodes plainly: "
+                f"speculative_k under a mesh is {_MESH_LATER}")
         if not static:
             if return_logits:
                 raise ValueError(
@@ -494,6 +506,14 @@ class MultiTenantServer:
                 f"prompt length before batching")
         if max_len < P + gen_len:
             raise ValueError(f"max_len={max_len} < P+gen_len={P + gen_len}")
+        tp = 1 if self.mesh is None else dict(self.mesh.shape).get("model",
+                                                                    1)
+        if max_len % tp:
+            raise ValueError(
+                f"MultiTenantServer(mesh=...) prefills padded to max_len "
+                f"and splits it over model={tp}: max_len={max_len} does "
+                f"not split; serve with a max_len that is a multiple of "
+                f"{tp}")
 
         # Resolve handles (hit, precompute on a miss, or refuse), then group
         # the rows by adapter: a stable sort by first appearance, so
@@ -523,6 +543,9 @@ class MultiTenantServer:
             adapters = stack_adapter_states(
                 [states[h] for h in order], axis=1)
             clock.stop("stack_s")
+            if self.mesh is not None:
+                check_serving_layout(self.mcfg, self.scfg, self.mesh,
+                                     adapters, tenants=len(order))
             sizes = [0] * len(order)
             for h in handles:
                 sizes[order[h]] += 1
@@ -536,7 +559,8 @@ class MultiTenantServer:
         tokens, logits = _decode_loop(
             prefill, decode, self.params, adapters, toks, prompt_len=P,
             gen_len=gen_len, pad=pad, temperature=temperature, seed=seed,
-            collect_logits=return_logits, clock=clock)
+            collect_logits=return_logits, clock=clock,
+            rows=None if self.mesh is None else _Rows(decode.layout))
         tokens = tokens[inv]
         if return_logits:
             return tokens, [step[inv] for step in logits]
@@ -567,8 +591,10 @@ class EngineServer:
     the engine runs across it (``DecodeEngine(mesh=)``): ``params`` are
     this rank's shards, ``cache`` is keyed for this mesh
     (``AdapterStateCache.for_serving(mcfg, scfg, mesh)``), every rank
-    runs the same requests and returns the same results; one adapter at
-    a time, with plain decode.
+    runs the same requests and returns the same results; the slots may
+    hold several adapters at once (static grouping), and decode is
+    plain: dynamic grouping and speculation under a mesh are ROADMAP
+    queue 1 item 6, second half, point 1c-ii.
     """
 
     def __init__(self, mcfg, scfg: StepConfig, params, *,

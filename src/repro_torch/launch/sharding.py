@@ -265,6 +265,29 @@ def local_rows(mesh, batch: int) -> slice:
     return slice(i * batch // n, (i + 1) * batch // n)
 
 
+def local_tenant_groups(mesh, batch: int, tenant_groups) -> tuple:
+    """This data replica's share of a batch's static tenant groups: each
+    whole-batch ``(start, size)`` group (``core/adapter.py
+    check_tenant_groups``, at stack position k) cut to
+    :func:`local_rows` and rebased to them, as ``(start, size, k)``; a
+    group with no row here is dropped, and one that straddles two
+    replicas keeps its position on both. The triples carry the position
+    into the stacked tree, so the stack is never re-sliced. Where every
+    replica holds the whole batch the groups come back as given."""
+    from repro_torch.core.adapter import check_tenant_groups
+
+    groups = check_tenant_groups(tenant_groups, batch)
+    mine = local_rows(mesh, batch)
+    if (mine.start, mine.stop) == (0, batch):
+        return groups
+    out = []
+    for k, (start, size) in enumerate(groups):
+        lo, hi = max(start, mine.start), min(start + size, mine.stop)
+        if lo < hi:
+            out.append((lo - mine.start, hi - lo, k))
+    return tuple(out)
+
+
 def batch_spec(mesh, *, batch: int) -> P:
     return P(_dp_entry(mesh, batch), None)
 

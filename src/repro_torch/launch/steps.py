@@ -372,35 +372,48 @@ def make_precompute_step(mcfg: ModelConfig, scfg: StepConfig, mesh=None,
     ``sp``)."""
     from repro_torch.launch import sharding as S
 
-    sp = serving = shapes = None
+    sp = None
     if mesh is not None:
         _mesh_rules(mcfg, scfg, mesh)
         sp = S.make_boundary_constraint(mesh, batch=1, seq=1, decode=True)
-        serving = flatten_paths(S.adapter_sharding(mcfg, scfg.dora, mesh,
-                                                   serving=True))
-        shapes = flatten_paths(adapter_shapes(mcfg, scfg.dora))
-
-    def check_layout(tree):
-        for name, leaf in flatten_paths(tree).items():
-            like = {"g": "m", "gsB": "B"}.get(name.rsplit("/", 1)[1])
-            full = shapes[name if like is None
-                          else f"{name.rsplit('/', 1)[0]}/{like}"].shape
-            want = _sh.local_shape(full, serving[name], mesh)
-            if tuple(leaf.shape) != want:
-                raise ValueError(
-                    f"serving leaf {name} {tuple(leaf.shape)} is not "
-                    f"{full} laid out {tuple(serving[name])} on mesh "
-                    f"{dict(mesh.shape)}: want {want}")
 
     def precompute_step(params, adapters):
         tree = precompute_adapter_state(params, adapters, scfg.dora,
                                         act_dtype=mcfg.dtype,
                                         fold_gsb=fold_gsb, sp=sp)
         if mesh is not None:
-            check_layout(tree)
+            check_serving_layout(mcfg, scfg, mesh, tree)
         return tree
 
     return precompute_step
+
+
+def check_serving_layout(mcfg: ModelConfig, scfg: StepConfig, mesh, tree,
+                         *, tenants: int | None = None) -> None:
+    """Refuse a serving tree whose leaves are not this rank's shards on
+    ``mesh``: g laid out like m and gsB like B, as ``launch/sharding.py
+    adapter_sharding(serving=True)`` specifies. ``tenants``: the tree is
+    a stack of that many states on axis 1 ([n_scan, K, ...]), laid out
+    by ``fleet_stack_sharding`` (the tenant axis whole)."""
+    from repro_torch.launch import sharding as S
+
+    spec = S.adapter_sharding(mcfg, scfg.dora, mesh, serving=True)
+    if tenants is not None:
+        spec = S.fleet_stack_sharding(spec, mesh)
+    serving = flatten_paths(spec)
+    shapes = flatten_paths(adapter_shapes(mcfg, scfg.dora))
+    for name, leaf in flatten_paths(tree).items():
+        like = {"g": "m", "gsB": "B"}.get(name.rsplit("/", 1)[1])
+        full = tuple(shapes[name if like is None
+                            else f"{name.rsplit('/', 1)[0]}/{like}"].shape)
+        if tenants is not None:
+            full = full[:1] + (tenants,) + full[1:]
+        want = _sh.local_shape(full, serving[name], mesh)
+        if tuple(leaf.shape) != want:
+            raise ValueError(
+                f"serving leaf {name} {tuple(leaf.shape)} is not {full} "
+                f"laid out {tuple(serving[name])} on mesh "
+                f"{dict(mesh.shape)}: want {want}")
 
 
 def make_prefill_step(mcfg: ModelConfig, scfg: StepConfig, mesh=None, *,
@@ -428,7 +441,10 @@ def make_prefill_step(mcfg: ModelConfig, scfg: StepConfig, mesh=None, *,
     [batch / data, P], sequence-parallel over ``model``, padded or not.
     The adapters are the raw tree (each module's norm computed here, its
     partials summed over ``model`` for wo and w_down) or the serving state
-    of ``make_precompute_step(mcfg, scfg, mesh)``. The logits are
+    of ``make_precompute_step(mcfg, scfg, mesh)``; with ``tenant_groups``
+    (the whole batch's) a stack of such states, and the groups are cut
+    to this replica's rows once, here (``launch/sharding.py
+    local_tenant_groups``). The logits are
     gathered over the vocab ([batch / data, V]). The cache holds the K/V
     of this rank's ``Hkv / tp`` heads for its data replica's rows: the
     runtime lays K/V out by heads, so attention needs no collective, and
@@ -439,6 +455,7 @@ def make_prefill_step(mcfg: ModelConfig, scfg: StepConfig, mesh=None, *,
     lay = None if mesh is None else mesh_layout(mcfg, scfg, mesh,
                                                 batch=batch, seq=seq)
     rows = batch if lay is None else lay.local_batch
+    tenant_groups = _local_groups(mesh, batch, tenant_groups)
     if padded and any(k != "attn" for k in mcfg.layer_kinds()):
         raise ValueError(
             "padded prefill requires attention-only caches: SSM layer "
@@ -577,6 +594,16 @@ def make_prefill_chunk_step(mcfg: ModelConfig, scfg: StepConfig, mesh=None,
     return prefill_chunk
 
 
+def _local_groups(mesh, batch: int, tenant_groups):
+    """A step's static tenant groups as its forward takes them: under a
+    mesh this data replica's (``launch/sharding.py
+    local_tenant_groups``), else as given."""
+    if mesh is None or tenant_groups is None:
+        return tenant_groups
+    from repro_torch.launch.sharding import local_tenant_groups
+    return local_tenant_groups(mesh, batch, tenant_groups)
+
+
 def _gather_vocab(last, mcfg: ModelConfig, lay, tag: str):
     """A step's last logits [B, V/tp] under ``lay`` gathered over the
     vocab ([B, V]); as they are without a mesh or with the head
@@ -613,9 +640,12 @@ def make_decode_step(mcfg: ModelConfig, scfg: StepConfig, mesh=None, *,
     collective, the row-parallel ones all-reducing y_base and the r-wide
     h over ``model`` (fp32) before the compose, and the head's local
     vocab columns gathered ([batch / data, V]). The adapters must be the
-    serving state of ``make_precompute_step(mcfg, scfg, mesh)``. Tenant
-    groups are refused by the forward (ROADMAP queue 1 item 6, second
-    half, point 1c).
+    serving state of ``make_precompute_step(mcfg, scfg, mesh)``, or with
+    ``tenant_groups`` (the whole batch's) a stack of such states; the
+    groups are cut to this replica's rows once, here (``launch/sharding.py
+    local_tenant_groups``), and a grouped step moves the single-tenant
+    step's collective bytes. ``dynamic_groups`` under a mesh is refused
+    by the forward (ROADMAP queue 1 item 6, second half, point 1c-ii).
     The engine's cache (``init_cache(row_lens=True, mesh=)``: "len"
     [batch] and a paged cache's "pages" [batch, max_blocks] whole on
     every rank) takes the whole batch's tokens [batch, 1] instead: the
@@ -633,6 +663,7 @@ def make_decode_step(mcfg: ModelConfig, scfg: StepConfig, mesh=None, *,
     lay = None if mesh is None else mesh_layout(mcfg, scfg, mesh,
                                                 batch=batch, seq=1,
                                                 decode=True)
+    tenant_groups = _local_groups(mesh, batch, tenant_groups)
 
     @torch.no_grad()
     def decode_step(params, adapters, cache, batch_in):

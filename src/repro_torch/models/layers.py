@@ -58,7 +58,6 @@ def _col(x, w, dora, cfg, sp, **kw):
     """A column-parallel projection under ``sp``, else :func:`maybe_dora`."""
     if sp is None:
         return maybe_dora(x, w, dora, cfg, **kw)
-    kw.pop("tenant_groups", None)
     return dora_linear_column_parallel(x, w, dora, cfg, sp=sp, **kw)
 
 
@@ -66,7 +65,6 @@ def _row(x, w, dora, cfg, sp, **kw):
     """A row-parallel projection under ``sp``, else :func:`maybe_dora`."""
     if sp is None:
         return maybe_dora(x, w, dora, cfg, **kw)
-    kw.pop("tenant_groups", None)
     return dora_linear_row_parallel(x, w, dora, cfg, sp=sp, **kw)
 
 

@@ -508,7 +508,10 @@ def forward(mcfg: ModelConfig, params, adapters, dcfg: DoRAConfig | None,
     positions into the stacked tenant dim; ``adapters`` is then a stacked
     folded serving tree (leaves [n_scan, K, ...], see
     ``repro_torch.core.adapter.stack_adapter_states``). Serving only:
-    ``training=False`` is required.
+    ``training=False`` is required. Under a mesh the groups are static
+    and this data replica's (``launch/sharding.py local_tenant_groups``,
+    which the prefill and decode steps apply), and the stacked tree is
+    this rank's shards.
     ``boundary_constraint``: the sequence-parallel layout of a mesh
     (``launch/sharding.py make_boundary_constraint``), the explicit form
     of the reference's argument. ``params`` and ``adapters`` are then this
@@ -530,10 +533,10 @@ def forward(mcfg: ModelConfig, params, adapters, dcfg: DoRAConfig | None,
     sp = boundary_constraint
     if sp is not None:
         check_mesh_supported(mcfg)
-        if tenant_groups is not None:
+        if isinstance(tenant_groups, torch.Tensor):
             raise NotImplementedError(
-                "tenant groups under a mesh are ROADMAP queue 1 item 6, "
-                "second half, point 1c")
+                "dynamic tenant groups under a mesh are ROADMAP queue 1 "
+                "item 6, second half, point 1c-ii")
     adapters = adapters or {}
     if embeds is None:
         x = (params["embed"].detach()[tokens] if sp is None

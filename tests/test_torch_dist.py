@@ -76,6 +76,7 @@ import torch_dist_ranks as R
 from repro import core as jcore
 from repro.launch.engine import DecodeEngine as JEngine
 from repro.launch.serve import EngineServer as JServer
+from repro.launch.serve import MultiTenantServer as JMTServer
 from repro.launch.serve import Request as JRequest
 from test_torch_engine import _bench, _drive, _prompts
 
@@ -117,6 +118,15 @@ PRIORITY_SUBMIT = {"priority": [0, 0, 2, 0, 1, 0],
 SERVER_LENS, SERVER_GEN = (9, 5, 12, 7, 30, 4), 6
 SERVER_KW = dict(slots=4, max_len=48, paged=True, block_size=8,
                  n_blocks=12, prefill_chunk=8)
+# Static tenant groups on the same meshes (the mm route's serving cases
+# and the engine spawns): three tenants (B and m perturbed per tenant),
+# six requests with interleaved owners (the server's sort permutes them;
+# rows 0-2 share one prompt under the three tenants). Batch 6 at data 2
+# puts tenant 1's group across the replica boundary and tenants 0 and 2
+# each on one replica only.
+MT_TENANTS = 3
+MT_OWNERS = (2, 0, 1, 0, 2, 1)
+MT_GROUPS = ((0, 2), (2, 2), (4, 2))
 
 
 def _max_rel(got, want) -> float:
@@ -188,9 +198,35 @@ def _model_state():
 @pytest.fixture(scope="module")
 def inputs():
     """numpy inputs of every case: the ranks get copies of these."""
+    state = _model_state()[1:]
     return {"norm": _norm_inputs(), "compose": _compose_inputs(),
-            "state": _model_state()[1:], "compression":
-            _compression_inputs()}
+            "state": state, "compression": _compression_inputs(),
+            "tenants": _tenants(state[1])}
+
+
+def _tenants(adapters):
+    """MT_TENANTS copies of the adapters, each with its own B and m
+    perturbation (numpy)."""
+    out = []
+    for t in range(MT_TENANTS):
+        rng = np.random.default_rng(20 + t)
+        ad = _np_tree(adapters)
+        for name, leaf in flatten_paths(ad).items():
+            if name.endswith("/B"):
+                leaf[...] = 0.05 * rng.standard_normal(leaf.shape)
+            elif name.endswith("/m"):
+                leaf *= 1 + 0.01 * rng.standard_normal(leaf.shape).astype(
+                    np.float32)
+        out.append(ad)
+    return out
+
+
+def _mt_prompts():
+    rng = np.random.default_rng(12)
+    prompts = rng.integers(0, WIDTHS["vocab_size"],
+                           (len(MT_OWNERS), PROMPT)).astype(np.int32)
+    prompts[1:MT_TENANTS] = prompts[0]
+    return prompts
 
 
 @pytest.fixture(scope="module")
@@ -259,7 +295,22 @@ def reference(inputs, spawned):
             "step": {k: float(met[k]) for k in ("loss", "grad_norm")},
             "prefill": (np.asarray(last),
                         np.asarray(cache["stack"]["l0"]["k"])),
-            "serve": _reference_serving(jm, jcfg, jp, ja, tokens)}
+            "serve": _reference_serving(jm, jcfg, jp, ja, tokens),
+            "mt": _reference_multitenant(jm, jcfg, jp, inputs["tenants"])}
+
+
+def _reference_multitenant(jm, jcfg, jp, tenants):
+    """The reference's single-device MultiTenantServer on the three
+    tenants: tokens and per-step logits."""
+    jscfg = JStep(dora=jcfg)
+    cache = jcore.AdapterStateCache.for_serving(jm, jscfg)
+    for t, ad in enumerate(tenants):
+        cache.register(f"t{t}", _np_tree(ad))
+    reqs = [JRequest(q, f"t{t}") for q, t in zip(_mt_prompts(), MT_OWNERS)]
+    toks, logits = JMTServer(jm, jscfg, jp, cache=cache).serve(
+        reqs, gen_len=GEN, max_len=MAX_LEN, return_logits=True)
+    return {"tokens": np.asarray(toks),
+            "logits": [np.asarray(x) for x in logits]}
 
 
 def _reference_serving(jm, jcfg, jp, ja, tokens):
@@ -326,12 +377,17 @@ def _cases(world, inputs):
                                             **ROUTES["mm"]),
                    "tokens": tokens.copy()}))
     for mshape, route in SERVE[world]:
+        mt = {} if route != "mm" else {
+            "tenants": _np_tree(inputs["tenants"]),
+            "mt_prompts": _mt_prompts(), "mt_owners": MT_OWNERS,
+            "prompt_len": PROMPT}
         cases.append((f"serve_{mshape}_{route}", "serve_case",
                       {**model, "shape": mshape,
                        "dora": dict(rank=RANK, alpha=ALPHA, **ROUTES[route]),
                        "prompts": tokens[:, :PROMPT].copy(),
                        "gen_len": GEN, "max_len": MAX_LEN,
-                       "temperature": TEMPERATURE, "seed": SAMPLE_SEED}))
+                       "temperature": TEMPERATURE, "seed": SAMPLE_SEED,
+                       **mt}))
     if world == 4:
         cases.append(("compression", "compression_case",
                       {k: np.array(v) for k, v in
@@ -591,18 +647,39 @@ def _server_prompts():
             for n in SERVER_LENS]
 
 
+def _mt_engine_traces():
+    """{name: (trace, prompts, engine kwargs, owners)}: the committed
+    traces with the requests spread over the three handles."""
+    out = {}
+    for section in ("continuous", "paged"):
+        trace, kw, _ = _bench(section)
+        owners = [f"t{i % MT_TENANTS}" for i in range(len(trace))]
+        out[section] = (trace, _prompts(trace, seed=13), kw, owners)
+    return out
+
+
+def _mt_server_owners():
+    return [f"t{(i + 1) % MT_TENANTS}" for i in range(len(SERVER_LENS))]
+
+
 def _engine_cases(world, inputs):
     params, adapters, _, _ = inputs["state"]
     model = {"widths": WIDTHS, "params": _np_tree(params),
              "adapters": _np_tree(adapters)}
     traces = {k: (list(t), [q.copy() for q in pr], dict(kw), dict(sub))
               for k, (t, pr, kw, sub) in _engine_traces(world).items()}
+    mt = {k: (list(t), [q.copy() for q in pr], dict(kw), list(own))
+          for k, (t, pr, kw, own) in _mt_engine_traces().items()}
     return [(f"engine_{shape}", "engine_case",
              {**model, "shape": shape,
               "dora": dict(rank=RANK, alpha=ALPHA, **ROUTES["mm"]),
               "traces": traces,
               "server": ([q.copy() for q in _server_prompts()],
-                         dict(SERVER_KW), SERVER_GEN)})
+                         dict(SERVER_KW), SERVER_GEN),
+              "tenants": _np_tree(inputs["tenants"]), "mt_traces": mt,
+              "mt_server": ([q.copy() for q in _server_prompts()],
+                            _mt_server_owners(), dict(SERVER_KW),
+                            SERVER_GEN)})
             for shape in ENGINE[world]]
 
 
@@ -650,6 +727,40 @@ def engine_reference(inputs, engine_spawned):
                      "reasons": [r.finish_reason for r in res],
                      "stats": server.engine.stats().as_dict(),
                      "pool": server.engine.pool_stats()}
+    out.update(_reference_engine_tenants(jm, jscfg, jp, inputs["tenants"]))
+    return out
+
+
+def _tenant_jcache(jm, jscfg, tenants):
+    cache = jcore.AdapterStateCache.for_serving(jm, jscfg)
+    for t, ad in enumerate(tenants):
+        cache.register(f"t{t}", _np_tree(ad))
+    return cache
+
+
+def _reference_engine_tenants(jm, jscfg, jp, tenants):
+    """The reference's single-device cache-routed DecodeEngine on
+    _mt_engine_traces() and its EngineServer on the mixed lengths, the
+    requests spread over the three handles."""
+    out = {}
+    for name, (trace, prompts, kw, owners) in _mt_engine_traces().items():
+        cache = _tenant_jcache(jm, jscfg, tenants)
+        eng = JEngine(jm, jscfg, jp, adapter_cache=cache, **kw)
+        streams = _drive(eng, trace, prompts, adapter=owners)
+        out[f"mt_{name}"] = {
+            "streams": streams, "stats": eng.stats().as_dict(),
+            "results": [(r.request_id, np.asarray(r.tokens).tolist(),
+                         r.finish_reason) for r in eng.pop_results()],
+            "cache": cache.stats()}
+    cache = _tenant_jcache(jm, jscfg, tenants)
+    server = JServer(jm, jscfg, jp, cache=cache, **SERVER_KW)
+    res = server.run([JRequest(q, t) for q, t in
+                      zip(_server_prompts(), _mt_server_owners())],
+                     gen_len=SERVER_GEN)
+    out["mt_server"] = {
+        "tokens": [np.asarray(r.tokens).tolist() for r in res],
+        "reasons": [r.finish_reason for r in res],
+        "stats": server.engine.stats().as_dict(), "cache": cache.stats()}
     return out
 
 
@@ -716,3 +827,119 @@ def test_mesh_engine_server_matches_reference(world, shape, engine_ranks,
     assert got["tokens"] == want["tokens"]
     assert got["stats"] == want["stats"]
     assert got["pool"] == want["pool"]
+
+
+# --- static tenant groups across the mesh ------------------------------------
+
+def _mt_cases():
+    return [(w, s) for w, cases in SERVE.items() for s, r in cases
+            if r == "mm"]
+
+
+def _same_cache_counts(got: dict, want) -> None:
+    for field in ("hits", "misses", "evictions", "entries"):
+        assert got[field] == getattr(want, field), field
+
+
+@pytest.mark.parametrize("world,shape", _mt_cases(), ids=str)
+def test_mesh_multitenant_server_matches_reference(world, shape, ranks,
+                                                   reference):
+    """MultiTenantServer(mesh=) with three tenants (batch 6 grouped
+    ((0, 2), (2, 2), (4, 2)); at data 2 tenant 1's group straddles the
+    replicas): every step's logits within 1e-5 of max |logit| of the
+    reference's single-device server, each step's least top-2 gap at
+    least GAP_MIN, then the tokens equal; the warm call the same tokens;
+    the cache three misses then three hits, its stats and the tokens the
+    same on every rank; a max_len that model = 2 does not split refused;
+    the three tenants' first tokens' logits on one shared prompt differ
+    pairwise."""
+    got = ranks[world][f"serve_{shape}_mm"]["mt"]
+    ref = reference["mt"]
+    assert got["groups"] == MT_GROUPS
+    assert len(got["logits"]) == len(ref["logits"]) == GEN
+    for step, (g, w) in enumerate(zip(got["logits"], ref["logits"])):
+        assert _max_rel(g, w) <= 1e-5, step
+        top2 = np.sort(w, axis=-1)[:, -2:]
+        gap = (top2[:, 1] - top2[:, 0]).min() / np.abs(w).max()
+        assert gap >= GAP_MIN, (step, gap)
+    np.testing.assert_array_equal(got["tokens"], ref["tokens"])
+    np.testing.assert_array_equal(got["warm_tokens"], got["tokens"])
+    assert got["cache"]["misses"] == MT_TENANTS
+    assert got["cache"]["hits"] == MT_TENANTS
+    assert got["same_on_every_rank"]
+    refused = got["odd_max_len_refused"]
+    assert (refused is not None) == (shape[1] > 1)
+    if refused is not None:
+        assert "does not split" in refused and "model=2" in refused
+    first = got["logits"][0]
+    for a in range(MT_TENANTS):
+        for b in range(a + 1, MT_TENANTS):
+            assert _max_rel(first[a], first[b]) > 1e-3, (a, b)
+
+
+@pytest.mark.parametrize("world,shape", _mt_cases(), ids=str)
+def test_mesh_grouped_delta_is_bitwise_and_costs_no_collective(
+        world, shape, ranks):
+    """Layer 0's wq (column-parallel) and wo (row-parallel), grouped on
+    this rank's shards under the decode and the sequence-parallel
+    layouts: each local group of two or more rows has the homogeneous
+    mesh path's delta on the same rows (its h, on the same y_base rows)
+    bit for bit, and every group's output is within 1e-6 of max of the
+    homogeneous module on its rows alone. A grouped decode step makes the
+    collective calls and moves the bytes of a single-tenant one at the
+    same batch, tag by tag."""
+    got = ranks[world][f"serve_{shape}_mm"]["mt"]
+    assert got["delta_bitwise"] and all(got["delta_bitwise"])
+    assert max(got["module_rel"]) <= 1e-6
+    coll = got["decode_collectives"]
+    assert coll["grouped"] == coll["single"]
+    assert bool(coll["grouped"]) == (shape[1] > 1)
+
+
+def _mt_engine_runs():
+    return [(w, s, name) for w, shapes in ENGINE.items() for s in shapes
+            for name in ("continuous", "paged")]
+
+
+@pytest.mark.parametrize("world,shape,trace", _mt_engine_runs(), ids=str)
+def test_mesh_engine_with_several_handles_matches_reference(
+        world, shape, trace, engine_ranks, engine_reference):
+    """The cache-routed DecodeEngine(mesh=) with the trace's requests
+    spread over three handles (slot layouts of two or more handles, a
+    run of them possibly spanning the data replicas): streams, results
+    and stats() equal the reference's single-device engine, and the
+    cache's counts; decode steps ran under grouped signatures; K8's plain
+    version ran 2 x layers x (decode + chunk steps) on the paged engine;
+    every rank returned the same, its cache stats included."""
+    got = engine_ranks[world][f"engine_{shape}"][f"mt_{trace}"]
+    want = engine_reference[f"mt_{trace}"]
+    assert got["streams"] == want["streams"]
+    assert got["results"] == want["results"]
+    assert got["stats"] == want["stats"]
+    _same_cache_counts(got["cache"], want["cache"])
+    assert any(k not in ("None", "dynamic")
+               for k in got["signatures"]["decode"])
+    steps = got["device_steps"]
+    assert got["gathers"] == 2 * WIDTHS["num_layers"] * (
+        steps["decode"] + steps["prefill_chunk"]) * (trace == "paged")
+    assert got["same_on_every_rank"]
+
+
+@pytest.mark.parametrize("world,shape", [(w, s) for w, shapes in
+                                         ENGINE.items() for s in shapes],
+                         ids=str)
+def test_mesh_engine_server_with_several_handles_matches_reference(
+        world, shape, engine_ranks, engine_reference):
+    """EngineServer(mesh=).run of mixed prompt lengths under three
+    handles through the paged engine: tokens, finish reasons, stats() and
+    the cache's counts equal the reference's EngineServer; every rank
+    returned the same."""
+    got = engine_ranks[world][f"engine_{shape}"]["mt_server"]
+    want = engine_reference["mt_server"]
+    assert got["same_on_every_rank"]
+    assert got["reasons"] == want["reasons"] == ["length"] * len(SERVER_LENS)
+    assert got["tokens"] == want["tokens"]
+    assert got["stats"] == want["stats"]
+    _same_cache_counts(got["cache"], want["cache"])
+    assert any(k not in ("None", "dynamic")
+               for k in got["signatures"]["decode"])

@@ -475,31 +475,57 @@ def _one_rank_mesh():
     ({"speculative_k": 2}, "multi-device"),
 ])
 def test_later_slices_are_refused(state, kw, item):
-    """Under a mesh (a real one-rank gloo mesh) the engine serves one
-    adapter at a time with plain decode: speculation, and an admission
-    that would seat a second handle beside another handle's slots, are
-    ROADMAP queue 1 item 6, second half, point 1c; the second handle is
-    refused before its prefill and stays queued."""
+    """Under a mesh (a real one-rank gloo mesh) the engine decodes
+    plainly: speculation is ROADMAP queue 1 item 6, second half, point
+    1c-ii. Slots of two handles are no longer refused: two perturbed
+    tenants, admitted beside each other, rectangular and paged, give the
+    no-mesh engine's streams, results and stats bit for bit, and the
+    tenants' streams differ."""
     one = _one_rank_mesh()
     with pytest.raises(NotImplementedError, match=item) as err:
         _port_engine(state, slots=2, max_len=16, mesh=one, **kw)
-    assert "point 1c" in str(err.value)
+    assert "point 1c-ii" in str(err.value)
     _, _, _, tm, t_params, _ = state
     scfg = _tstep()
-    cache = tcore.AdapterStateCache.for_serving(tm, scfg, mesh=one)
     gen = torch.Generator().manual_seed(0)
+    tenants = {}
     for name in ("a", "b"):
-        cache.register(name, tlm.init_adapters(gen, tm, t_params, scfg.dora))
-    engine = DecodeEngine(tm, scfg, t_params, adapter_cache=cache, slots=2,
-                          max_len=16, mesh=one)
-    engine.submit(np.arange(4), adapter="a", max_new_tokens=4)
-    engine.submit(np.arange(5), adapter="b", max_new_tokens=4)
-    steps = engine.device_steps()
-    with pytest.raises(NotImplementedError, match="point 1c"):
-        engine.step()
-    assert engine.device_steps()["prefill_into_slot"] \
-        == steps["prefill_into_slot"] + 1
-    assert engine.has_work() and len(engine._queue) == 1
+        ad = tlm.init_adapters(gen, tm, t_params, scfg.dora)
+        for path, leaf in flatten_paths(ad).items():
+            if path.endswith("/B"):
+                leaf.copy_(0.05 * torch.randn(leaf.shape, generator=gen))
+        tenants[name] = ad
+    trace = [(0, 4, 4), (0, 5, 4), (1, 6, 3), (2, 3, 4)]
+    prompts = _prompts(trace, seed=9)
+    owners = ["a", "b", "b", "a"]
+    runs = {}
+    for paged in (False, True):
+        geo = dict(paged=True, block_size=4, prefill_chunk=4) if paged \
+            else {}
+        for m in (one, None):
+            cache = (tcore.AdapterStateCache.for_serving(tm, scfg, mesh=m)
+                     if m is not None else
+                     tcore.AdapterStateCache.for_serving(tm, scfg,
+                                                         device="cpu"))
+            for name, ad in tenants.items():
+                cache.register(name, ad)
+            engine = DecodeEngine(tm, scfg, t_params, adapter_cache=cache,
+                                  slots=2, max_len=16, mesh=m,
+                                  device=None if m else "cpu", **geo)
+            streams = _drive(engine, trace, prompts, adapter=owners)
+            runs[paged, m is None] = (
+                streams, [(r.request_id, r.tokens.tolist(), r.finish_reason)
+                          for r in engine.pop_results()],
+                engine.stats().as_dict(), engine.step_signatures())
+        assert runs[paged, False] == runs[paged, True]
+        assert any(k != "None" for k in runs[paged, False][3]["decode"])
+    assert runs[False, True][0] == runs[True, True][0]
+    alone = DecodeEngine(tm, scfg, t_params, adapters=tsteps.
+                         make_precompute_step(tm, scfg, fold_gsb=True)(
+                             t_params, tenants["a"]), slots=2, max_len=16,
+                         device="cpu")
+    assert _drive(alone, trace[1:2], prompts[1:2]) != {
+        0: runs[False, True][0][1]}
 
 
 def test_mesh_engine_refuses_a_raw_tree_and_a_foreign_cache(state):

@@ -443,17 +443,32 @@ def test_server_refusals():
     with pytest.raises(ValueError, match="adapter_cache"):
         tserve.generate(tm, tparams, cache.current_handle("t1"), scfg,
                         prompts, gen_len=2, max_len=MAX_LEN, device="cpu")
-    # a mesh: the grouped server is not ported to one (ROADMAP queue 1
-    # item 6, second half, point 1c); a single tenant is served across one
-    # by generate, whose handle must come from a cache keyed for that mesh
+    # a mesh: on a one-rank mesh the grouped server (its states from a
+    # cache keyed for that mesh) serves the no-mesh server's tokens and
+    # logits bit for bit; dynamic grouping and speculation under a mesh
+    # are ROADMAP queue 1 item 6, second half, point 1c-ii; generate's
+    # handle must come from a cache keyed for the mesh
     from repro_torch.launch.mesh import make_debug_mesh
     one = make_debug_mesh(1, 1, device="cpu", backend="gloo")
-    with pytest.raises(NotImplementedError, match="queue 1 item 6, second "
-                                                  "half, point 1c"):
-        tserve.MultiTenantServer(tm, scfg, tparams, cache=cache, mesh=one,
-                                 device="cpu")
     meshed = tcore.AdapterStateCache.for_serving(tm, scfg, mesh=one)
     assert meshed.sharding == (("data", 1), ("model", 1))
+    for t, ad in enumerate(tenants):
+        meshed.register(f"t{t}", tree_from_numpy(ad))
+    on_mesh = tserve.MultiTenantServer(tm, scfg, tparams, cache=meshed,
+                                       mesh=one)
+    assert on_mesh.device == torch.device("cpu")
+    got = on_mesh.serve(reqs, gen_len=2, max_len=MAX_LEN,
+                        return_logits=True)
+    want = _port_server(params, tenants)[4].serve(
+        reqs, gen_len=2, max_len=MAX_LEN, return_logits=True)
+    assert torch.equal(got[0], want[0])
+    assert all(torch.equal(a, b) for a, b in zip(got[1], want[1]))
+    with pytest.raises(NotImplementedError, match="queue 1 item 6, second "
+                                                  "half, point 1c-ii"):
+        tserve.MultiTenantServer(tm, scfg, tparams, cache=meshed, mesh=one,
+                                 dynamic_grouping=True)
+    with pytest.raises(NotImplementedError, match="point 1c-ii"):
+        on_mesh.serve(reqs, gen_len=2, max_len=MAX_LEN, speculative_k=2)
     with pytest.raises(ValueError, match="keyed for sharding"):
         tserve.generate(tm, tparams, cache.current_handle("t1"), scfg,
                         prompts, gen_len=2, max_len=MAX_LEN,

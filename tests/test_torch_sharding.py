@@ -584,11 +584,14 @@ def test_partial_product_keeps_fp32_sums_and_the_plain_gradients():
 
 def test_grouped_and_paged_serving_on_a_mesh_are_refused():
     """The decode step on a mesh refuses what is left to the next slice
-    (ROADMAP queue 1 item 6, second half, point 1c): static and dynamic
-    tenant groups. A paged cache is no longer refused: on a one-rank mesh
-    the engine's cache (``init_cache(mesh=)``, the whole batch's tokens)
-    decodes as on no mesh, bit for bit."""
-    from repro_torch.launch.steps import StepConfig, make_decode_step
+    (ROADMAP queue 1 item 6, second half, point 1c-ii): dynamic tenant
+    groups. Static groups over a K-stacked folded state and a paged cache
+    are no longer refused: on a one-rank mesh the grouped decode (two
+    perturbed tenants, one row each) and the engine's paged cache
+    (``init_cache(mesh=)``, the whole batch's tokens) decode as on no
+    mesh, bit for bit."""
+    from repro_torch.launch.steps import (StepConfig, make_decode_step,
+                                          make_precompute_step)
     from repro_torch.models.config import ModelConfig
 
     mcfg = ModelConfig(name="t", family="dense", num_layers=1, d_model=64,
@@ -596,20 +599,47 @@ def test_grouped_and_paged_serving_on_a_mesh_are_refused():
                        vocab_size=64, dtype=torch.float32)
     scfg = StepConfig(dora=DoRAConfig(rank=4, alpha=8.0))
     mesh = tmesh.make_debug_mesh(1, 1, device="cpu", backend="gloo")
-    params = tlm.init_params(torch.Generator().manual_seed(0), mcfg)
-    tokens = torch.zeros((2, 1), dtype=torch.long)
-    cache = tlm.init_cache(mcfg, 2, 8)
-    calls = (
-        lambda: make_decode_step(mcfg, scfg, mesh, batch=2,
-                                 tenant_groups=((0, 1), (1, 1)))(
-            params, {}, cache, {"tokens": tokens}),
-        lambda: make_decode_step(mcfg, scfg, mesh, batch=2,
-                                 dynamic_groups=True)(
-            params, {}, cache, {"tokens": tokens, "adapter_idx": [0, 1]}))
-    for call in calls:
-        with pytest.raises(NotImplementedError,
-                           match="item 6, second half, point 1c"):
-            call()
+    gen = torch.Generator().manual_seed(0)
+    params = tlm.init_params(gen, mcfg)
+    tenants = []
+    for _ in range(2):
+        ad = tlm.init_adapters(gen, mcfg, params, scfg.dora)
+        for name, leaf in flatten_paths(ad).items():
+            if name.endswith("/B"):
+                leaf.copy_(0.05 * torch.randn(leaf.shape, generator=gen))
+        tenants.append(ad)
+    tokens = torch.tensor([[3], [7]])
+    groups = ((0, 1), (1, 1))
+    grouped = []
+    for m in (mesh, None):
+        pre = make_precompute_step(mcfg, scfg, m, fold_gsb=True)
+        stacked = tadapter.stack_adapter_states(
+            [pre(params, ad) for ad in tenants], axis=1)
+        cache = tlm.init_cache(mcfg, 2, 8, mesh=m)
+        cache["len"] = 3
+        logits, new = make_decode_step(mcfg, scfg, m, batch=2,
+                                       tenant_groups=groups)(
+            params, stacked, cache, {"tokens": tokens})
+        grouped.append((logits, new["stack"]["l0"]["k"]))
+    for got, want in zip(*grouped):
+        assert torch.equal(got, want)
+    alone = [make_decode_step(mcfg, scfg, batch=1)(
+        params, make_precompute_step(mcfg, scfg, fold_gsb=True)(params, ad),
+        tlm.init_cache(mcfg, 1, 8) | {"len": 3}, {"tokens": tokens[i:i + 1]})
+        [0] for i, ad in enumerate(tenants)]
+    for i in range(2):
+        assert torch.allclose(grouped[0][0][i:i + 1], alone[i], rtol=0,
+                              atol=1e-5 * float(alone[i].abs().max()))
+    assert not torch.allclose(alone[0], make_decode_step(
+        mcfg, scfg, batch=1)(params, make_precompute_step(
+            mcfg, scfg, fold_gsb=True)(params, tenants[1]),
+        tlm.init_cache(mcfg, 1, 8) | {"len": 3},
+        {"tokens": tokens[:1]})[0])
+    with pytest.raises(NotImplementedError,
+                       match="item 6, second half, point 1c"):
+        make_decode_step(mcfg, scfg, mesh, batch=2, dynamic_groups=True)(
+            params, {}, tlm.init_cache(mcfg, 2, 8),
+            {"tokens": tokens, "adapter_idx": [0, 1]})
     out = []
     for m in (mesh, None):
         paged = tlm.init_cache(mcfg, 2, 8, row_lens=True, block_size=4,
@@ -621,3 +651,95 @@ def test_grouped_and_paged_serving_on_a_mesh_are_refused():
         out.append((logits, new["len"], new["stack"]["l0"]["k"]))
     for got, want in zip(*out):
         assert torch.equal(got, want)
+
+
+class _ReplicaMesh:
+    """A (data, model) mesh seen from the rank at data index ``i``: what
+    ``local_rows`` reads, with no process group."""
+
+    def __init__(self, data: int, i: int, model: int = 1):
+        self.axis_names = ("data", "model")
+        self.shape = {"data": data, "model": model}
+        self.coords = {"data": i, "model": 0}
+
+    def axis_index(self, axes) -> int:
+        idx = 0
+        for a in axes:
+            idx = idx * self.shape[a] + self.coords[a]
+        return idx
+
+
+def _whole_groups(sizes):
+    starts = np.cumsum([0] + list(sizes[:-1]))
+    return tuple((int(s), int(n)) for s, n in zip(starts, sizes))
+
+
+_LOCALIZER_CASES = [
+    # batch 6 at data 2: tenant 1's group straddles the replica boundary,
+    # tenants 0 and 2 each on one replica only.
+    (2, (2, 2, 2)),
+    (2, (1, 4, 1)), (2, (3, 3)), (2, (5, 1)), (2, (1, 1, 1, 1, 1, 1)),
+    (2, (8,)), (4, (2, 3, 3)), (4, (1, 6, 1)), (4, (7, 1)),
+    (4, (1, 1, 5, 1)), (2, (2, 6, 2)), (4, (3, 5, 2, 2)),
+    # a batch the data axis does not split: every replica holds it all
+    (4, (1, 2, 3)), (4, (2, 3)), (2, (3,)), (4, (5, 2, 2)),
+]
+
+
+@pytest.mark.parametrize("data,sizes", _LOCALIZER_CASES, ids=str)
+def test_local_tenant_groups_tile_each_replica_and_concatenate_back(
+        data, sizes):
+    """``local_tenant_groups`` cuts the whole batch's static groups to
+    each data replica's rows (``local_rows``): each replica's triples tile
+    its rows in order with stack positions in range (a group reaching no
+    row of it dropped, one that straddles two kept on both), and the
+    replicas' groups, rebased and concatenated, give back the whole-batch
+    groups. Where ``_dp_entry`` replicates the batch the groups pass
+    through unchanged; where the axis holds one rank too."""
+    from repro_torch.core.adapter import tenant_positions
+
+    whole = _whole_groups(sizes)
+    batch = sum(sizes)
+    split = batch % data == 0
+    rows = {}
+    for i in range(data):
+        mesh = _ReplicaMesh(data, i)
+        mine = TS.local_rows(mesh, batch)
+        local = TS.local_tenant_groups(mesh, batch, whole)
+        if not split:
+            assert local == whole and (mine.start, mine.stop) == (0, batch)
+            continue
+        assert tenant_positions(local, mine.stop - mine.start,
+                                len(whole)) == local
+        for s, n, k in local:
+            for r in range(mine.start + s, mine.start + s + n):
+                rows.setdefault(k, []).append(r)
+    if split:
+        back = tuple((min(r), len(r)) for _, r in sorted(rows.items()))
+        assert back == whole
+        for k, r in rows.items():
+            assert r == list(range(whole[k][0], sum(whole[k])))
+    assert TS.local_tenant_groups(_ReplicaMesh(1, 0), batch, whole) == whole
+
+
+def test_local_tenant_groups_names_the_straddling_case():
+    """Batch 6 at data 2 (the mesh serving tests' layout): tenant 1's
+    group crosses the replica boundary, tenant 0 is on replica 0 only
+    and tenant 2 on replica 1 only; the grouped compose takes the local
+    triples and refuses a position outside the stack."""
+    groups = ((0, 2), (2, 2), (4, 2))
+    assert TS.local_tenant_groups(_ReplicaMesh(2, 0), 6, groups) == (
+        (0, 2, 0), (2, 1, 1))
+    assert TS.local_tenant_groups(_ReplicaMesh(2, 1), 6, groups) == (
+        (0, 1, 1), (1, 2, 2))
+    W = torch.randn(8, 4, generator=torch.Generator().manual_seed(0))
+    st = {"A": torch.ones(3, 2, 4), "g": torch.ones(3, 8),
+          "gsB": torch.zeros(3, 8, 2)}
+    x = torch.randn(3, 1, 4, generator=torch.Generator().manual_seed(1))
+    y = tadapter.dora_linear_grouped(x, W, st, None, ((0, 1, 1), (1, 2, 2)))
+    assert torch.equal(y, x @ W.T)
+    for bad, match in [(((0, 1, 3), (1, 2, 2)), "outside the K=3"),
+                       (((0, 1, 1), (1, 2)), "mix"),
+                       (((0, 1, 1), (2, 1, 2)), "contiguously")]:
+        with pytest.raises(ValueError, match=match):
+            tadapter.dora_linear_grouped(x, W, st, None, bad)

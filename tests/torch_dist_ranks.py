@@ -424,6 +424,129 @@ def serve_case(p):
         out["other_mesh_refused"] = None
     except ValueError as e:
         out["other_mesh_refused"] = str(e)
+    if "tenants" in p:
+        out["mt"] = _multitenant(p, mesh, mcfg, scfg, params)
+    return out
+
+
+def _tenant_cache(p, mesh, mcfg, scfg, aspec):
+    """AdapterStateCache.for_serving(mesh=) with p["tenants"] registered
+    as t0, t1, ... (this rank's shards of each)."""
+    from repro_torch.bridge import tree_from_numpy
+    from repro_torch.core.adapter_cache import AdapterStateCache
+    from repro_torch.launch import sharding as S
+
+    cache = AdapterStateCache.for_serving(mcfg, scfg, mesh=mesh)
+    for t, ad in enumerate(p["tenants"]):
+        cache.register(f"t{t}", S.shard_tree(tree_from_numpy(ad), aspec,
+                                             mesh))
+    return cache
+
+
+def _multitenant(p, mesh, mcfg, scfg, params):
+    """MultiTenantServer(mesh=) over three tenants: its tokens and
+    per-step logits cold, its tokens warm, the cache's stats and whether
+    every rank's equal this one's, a max_len the model axis does not
+    split refused (or served where it has one rank); each local group's delta of layer 0's
+    wq (column-parallel) and wo (row-parallel), under the decode and the
+    sequence-parallel layouts, against the homogeneous mesh path's on
+    the same rows (bitwise, for groups of two or more rows), and the
+    whole module within 1e-6 of max of that path alone; the collective
+    calls and bytes of a grouped decode step against a single-tenant one
+    at the same batch."""
+    from repro_torch.core import adapter as A
+    from repro_torch.core import sharding as csh
+    from repro_torch.launch import serve
+    from repro_torch.launch import sharding as S
+    from repro_torch.launch.steps import make_decode_step
+    from repro_torch.models.lm import init_cache
+
+    aspec = S.adapter_sharding(mcfg, scfg.dora, mesh)
+    cache = _tenant_cache(p, mesh, mcfg, scfg, aspec)
+    server = serve.MultiTenantServer(mcfg, scfg, params, cache=cache,
+                                     mesh=mesh)
+    reqs = [serve.Request(q, f"t{t}")
+            for q, t in zip(p["mt_prompts"], p["mt_owners"])]
+    kw = dict(gen_len=p["gen_len"], max_len=p["max_len"])
+    toks, logits = server.serve(reqs, return_logits=True, **kw)
+    warm = server.serve(reqs, **kw)
+    out = {"tokens": _np(toks), "logits": [_np(x) for x in logits],
+           "warm_tokens": _np(warm),
+           "cache": cache.stats().as_dict(),
+           "groups": list(server._steps)[-1][3]}
+    out["same_on_every_rank"] = _same_on_every_rank(
+        (out["tokens"].tolist(), out["cache"]))
+    try:
+        server.serve(reqs, gen_len=p["gen_len"], max_len=p["max_len"] + 1)
+        out["odd_max_len_refused"] = None
+    except ValueError as e:
+        out["odd_max_len_refused"] = str(e)
+
+    handles = [cache.current_handle(f"t{t}") for t in range(3)]
+    states = [cache.get_state(params, h, allow_miss=False) for h in handles]
+    stacked = A.stack_adapter_states(states, axis=1)
+    B = len(reqs)
+    groups = tuple((2 * t, 2) for t in range(3))
+    gen = torch.Generator().manual_seed(5)
+    bits, close = [], []
+    for decode in (True, False):
+        seq = 1 if decode else p["max_len"]
+        sp = S.make_boundary_constraint(mesh, batch=B, seq=seq,
+                                        decode=decode)
+        local = S.local_tenant_groups(mesh, B, groups)
+        mine = S.local_rows(mesh, B)
+        rows = mine.stop - mine.start
+        positions = A.tenant_positions(local, rows, len(groups))
+        for name, col in (("wq", True), ("wo", False)):
+            W = params["stack"]["l0"]["mixer"][name][0]
+            leaf = {k: v[0] for k, v in
+                    stacked["stack"]["l0"]["mixer"][name].items()}
+            per = [{k: v[0] for k, v in
+                    st["stack"]["l0"]["mixer"][name].items()}
+                   for st in states]
+            x = torch.randn(rows, seq, W.shape[1], generator=gen)
+            if col:
+                y = A.dora_linear_column_parallel(
+                    x, W, leaf, scfg.dora, sp=sp, training=False,
+                    tenant_groups=local)
+                y_base = x @ W.T
+            else:
+                y = A.dora_linear_row_parallel(
+                    x, W, leaf, scfg.dora, sp=sp, training=False,
+                    tenant_groups=local)
+                y_base = sp.scatter(sp.partial(x, W), tag="y_base")
+            for s, n, k in positions:
+                xs = x[s:s + n]
+                if col:
+                    h = xs @ per[k]["A"].T
+                    alone = A.dora_linear_column_parallel(
+                        xs, W, per[k], scfg.dora, sp=sp, training=False)
+                else:
+                    h = sp.scatter(sp.partial(xs, per[k]["A"]),
+                                   tag="h").to(x.dtype)
+                    alone = A.dora_linear_row_parallel(
+                        xs, W, per[k], scfg.dora, sp=sp, training=False)
+                yb = y_base[s:s + n]
+                want = yb + A.gsb_delta(yb, h, per[k]["g"], per[k]["gsB"])
+                if n >= 2:
+                    bits.append(bool(torch.equal(y[s:s + n], want)))
+                close.append(float((y[s:s + n] - alone).abs().max()
+                                   / alone.abs().max()))
+    out["delta_bitwise"] = bits
+    out["module_rel"] = close
+
+    stats = {}
+    for label, tree, tg in (("grouped", stacked, groups),
+                            ("single", states[0], None)):
+        c = init_cache(mcfg, B, p["max_len"], mesh=mesh)
+        c["len"] = p["prompt_len"]
+        step = make_decode_step(mcfg, scfg, mesh, batch=B, tenant_groups=tg)
+        mine = S.local_rows(mesh, B)
+        tok = torch.as_tensor(p["mt_prompts"][:, :1])[mine]
+        csh.reset_collective_stats()
+        step(params, tree, c, {"tokens": tok})
+        stats[label] = csh.collective_stats()
+    out["decode_collectives"] = stats
     return out
 
 
@@ -517,4 +640,51 @@ def engine_case(p):
            "pool": server.engine.pool_stats()}
     rec["same_on_every_rank"] = _same_on_every_rank(rec)
     out["server"] = rec
+    if "tenants" in p:
+        out.update(_engine_tenants(p, mesh, mcfg, scfg, params))
+    return out
+
+
+def _engine_tenants(p, mesh, mcfg, scfg, params):
+    """The cache-routed DecodeEngine(mesh=) on p["mt_traces"] with the
+    requests spread over three handles (static slot layouts of two or
+    more handles), rectangular and paged, and EngineServer(mesh=).run of
+    p["mt_server"]: streams, results, stats, the cache's stats, the
+    decode signatures, the plain gathers, and whether every rank's equal
+    this one's."""
+    from repro_torch.launch import serve
+    from repro_torch.launch import sharding as S
+    from repro_torch.launch.engine import DecodeEngine
+
+    aspec = S.adapter_sharding(mcfg, scfg.dora, mesh)
+    out = {}
+    for name, (trace, prompts, kw, owners) in p["mt_traces"].items():
+        cache = _tenant_cache(p, mesh, mcfg, scfg, aspec)
+        eng = DecodeEngine(mcfg, scfg, params, adapter_cache=cache,
+                           mesh=mesh, **kw)
+        with _counting_plain_calls() as calls:
+            streams = _drive(eng, trace, prompts, adapter=owners)
+        rec = {"streams": streams, "stats": eng.stats().as_dict(),
+               "results": [(r.request_id, r.tokens.tolist(),
+                            r.finish_reason) for r in eng.pop_results()],
+               "device_steps": eng.device_steps(),
+               "signatures": eng.step_signatures(),
+               "cache": cache.stats().as_dict(),
+               "gathers": calls.get("paged_gather_plain", 0),
+               "pool": eng.pool_stats() if kw.get("paged") else None}
+        rec["same_on_every_rank"] = _same_on_every_rank(rec)
+        out[f"mt_{name}"] = rec
+    prompts, owners, kw, gen = p["mt_server"]
+    cache = _tenant_cache(p, mesh, mcfg, scfg, aspec)
+    server = serve.EngineServer(mcfg, scfg, params, cache=cache, mesh=mesh,
+                                **kw)
+    res = server.run([serve.Request(q, t) for q, t in zip(prompts, owners)],
+                     gen_len=gen)
+    rec = {"tokens": [r.tokens.tolist() for r in res],
+           "reasons": [r.finish_reason for r in res],
+           "stats": server.engine.stats().as_dict(),
+           "cache": cache.stats().as_dict(),
+           "signatures": server.engine.step_signatures()}
+    rec["same_on_every_rank"] = _same_on_every_rank(rec)
+    out["mt_server"] = rec
     return out
