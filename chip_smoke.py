@@ -240,7 +240,8 @@ odd ones), r=384 DoRA on the 30 modules a unit that the reference adapts:
       flips counted.
 
 Between the kernel phase and serving, the train step, single-tenant
-serving and the continuous-batching engine across a (data, model) mesh
+serving, the continuous-batching engine, tenant groups, dynamic grouping
+and speculation across a (data, model) mesh
 (see mesh_kernel_checks and mesh_checks), as ranks that share this card
 (``torch.multiprocessing`` spawn, gloo on ``cuda:0``, collectives built
 on ``all_reduce``); this measures no multi-card speed:
@@ -328,7 +329,38 @@ on ``all_reduce``); this measures no multi-card speed:
       of one card's grouped run (top-2 gaps at least 2e-5, the tokens
       equal), and on (2, 2) the engines' fetched logits likewise;
       printed: server precompute, stack, prefill and decode-step ms, ms a
-      tick and decode ms, peak memory and D6's seconds by rank.
+      tick and decode ms, peak memory and D6's seconds by rank;
+  D7. in the same ranks, dynamic grouping and speculation across the
+      mesh (``_mesh_fleet_spec``). bf16 (on D7_BF16_SHAPES):
+      ``DecodeEngine(mesh=, dynamic_grouping=True)`` paged on D5's
+      geometry and trace with D6's tenants and owners over a fresh cache:
+      per rank the launches of ``mesh_fleet_counts`` exactly (K1 = 3 x 28
+      split as in D4, K6 = 0, K8 = 2 x 4 x (chunk + decode steps)), three
+      misses, D7_STACK_INSERTS stack inserts, every decode under
+      ``"dynamic"``, each decode step's bytes
+      by tag the single-tenant step's (``mesh_decode_bytes``), the
+      schedule of D6's static paged engine, rank 0's streams; the
+      speculative paged engine (k = 3) with D5's perturbed adapters on
+      the committed ``speculative`` trace: its launches (K8 on every
+      chunk, decode, draft and verify step), each draft, verify and
+      decode step's bytes by tag exactly ``mesh_draft_bytes``,
+      ``mesh_verify_bytes`` and ``mesh_decode_bytes``. fp32: the
+      committed ``fleet`` trace over five tenants, dynamic rectangular
+      and paged and static: ``fleet.schedule_model``'s counters and
+      signatures, equal streams, the dynamic rows within D7_FLEET_TOL of
+      the static ones; the speculative trace, rectangular and paged, with
+      identity adapters (``speculative_model``'s counters; max |g - 1|
+      printed: at model 2 wo's and w_down's g comes from norm partials
+      summed over the axis) and with the perturbed ones and the ladder
+      (a disable and a re-enable, the plain engine's streams), K8 on
+      every paged step; on (2, 2) the fleet's dynamic and the verify's
+      fetched logits within D6_TOL of max of one card's engines, tokens
+      equal, ``MultiTenantServer(mesh=, dynamic_grouping=True)`` on D6's
+      requests through the engine route the static grouping's tokens and
+      with speculative_k=3 its plain ones, and ``EngineServer(mesh=)``
+      with speculative_k at construction and in ``run`` the speculative
+      paged engine's streams; printed: the accept rate, ms a tick,
+      decode, draft and verify ms, peak memory and D7's seconds by rank.
 
 With ``--kernel-phase-vs DIR`` it runs only the kernel phase, of the
 checkout at DIR (a ``git archive`` of another commit) and of this one, in
@@ -5285,7 +5317,7 @@ def cli_checks(dev, fl2_reckoning: dict) -> dict:
 # ---------------------------------------------------------------------------
 
 MESH_SHAPES = ((1, 2), (2, 1), (2, 2))
-MESH_TIMEOUT_S = 300
+MESH_TIMEOUT_S = 420
 MESH_LABEL = "ranks sharing one card, collectives staged by gloo"
 # D3's bound on every adapter leaf's max |sharded - unsharded| / max
 # |unsharded| gradient, the CPU tests' tolerance against the reference.
@@ -5317,6 +5349,17 @@ D5_FP32_REQUESTS, D5_FP32_NEW = 4, 8
 # tenants: the fp32 logits within D6_TOL of max |logit| of one card's
 # grouped run (D4 measured 4.5e-6 and D5 3.3e-6 against one card).
 D6_TOL = 5e-6
+# D7: dynamic grouping and speculation on the same meshes and model; the
+# dynamic engine's fetched logits within D7_FLEET_TOL of max |logit| of
+# the static one's on the same mesh (tests/test_torch_fleet.py's bound
+# inside the port). Its bf16 engines run on D7_BF16_SHAPES.
+D7_FLEET_TOL = 2e-6
+D7_BF16_SHAPES = ((1, 2), (2, 1), (2, 2))
+# The dynamic bf16 engine's stack inserts on D5's trace with d6_owners:
+# a position is recycled when its tenant's last slot retires, so the
+# three tenants are seated 7 times over the 9 admissions (one after the
+# preemption); the host scheduler decides it, whatever the mesh.
+D7_STACK_INSERTS = 7
 
 
 class _DuckMesh:
@@ -5417,28 +5460,54 @@ def mesh_serve_counts(mcfg, dcfg, shape, *, batch: int, seq: int,
 
 
 def mesh_decode_bytes(mcfg, dcfg, shape, *, batch: int,
-                      logits_tag: str = "generate.logits") -> dict:
+                      logits_tag: str = "generate.logits", window: int = 1,
+                      adapted: bool = True,
+                      vocab_tag: str = "decode.logits") -> dict:
     """Bytes a rank's collectives move in one decode step, by tag (one
     all-reduce of the tensor's bytes each): per layer y_base [B/data,
     d_model] and h [B/data, r] of wo and w_down all-reduced in fp32, the
     vocab-parallel embedding's rows, the head's local vocab columns
-    gathered over ``model`` and the last logits over ``data`` (these in
-    the model dtype, under ``logits_tag``: ``generate``'s gather, or the
-    engine's decode step's, "engine.logits"); none over an axis of one
-    rank."""
+    gathered over ``model`` (``vocab_tag``) and the last logits over
+    ``data`` (these in the model dtype, under ``logits_tag``:
+    ``generate``'s gather, or the engine's decode step's,
+    "engine.logits"); none over an axis of one rank. ``window``: each row
+    runs that many positions (the speculative verify's k + 1), every
+    tensor that many times as wide; ``adapted`` False: no adapter (the
+    draft), so no h."""
     data, tp = shape
     rows, esz = batch // data, torch.tensor([], dtype=mcfg.dtype
                                             ).element_size()
     out = {}
     if tp > 1:
         n = 2 * mcfg.num_layers
-        out["tp.y_base"] = n * rows * mcfg.d_model * 4
-        out["tp.h"] = n * rows * dcfg.rank * 4
-        out["tp.embed"] = rows * mcfg.d_model * esz
-        out["decode.logits"] = rows * mcfg.vocab_size * esz
+        out["tp.y_base"] = n * rows * window * mcfg.d_model * 4
+        if adapted:
+            out["tp.h"] = n * rows * window * dcfg.rank * 4
+        out["tp.embed"] = rows * window * mcfg.d_model * esz
+        out[vocab_tag] = rows * window * mcfg.vocab_size * esz
     if data > 1:
-        out[logits_tag] = batch * mcfg.vocab_size * esz
+        out[logits_tag] = batch * window * mcfg.vocab_size * esz
     return out
+
+
+def mesh_verify_bytes(mcfg, dcfg, shape, *, batch: int,
+                      window: int) -> dict:
+    """Bytes a rank's collectives move in one speculative verify step of
+    the engine, by tag: the decode step's over ``window`` = k + 1
+    positions a row, its gathers tagged "verify.logits" (the vocab) and
+    "engine.verify.logits" (the data axes)."""
+    return mesh_decode_bytes(mcfg, dcfg, shape, batch=batch, window=window,
+                             vocab_tag="verify.logits",
+                             logits_tag="engine.verify.logits")
+
+
+def mesh_draft_bytes(mcfg, dcfg, shape, *, batch: int) -> dict:
+    """Bytes a rank's collectives move in one draft step of the engine, by
+    tag: the decode step's less ``tp.h`` (the base model has no adapter),
+    its gathers tagged "draft.logits" and "engine.draft.logits"."""
+    return mesh_decode_bytes(mcfg, dcfg, shape, batch=batch, adapted=False,
+                             vocab_tag="draft.logits",
+                             logits_tag="engine.draft.logits")
 
 
 def mesh_norm_bytes(mcfg, dcfg, tp: int) -> int:
@@ -5858,6 +5927,8 @@ def _mesh_serve(rank: int, mesh, run: dict, dev) -> dict:
         torch.cuda.empty_cache()
     # D6: static tenant groups on the same mesh.
     rec["tenants"] = _mesh_tenants(rank, mesh, run, dev)
+    # D7: dynamic grouping and speculation on the same mesh.
+    rec["d7"] = _mesh_fleet_spec(rank, mesh, run, dev)
     if rank == 0:
         # Each data replica serves its rows as one card serves that
         # batch (the compose route reads the rows of the call), so the
@@ -6381,6 +6452,329 @@ def _mesh_tenants(rank: int, mesh, run: dict, dev) -> dict:
     return out
 
 
+def _record_step_bytes(engine) -> dict:
+    """Wrap ``engine``'s decode, draft and verify steps so that each
+    records its own collectives' bytes by tag (the counts reset before
+    the step and read after it): {kind: [bytes by tag of each step]}."""
+    from repro_torch.core import sharding as csh
+
+    seen: dict = {"decode": [], "draft": [], "verify": []}
+
+    def wrap(kind, fn):
+        def step(*a, **k):
+            csh.reset_collective_stats()
+            out = fn(*a, **k)
+            seen[kind].append({t: v["bytes"] for t, v in
+                               csh.collective_stats().items()})
+            return out
+        return step
+    engine._decode = wrap("decode", engine._decode)
+    engine._draft = wrap("draft", engine._draft)
+    engine._verify = wrap("verify", engine._verify)
+    return seen
+
+
+def _distinct(steps: list) -> dict:
+    """A step-bytes list of :func:`_record_step_bytes` as its length and
+    its distinct records."""
+    keys = sorted({json.dumps(s, sort_keys=True) for s in steps})
+    return {"n": len(steps), "distinct": [json.loads(k) for k in keys]}
+
+
+def _capture_verify_logits(engine) -> list:
+    """Every fetched verify logits array ([slots, k + 1, V]) in order."""
+    seen: list = []
+    fetch = engine._fetch
+
+    def recorded(logits):
+        out = fetch(logits)
+        if out.ndim == 3:
+            seen.append(np.asarray(out, np.float64))
+        return out
+    engine._fetch = recorded
+    return seen
+
+
+def _mesh_fleet_spec(rank: int, mesh, run: dict, dev) -> dict:
+    """D7 on one rank: dynamic grouping and speculation across the mesh.
+
+    bf16 (on D7_BF16_SHAPES): ``DecodeEngine(mesh=, dynamic_grouping=
+    True)`` paged on D5's geometry and trace with D6's tenants and owners
+    over a fresh cache (launches, each decode step's bytes by tag, stats,
+    device steps, pool, signatures, streams, ms), and the speculative
+    paged engine (k = 3) with D5's perturbed adapters on the committed
+    speculative trace (launches, each draft, verify and decode step's
+    bytes by tag, streams, accept rate, ms). fp32: the committed fleet
+    trace over five tenants, dynamic rectangular and paged and static
+    (counters, signatures, streams, the dynamic rows' distance from the
+    static ones); the speculative trace with identity adapters (max |g -
+    1|) and with the perturbed ones and the ladder, rectangular and
+    paged, and the plain engine (counters, streams, K8 launches). On (2,
+    2) rank 0 holds the fleet's dynamic logits and the verify's fetched
+    logits against the unsharded port's engines, and the ranks run the
+    servers: ``MultiTenantServer(mesh=, dynamic_grouping=True)`` on D6's
+    requests through the engine route against the static grouping and
+    with speculative_k=3, and ``EngineServer(mesh=)`` with speculative_k
+    at construction and in ``run`` against the speculative paged engine
+    given the same requests at once."""
+    import dataclasses
+
+    from repro_torch import kernels
+    from repro_torch.core import sharding as csh
+    from repro_torch.core.config import DoRAConfig
+    from repro_torch.launch import serve as SV
+    from repro_torch.launch import sharding as S
+    from repro_torch.launch.engine import DecodeEngine
+    from repro_torch.launch.steps import StepConfig, make_precompute_step
+    from repro_torch.models import lm
+
+    t0 = time.perf_counter()
+    mcfg, vocab = run["mcfg"], run["mcfg"].vocab_size
+    dcfg = DoRAConfig(rank=run["rank"], alpha=run["alpha"], mode=run["mode"])
+    scfg = StepConfig(dora=dcfg)
+    shape = (dict(mesh.shape)["data"], dict(mesh.shape)["model"])
+    square = shape == (2, 2)
+    mm = kernels.KERNELS["compose_mm_fwd"]
+    spec_trace, spec_slots, spec_len, k, _ = speculative_trace()
+    spec_kw = {"slots": spec_slots, "max_len": spec_len}
+    spec_paged = {"paged": True, "prefill_chunk": spec_len}
+    out: dict = {}
+
+    if shape in D7_BF16_SHAPES:
+        # (a) dynamic grouping in bf16: D6's tenants and owners on D5's
+        # paged geometry and trace.
+        params, tenants = _mesh_tenant_state(mcfg, dcfg, mesh, dev,
+                                             SEED + 5)
+        trace = d5_trace()
+        cache = _tenant_cache(mcfg, scfg, mesh, dev, tenants)
+        _sync(dev)
+        _reset_peak(dev)
+        kernels.reset_launch_counts()
+        mma0 = mm.mma_launches
+        engine = DecodeEngine(mcfg, scfg, params, adapter_cache=cache,
+                              mesh=mesh, dynamic_grouping=True,
+                              **d5_kwargs(True))
+        nbytes = _record_step_bytes(engine)
+        r = drive_engine(engine, trace, vocab, timed=True,
+                         adapters=d6_owners(len(trace)))
+        st = engine.stats()
+        out["dynamic_bf16"] = {
+            "launches": launch_counts(), "k6_mma": mm.mma_launches - mma0,
+            "step_bytes": {kind: _distinct(v) for kind, v in nbytes.items()},
+            "stats": st.as_dict(), "device_steps": engine.device_steps(),
+            "pool": engine.pool_stats(),
+            "signatures": engine.step_signatures()["decode"],
+            "cache": cache.stats().as_dict(),
+            "streams": {str(q): v for q, v in r["streams"].items()},
+            "ms_per_tick": r["wall_s"] * 1e3 / st.steps,
+            "decode_ms": _mean(r["times_ms"]["decode"]),
+            "wall_s": r["wall_s"], "peak_bytes": _peak(dev)}
+        del engine, cache, tenants
+        _empty_cache(dev)
+        # (d) speculation in bf16: D5's perturbed adapters, paged.
+        _, adapters, _ = _mesh_state(mcfg, dcfg, mesh, dev, SEED + 5)
+        _sync(dev)
+        _reset_peak(dev)
+        kernels.reset_launch_counts()
+        state = make_precompute_step(mcfg, scfg, mesh, fold_gsb=True)(
+            params, adapters)
+        engine = DecodeEngine(mcfg, scfg, params, adapters=state, mesh=mesh,
+                              speculative_k=k, **spec_kw, **spec_paged)
+        nbytes = _record_step_bytes(engine)
+        r = drive_engine(engine, spec_trace, vocab, timed=True)
+        st = engine.stats()
+        out["spec_bf16"] = {
+            "launches": launch_counts(),
+            "step_bytes": {kind: _distinct(v) for kind, v in nbytes.items()},
+            "stats": st.as_dict(), "device_steps": engine.device_steps(),
+            "pool": engine.pool_stats(),
+            "streams": {str(q): v for q, v in r["streams"].items()},
+            "accept_rate": st.accepted_drafts / max(k * st.verify_steps, 1),
+            "ms_per_tick": r["wall_s"] * 1e3 / st.steps,
+            "draft_ms": _mean(r["times_ms"]["draft"]),
+            "verify_ms": _mean(r["times_ms"]["verify"]),
+            "decode_ms": _mean(r["times_ms"]["decode"]),
+            "wall_s": r["wall_s"], "peak_bytes": _peak(dev)}
+        del engine, state, adapters, params
+        _empty_cache(dev)
+
+    # fp32: the model, D5's perturbed adapters, their identity tree and
+    # the fleet trace's tenants, each built whole and cut to this rank's
+    # shards at once (rank 0 keeps the whole trees on (2, 2) for the
+    # one-card engines).
+    bench = json.loads((Path(__file__).resolve().parent
+                        / "BENCH_serve.json").read_text())["fleet"]
+    tp = dict(bench["trace"])
+    f_kw = {"slots": tp.pop("slots"), "max_len": tp.pop("max_len")}
+    f_trace = make_fleet_trace(**tp)
+    m32 = dataclasses.replace(mcfg, dtype=torch.float32)
+    one_card = rank == 0 and square
+    aspec = S.adapter_sharding(m32, dcfg, mesh)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    full_p = lm.init_params(gen, m32)
+    full_a = perturb_adapters(lm.init_adapters(gen, m32, full_p, dcfg), gen)
+    full_i = _identity_tree(full_p, full_a, dcfg)
+    a32, i32 = (S.shard_tree(t, aspec, mesh) for t in (full_a, full_i))
+    del full_i
+    full_t, t32 = [], []
+    for t in range(tp["tenants"]):
+        whole = _tenant_adapters(m32, full_p, dcfg, t, dev)
+        t32.append(S.shard_tree(whole, aspec, mesh))
+        if one_card:
+            full_t.append(whole)
+        del whole
+    p32 = S.shard_tree(full_p, S.param_sharding(m32, mesh), mesh)
+    if not one_card:
+        del full_p, full_a
+    _empty_cache(dev)
+
+    # (b) the committed fleet trace over its five tenants.
+    ids = [f"tenant-{q['tenant']}" for q in f_trace]
+    fleet, f_logits = {}, {}
+    for form, geo in (("dynamic", {}),
+                      ("dynamic_paged", {"paged": True,
+                                         "prefill_chunk": f_kw["max_len"]}),
+                      ("static", {})):
+        cache = _tenant_cache(m32, scfg, mesh, dev, t32)
+        engine = DecodeEngine(m32, scfg, p32, adapter_cache=cache, mesh=mesh,
+                              dynamic_grouping=form != "static", **f_kw,
+                              **geo)
+        f_logits[form] = capture_logits(engine)
+        kernels.reset_launch_counts()
+        r = drive_engine(engine, f_trace, vocab, adapters=ids)
+        fleet[form] = {"stats": engine.stats().as_dict(),
+                       "device_steps": engine.device_steps(),
+                       "signatures": engine.step_signatures()["decode"],
+                       "cache": cache.stats().as_dict(),
+                       "paged_gather": launch_counts()["paged_gather"],
+                       "streams": {str(q): v for q, v in
+                                   r["streams"].items()}}
+        del engine, cache
+    fleet["dyn_vs_static"] = max_rel_logits(f_logits["dynamic"],
+                                            f_logits["static"])
+    _empty_cache(dev)
+
+    # (c) the speculative trace: identity and perturbed adapters.
+    precompute = make_precompute_step(m32, scfg, mesh, fold_gsb=True)
+    spec: dict = {}
+    verify_logits = None
+    for name, tree in (("identity", i32), ("perturbed", a32)):
+        state = precompute(p32, tree)
+        if name == "identity":
+            spec["g_dev"] = max(float((leaf["g"] - 1).abs().max())
+                                for leaf in _adapter_leaves(state))
+        extra = SPEC_LADDER if name == "perturbed" else {}
+        runs = [("rect", {}, k), ("paged", spec_paged, k)]
+        if name == "perturbed":
+            runs.append(("plain", {}, 0))
+        for geo_name, geo, kk in runs:
+            engine = DecodeEngine(m32, scfg, p32, adapters=state, mesh=mesh,
+                                  speculative_k=kk, **(extra if kk else {}),
+                                  **spec_kw, **geo)
+            if name == "perturbed" and geo_name == "rect":
+                verify_logits = _capture_verify_logits(engine)
+            kernels.reset_launch_counts()
+            r = drive_engine(engine, spec_trace, vocab)
+            spec[f"{name}_{geo_name}"] = {
+                "stats": engine.stats().as_dict(),
+                "device_steps": engine.device_steps(),
+                "paged_gather": launch_counts()["paged_gather"],
+                "pool": engine.pool_stats() if geo else None,
+                "streams": {str(q): v for q, v in r["streams"].items()}}
+            del engine
+        del state
+    _empty_cache(dev)
+
+    if square:
+        # (e) the servers, fp32: D6's six requests through the engine
+        # route, dynamic against static grouping and speculating; the
+        # speculative EngineServer against the speculative paged engine
+        # given the same requests at once.
+        requests = d6_requests(vocab, run["prompt"])
+        kw32 = dict(gen_len=D5_FP32_NEW, max_len=run["max_len"],
+                    static=False)
+        toks = {}
+        for form in ("dynamic", "static"):
+            server = SV.MultiTenantServer(
+                m32, scfg, p32, mesh=mesh, dynamic_grouping=form == "dynamic",
+                cache=_tenant_cache(m32, scfg, mesh, dev,
+                                    t32[:MT_TENANTS]))
+            toks[form] = [t.tolist() for t in server.serve(requests, **kw32)]
+            if form == "dynamic":
+                toks["speculative"] = [t.tolist() for t in server.serve(
+                    requests, speculative_k=k, **kw32)]
+                sigs = next(iter(server._engines.values())).step_signatures()
+            del server
+        rng = np.random.default_rng(SEED + 1)
+        prompts = [rng.integers(0, vocab, q["prompt_len"])
+                   for q in spec_trace]
+        new = [q["gen_len"] for q in spec_trace]
+        streams = {}
+        for when in ("built", "run"):
+            cache = _tenant_cache(m32, scfg, mesh, dev, [a32])
+            server = SV.EngineServer(m32, scfg, p32, cache=cache, mesh=mesh,
+                                     speculative_k=k if when == "built"
+                                     else 0, **spec_kw, **spec_paged)
+            res = server.run([SV.Request(q, "tenant-0") for q in prompts],
+                             gen_len=max(new),
+                             speculative_k=None if when == "built" else k)
+            streams[when] = [x.tokens.tolist() for x in res]
+            del server, cache
+        state = precompute(p32, a32)
+        engine = DecodeEngine(m32, scfg, p32, adapters=state, mesh=mesh,
+                              speculative_k=k, **spec_kw, **spec_paged)
+        for i, q in enumerate(prompts):
+            engine.submit(q, max_new_tokens=max(new), key_id=i)
+        alone = [x.tokens.tolist() for x in engine.run()]
+        del engine, state
+        out["servers"] = {
+            "mt_dynamic_equals_static": toks["dynamic"] == toks["static"],
+            "mt_speculative_equals_plain":
+                toks["speculative"] == toks["dynamic"],
+            "mt_signatures": sigs,
+            "engine_server_built_equals_engine": streams["built"] == alone,
+            "engine_server_run_equals_engine": streams["run"] == alone}
+    if one_card:
+        # The unsharded port's dynamic engine on the fleet trace and its
+        # speculative engine (the perturbed adapters, the ladder) on the
+        # speculative trace.
+        engine = DecodeEngine(m32, scfg, full_p, adapter_cache=_tenant_cache(
+                                  m32, scfg, None, dev, full_t),
+                              dynamic_grouping=True, device=dev, **f_kw)
+        seen = capture_logits(engine)
+        r = drive_engine(engine, f_trace, vocab, adapters=ids)
+        gaps = [float(np.diff(np.sort(w)[-2:])[0] / np.abs(w).max())
+                for w in seen.values()]
+        out["fleet_one_card"] = {
+            "logit_max_rel": max_rel_logits(f_logits["dynamic"], seen),
+            "least_top2_gap": min(gaps),
+            "tokens_equal": {str(q): v for q, v in r["streams"].items()}
+            == fleet["dynamic"]["streams"]}
+        del engine
+        state = make_precompute_step(m32, scfg, fold_gsb=True)(full_p,
+                                                               full_a)
+        engine = DecodeEngine(m32, scfg, full_p, adapters=state,
+                              speculative_k=k, device=dev, **SPEC_LADDER,
+                              **spec_kw)
+        want = _capture_verify_logits(engine)
+        r = drive_engine(engine, spec_trace, vocab)
+        out["verify_one_card"] = {
+            "verifies": len(want),
+            "logit_max_rel": max(
+                float(np.abs(g - w).max() / np.abs(w).max())
+                for g, w in zip(verify_logits, want))
+            if len(want) == len(verify_logits) else math.inf,
+            "tokens_equal": {str(q): v for q, v in r["streams"].items()}
+            == spec["perturbed_rect"]["streams"]}
+        del engine, state, full_p, full_a, full_t
+    del p32, a32, i32, t32
+    _empty_cache(dev)
+    out["fleet"] = fleet
+    out["spec"] = spec
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 def _leaf_max_rel(got, want) -> float:
     """max |got - want| / max |want| of one gradient leaf (0 where both
     are all zeros, inf where only ``want`` is)."""
@@ -6437,7 +6831,9 @@ def mesh_checks(dev, mcfg=None) -> dict:
     route's own distance from the fp32 logits; the fp32 route's gathered
     g and logits within MESH_SERVE_TOL of max, every
     step's top-2 gap at least MESH_GAP_MIN, and its tokens equal to the
-    unsharded port's."""
+    unsharded port's. D5, D6 and D7 run in the same ranks and are held
+    by :func:`mesh_engine_record`, :func:`mesh_tenant_record` and
+    :func:`mesh_fleet_record`."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -6503,6 +6899,7 @@ def mesh_checks(dev, mcfg=None) -> dict:
         serve = mesh_serve_record(mcfg, dcfg, shape, recs)
         engine = mesh_engine_record(mcfg, dcfg, shape, recs)
         tenants = mesh_tenant_record(mcfg, dcfg, shape, recs)
+        d7 = mesh_fleet_record(mcfg, dcfg, shape, recs)
         warm = [st["ms"] for st in recs[0]["steps"][1:]]
         rec = {"ranks": len(recs), "launches_per_step": want,
                "norm_bytes_per_step": norm_bytes,
@@ -6517,7 +6914,8 @@ def mesh_checks(dev, mcfg=None) -> dict:
                                                 recs[0]["steps"]],
                "collectives_step": recs[0]["steps"][-1]["collectives"],
                "fp32": fp32, "serve": serve, "engine": engine,
-               "tenants": tenants, "seconds": time.perf_counter() - t0}
+               "tenants": tenants, "d7": d7,
+               "seconds": time.perf_counter() - t0}
         out[f"{shape[0]}x{shape[1]}"] = rec
         print(f"mesh (data {shape[0]}, model {shape[1]}) [{MESH_LABEL}]: "
               f"launches a step {want}; norm sums {norm_bytes:,} B a step "
@@ -6539,6 +6937,9 @@ def mesh_checks(dev, mcfg=None) -> dict:
         print(f"  D6 tenants (data {shape[0]}, model {shape[1]}) "
               f"[{MESH_LABEL}; no multi-card speed]: " + json.dumps(tenants),
               flush=True)
+        print(f"  D7 dynamic and speculative (data {shape[0]}, model "
+              f"{shape[1]}) [{MESH_LABEL}; no multi-card speed]: "
+              + json.dumps(d7), flush=True)
     return out
 
 
@@ -6805,6 +7206,208 @@ def mesh_tenant_record(mcfg, dcfg, shape, recs) -> dict:
     return out
 
 
+def mesh_fleet_counts(mcfg, dcfg, shape, steps: dict, *,
+                      tenants: int) -> dict:
+    """Launches a rank makes in one D7 bf16 run: ``tenants`` mesh
+    precomputes (:func:`mesh_tenant_counts`' split: K1 with its epilogue
+    on the column-parallel modules, K1's terms and the standalone K2 on
+    wo and w_down at model > 1), no compose kernel (the states are
+    gsB-folded: the dynamic and the verify's compose is the plain fp32
+    h·gsBᵀ), and K8 twice a layer in every paged chunk, decode, draft and
+    verify step (``steps``: the engine's ``device_steps()``)."""
+    c = _mesh_step_counts(mcfg, dcfg, shape[1], ())
+    c = {key: tenants * v for key, v in c.items()}
+    c["paged_gather"] = 2 * mcfg.num_layers * (
+        steps["decode"] + steps["prefill_chunk"] + steps["draft"]
+        + steps["verify"])
+    return c
+
+
+def mesh_fleet_record(mcfg, dcfg, shape, recs) -> dict:
+    """D7's checks over one mesh's rank records (``_mesh_fleet_spec``) and
+    the numbers kept of them.
+
+    bf16, per rank: the dynamic engine's launches exactly
+    :func:`mesh_fleet_counts` (three tenants, K6 = 0), three cache misses
+    and D7_STACK_INSERTS stack inserts, every decode under
+    ``"dynamic"``, each decode step's bytes by
+    tag exactly the single-tenant step's at D5_SLOTS rows
+    (``mesh_decode_bytes``), its schedule (stats but the stack inserts,
+    device steps but the inserts, pool) D6's static paged engine's on the
+    same trace, rank 0's streams; the speculative paged engine's launches
+    (one precompute, K8 on every paged step), each draft, verify and
+    decode step's bytes by tag exactly ``mesh_draft_bytes``,
+    ``mesh_verify_bytes`` and ``mesh_decode_bytes``, rank 0's streams, the
+    pool drained. fp32, per rank: the fleet trace's dynamic counters
+    ``fleet.schedule_model``, one signature, the static engine's four,
+    equal streams dynamic, dynamic paged and static, the dynamic rows
+    within D7_FLEET_TOL of the static ones; identity adapters' counters
+    ``speculative_model`` rectangular and paged; the perturbed ones'
+    ladder disabling and re-enabling, speculative streams equal the plain
+    engine's; paged == rectangular; K8 2 x layers a paged step; on (2, 2)
+    the fleet's dynamic logits and the verify's fetched logits within
+    D6_TOL of max of one card's, the tokens equal, and the servers'
+    streams."""
+    bench = json.loads((Path(__file__).resolve().parent
+                        / "BENCH_serve.json").read_text())
+    f_model = bench["fleet"]["schedule_model"]
+    _, slots, _, k, s_model = speculative_trace()
+    L = mcfg.num_layers
+    decode_bytes = mesh_decode_bytes(mcfg, dcfg, shape, batch=D5_SLOTS,
+                                     logits_tag="engine.logits")
+    spec_bytes = {
+        "decode": mesh_decode_bytes(mcfg, dcfg, shape, batch=slots,
+                                    logits_tag="engine.logits"),
+        "draft": mesh_draft_bytes(mcfg, dcfg, shape, batch=slots),
+        "verify": mesh_verify_bytes(mcfg, dcfg, shape, batch=slots,
+                                    window=k + 1)}
+    r0 = recs[0]["serve"]["d7"]
+    out: dict = {}
+    for r in recs:
+        d = r["serve"]["d7"]
+        where = f"D7 mesh {shape} rank {r['rank']}"
+        if "dynamic_bf16" in d:
+            e = d["dynamic_bf16"]
+            steps = {**e["device_steps"], "draft": 0, "verify": 0}
+            want = mesh_fleet_counts(mcfg, dcfg, shape, steps,
+                                     tenants=MT_TENANTS)
+            check(e["launches"] == want and e["k6_mma"] == 0,
+                  f"{where} dynamic bf16: launches {e['launches']} != "
+                  f"{want}")
+            inserts = e["stats"]["stack_inserts"]
+            check(e["device_steps"]["adapter_insert"] == inserts
+                  == D7_STACK_INSERTS
+                  and e["cache"]["misses"] == MT_TENANTS
+                  and e["signatures"] == {"dynamic": steps["decode"]},
+                  f"{where} dynamic bf16: {inserts} inserts, cache "
+                  f"{e['cache']} or signatures {e['signatures']}")
+            b = e["step_bytes"]["decode"]
+            check(b["n"] == steps["decode"]
+                  and b["distinct"] == [decode_bytes],
+                  f"{where} dynamic bf16: decode bytes a step "
+                  f"{b['distinct']} != {decode_bytes}")
+            static = r["serve"]["tenants"]["paged"]
+            same = {key: v for key, v in e["stats"].items()
+                    if key != "stack_inserts"}
+            check(same == {key: v for key, v in static["stats"].items()
+                           if key != "stack_inserts"}
+                  and {**e["device_steps"], "adapter_insert": 0}
+                  == static["device_steps"]
+                  and e["pool"] == static["pool"],
+                  f"{where} dynamic bf16: schedule {e['stats']} differs "
+                  f"from D6's static paged engine's")
+            check(e["streams"] == r0["dynamic_bf16"]["streams"]
+                  and len(e["streams"]) == D5_REQUESTS,
+                  f"{where} dynamic bf16: streams differ from rank 0's")
+            e = d["spec_bf16"]
+            want = mesh_fleet_counts(mcfg, dcfg, shape, e["device_steps"],
+                                     tenants=1)
+            check(e["launches"] == want,
+                  f"{where} speculative bf16: launches {e['launches']} != "
+                  f"{want}")
+            for kind, model in spec_bytes.items():
+                b = e["step_bytes"][kind]
+                check(b["n"] == e["device_steps"][kind]
+                      and b["distinct"] in ([model], []),
+                      f"{where} speculative bf16: {kind} bytes a step "
+                      f"{b['distinct']} != {model}")
+            check(e["streams"] == r0["spec_bf16"]["streams"]
+                  and e["pool"]["used_blocks"] == 0
+                  and e["device_steps"]["verify"] > 0,
+                  f"{where} speculative bf16: streams, pool {e['pool']} or "
+                  f"no verify")
+        f = d["fleet"]
+        st = f["dynamic"]["stats"]
+        for field in ("steps", "decode_steps", "prefills",
+                      "generated_tokens", "slot_steps", "mean_occupancy"):
+            check(st[field] == f_model[field],
+                  f"{where} fleet dynamic {field}={st[field]}, "
+                  f"BENCH_serve.json {f_model[field]}")
+        check(sorted(f["dynamic"]["signatures"]) == ["dynamic"]
+              and sorted(f["static"]["signatures"])
+              == f_model["signature_keys"]
+              and sorted(f["dynamic_paged"]["signatures"]) == ["dynamic"],
+              f"{where} fleet signatures")
+        check(f["dynamic"]["streams"] == f["static"]["streams"]
+              == f["dynamic_paged"]["streams"]
+              and f["dyn_vs_static"] <= D7_FLEET_TOL
+              and f["dynamic"]["streams"] == r0["fleet"]["dynamic"]["streams"],
+              f"{where} fleet: streams or dynamic vs static "
+              f"{f['dyn_vs_static']:.3g} (> {D7_FLEET_TOL})")
+        pst = f["dynamic_paged"]["device_steps"]
+        check(f["dynamic_paged"]["paged_gather"] == 2 * L * (
+            pst["decode"] + pst["prefill_chunk"])
+              and f["dynamic"]["paged_gather"] == 0,
+              f"{where} fleet: K8 launches")
+        s = d["spec"]
+        for geo in ("rect", "paged"):
+            got = {field: s[f"identity_{geo}"]["stats"][field]
+                   for field in s_model}
+            check(got == s_model, f"{where} identity {geo}: counters "
+                  f"{got}, BENCH_serve.json {s_model}")
+            pert = s[f"perturbed_{geo}"]["stats"]
+            check(pert["spec_disables"] >= 1 and pert["spec_reenables"] >= 1,
+                  f"{where} perturbed {geo}: the ladder {pert}")
+            for name in ("identity", "perturbed"):
+                e = s[f"{name}_{geo}"]
+                st = e["device_steps"]
+                want = 2 * L * (st["decode"] + st["prefill_chunk"]
+                                + st["draft"] + st["verify"])
+                check(e["paged_gather"] == (want if geo == "paged" else 0),
+                      f"{where} {name} {geo}: K8 {e['paged_gather']} != "
+                      f"{want}")
+        check(s["identity_rect"]["streams"] == s["identity_paged"]["streams"]
+              and s["perturbed_rect"]["streams"]
+              == s["perturbed_paged"]["streams"]
+              == s["perturbed_plain"]["streams"]
+              and s["perturbed_rect"]["streams"]
+              == r0["spec"]["perturbed_rect"]["streams"],
+              f"{where}: speculative streams differ from the plain or "
+              f"paged engine's or rank 0's")
+    if "servers" in r0:
+        check(all(v for key, v in r0["servers"].items()
+                  if key != "mt_signatures")
+              and set(r0["servers"]["mt_signatures"]["decode"])
+              == {"dynamic"},
+              f"D7 mesh {shape} servers: {r0['servers']}")
+        out["servers"] = r0["servers"]
+    for key in ("fleet_one_card", "verify_one_card"):
+        if key in r0:
+            f = r0[key]
+            check(f["logit_max_rel"] <= D6_TOL and f["tokens_equal"]
+                  and f.get("least_top2_gap", 1.0) >= MESH_GAP_MIN,
+                  f"D7 mesh {shape} {key}: {f}")
+            out[key] = f
+    out["g_dev_by_rank"] = [r["serve"]["d7"]["spec"]["g_dev"] for r in recs]
+    out["fleet_dyn_vs_static_by_rank"] = [
+        r["serve"]["d7"]["fleet"]["dyn_vs_static"] for r in recs]
+    out["spec_fp32"] = {name: {f: v["stats"][f] for f in (
+        "steps", "decode_steps", "draft_steps", "verify_steps",
+        "accepted_drafts", "spec_disables", "spec_reenables")}
+        for name, v in r0["spec"].items() if name != "g_dev"}
+    if "dynamic_bf16" in r0:
+        out["dynamic_bf16"] = {
+            "launches_per_rank": r0["dynamic_bf16"]["launches"],
+            "decode_bytes_per_step": decode_bytes,
+            "ticks": r0["dynamic_bf16"]["stats"]["steps"],
+            "stack_inserts": r0["dynamic_bf16"]["stats"]["stack_inserts"],
+            **{f"{key}_by_rank": [r["serve"]["d7"]["dynamic_bf16"][key]
+                                  for r in recs]
+               for key in ("ms_per_tick", "decode_ms", "wall_s",
+                           "peak_bytes")}}
+        e = r0["spec_bf16"]
+        out["spec_bf16"] = {
+            "launches_per_rank": e["launches"], "step_bytes": spec_bytes,
+            "ticks": e["stats"]["steps"], "device_steps": e["device_steps"],
+            "accept_rate": e["accept_rate"],
+            **{f"{key}_by_rank": [r["serve"]["d7"]["spec_bf16"][key]
+                                  for r in recs]
+               for key in ("ms_per_tick", "draft_ms", "verify_ms",
+                           "decode_ms", "wall_s", "peak_bytes")}}
+    out["seconds_by_rank"] = [r["serve"]["d7"]["seconds"] for r in recs]
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -6868,7 +7471,7 @@ def main() -> int:
     small_parity(dev)
     t0 = time.perf_counter()
     mesh = mesh_checks(dev)
-    print(f"mesh phases D2-D6: {time.perf_counter() - t0:.1f} s",
+    print(f"mesh phases D2-D7: {time.perf_counter() - t0:.1f} s",
           flush=True)
     t0 = time.perf_counter()
     served, mcfg, params, adapters = serve_checks(dev)

@@ -215,7 +215,8 @@ def dora_linear(x, W, adapter: dict[str, Any], cfg: DoRAConfig, *,
                          "(constrain=) to name the mesh")
     if tenant_groups is not None:
         return dora_linear_grouped(x, W, adapter, cfg, tenant_groups,
-                                   bias=bias, training=training)
+                                   bias=bias, training=training,
+                                   constrain=plan_sh)
     W = W.detach()
     y_base = x @ W.T
     h = x @ adapter["A"].T
@@ -291,12 +292,18 @@ def dora_linear_row_parallel(x, W, adapter: dict[str, Any] | None,
     computed with its own A, the groups' partials are concatenated along
     the batch rows into one [B, S, r] tensor and go through the one
     scatter of h, then each group takes :func:`gsb_delta` on its rows: a
-    grouped call moves exactly the bytes of a single-tenant one."""
+    grouped call moves exactly the bytes of a single-tenant one. An int
+    [B] tensor of per-row stack positions (this data replica's rows):
+    the dynamic compose (:func:`_row_parallel_dyn`), whose one scatter of
+    h moves the same bytes."""
     _check_serving_state(adapter, sp)
     y_base = sp.scatter(sp.partial(x, W.detach()), tag="y_base").to(x.dtype)
     if adapter is None:
         return y_base if bias is None else y_base + bias
     plan = sp.row_plan
+    if isinstance(tenant_groups, torch.Tensor):
+        return _row_parallel_dyn(x, plan(y_base), adapter, tenant_groups,
+                                 sp=sp, bias=bias, training=training)
     if tenant_groups is not None:
         return _row_parallel_grouped(x, plan(y_base), adapter, tenant_groups,
                                      sp=sp, bias=bias, training=training)
@@ -324,6 +331,30 @@ def _row_parallel_grouped(x, y_base, adapter, tenant_groups, *, sp, bias,
     return y
 
 
+@torch.no_grad()
+def _row_parallel_dyn(x, y_base, adapter, idx, *, sp, bias, training: bool):
+    """The dynamic compose of :func:`dora_linear_row_parallel` from its
+    scattered y_base. The all-K partial x·A_kᵀ on this rank's d_in (fp32,
+    ``sp.partial``, where ``sp.axis`` splits it; on one rank the
+    no-mesh path's einsum), then each row's position selected BEFORE the
+    one scatter of h: the select is a pure gather, so it commutes with
+    the sum, and the scatter moves [B, S, r] as a single-tenant call
+    does, not [B, S, K, r]. Then the K-batched fp32 h·gsBᵀ on the whole
+    d_out and the row's select again (:func:`_dyn_output`)."""
+    A, g, gsB = _grouped_state(adapter, training)
+    _check_dyn_rows(x)
+    idx = torch.as_tensor(idx, device=x.device).long()
+    K, r = A.shape[0], A.shape[1]
+    if sp.tp == 1:
+        h_all = torch.einsum("bsd,krd->bskr", x, A)
+    else:
+        h_all = sp.partial(x, A.reshape(K * r, A.shape[-1])).reshape(
+            *x.shape[:-1], K, r)
+    h = sp.scatter(_compose.select_tenant(h_all, idx), tag="h").to(x.dtype)
+    return _dyn_output(y_base, sp.row_plan.constrain_h(h), g, gsB, idx,
+                       bias)
+
+
 def dora_linear_column_parallel(x, W, adapter: dict[str, Any] | None,
                                 cfg: DoRAConfig | None, *, sp, bias=None,
                                 training: bool = True, tenant_groups=None):
@@ -334,7 +365,8 @@ def dora_linear_column_parallel(x, W, adapter: dict[str, Any] | None,
     given; the compose runs under ``sp.col_plan``, which leaves d_h's
     partial to the gather's backward, so A's gradient is summed over
     ``sp.axis``. ``tenant_groups``: the grouped compose on these shards
-    (:func:`dora_linear_grouped`), with no collective."""
+    (:func:`dora_linear_grouped`), static or dynamic, with no
+    collective."""
     _check_serving_state(adapter, sp)
     if adapter is None:
         y = x @ W.detach().T
@@ -444,7 +476,8 @@ def _grouped_state(adapter, training: bool):
 
 @torch.no_grad()
 def dora_linear_grouped(x, W, adapter: dict[str, Any], cfg: DoRAConfig,
-                        tenant_groups, *, bias=None, training: bool = False):
+                        tenant_groups, *, bias=None, training: bool = False,
+                        constrain=None):
     """Multi-tenant adapted linear: one call serves a batch whose rows use
     per-row adapters out of a K-stacked serving tree (x [B, ..., d_in]).
 
@@ -468,7 +501,10 @@ def dora_linear_grouped(x, W, adapter: dict[str, Any], cfg: DoRAConfig,
       each row's result is then a pure gather
       (:func:`repro_torch.core.compose.select_tenant`), at K times the
       adapter FLOPs; see :func:`_dora_linear_dyn`.
-    """
+
+    ``constrain``: the call site's mesh plan, as :func:`dora_linear`
+    takes it; the leaves are then this rank's shards (a column-parallel
+    module's W, g and gsB its local rows) and the compose is row-local."""
     del cfg
     A, g, gsB = _grouped_state(adapter, training)
     if W.ndim > 2:
@@ -476,7 +512,8 @@ def dora_linear_grouped(x, W, adapter: dict[str, Any], cfg: DoRAConfig,
             "grouped multi-tenant serving of stacked/expert weights "
             f"(W rank {W.ndim}) is not supported")
     if not isinstance(tenant_groups, (tuple, list)):
-        return _dora_linear_dyn(x, W, A, g, gsB, tenant_groups, bias=bias)
+        return _dora_linear_dyn(x, W, A, g, gsB, tenant_groups, bias=bias,
+                                constrain=constrain)
     groups = tenant_positions(tenant_groups, x.shape[0], A.shape[0])
     y_base = x @ W.T
     deltas = [gsb_delta(y_base[start:start + size],
@@ -489,22 +526,37 @@ def dora_linear_grouped(x, W, adapter: dict[str, Any], cfg: DoRAConfig,
     return y
 
 
-def _dora_linear_dyn(x, W, A, g, gsB, idx, *, bias=None):
-    """Dynamic grouped compose: per-row adapters selected by the int [B]
-    stack position ``idx``. The K-batched products below reduce over the
-    same axes as the homogeneous path's ``x @ Aᵀ`` and fp32 ``h·gsBᵀ``, and
-    the per-row select is a pure gather; the g term is row-local,
-    applied from the gathered ``g[idx]``."""
+def _check_dyn_rows(x) -> None:
     if x.ndim != 3:
         raise NotImplementedError(
             f"dynamic grouped serving expects [B, S, d_in] activations "
             f"(got ndim={x.ndim}); the serving steps always run the "
             f"model's batched token layout")
+
+
+def _dora_linear_dyn(x, W, A, g, gsB, idx, *, bias=None, constrain=None):
+    """Dynamic grouped compose: per-row adapters selected by the int [B]
+    stack position ``idx``. The K-batched products below reduce over the
+    same axes as the homogeneous path's ``x @ Aᵀ`` and fp32 ``h·gsBᵀ``, and
+    the per-row select is a pure gather; the g term is row-local,
+    applied from the gathered ``g[idx]``. ``constrain``: the call site's
+    mesh plan (a column-parallel module's local rows of W, g and gsB; no
+    collective), whose shape check y_base takes."""
+    _check_dyn_rows(x)
     idx = torch.as_tensor(idx, device=x.device).long()
     y_base = x @ W.T
+    plan_sh = _sh.as_compose_sharding(constrain)
+    if plan_sh is not None:
+        y_base = plan_sh(y_base)
     # All-K down-projection, then the gather: [B, S, K, r].
     h = _compose.select_tenant(torch.einsum("bsd,krd->bskr", x, A), idx)
-    # All-K folded up-projection in fp32: [B, S, K, d_out].
+    return _dyn_output(y_base, h, g, gsB, idx, bias)
+
+
+def _dyn_output(y_base, h, g, gsB, idx, bias):
+    """y from y_base and each row's own h: the all-K folded up-projection
+    in fp32 ([B, S, K, d_out]), each row's position selected, and the
+    row-local g term from the gathered ``g[idx]``."""
     t = _compose.select_tenant(
         torch.einsum("bsr,kor->bsko", h.to(_F32), gsB.to(_F32)), idx)
     g_row = g.to(_F32).index_select(0, idx)             # [B, d_out]

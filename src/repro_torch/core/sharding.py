@@ -430,7 +430,9 @@ class SequenceParallel:
     norm summed over ``axis``.
 
     Tensor-parallel with no sequence split (``seq_split=False``, the
-    decode step, whose S = 1 the axis cannot split; forward only): the
+    decode and draft steps, whose S = 1 the axis cannot split, and the
+    speculative verify, whose k + 1 window every rank needs whole for
+    its rows' frontiers and K/V writes; forward only; any S): the
     residual stream is whole on every rank of ``axis``, so the gather is
     the identity, and the row-parallel modules all-reduce y_base and h
     over ``axis`` before the compose.

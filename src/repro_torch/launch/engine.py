@@ -74,13 +74,16 @@ or ``AdapterStateCache.for_serving(mesh=)``), the cache holds this rank's
 K/V heads for its data replica's slot rows (a paged pool whole on every
 replica; ``init_cache(mesh=)``), the admissions prefill in the
 sequence-parallel layout and decode runs tensor-parallel on each
-replica's rows. The decode logits come back gathered over the data axes,
-so the host scheduler, replicated unchanged, makes the same decisions on
-every rank. A slot layout of two or more handles decodes under its
-static groups, each data replica under its share of them
-(``launch/sharding.py local_tenant_groups``); speculation and dynamic
-grouping under a mesh are ROADMAP queue 1 item 6, second half, point
-1c-ii.
+replica's rows. The decode, draft and verify logits come back gathered
+over the data axes, so the host scheduler, replicated unchanged, makes
+the same admission, accept and rewind decisions on every rank. A slot
+layout of two or more handles decodes under its static groups, each data
+replica under its share of them (``launch/sharding.py
+local_tenant_groups``); a dynamic engine's fleet stack holds this rank's
+shards of each seated state and each replica decodes under its rows of
+the position vector (``local_adapter_idx``). Speculation drafts and
+verifies in the decode layout, the verify's k + 1 window whole on every
+rank.
 
 SSM/Mamba archs are refused (their states integrate every processed
 token and cannot rewind to a slot's true prompt length), and MoE FFNs
@@ -100,8 +103,9 @@ from repro_torch.core.adapter import stack_adapter_states
 from repro_torch.core.adapter_cache import (AdapterHandle, AdapterStateCache,
                                             mesh_fingerprint)
 from repro_torch.launch.faults import FaultPlan
-from repro_torch.launch.serve import _MESH_LATER, resolve_device
-from repro_torch.launch.steps import (StepConfig, make_decode_step,
+from repro_torch.launch.serve import resolve_device
+from repro_torch.launch.steps import (StepConfig, check_serving_layout,
+                                      make_decode_step,
                                       make_draft_step,
                                       make_prefill_chunk_step,
                                       make_prefill_into_slot_step,
@@ -305,9 +309,10 @@ class DecodeEngine:
     submits the same requests and steps the same ticks; each returns the
     same results. No wall clock enters a decision: the ``slow`` fault
     only sleeps. Slots of several handles decode under the static
-    groups of their layout, each data replica under its share. Refused
-    under a mesh (ROADMAP queue 1 item 6, second half, point 1c-ii):
-    ``speculative_k > 0`` and ``dynamic_grouping``.
+    groups of their layout, each data replica under its share; the
+    dynamic stack holds this rank's shards (checked against
+    ``launch/sharding.py fleet_stack_sharding`` when it is built);
+    the draft and the verify run in the decode layout.
 
     ``step()`` is one scheduler tick: apply the fault plan's events →
     expire deadlines → admit into free slots (preempting lower-priority
@@ -395,12 +400,6 @@ class DecodeEngine:
                 f"capacity dispatch couples batch rows, so a retired "
                 f"slot's garbage tokens could evict a live row's tokens "
                 f"from an expert (arch {mcfg.name!r})")
-        if mesh is not None and (speculative_k or dynamic_grouping):
-            raise NotImplementedError(
-                f"DecodeEngine(mesh=...) groups statically and decodes "
-                f"plainly: "
-                f"{'speculative_k' if speculative_k else 'dynamic_grouping'}"
-                f" under a mesh is {_MESH_LATER}")
         if slots < 1:
             raise ValueError(f"need at least one slot, got {slots}")
         if (adapters is None) == (adapter_cache is None):
@@ -508,7 +507,7 @@ class DecodeEngine:
         else:
             self._prefill = make_prefill_into_slot_step(mcfg, scfg, mesh,
                                                         seq=self.max_len)
-        self._draft = make_draft_step(mcfg, scfg, batch=self.slots)
+        self._draft = make_draft_step(mcfg, scfg, mesh, batch=self.slots)
         self._device_steps = {"prefill_into_slot": 0, "prefill_chunk": 0,
                               "decode": 0, "draft": 0, "verify": 0,
                               "adapter_insert": 0}
@@ -1224,7 +1223,9 @@ class DecodeEngine:
         free position and its state is copied there (the one device copy
         per seating; decode ticks never restack). The stack is built on
         first use as zeros of the state's grouped leaves, [n_scan, slots,
-        ...]: finite rows that no live row indexes."""
+        ...]: finite rows that no live row indexes. Under a mesh the
+        states, and so the stack, are this rank's shards; the stack
+        is checked against ``fleet_stack_sharding`` when it is built."""
         ent = self._dyn_pos.get(handle)
         if ent is not None:
             ent[1] += 1
@@ -1238,6 +1239,9 @@ class DecodeEngine:
                                           + tuple(t.shape[1:]),
                                           dtype=t.dtype, device=t.device),
                     view)
+                if self.mesh is not None:
+                    check_serving_layout(self.mcfg, self.scfg, self.mesh,
+                                         self._dyn_stack, tenants=self.slots)
             tree_map(lambda big, leaf: big[:, pos].copy_(leaf),
                      self._dyn_stack, view)
             self._device_steps["adapter_insert"] += 1
@@ -1339,7 +1343,8 @@ class DecodeEngine:
         """One speculative verify under ``groups``; its window is the
         width of ``batch_in["tokens"]``."""
         dyn = groups == "dynamic"
-        step = make_verify_step(self.mcfg, self.scfg, batch=self.slots,
+        step = make_verify_step(self.mcfg, self.scfg, self.mesh,
+                                batch=self.slots,
                                 window=int(batch_in["tokens"].shape[1]),
                                 tenant_groups=None if dyn else groups,
                                 dynamic_groups=dyn)
@@ -1598,10 +1603,6 @@ class DecodeEngine:
         every active slot. Returns the requests that FINISHED during this
         tick. ``on_token(request_id, token)`` streams every sampled
         token."""
-        if self.mesh is not None and self.speculative_k:
-            raise NotImplementedError(
-                f"DecodeEngine(mesh=...) decodes plainly: speculative_k "
-                f"under a mesh is {_MESH_LATER}")
         before = set(self._results)
         self._apply_tick_faults()
         self._expire_deadlines()

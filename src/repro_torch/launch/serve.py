@@ -124,11 +124,6 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-# Where the refusals of the serving paths not yet ported to a mesh point.
-_MESH_LATER = ("ROADMAP queue 1 item 6, second half, point 1c-ii "
-               "(multi-device dynamic grouping and speculation)")
-
-
 def _check_cache_mesh(cache: AdapterStateCache, mesh) -> None:
     """The cache keys states on the mesh they were computed and laid out
     for (``mesh_fingerprint``); serving them under another mesh would
@@ -339,9 +334,8 @@ class MultiTenantServer:
     same requests: each data replica prefills (padded to ``max_len``,
     which must split over ``model``) and decodes its rows under its share
     of the groups, and every rank samples the whole batch and returns the
-    same tokens. The engine route runs ``DecodeEngine(mesh=)``; dynamic
-    grouping and ``speculative_k`` under a mesh are refused
-    (ROADMAP queue 1 item 6, second half, point 1c-ii).
+    same tokens. The engine route runs ``DecodeEngine(mesh=)``, with
+    ``dynamic_grouping`` and ``speculative_k`` as on one card.
     """
 
     def __init__(self, mcfg, scfg: StepConfig, params, *,
@@ -350,10 +344,6 @@ class MultiTenantServer:
                  dynamic_grouping: bool = False,
                  max_active_per_adapter: int | None = None,
                  trace=None, device=None):
-        if mesh is not None and dynamic_grouping:
-            raise NotImplementedError(
-                f"MultiTenantServer(mesh=...) groups statically: "
-                f"dynamic_grouping under a mesh is {_MESH_LATER}")
         _check_cache_mesh(cache, mesh)
         self.device = resolve_device(device if device is not None
                                      or mesh is None else mesh.device)
@@ -472,10 +462,6 @@ class MultiTenantServer:
                 "speculative_k requires the continuous-batching engine "
                 "path (its rewindable per-row cache): serve with "
                 "static=False/None, not static=True")
-        if speculative_k and self.mesh is not None:
-            raise NotImplementedError(
-                f"MultiTenantServer(mesh=...) decodes plainly: "
-                f"speculative_k under a mesh is {_MESH_LATER}")
         if not static:
             if return_logits:
                 raise ValueError(
@@ -592,9 +578,8 @@ class EngineServer:
     this rank's shards, ``cache`` is keyed for this mesh
     (``AdapterStateCache.for_serving(mcfg, scfg, mesh)``), every rank
     runs the same requests and returns the same results; the slots may
-    hold several adapters at once (static grouping), and decode is
-    plain: dynamic grouping and speculation under a mesh are ROADMAP
-    queue 1 item 6, second half, point 1c-ii.
+    hold several adapters at once, grouped statically or dynamically,
+    and the engine may speculate.
     """
 
     def __init__(self, mcfg, scfg: StepConfig, params, *,
@@ -661,10 +646,6 @@ class EngineServer:
         if speculative_k is not None:
             if speculative_k < 0:
                 raise ValueError(f"speculative_k={speculative_k} < 0")
-            if speculative_k and self.engine.mesh is not None:
-                raise NotImplementedError(
-                    f"EngineServer(mesh=...) decodes plainly: "
-                    f"speculative_k under a mesh is {_MESH_LATER}")
             self.engine.speculative_k = int(speculative_k)
         return _serve_on_engine(
             self.engine, [(r.prompt, r.adapter) for r in requests],

@@ -21,12 +21,13 @@ gathers them back.
 
 What the runtime honours so far (``models/lm.py`` under a mesh): the TP
 over ``model``, with its sequence parallelism in the train step and the
-prefill and with the sequence whole in the decode step, the data axes as
-batch replicas, and the serving leaves of ``adapter_sharding(serving=
-True)``. Specs that name an FSDP axis on a weight (``fsdp`` on a pod
-axis, ``fsdp_data``, ``fsdp_gather``, ``expert``), the ZeRO-1 layout of
-:func:`opt_state_sharding` and :func:`cache_sharding`'s T over ``model``
-are rules only: ROADMAP queue 1 item 6, second half.
+prefill and with the sequence whole in the decode, draft and verify
+steps, the data axes as batch replicas, and the serving leaves of
+``adapter_sharding(serving=True)``. Specs that name an FSDP axis on a
+weight (``fsdp`` on a pod axis, ``fsdp_data``, ``fsdp_gather``,
+``expert``), the ZeRO-1 layout of :func:`opt_state_sharding` and
+:func:`cache_sharding`'s T over ``model`` are rules only: ROADMAP queue
+1 item 6, second half.
 """
 from __future__ import annotations
 
@@ -288,6 +289,15 @@ def local_tenant_groups(mesh, batch: int, tenant_groups) -> tuple:
     return tuple(out)
 
 
+def local_adapter_idx(mesh, idx):
+    """This data replica's rows of a whole-batch int [batch] tensor of
+    per-row stack positions (the dynamic grouping's
+    ``batch_in["adapter_idx"]``), cut by :func:`local_rows` as the
+    tokens are: the positions themselves index the whole K-stack, so
+    they are kept as they are."""
+    return idx[local_rows(mesh, idx.shape[0])]
+
+
 def batch_spec(mesh, *, batch: int) -> P:
     return P(_dp_entry(mesh, batch), None)
 
@@ -324,12 +334,13 @@ def make_boundary_constraint(mesh, *, batch: int, seq: int,
     """The layout of [B, S, D] activations
     (:class:`~repro_torch.core.sharding.SequenceParallel`); ``.plan`` is
     the reference's compose plan for it, ``b_dout_axes`` threaded in.
-    ``decode``: the tensor-parallel mode with no sequence split, for the
-    decode step's S = 1 (the reference's spec then leaves the sequence
-    whole too); refused for any other S."""
-    if decode and seq != 1:
-        raise ValueError(f"the decode layout runs S = 1, got seq {seq}")
-    spec = activation_spec(mesh, batch=batch, seq=seq)
+    ``decode``: the tensor-parallel mode with the sequence whole on every
+    rank, for the decode and draft steps' S = 1 and the speculative
+    verify's window of S = k + 1: each row's frontier and its K/V writes
+    need the whole window on every rank, so the spec leaves the sequence
+    unsplit whatever S is."""
+    spec = (P(_dp_entry(mesh, batch), None, None) if decode
+            else activation_spec(mesh, batch=batch, seq=seq))
     plan = _csh.plan_for_output(mesh, spec, b_dout_axes=tuple(b_dout_axes))
     return _csh.SequenceParallel(mesh, spec, plan, seq_split=not decode)
 

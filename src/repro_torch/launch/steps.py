@@ -5,10 +5,11 @@ speculative draft and verify.
 
 Each ``make_*_step`` returns a plain function over (params, adapters,
 ...). Given a mesh (``launch/mesh.py``), the train, grad, precompute,
-prefill, decode and engine admission steps run on this rank's shards
-(``launch/sharding.py shard_tree``): the batch rows of its data replica,
-tensor parallelism over ``model`` with the sequence split between blocks
-(the decode step: whole, its S = 1), the vocab-parallel head and its
+prefill, decode, engine admission, draft and verify steps run on this
+rank's shards (``launch/sharding.py shard_tree``): the batch rows of its
+data replica, tensor parallelism over ``model`` with the sequence split
+between blocks (the decode and draft steps' S = 1 and the verify's k + 1
+window: whole), the vocab-parallel head and its
 parallel cross entropy; the adapter gradients are averaged over the data axes in fp32
 and the clip's global norm is summed over the shards. The
 train step updates the adapters and the optimizer state IN PLACE and
@@ -182,7 +183,7 @@ def _mesh_rules(mcfg: ModelConfig, scfg: StepConfig, mesh) -> dict:
     if "pod" in mesh.axis_names:
         raise NotImplementedError(
             "the pod axis (FSDP gathers, compression on the wire) is "
-            "ROADMAP queue 1 item 6, second half")
+            "ROADMAP queue 1 item 6, second half, point 2")
     specs = {"params": S.param_sharding(mcfg, mesh),
              "adapters": S.adapter_sharding(mcfg, scfg.dora, mesh)}
     for name, spec in flatten_paths(specs).items():
@@ -191,7 +192,7 @@ def _mesh_rules(mcfg: ModelConfig, scfg: StepConfig, mesh) -> dict:
             raise NotImplementedError(
                 f"{mcfg.name} on mesh {dict(mesh.shape)}: {name} is laid "
                 f"out {tuple(spec)}; FSDP and gathered layouts are "
-                f"ROADMAP queue 1 item 6, second half")
+                f"ROADMAP queue 1 item 6, second half, point 2")
     return specs
 
 
@@ -614,6 +615,66 @@ def _gather_vocab(last, mcfg: ModelConfig, lay, tag: str):
                           last.ndim - 1, tag=tag)
 
 
+def _serve_rows(mcfg: ModelConfig, scfg: StepConfig, lay, *, batch: int,
+                width: int, step: str, tags: tuple[str, str], params,
+                adapters, cache, batch_in, inputs, tenant_groups=None,
+                dynamic_groups: bool = False, last: bool = True):
+    """The decode, draft and verify steps' forward over ``width`` new
+    positions a row: logits [rows, V] of the last position (``last``) or
+    [rows, width, V], and the cache.
+
+    Under a mesh the engine's cache (per-row "len" [batch], whole on
+    every rank) takes the whole batch's ``inputs`` [batch, width]: the
+    forward runs this data replica's rows of them, of "len" and of a
+    paged cache's "pages" (``launch/sharding.py local_rows``; each
+    replica then writes only its rows' blocks of the pool) and of a
+    dynamic index (``local_adapter_idx``), every row's "len" advances by
+    ``width`` as on one card, and the logits are gathered over the vocab
+    (tag ``tags[0]``) and then over the data axes (``tags[1]``), the
+    whole batch's on every rank."""
+    (name, x), = inputs.items()
+    whole = lay is not None and isinstance(cache["len"], torch.Tensor) \
+        and cache["len"].ndim == 1
+    rows = batch if lay is None or whole else lay.local_batch
+    if tuple(x.shape[:2]) != (rows, width):
+        raise ValueError(f"{step} built for {name} [{rows}, {width}], got "
+                         f"{tuple(x.shape)}")
+    tg = (torch.as_tensor(batch_in["adapter_idx"], device=x.device)
+          if dynamic_groups else tenant_groups)
+    view = cache
+    if whole:
+        from repro_torch.launch.sharding import local_adapter_idx, local_rows
+        mine = local_rows(lay.mesh, batch)
+        inputs = {name: x[mine]}
+        view = {**cache, "len": cache["len"][mine]}
+        if "pages" in cache:
+            view["pages"] = cache["pages"][mine]
+        if dynamic_groups:
+            tg = local_adapter_idx(lay.mesh, tg)
+    logits, new_cache = forward(
+        mcfg, params, adapters, scfg.dora, **inputs, cache=view,
+        training=False, tenant_groups=tg,
+        boundary_constraint=None if lay is None else lay.sp)
+    out = _gather_vocab(logits[:, -1] if last else logits, mcfg, lay,
+                        tags[0])
+    if whole:
+        new_cache = {**new_cache, "len": cache["len"] + width}
+        if "pages" in cache:
+            new_cache["pages"] = cache["pages"]
+        if lay.dp_size > 1:
+            out = _sh.all_gather(out.contiguous(), lay.dp_axes, lay.mesh, 0,
+                                 tag=tags[1])
+    return out, new_cache
+
+
+def _check_grouping(tenant_groups, dynamic_groups: bool) -> None:
+    if dynamic_groups and tenant_groups is not None:
+        raise ValueError(
+            "dynamic_groups=True takes the per-row adapter index from "
+            "batch_in['adapter_idx']; a static tenant_groups signature "
+            "cannot be given at the same time")
+
+
 def make_decode_step(mcfg: ModelConfig, scfg: StepConfig, mesh=None, *,
                      batch: int, tenant_groups=None,
                      dynamic_groups: bool = False):
@@ -639,27 +700,20 @@ def make_decode_step(mcfg: ModelConfig, scfg: StepConfig, mesh=None, *,
     projections on their local rows, attention on the local heads with no
     collective, the row-parallel ones all-reducing y_base and the r-wide
     h over ``model`` (fp32) before the compose, and the head's local
-    vocab columns gathered ([batch / data, V]). The adapters must be the
-    serving state of ``make_precompute_step(mcfg, scfg, mesh)``, or with
-    ``tenant_groups`` (the whole batch's) a stack of such states; the
-    groups are cut to this replica's rows once, here (``launch/sharding.py
-    local_tenant_groups``), and a grouped step moves the single-tenant
-    step's collective bytes. ``dynamic_groups`` under a mesh is refused
-    by the forward (ROADMAP queue 1 item 6, second half, point 1c-ii).
-    The engine's cache (``init_cache(row_lens=True, mesh=)``: "len"
-    [batch] and a paged cache's "pages" [batch, max_blocks] whole on
-    every rank) takes the whole batch's tokens [batch, 1] instead: the
-    step runs this replica's rows of the tokens, "len" and "pages"
-    (``launch/sharding.py local_rows``), advances every row's "len" as
-    one card does, and returns the logits gathered over the data axes
-    too ([batch, V] on every rank).
-    ``decode_step.layout`` is the :class:`MeshLayout`, None without a
-    mesh."""
-    if dynamic_groups and tenant_groups is not None:
-        raise ValueError(
-            "dynamic_groups=True takes the per-row adapter index from "
-            "batch_in['adapter_idx']; a static tenant_groups signature "
-            "cannot be given at the same time")
+    vocab columns gathered ([batch / data, V], tag "decode.logits"). The
+    adapters must be the serving state of ``make_precompute_step(mcfg,
+    scfg, mesh)``, or with ``tenant_groups`` (the whole batch's) or
+    ``dynamic_groups`` a stack of such states ([n_scan, K, ...],
+    ``launch/sharding.py fleet_stack_sharding``); static groups are cut
+    to this replica's rows once, here (``local_tenant_groups``), and a
+    grouped or dynamic step moves the single-tenant step's collective
+    bytes. The engine's cache (``init_cache(row_lens=True, mesh=)``:
+    "len" [batch] and a paged cache's "pages" [batch, max_blocks] whole
+    on every rank) takes the whole batch's tokens [batch, 1] and
+    ``adapter_idx`` [batch] instead (:func:`_serve_rows`; the data
+    gather's tag "engine.logits"). ``decode_step.layout`` is the
+    :class:`MeshLayout`, None without a mesh."""
+    _check_grouping(tenant_groups, dynamic_groups)
     lay = None if mesh is None else mesh_layout(mcfg, scfg, mesh,
                                                 batch=batch, seq=1,
                                                 decode=True)
@@ -667,45 +721,20 @@ def make_decode_step(mcfg: ModelConfig, scfg: StepConfig, mesh=None, *,
 
     @torch.no_grad()
     def decode_step(params, adapters, cache, batch_in):
-        inputs = _inputs(batch_in)
-        (name, x), = inputs.items()
-        # Under a mesh the engine's per-row cache holds the whole batch's
-        # lengths: the step takes the whole batch and runs its rows.
-        whole = lay is not None and isinstance(cache["len"], torch.Tensor) \
-            and cache["len"].ndim == 1
-        rows = batch if lay is None or whole else lay.local_batch
-        if tuple(x.shape[:2]) != (rows, 1):
-            raise ValueError(f"decode built for {name} [{rows}, 1], got "
-                             f"{tuple(x.shape)}")
-        tg = (torch.as_tensor(batch_in["adapter_idx"], device=x.device)
-              if dynamic_groups else tenant_groups)
-        view = cache
-        if whole:
-            from repro_torch.launch.sharding import local_rows
-            mine = local_rows(mesh, batch)
-            inputs = {name: x[mine]}
-            view = {**cache, "len": cache["len"][mine]}
-            if "pages" in cache:
-                view["pages"] = cache["pages"][mine]
-        logits, new_cache = forward(
-            mcfg, params, adapters, scfg.dora, **inputs, cache=view,
-            training=False, tenant_groups=tg,
-            boundary_constraint=None if lay is None else lay.sp)
-        last = _gather_vocab(logits[:, -1], mcfg, lay, "decode.logits")
-        if whole:
-            new_cache = {**new_cache, "len": cache["len"] + 1}
-            if "pages" in cache:
-                new_cache["pages"] = cache["pages"]
-            if lay.dp_size > 1:
-                last = _sh.all_gather(last.contiguous(), lay.dp_axes,
-                                      lay.mesh, 0, tag="engine.logits")
-        return last, new_cache
+        return _serve_rows(mcfg, scfg, lay, batch=batch, width=1,
+                           step="decode",
+                           tags=("decode.logits", "engine.logits"),
+                           params=params, adapters=adapters, cache=cache,
+                           batch_in=batch_in, inputs=_inputs(batch_in),
+                           tenant_groups=tenant_groups,
+                           dynamic_groups=dynamic_groups)
 
     decode_step.layout = lay
     return decode_step
 
 
-def make_draft_step(mcfg: ModelConfig, scfg: StepConfig, *, batch: int):
+def make_draft_step(mcfg: ModelConfig, scfg: StepConfig, mesh=None, *,
+                    batch: int):
     """(params, cache, batch_in) -> (logits [B, V], cache').
 
     The speculative draft: one token ``batch_in["tokens"]`` [B, 1] through
@@ -716,24 +745,35 @@ def make_draft_step(mcfg: ModelConfig, scfg: StepConfig, *, batch: int):
     decode step's: per-row "len", each row writing and attending at its own
     position. The verify rewrites every drafted position with full-path
     K/V, so no base-path K/V survives into the committed cache (see
-    ``launch/engine.py``)."""
+    ``launch/engine.py``).
+
+    ``mesh``: as :func:`make_decode_step`, in the decode layout: the
+    engine's whole per-row cache and the whole batch's tokens, this
+    replica's rows run, every row's "len" advanced by 1, the logits
+    gathered over the vocab ("draft.logits") and the data axes
+    ("engine.draft.logits"). With no adapter the row-parallel projections
+    all-reduce y_base alone: the decode step's bytes less ``tp.h``.
+    ``draft_step.layout`` is the :class:`MeshLayout`, None without a
+    mesh."""
+    lay = None if mesh is None else mesh_layout(mcfg, scfg, mesh,
+                                                batch=batch, seq=1,
+                                                decode=True)
 
     @torch.no_grad()
     def draft_step(params, cache, batch_in):
-        tokens = batch_in["tokens"]
-        if tuple(tokens.shape) != (batch, 1):
-            raise ValueError(f"draft built for tokens [{batch}, 1], got "
-                             f"{tuple(tokens.shape)}")
-        logits, new_cache = forward(mcfg, params, {}, scfg.dora,
-                                    tokens=tokens, cache=cache,
-                                    training=False)
-        return logits[:, -1], new_cache
+        return _serve_rows(mcfg, scfg, lay, batch=batch, width=1,
+                           step="draft",
+                           tags=("draft.logits", "engine.draft.logits"),
+                           params=params, adapters={}, cache=cache,
+                           batch_in=batch_in,
+                           inputs={"tokens": batch_in["tokens"]})
 
+    draft_step.layout = lay
     return draft_step
 
 
-def make_verify_step(mcfg: ModelConfig, scfg: StepConfig, *, batch: int,
-                     window: int, tenant_groups=None,
+def make_verify_step(mcfg: ModelConfig, scfg: StepConfig, mesh=None, *,
+                     batch: int, window: int, tenant_groups=None,
                      dynamic_groups: bool = False):
     """(params, adapters, cache, batch_in) -> (logits [B, window, V],
     cache').
@@ -751,22 +791,35 @@ def make_verify_step(mcfg: ModelConfig, scfg: StepConfig, *, batch: int,
     ``tenant_groups`` and ``dynamic_groups``: as for
     :func:`make_decode_step`, the rows grouped by adapter in static
     ``(start, size)`` blocks, or each row's adapter the int [B] stack
-    position ``batch_in["adapter_idx"]``; mutually exclusive."""
-    if dynamic_groups and tenant_groups is not None:
-        raise ValueError(
-            "dynamic_groups=True takes the per-row adapter index from "
-            "batch_in['adapter_idx']; a static tenant_groups signature "
-            "cannot be given at the same time")
+    position ``batch_in["adapter_idx"]``; mutually exclusive.
+
+    ``mesh``: as :func:`make_decode_step`, in the decode layout with the
+    window whole on every rank (``make_boundary_constraint(decode=True)``
+    takes any S: each row's frontier and its K/V writes need the whole
+    window); static groups cut to this replica's rows, the engine's whole
+    cache, tokens and index taken as the decode step takes them, every
+    row's "len" advanced by ``window``, and the logits of every window
+    position gathered over the vocab ("verify.logits") and the data axes
+    ("engine.verify.logits"): [batch, window, V] on every rank, so the
+    host's accept and rewind decisions are the same on each.
+    ``verify_step.layout`` is the :class:`MeshLayout`, None without a
+    mesh."""
+    _check_grouping(tenant_groups, dynamic_groups)
+    lay = None if mesh is None else mesh_layout(mcfg, scfg, mesh,
+                                                batch=batch, seq=window,
+                                                decode=True)
+    tenant_groups = _local_groups(mesh, batch, tenant_groups)
 
     @torch.no_grad()
     def verify_step(params, adapters, cache, batch_in):
-        tokens = batch_in["tokens"]
-        if tuple(tokens.shape) != (batch, window):
-            raise ValueError(f"verify built for tokens [{batch}, {window}], "
-                             f"got {tuple(tokens.shape)}")
-        tg = (torch.as_tensor(batch_in["adapter_idx"], device=tokens.device)
-              if dynamic_groups else tenant_groups)
-        return forward(mcfg, params, adapters, scfg.dora, tokens=tokens,
-                       cache=cache, training=False, tenant_groups=tg)
+        return _serve_rows(mcfg, scfg, lay, batch=batch, width=window,
+                           step="verify",
+                           tags=("verify.logits", "engine.verify.logits"),
+                           params=params, adapters=adapters, cache=cache,
+                           batch_in=batch_in,
+                           inputs={"tokens": batch_in["tokens"]},
+                           tenant_groups=tenant_groups,
+                           dynamic_groups=dynamic_groups, last=False)
 
+    verify_step.layout = lay
     return verify_step

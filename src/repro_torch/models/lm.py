@@ -457,8 +457,9 @@ def check_mesh_supported(mcfg: ModelConfig) -> None:
             f != "mlp" for f in mcfg.ffn_kinds()):
         raise NotImplementedError(
             f"{mcfg.name}: only dense attention stacks run on a mesh so "
-            f"far; Mamba and MoE layers across ranks are ROADMAP queue 1 "
-            f"item 6, second half")
+            f"far; Mamba and MoE layers across ranks (multi-device SSM and "
+            f"expert stacks) are ROADMAP queue 1 item 6, second half, "
+            f"point 2")
 
 
 def _vocab_parallel_embed(embed, tokens, mcfg: ModelConfig, sp):
@@ -508,10 +509,10 @@ def forward(mcfg: ModelConfig, params, adapters, dcfg: DoRAConfig | None,
     positions into the stacked tenant dim; ``adapters`` is then a stacked
     folded serving tree (leaves [n_scan, K, ...], see
     ``repro_torch.core.adapter.stack_adapter_states``). Serving only:
-    ``training=False`` is required. Under a mesh the groups are static
-    and this data replica's (``launch/sharding.py local_tenant_groups``,
-    which the prefill and decode steps apply), and the stacked tree is
-    this rank's shards.
+    ``training=False`` is required. Under a mesh the groups are this data
+    replica's: static ones cut by ``launch/sharding.py
+    local_tenant_groups``, a dynamic index by ``local_adapter_idx`` (the
+    steps apply both), and the stacked tree is this rank's shards.
     ``boundary_constraint``: the sequence-parallel layout of a mesh
     (``launch/sharding.py make_boundary_constraint``), the explicit form
     of the reference's argument. ``params`` and ``adapters`` are then this
@@ -533,10 +534,6 @@ def forward(mcfg: ModelConfig, params, adapters, dcfg: DoRAConfig | None,
     sp = boundary_constraint
     if sp is not None:
         check_mesh_supported(mcfg)
-        if isinstance(tenant_groups, torch.Tensor):
-            raise NotImplementedError(
-                "dynamic tenant groups under a mesh are ROADMAP queue 1 "
-                "item 6, second half, point 1c-ii")
     adapters = adapters or {}
     if embeds is None:
         x = (params["embed"].detach()[tokens] if sp is None

@@ -127,6 +127,18 @@ SERVER_KW = dict(slots=4, max_len=48, paged=True, block_size=8,
 MT_TENANTS = 3
 MT_OWNERS = (2, 0, 1, 0, 2, 1)
 MT_GROUPS = ((0, 2), (2, 2), (4, 2))
+# Dynamic grouping and speculation across the mesh (the engine spawns):
+# the committed fleet trace over five tenants (the first three MT's), at
+# its 3 slots and at 4, whose rows split over data; the committed
+# speculative trace at k = 3. Dynamic == static within FLEET_INSIDE of
+# max |logit| (tests/test_torch_fleet.py's bound inside the port).
+FLEET_TENANTS = 5
+FLEET_INSIDE = 2e-6
+# The paged geometry of both traces (max_len 18): the default blocks of
+# 9 and chunks of 18, which the model axis splits (chunks of 9 it does
+# not), so that each prompt of 8 enters in one chunk as with the default
+# chunk and the schedule is the committed one.
+PAGED_GEO = {"paged": True, "prefill_chunk": 18}
 
 
 def _max_rel(got, want) -> float:
@@ -201,14 +213,16 @@ def inputs():
     state = _model_state()[1:]
     return {"norm": _norm_inputs(), "compose": _compose_inputs(),
             "state": state, "compression": _compression_inputs(),
-            "tenants": _tenants(state[1])}
+            "tenants": _tenants(state[1]),
+            "fleet_tenants": _tenants(state[1], FLEET_TENANTS),
+            "spec": _spec_inputs(state[0], state[1])}
 
 
-def _tenants(adapters):
-    """MT_TENANTS copies of the adapters, each with its own B and m
+def _tenants(adapters, n=MT_TENANTS):
+    """``n`` copies of the adapters, each with its own B and m
     perturbation (numpy)."""
     out = []
-    for t in range(MT_TENANTS):
+    for t in range(n):
         rng = np.random.default_rng(20 + t)
         ad = _np_tree(adapters)
         for name, leaf in flatten_paths(ad).items():
@@ -662,6 +676,55 @@ def _mt_server_owners():
     return [f"t{(i + 1) % MT_TENANTS}" for i in range(len(SERVER_LENS))]
 
 
+def _fleet_traces():
+    """{name: (trace, prompts, engine kwargs)}: the committed fleet trace
+    ((arrival, P, new tokens, tenant) per request) at its 3 slots, and at
+    4 slots, whose rows split over the data axis."""
+    from test_torch_fleet import fleet_trace
+
+    trace, kw, _ = fleet_trace()
+    prompts = _prompts(trace, seed=14)
+    return {"fleet": (trace, prompts, kw),
+            "fleet4": (trace, prompts, {**kw, "slots": 4})}
+
+
+def _spec_inputs(params, adapters):
+    """The committed speculative trace and the identity adapters: B = 0
+    and m each row's norm of W as the port computes it on one card, so
+    one card's g is 1 exactly (numpy)."""
+    from test_torch_speculative import _spec_trace
+
+    from repro_torch.bridge import tree_from_numpy, tree_to_numpy
+    from repro_torch.core.adapter import compute_weight_norm
+    from repro_torch.core.config import DoRAConfig
+
+    trace, slots, max_len, k, model = _spec_trace()
+    params = tree_from_numpy(_np_tree(params))
+    ident = tree_from_numpy(_np_tree(adapters))
+    fp, fa = flatten_paths(params), flatten_paths(ident)
+    dcfg = DoRAConfig(rank=RANK, alpha=ALPHA, **ROUTES["mm"])
+    for name, leaf in fa.items():
+        if name.endswith("/B"):
+            leaf.zero_()
+    for name, m in fa.items():
+        if name.endswith("/m"):
+            pre = name[:-2]
+            for i in range(m.shape[0]):
+                m[i] = compute_weight_norm(fp[pre][i], fa[pre + "/A"][i],
+                                           fa[pre + "/B"][i], dcfg)
+    return {"trace": trace, "prompts": _prompts(trace, seed=15), "k": k,
+            "kw": {"slots": slots, "max_len": max_len},
+            "identity": tree_to_numpy(ident), "model": model}
+
+
+def _spec_payload(spec):
+    """The ranks' copy of ``_spec_inputs``."""
+    return {"trace": [tuple(r) for r in spec["trace"]],
+            "prompts": [q.copy() for q in spec["prompts"]], "k": spec["k"],
+            "kw": dict(spec["kw"]), "identity": _np_tree(spec["identity"]),
+            "paged": dict(PAGED_GEO)}
+
+
 def _engine_cases(world, inputs):
     params, adapters, _, _ = inputs["state"]
     model = {"widths": WIDTHS, "params": _np_tree(params),
@@ -679,7 +742,14 @@ def _engine_cases(world, inputs):
               "tenants": _np_tree(inputs["tenants"]), "mt_traces": mt,
               "mt_server": ([q.copy() for q in _server_prompts()],
                             _mt_server_owners(), dict(SERVER_KW),
-                            SERVER_GEN)})
+                            SERVER_GEN),
+              "fleet": {"tenants": _np_tree(inputs["fleet_tenants"]),
+                        "traces": {k: ([list(r) for r in t],
+                                       [q.copy() for q in pr], dict(kw))
+                                   for k, (t, pr, kw)
+                                   in _fleet_traces().items()},
+                        "paged": dict(PAGED_GEO)},
+              "spec": _spec_payload(inputs["spec"])})
             for shape in ENGINE[world]]
 
 
@@ -728,6 +798,100 @@ def engine_reference(inputs, engine_spawned):
                      "stats": server.engine.stats().as_dict(),
                      "pool": server.engine.pool_stats()}
     out.update(_reference_engine_tenants(jm, jscfg, jp, inputs["tenants"]))
+    out.update(_reference_fleet(jm, jscfg, jp, inputs))
+    out.update(_reference_speculative(jm, jscfg, jp, inputs))
+    return out
+
+
+def _reference_fleet(jm, jscfg, jp, inputs):
+    """The reference's single-device dynamic engine on _fleet_traces(),
+    rectangular and paged (streams, stats, the cache's stats), the port's
+    single-card dynamic engine on the same (device steps, sampled rows'
+    logits), and the reference's MultiTenantServer(dynamic_grouping=True)
+    on the mixed lengths, plain and with speculative_k=3."""
+    import torch
+    from test_torch_fleet import capture_logits
+
+    from repro_torch.bridge import tree_from_numpy
+    from repro_torch.core.adapter_cache import AdapterStateCache
+    from repro_torch.core.config import DoRAConfig
+    from repro_torch.launch.engine import DecodeEngine
+    from repro_torch.launch.steps import StepConfig
+    from repro_torch.models.config import ModelConfig
+
+    tenants = inputs["fleet_tenants"]
+    tm = ModelConfig(**WIDTHS, dtype=torch.float32)
+    tscfg = StepConfig(dora=DoRAConfig(rank=RANK, alpha=ALPHA,
+                                       **ROUTES["mm"]))
+    tparams = tree_from_numpy(inputs["state"][0])
+    out = {}
+    for name, (trace, prompts, kw) in _fleet_traces().items():
+        owners = [f"t{r[3]}" for r in trace]
+        for form, geo in (("dynamic", {}), ("dynamic_paged", PAGED_GEO)):
+            cache = _tenant_jcache(jm, jscfg, tenants)
+            eng = JEngine(jm, jscfg, jp, adapter_cache=cache,
+                          dynamic_grouping=True, **kw, **geo)
+            streams = _drive(eng, [r[:3] for r in trace], prompts,
+                             adapter=owners)
+            tcache = AdapterStateCache.for_serving(tm, tscfg, device="cpu")
+            for t, ad in enumerate(tenants):
+                tcache.register(f"t{t}", tree_from_numpy(ad))
+            one = DecodeEngine(tm, tscfg, tparams, adapter_cache=tcache,
+                               dynamic_grouping=True, device="cpu", **kw,
+                               **geo)
+            logits = capture_logits(one)
+            one_streams = _drive(one, [r[:3] for r in trace], prompts,
+                                 adapter=owners)
+            out[f"{name}_{form}"] = {
+                "streams": streams, "stats": eng.stats().as_dict(),
+                "cache": cache.stats(), "one_streams": one_streams,
+                "one_steps": one.device_steps(), "one_logits": logits}
+    cache = _tenant_jcache(jm, jscfg, inputs["tenants"])
+    server = JMTServer(jm, jscfg, jp, cache=cache, dynamic_grouping=True,
+                       engine_slots=SERVER_KW["slots"])
+    reqs = [JRequest(q, t) for q, t in zip(_server_prompts(),
+                                            _mt_server_owners())]
+    out["mt_dynamic_server"] = {
+        "plain": [np.asarray(t).tolist() for t in server.serve(
+            reqs, gen_len=SERVER_GEN, max_len=SERVER_KW["max_len"])],
+        "speculative": [np.asarray(t).tolist() for t in server.serve(
+            reqs, gen_len=SERVER_GEN, max_len=SERVER_KW["max_len"],
+            speculative_k=3)],
+        "cache": cache.stats()}
+    return out
+
+
+def _reference_speculative(jm, jscfg, jp, inputs):
+    """The reference's single-device engine with identity adapters (its
+    state's g = 1 and gsB = 0 written in, as tests/test_torch_speculative
+    does) at k = 3 on the committed speculative trace, rectangular and
+    paged, and its EngineServer.run(speculative_k=3) of the mixed
+    lengths over the three tenants."""
+    spec = inputs["spec"]
+    ident = jax.tree_util.tree_map(jnp.asarray, spec["identity"])
+    state = _np_tree(jax.jit(jmake_precompute_step(
+        jm, jscfg, None, fold_gsb=True))(jp, ident))
+    for name, leaf in flatten_paths(state).items():
+        if name.endswith("/g"):
+            leaf[...] = 1.0
+        elif name.endswith("/gsB"):
+            leaf[...] = 0.0
+    out = {}
+    for geo_name, geo in (("rect", {}), ("paged", PAGED_GEO)):
+        eng = JEngine(jm, jscfg, jp, adapters=state,
+                      speculative_k=spec["k"], **spec["kw"], **geo)
+        streams = _drive(eng, spec["trace"], spec["prompts"])
+        out[f"spec_identity_{geo_name}"] = {
+            "streams": streams, "stats": eng.stats().as_dict()}
+    cache = _tenant_jcache(jm, jscfg, inputs["tenants"])
+    server = JServer(jm, jscfg, jp, cache=cache, **SERVER_KW)
+    res = server.run([JRequest(q, t) for q, t in
+                      zip(_server_prompts(), _mt_server_owners())],
+                     gen_len=SERVER_GEN, speculative_k=3)
+    out["spec_server"] = {
+        "tokens": [np.asarray(r.tokens).tolist() for r in res],
+        "reasons": [r.finish_reason for r in res],
+        "stats": server.engine.stats().as_dict(), "cache": cache.stats()}
     return out
 
 
@@ -943,3 +1107,150 @@ def test_mesh_engine_server_with_several_handles_matches_reference(
     _same_cache_counts(got["cache"], want["cache"])
     assert any(k not in ("None", "dynamic")
                for k in got["signatures"]["decode"])
+
+
+# --- dynamic grouping and speculation across the mesh ------------------------
+
+def _max_rel_rows(got: dict, want: dict) -> float:
+    """Largest distance over max |logit| between two engines' sampled
+    rows, keyed (key_id, tokens sampled before)."""
+    assert got.keys() == want.keys()
+    return max(_max_rel(got[k], want[k]) for k in want)
+
+
+def _fleet_runs():
+    return [(w, s, name, form) for w, shapes in ENGINE.items()
+            for s in shapes for name in ("fleet", "fleet4")
+            for form in ("dynamic", "dynamic_paged")]
+
+
+@pytest.mark.parametrize("world,shape,trace,form", _fleet_runs(), ids=str)
+def test_mesh_dynamic_engine_matches_reference(world, shape, trace, form,
+                                               engine_ranks,
+                                               engine_reference):
+    """DecodeEngine(mesh=, dynamic_grouping=True) over five tenants on the
+    committed fleet trace, at its 3 slots (every replica holds the whole
+    batch) and at 4 (the rows split over data), rectangular and paged:
+    streams, stats() and the cache's counts equal the reference's
+    single-device dynamic engine; device steps and streams those of the
+    port's single-card dynamic engine, and every sampled row's logits
+    within 1e-5 of max |logit| of it; every decode under the one
+    signature "dynamic"; K8's plain version 2 x layers x (decode + chunk
+    steps) on the paged engine; every rank returned the same, its cache
+    stats included. At 3 slots, rectangular, the counters equal
+    fleet.schedule_model (one dynamic signature), and at both widths the
+    static engine on the same mesh gives the same streams with logits
+    within FLEET_INSIDE of the dynamic ones."""
+    ranks = engine_ranks[world][f"engine_{shape}"]
+    got, want = ranks[f"{trace}_{form}"], engine_reference[f"{trace}_{form}"]
+    assert got["same_on_every_rank"]
+    assert got["streams"] == want["streams"] == want["one_streams"]
+    assert got["stats"] == want["stats"]
+    _same_cache_counts(got["cache"], want["cache"])
+    steps = got["device_steps"]
+    assert steps == want["one_steps"]
+    assert got["signatures"]["decode"] == {"dynamic": steps["decode"]}
+    assert _max_rel_rows(got["logits"], want["one_logits"]) <= 1e-5
+    assert got["gathers"] == 2 * WIDTHS["num_layers"] * (
+        steps["decode"] + steps["prefill_chunk"]) * (form != "dynamic")
+    if form != "dynamic":
+        assert got["pool"]["used_blocks"] == 0
+        return
+    static = ranks[f"{trace}_static"]
+    assert static["same_on_every_rank"]
+    assert static["streams"] == got["streams"]
+    assert got["vs_static"] <= FLEET_INSIDE
+    if trace == "fleet":
+        from test_torch_fleet import fleet_trace
+
+        model = fleet_trace()[2]
+        for field in ("steps", "decode_steps", "prefills",
+                      "generated_tokens", "slot_steps", "mean_occupancy"):
+            assert got["stats"][field] == model[field], field
+        assert len(got["signatures"]["decode"]) == model[
+            "dynamic_signatures"]
+        assert sorted(static["signatures"]["decode"]) == model[
+            "signature_keys"]
+
+
+def _spec_runs():
+    return [(w, s, geo) for w, shapes in ENGINE.items() for s in shapes
+            for geo in ("rect", "paged")]
+
+
+@pytest.mark.parametrize("world,shape,geo", _spec_runs(), ids=str)
+def test_mesh_speculative_engine_reaches_the_committed_model(
+        world, shape, geo, engine_ranks, engine_reference, inputs):
+    """DecodeEngine(mesh=, speculative_k=3) with identity adapters (B = 0,
+    m one card's row norm) on the committed speculative trace,
+    rectangular and paged: streams and stats() equal the reference's
+    single-device engine, the seven counters equal speculative_model (45
+    drafts, 15 verifies, 63 accepted drafts); K8's plain version 2 x
+    layers x (chunk + decode + draft + verify steps) on the paged engine;
+    every rank returned the same. At model = 2 wo's and w_down's g comes
+    from norm partials summed over the axis, so it may stand a few ulp
+    from 1 (printed); the counters stay exact."""
+    got = engine_ranks[world][f"engine_{shape}"][f"spec_identity_{geo}"]
+    want = engine_reference[f"spec_identity_{geo}"]
+    assert got["same_on_every_rank"]
+    assert got["streams"] == want["streams"]
+    assert got["stats"] == want["stats"]
+    model = inputs["spec"]["model"]
+    assert {f: got["stats"][f] for f in model} == model
+    steps = got["device_steps"]
+    assert (steps["draft"], steps["verify"]) == (45, 15)
+    assert got["gathers"] == 2 * WIDTHS["num_layers"] * (
+        steps["decode"] + steps["prefill_chunk"] + steps["draft"]
+        + steps["verify"]) * (geo == "paged")
+    if geo == "rect":
+        print(f"max |g - 1| on {shape}: {got['g_dev']:.3e}")
+        assert got["g_dev"] <= 1e-6
+
+
+@pytest.mark.parametrize("world,shape", [(w, s) for w, shapes in
+                                         ENGINE.items() for s in shapes],
+                         ids=str)
+def test_mesh_speculative_streams_equal_plain_decode(world, shape,
+                                                     engine_ranks):
+    """With the perturbed adapters some drafts miss: the speculative
+    mesh engine's streams, rectangular and paged, equal the plain mesh
+    engine's, and paged == rectangular, on every rank."""
+    ranks = engine_ranks[world][f"engine_{shape}"]
+    rect, paged, plain = (ranks[f"spec_perturbed_{g}"]
+                          for g in ("rect", "paged", "plain"))
+    assert rect["same_on_every_rank"] and paged["same_on_every_rank"]
+    assert rect["streams"] == paged["streams"] == plain["streams"]
+    st = rect["stats"]
+    assert st["verify_steps"] > 0
+    assert st["accepted_drafts"] < 3 * st["verify_steps"]
+    assert paged["pool"]["used_blocks"] == 0
+
+
+@pytest.mark.parametrize("world,shape", [(w, s) for w, shapes in
+                                         ENGINE.items() for s in shapes],
+                         ids=str)
+def test_mesh_servers_speculate_and_group_dynamically_as_reference(
+        world, shape, engine_ranks, engine_reference):
+    """EngineServer(mesh=).run(speculative_k=3) of mixed prompt lengths
+    under three handles through the paged engine, and
+    MultiTenantServer(mesh=, dynamic_grouping=True) on the same requests,
+    plain and with speculative_k=3: tokens, finish reasons, stats() and
+    the cache's counts equal the reference's single-device servers; the
+    server's engine decoded under "dynamic" alone; every rank returned
+    the same."""
+    ranks = engine_ranks[world][f"engine_{shape}"]
+    got, want = ranks["spec_server"], engine_reference["spec_server"]
+    assert got["same_on_every_rank"]
+    assert got["reasons"] == want["reasons"] == ["length"] * len(SERVER_LENS)
+    assert got["tokens"] == want["tokens"]
+    assert got["stats"] == want["stats"]
+    assert got["stats"]["verify_steps"] > 0
+    _same_cache_counts(got["cache"], want["cache"])
+    got = ranks["mt_dynamic_server"]
+    want = engine_reference["mt_dynamic_server"]
+    assert got["same_on_every_rank"]
+    assert got["plain"] == want["plain"]
+    assert got["speculative"] == want["speculative"] == got["plain"]
+    _same_cache_counts(got["cache"], want["cache"])
+    assert set(got["signatures"]["decode"]) == {"dynamic"}
+    assert set(got["signatures"]["verify"]) <= {"('dynamic', 4)"}

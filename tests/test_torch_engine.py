@@ -475,16 +475,36 @@ def _one_rank_mesh():
     ({"speculative_k": 2}, "multi-device"),
 ])
 def test_later_slices_are_refused(state, kw, item):
-    """Under a mesh (a real one-rank gloo mesh) the engine decodes
-    plainly: speculation is ROADMAP queue 1 item 6, second half, point
-    1c-ii. Slots of two handles are no longer refused: two perturbed
-    tenants, admitted beside each other, rectangular and paged, give the
-    no-mesh engine's streams, results and stats bit for bit, and the
-    tenants' streams differ."""
+    """Under a mesh (a real one-rank gloo mesh) the engine runs what
+    ``kw`` asks for, speculation (k = 2), as on no mesh: rectangular and
+    paged, its streams, results, stats and device steps equal the no-mesh
+    engine's bit for bit. What stays refused on a mesh is point 2 of
+    ROADMAP queue 1 item 6, second half (``item``: multi-device Mamba and
+    MoE stacks), refused once, by ``check_mesh_supported``. Slots of two
+    handles: two perturbed tenants, admitted beside each other,
+    rectangular and paged, give the no-mesh engine's streams, results and
+    stats bit for bit, and the tenants' streams differ."""
+    from repro_torch.configs import get_config
+
     one = _one_rank_mesh()
-    with pytest.raises(NotImplementedError, match=item) as err:
-        _port_engine(state, slots=2, max_len=16, mesh=one, **kw)
-    assert "point 1c-ii" in str(err.value)
+    trace = _TRACE[:6]
+    for geo in ({}, dict(paged=True, block_size=4, prefill_chunk=4)):
+        runs = []
+        for m in (one, None):
+            engine = _port_engine(state, slots=2, max_len=16, mesh=m,
+                                  **kw, **geo)
+            streams = _drive(engine, trace, _prompts(trace))
+            runs.append((streams, [(r.request_id, r.tokens.tolist(),
+                                    r.finish_reason)
+                                   for r in engine.pop_results()],
+                         engine.stats().as_dict(), engine.device_steps()))
+        assert runs[0] == runs[1]
+        assert runs[0][3]["verify"] > 0
+    for arch in ("falcon-mamba-7b", "qwen2-moe-a2.7b"):
+        with pytest.raises(NotImplementedError, match=item) as err:
+            tsteps.make_decode_step(get_config(arch, smoke=True), _tstep(),
+                                    one, batch=2)
+        assert "point 2" in str(err.value)
     _, _, _, tm, t_params, _ = state
     scfg = _tstep()
     gen = torch.Generator().manual_seed(0)

@@ -112,28 +112,48 @@ def test_bad_request_mid_batch_queues_nothing(fleet):
 
 
 def test_mesh_and_a_foreign_cache_are_refused(fleet):
-    """Under a (one-rank) mesh the server's engine decodes plainly:
-    speculation is ROADMAP queue 1 item 6, second half, point 1c, at
-    construction and at run(speculative_k=); a cache keyed for no mesh is
-    refused; an empty batch is."""
+    """Under a (one-rank) mesh the server's engine speculates as on no
+    mesh: with k = 2 given at construction, and at run(speculative_k=2)
+    on a server built plain, over two tenants, the results, the engine's
+    stats and the cache's counts equal the no-mesh server's bit for bit.
+    A cache keyed for no mesh is refused; an empty batch is; and a Mamba
+    stack stays refused on a mesh (ROADMAP queue 1 item 6, second half,
+    point 2)."""
+    from repro_torch.configs import get_config
     from repro_torch.core.adapter_cache import AdapterStateCache
     from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.launch.steps import make_precompute_step
 
     cache = fleet.port_cache(1)
     one = make_debug_mesh(1, 1, device="cpu", backend="gloo")
-    meshed = AdapterStateCache.for_serving(fleet.tm, fleet.scfg, mesh=one)
-    with pytest.raises(NotImplementedError, match="item 6, second half, "
-                                                  "point 1c"):
-        _port_server(fleet, meshed, slots=2, max_len=8, mesh=one,
-                     speculative_k=2)
     with pytest.raises(ValueError, match="keyed for sharding"):
         _port_server(fleet, cache, slots=2, max_len=8, mesh=one)
-    server = _port_server(fleet, meshed, slots=2, max_len=8, mesh=one)
-    meshed.register("t0", tree_from_numpy(fleet.tenants[0]))
-    (req,), _ = _requests(fleet, 16, [(5, 0)])
-    with pytest.raises(NotImplementedError, match="point 1c"):
-        server.run([req], gen_len=2, speculative_k=2)
-    assert not server.engine.has_work() and server.engine.speculative_k == 0
+    reqs, _ = _requests(fleet, 16, [(5, 0), (4, 1), (6, 0)])
+    runs = {}
+    for m in (one, None):
+        for when in ("built", "run"):
+            if m is None:
+                c = fleet.port_cache(2)
+            else:
+                c = AdapterStateCache.for_serving(fleet.tm, fleet.scfg,
+                                                  mesh=m)
+                for t in range(2):
+                    c.register(f"t{t}", tree_from_numpy(fleet.tenants[t]))
+            server = _port_server(fleet, c, slots=2, max_len=12, mesh=m,
+                                  speculative_k=2 if when == "built" else 0)
+            res = server.run(reqs, gen_len=3, speculative_k=(
+                None if when == "built" else 2))
+            assert server.engine.speculative_k == 2
+            runs[when, m is None] = (
+                [(r.tokens.tolist(), r.finish_reason) for r in res],
+                server.engine.stats().as_dict(), c.stats().as_dict())
+        assert runs["built", m is None][0] == runs["run", m is None][0]
+    for when in ("built", "run"):
+        assert runs[when, False] == runs[when, True]
+        assert runs[when, False][1]["verify_steps"] > 0
+    with pytest.raises(NotImplementedError, match="point 2"):
+        make_precompute_step(get_config("falcon-mamba-7b", smoke=True),
+                             fleet.scfg, one)
     with pytest.raises(ValueError, match="empty request batch"):
         _port_server(fleet, cache, slots=2, max_len=8).run([], gen_len=2)
 

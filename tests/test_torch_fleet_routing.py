@@ -128,17 +128,40 @@ def test_cache_keyed_for_another_layout_is_refused(fleet):
     with pytest.raises(ValueError, match="keyed for sharding"):
         fleet.port_engine(other, slots=2, max_len=8)
     # Under a (one-rank) mesh: a cache keyed for no mesh is refused, and
-    # dynamic grouping is ROADMAP queue 1 item 6, second half, point 1c.
+    # the dynamic engine over a cache keyed for the mesh gives the no-mesh
+    # dynamic engine's streams, stats, stack inserts and cache counts bit
+    # for bit; a MoE stack stays refused on a mesh (ROADMAP queue 1 item
+    # 6, second half, point 2).
+    from repro_torch.configs import get_config
     from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.launch.steps import make_precompute_step
     one = make_debug_mesh(1, 1, device="cpu", backend="gloo")
     with pytest.raises(ValueError, match="keyed for sharding"):
         fleet.port_engine(fleet.port_cache(1), slots=2, max_len=8, mesh=one)
-    meshed = tcore.AdapterStateCache.for_serving(fleet.tm, fleet.scfg,
-                                                 mesh=one)
-    with pytest.raises(NotImplementedError, match="queue 1 item 6, second "
-                                                  "half, point 1c"):
-        fleet.port_engine(meshed, slots=2, max_len=8, mesh=one,
-                          dynamic_grouping=True)
+    prompts = prompts_of(fleet, 21, (5, 4, 6, 3))
+    runs = []
+    for m in (one, None):
+        if m is None:
+            cache = fleet.port_cache(3)
+        else:
+            cache = tcore.AdapterStateCache.for_serving(fleet.tm, fleet.scfg,
+                                                        mesh=m)
+            for t in range(3):
+                cache.register(f"t{t}", tree_from_numpy(fleet.tenants[t]))
+        eng = fleet.port_engine(cache, slots=2, max_len=12, mesh=m,
+                                dynamic_grouping=True)
+        for i, p in enumerate(prompts):
+            eng.submit(p, adapter=f"t{(2 * i) % 3}", max_new_tokens=3,
+                       key_id=i)
+        res = eng.run()
+        runs.append(([(r.tokens.tolist(), r.finish_reason) for r in res],
+                     eng.stats().as_dict(), eng.step_signatures(),
+                     cache.stats().as_dict()))
+    assert runs[0] == runs[1]
+    assert set(runs[0][2]["decode"]) == {"dynamic"}
+    with pytest.raises(NotImplementedError, match="point 2"):
+        make_precompute_step(get_config("qwen2-moe-a2.7b", smoke=True),
+                             fleet.scfg, one)
 
 
 # ---------------------------------------------------------------------------

@@ -445,9 +445,10 @@ def test_server_refusals():
                         prompts, gen_len=2, max_len=MAX_LEN, device="cpu")
     # a mesh: on a one-rank mesh the grouped server (its states from a
     # cache keyed for that mesh) serves the no-mesh server's tokens and
-    # logits bit for bit; dynamic grouping and speculation under a mesh
-    # are ROADMAP queue 1 item 6, second half, point 1c-ii; generate's
-    # handle must come from a cache keyed for the mesh
+    # logits bit for bit, and so do dynamic grouping and speculation on
+    # the engine route; a MoE stack stays refused on a mesh (ROADMAP
+    # queue 1 item 6, second half, point 2); generate's handle must come
+    # from a cache keyed for the mesh
     from repro_torch.launch.mesh import make_debug_mesh
     one = make_debug_mesh(1, 1, device="cpu", backend="gloo")
     meshed = tcore.AdapterStateCache.for_serving(tm, scfg, mesh=one)
@@ -463,12 +464,22 @@ def test_server_refusals():
         reqs, gen_len=2, max_len=MAX_LEN, return_logits=True)
     assert torch.equal(got[0], want[0])
     assert all(torch.equal(a, b) for a, b in zip(got[1], want[1]))
-    with pytest.raises(NotImplementedError, match="queue 1 item 6, second "
-                                                  "half, point 1c-ii"):
-        tserve.MultiTenantServer(tm, scfg, tparams, cache=meshed, mesh=one,
-                                 dynamic_grouping=True)
-    with pytest.raises(NotImplementedError, match="point 1c-ii"):
-        on_mesh.serve(reqs, gen_len=2, max_len=MAX_LEN, speculative_k=2)
+    dynamic = tserve.MultiTenantServer(tm, scfg, tparams, cache=meshed,
+                                       mesh=one, dynamic_grouping=True,
+                                       engine_slots=4)
+    alone = _port_server(params, tenants, dynamic_grouping=True,
+                         engine_slots=4)[4]
+    for kw in ({"static": False}, {"speculative_k": 2}):
+        got = dynamic.serve(reqs, gen_len=2, max_len=MAX_LEN, **kw)
+        want = alone.serve(reqs, gen_len=2, max_len=MAX_LEN, **kw)
+        assert [t.tolist() for t in got] == [t.tolist() for t in want]
+    sigs = next(iter(dynamic._engines.values())).step_signatures()
+    assert set(sigs["decode"]) | set(sigs["verify"]) <= {
+        "dynamic", "('dynamic', 3)"} and sigs["verify"]
+    from repro_torch.launch.steps import make_precompute_step
+    with pytest.raises(NotImplementedError, match="point 2"):
+        make_precompute_step(get_config("qwen2-moe-a2.7b", smoke=True),
+                             scfg, one)
     with pytest.raises(ValueError, match="keyed for sharding"):
         tserve.generate(tm, tparams, cache.current_handle("t1"), scfg,
                         prompts, gen_len=2, max_len=MAX_LEN,

@@ -516,7 +516,8 @@ def test_straggler_dead_host_and_torn_beat(tmp_path):
 
 
 def test_decode_layout_keeps_the_sequence_whole():
-    """The decode mode of the mesh plan: S = 1 only; the residual stream
+    """The decode mode of the mesh plan: any S, the sequence whole (the
+    decode step's S = 1, the verify's window); the residual stream
     whole on every model rank (gather and local rows the identity), the
     row-parallel compose on whole rows and d_out, the column-parallel one
     as in the sequence-parallel mode, the norm's axis the same; the
@@ -541,8 +542,9 @@ def test_decode_layout_keeps_the_sequence_whole():
     assert sp_train.seq_split and sp_train.prefix == "sp"
     with pytest.raises(ValueError, match="does not split"):
         mesh_layout(small, scfg, mesh, batch=4, seq=1)
-    with pytest.raises(ValueError, match="S = 1"):
-        mesh_layout(small, scfg, mesh, batch=4, seq=2, decode=True)
+    window = mesh_layout(small, scfg, mesh, batch=4, seq=2, decode=True)
+    assert not window.sp.seq_split and tuple(window.sp.spec) == (
+        "data", None, None)
     for arch, axes in (("qwen2-7b", dict(data=2, model=2)),
                        ("falcon-mamba-7b", dict(data=1, model=2)),
                        ("qwen2-7b", dict(pod=2, data=1, model=2))):
@@ -583,13 +585,14 @@ def test_partial_product_keeps_fp32_sums_and_the_plain_gradients():
 
 
 def test_grouped_and_paged_serving_on_a_mesh_are_refused():
-    """The decode step on a mesh refuses what is left to the next slice
-    (ROADMAP queue 1 item 6, second half, point 1c-ii): dynamic tenant
-    groups. Static groups over a K-stacked folded state and a paged cache
-    are no longer refused: on a one-rank mesh the grouped decode (two
-    perturbed tenants, one row each) and the engine's paged cache
-    (``init_cache(mesh=)``, the whole batch's tokens) decode as on no
-    mesh, bit for bit."""
+    """The decode step on a mesh refuses what is left to a later slice
+    (ROADMAP queue 1 item 6, second half, point 2): a Mamba stack. Static
+    groups over a K-stacked folded state, dynamic ones (an int index
+    into the same stack) and a paged cache are not refused: on a
+    one-rank mesh the grouped decode (two perturbed tenants, one row
+    each), the dynamic decode (the rows' positions swapped) and the
+    engine's paged cache (``init_cache(mesh=)``, the whole batch's
+    tokens) decode as on no mesh, bit for bit."""
     from repro_torch.launch.steps import (StepConfig, make_decode_step,
                                           make_precompute_step)
     from repro_torch.models.config import ModelConfig
@@ -635,11 +638,24 @@ def test_grouped_and_paged_serving_on_a_mesh_are_refused():
             mcfg, scfg, fold_gsb=True)(params, tenants[1]),
         tlm.init_cache(mcfg, 1, 8) | {"len": 3},
         {"tokens": tokens[:1]})[0])
+    dynamic = []
+    for m in (mesh, None):
+        pre = make_precompute_step(mcfg, scfg, m, fold_gsb=True)
+        stacked = tadapter.stack_adapter_states(
+            [pre(params, ad) for ad in tenants], axis=1)
+        cache = tlm.init_cache(mcfg, 2, 8, mesh=m)
+        cache["len"] = 3
+        logits, new = make_decode_step(mcfg, scfg, m, batch=2,
+                                       dynamic_groups=True)(
+            params, stacked, cache, {"tokens": tokens,
+                                     "adapter_idx": [1, 0]})
+        dynamic.append((logits, new["stack"]["l0"]["k"]))
+    for got, want in zip(*dynamic):
+        assert torch.equal(got, want)
     with pytest.raises(NotImplementedError,
-                       match="item 6, second half, point 1c"):
-        make_decode_step(mcfg, scfg, mesh, batch=2, dynamic_groups=True)(
-            params, {}, tlm.init_cache(mcfg, 2, 8),
-            {"tokens": tokens, "adapter_idx": [0, 1]})
+                       match="item 6, second half, point 2"):
+        make_decode_step(get_config("falcon-mamba-7b", smoke=True), scfg,
+                         mesh, batch=2)
     out = []
     for m in (mesh, None):
         paged = tlm.init_cache(mcfg, 2, 8, row_lens=True, block_size=4,
@@ -743,3 +759,162 @@ def test_local_tenant_groups_names_the_straddling_case():
                        (((0, 1, 1), (2, 1, 2)), "contiguously")]:
         with pytest.raises(ValueError, match=match):
             tadapter.dora_linear_grouped(x, W, st, None, bad)
+
+
+# ---------------------------------------------------------------------------
+# Dynamic grouping and speculation on a mesh.
+# ---------------------------------------------------------------------------
+
+def _tiny_serving(n_tenants: int = 3):
+    """A 1-layer fp32 model, its params and ``n_tenants`` perturbed
+    adapter trees (torch, from one generator)."""
+    from repro_torch.launch.steps import StepConfig
+    from repro_torch.models.config import ModelConfig
+
+    mcfg = ModelConfig(name="t", family="dense", num_layers=1, d_model=64,
+                       num_heads=2, num_kv_heads=1, d_ff=128,
+                       vocab_size=64, dtype=torch.float32)
+    scfg = StepConfig(dora=DoRAConfig(rank=4, alpha=8.0))
+    gen = torch.Generator().manual_seed(0)
+    params = tlm.init_params(gen, mcfg)
+    tenants = []
+    for _ in range(n_tenants):
+        ad = tlm.init_adapters(gen, mcfg, params, scfg.dora)
+        for name, leaf in flatten_paths(ad).items():
+            if name.endswith("/B"):
+                leaf.copy_(0.05 * torch.randn(leaf.shape, generator=gen))
+        tenants.append(ad)
+    return mcfg, scfg, params, tenants
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["rect", "paged"])
+@pytest.mark.parametrize("kind", ["decode", "draft", "verify"])
+def test_one_rank_mesh_dynamic_draft_and_verify_steps_equal_no_mesh(kind,
+                                                                    paged):
+    """On a one-rank gloo mesh the engine's dynamic decode step, its
+    draft step and its dynamic verify step (a window of 3) over the
+    engine's per-row cache, rectangular and paged (an out-of-order block
+    table), give the no-mesh steps' logits, lengths and K/V bit for bit;
+    the verify returns every window position's logits."""
+    from repro_torch.launch.steps import (make_decode_step, make_draft_step,
+                                          make_precompute_step,
+                                          make_verify_step)
+
+    mcfg, scfg, params, tenants = _tiny_serving()
+    mesh = tmesh.make_debug_mesh(1, 1, device="cpu", backend="gloo")
+    idx = torch.tensor([2, 0, 2, 1])
+    window = 3 if kind == "verify" else 1
+    toks = torch.arange(4 * window).reshape(4, window) * 5 % 64
+    out = []
+    for m in (mesh, None):
+        pre = make_precompute_step(mcfg, scfg, m, fold_gsb=True)
+        stacked = tadapter.stack_adapter_states(
+            [pre(params, ad) for ad in tenants], axis=1)
+        geo = dict(block_size=4, n_blocks=16) if paged else {}
+        cache = tlm.init_cache(mcfg, 4, 16, row_lens=True, mesh=m, **geo)
+        if paged:
+            cache["pages"] = torch.tensor(
+                [[3, 7, 0, -1], [12, 1, -1, -1], [5, -1, -1, -1],
+                 [9, 2, 14, -1]], dtype=torch.int32)
+        cache["len"] = torch.tensor([3, 5, 1, 7], dtype=torch.int32)
+        batch_in = {"tokens": toks, "adapter_idx": idx}
+        if kind == "decode":
+            logits, new = make_decode_step(mcfg, scfg, m, batch=4,
+                                           dynamic_groups=True)(
+                params, stacked, cache, batch_in)
+        elif kind == "draft":
+            logits, new = make_draft_step(mcfg, scfg, m, batch=4)(
+                params, cache, batch_in)
+        else:
+            logits, new = make_verify_step(mcfg, scfg, m, batch=4,
+                                           window=3, dynamic_groups=True)(
+                params, stacked, cache, batch_in)
+        out.append((logits, new["len"], new["stack"]["l0"]["k"],
+                    new["stack"]["l0"]["v"]))
+    assert out[0][0].shape == ((4, 3, 64) if kind == "verify" else (4, 64))
+    assert out[0][1].tolist() == [3 + window, 5 + window, 1 + window,
+                                  7 + window]
+    for got, want in zip(*out):
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("window", [2, 4])
+def test_decode_layout_takes_the_verify_window(window):
+    """The decode layout (``make_boundary_constraint(decode=True)``) takes
+    S = k + 1: the spec leaves the sequence whole where the
+    sequence-parallel one would split it over model, the residual stream
+    is whole on every rank (gather and local rows the identity), the
+    vocab-parallel lookup's scatter keeps [B, S, D], and ``mesh_layout``
+    builds the verify's layout on the meshes it accepts."""
+    from repro_torch.launch.steps import StepConfig, mesh_layout
+
+    mesh = FakeMesh(data=2, model=2)
+    sp = TS.make_boundary_constraint(mesh, batch=4, seq=window,
+                                     decode=True)
+    assert not sp.seq_split and sp.prefix == "tp"
+    assert tuple(sp.spec) == ("data", None, None)
+    assert tuple(TS.make_boundary_constraint(mesh, batch=4,
+                                             seq=window).spec) == (
+        "data", "model", None)
+    x = torch.ones(2, window, 8)
+    assert sp.gather(x) is x and sp.local_rows(x) is x
+    small = dataclasses.replace(get_config("qwen2-7b"), num_layers=2)
+    lay = mesh_layout(small, StepConfig(dora=DoRAConfig(rank=16,
+                                                         alpha=32.0)),
+                      mesh, batch=4, seq=window, decode=True)
+    assert lay.local_batch == 2 and not lay.sp.seq_split
+
+
+class _TwoModelRanks:
+    """A (data 1, model 2) mesh seen from model rank 0, in one process:
+    ``group`` names a group for the model axis, and the test replaces
+    ``all_reduce`` by the identity, so each collective runs and is
+    counted (its bytes) without a second rank."""
+
+    axis_names = ("data", "model")
+    shape = {"data": 1, "model": 2}
+
+    def group(self, axes):
+        return "model" if "model" in axes else None
+
+    def axis_size(self, axes):
+        return 2 if "model" in axes else 1
+
+    def axis_index(self, axes):
+        return 0
+
+
+@pytest.mark.parametrize("K", [2, 5])
+def test_row_parallel_dynamic_compose_all_reduces_one_rank_space_row(
+        K, monkeypatch):
+    """The row-parallel dynamic compose under the decode layout at model
+    = 2 selects each row's stack position BEFORE its one all-reduce of h:
+    it moves [B, S, r] fp32, as a single-tenant call does, not the
+    [B, S, K, r] of all K partials, and y_base's bytes are the single
+    call's too (``collective_stats`` by tag)."""
+    monkeypatch.setattr(tsh.dist, "all_reduce",
+                        lambda t, op=None, group=None: None)
+    mesh = _TwoModelRanks()
+    sp = TS.make_boundary_constraint(mesh, batch=3, seq=2, decode=True)
+    B, S, d_in_l, d_out, r = 3, 2, 16, 24, 4
+    gen = torch.Generator().manual_seed(1)
+    x = torch.randn(B, S, d_in_l, generator=gen)
+    W = torch.randn(d_out, d_in_l, generator=gen)
+    stack = {"A": torch.randn(K, r, d_in_l, generator=gen),
+             "g": 1 + 0.1 * torch.randn(K, d_out, generator=gen),
+             "gsB": torch.randn(K, d_out, r, generator=gen)}
+    stats = {}
+    for label, adapter, groups in (
+            ("dynamic", stack, torch.tensor([K - 1, 0, K - 1])),
+            ("single", {**{k: v[0] for k, v in stack.items()},
+                        "B": torch.zeros(d_out, r), "m": torch.ones(d_out)},
+             None)):
+        tsh.reset_collective_stats()
+        y = tadapter.dora_linear_row_parallel(
+            x, W, adapter, DoRAConfig(rank=r, alpha=8.0), sp=sp,
+            training=False, tenant_groups=groups)
+        assert y.shape == (B, S, d_out)
+        stats[label] = tsh.collective_stats()
+    assert stats["dynamic"] == stats["single"]
+    assert stats["dynamic"]["tp.h"] == {"calls": 1, "bytes": B * S * r * 4}
+    assert stats["dynamic"]["tp.y_base"]["bytes"] == B * S * d_out * 4

@@ -429,15 +429,16 @@ def serve_case(p):
     return out
 
 
-def _tenant_cache(p, mesh, mcfg, scfg, aspec):
-    """AdapterStateCache.for_serving(mesh=) with p["tenants"] registered
-    as t0, t1, ... (this rank's shards of each)."""
+def _tenant_cache(p, mesh, mcfg, scfg, aspec, tenants=None):
+    """AdapterStateCache.for_serving(mesh=) with ``tenants`` (default
+    p["tenants"]) registered as t0, t1, ... (this rank's shards of
+    each)."""
     from repro_torch.bridge import tree_from_numpy
     from repro_torch.core.adapter_cache import AdapterStateCache
     from repro_torch.launch import sharding as S
 
     cache = AdapterStateCache.for_serving(mcfg, scfg, mesh=mesh)
-    for t, ad in enumerate(p["tenants"]):
+    for t, ad in enumerate(p["tenants"] if tenants is None else tenants):
         cache.register(f"t{t}", S.shard_tree(tree_from_numpy(ad), aspec,
                                              mesh))
     return cache
@@ -642,6 +643,10 @@ def engine_case(p):
     out["server"] = rec
     if "tenants" in p:
         out.update(_engine_tenants(p, mesh, mcfg, scfg, params))
+    if "fleet" in p:
+        out.update(_engine_fleet(p, mesh, mcfg, scfg, params))
+        out.update(_engine_speculative(p, mesh, mcfg, scfg, params,
+                                       adapters))
     return out
 
 
@@ -687,4 +692,144 @@ def _engine_tenants(p, mesh, mcfg, scfg, params):
            "signatures": server.engine.step_signatures()}
     rec["same_on_every_rank"] = _same_on_every_rank(rec)
     out["mt_server"] = rec
+    return out
+
+
+# --- dynamic grouping and speculation across the mesh ------------------------
+
+def _capture_logits(engine) -> dict:
+    """Every sampled row's fetched logits by (key_id, tokens sampled
+    before it), as ``tests/test_torch_fleet.py capture_logits`` keys
+    them."""
+    seen: dict = {}
+    sample = engine._sample_rows
+
+    def recorded(rows, keys):
+        for row, key in zip(rows, keys):
+            seen[tuple(int(k) for k in key)] = np.asarray(row, np.float64)
+        return sample(rows, keys)
+    engine._sample_rows = recorded
+    return seen
+
+
+def _max_rel(got: dict, want: dict) -> float:
+    assert got.keys() == want.keys()
+    return max(float(np.abs(got[k] - want[k]).max() / np.abs(want[k]).max())
+               for k in want)
+
+
+def _engine_fleet(p, mesh, mcfg, scfg, params):
+    """The cache-routed DecodeEngine(mesh=, dynamic_grouping=True) on each
+    trace of p["fleet"]["traces"] (the committed fleet trace at 3 slots,
+    whose batch every replica holds whole, and at 4 slots, whose rows
+    split over data), rectangular and paged, over the five fleet tenants,
+    and the static engine on the same trace (rectangular): streams,
+    stats, device steps, signatures, the cache's stats, the plain gathers
+    and the sampled rows' logits; the dynamic rows' largest distance
+    from the static ones; MultiTenantServer(mesh=, dynamic_grouping=True)
+    on p["mt_server"], plain and with speculative_k=3; whether every
+    rank's record equals this one's."""
+    from repro_torch.launch import serve
+    from repro_torch.launch import sharding as S
+    from repro_torch.launch.engine import DecodeEngine
+
+    aspec = S.adapter_sharding(mcfg, scfg.dora, mesh)
+    fleet = p["fleet"]
+    out = {}
+    for name, (trace, prompts, kw) in fleet["traces"].items():
+        owners = [f"t{r[3]}" for r in trace]
+        logits = {}
+        for form, geo in (("dynamic", {}), ("dynamic_paged", fleet["paged"]),
+                          ("static", {})):
+            cache = _tenant_cache(p, mesh, mcfg, scfg, aspec,
+                                  fleet["tenants"])
+            eng = DecodeEngine(mcfg, scfg, params, adapter_cache=cache,
+                               mesh=mesh, dynamic_grouping=form != "static",
+                               **kw, **geo)
+            logits[form] = _capture_logits(eng)
+            with _counting_plain_calls() as calls:
+                streams = _drive(eng, [r[:3] for r in trace], prompts,
+                                 adapter=owners)
+            rec = {"streams": streams, "stats": eng.stats().as_dict(),
+                   "device_steps": eng.device_steps(),
+                   "signatures": eng.step_signatures(),
+                   "cache": cache.stats().as_dict(),
+                   "gathers": calls.get("paged_gather_plain", 0),
+                   "pool": eng.pool_stats() if geo else None}
+            rec["same_on_every_rank"] = _same_on_every_rank(rec)
+            rec["logits"] = logits[form]
+            out[f"{name}_{form}"] = rec
+        out[f"{name}_dynamic"]["vs_static"] = _max_rel(logits["dynamic"],
+                                                       logits["static"])
+    prompts, owners, kw, gen = p["mt_server"]
+    cache = _tenant_cache(p, mesh, mcfg, scfg, aspec)
+    server = serve.MultiTenantServer(mcfg, scfg, params, cache=cache,
+                                     mesh=mesh, dynamic_grouping=True,
+                                     engine_slots=kw["slots"])
+    reqs = [serve.Request(q, t) for q, t in zip(prompts, owners)]
+    rec = {"plain": [t.tolist() for t in server.serve(
+               reqs, gen_len=gen, max_len=kw["max_len"])],
+           "speculative": [t.tolist() for t in server.serve(
+               reqs, gen_len=gen, max_len=kw["max_len"], speculative_k=3)],
+           "cache": cache.stats().as_dict(),
+           "signatures": next(iter(server._engines.values()))
+           .step_signatures()}
+    rec["same_on_every_rank"] = _same_on_every_rank(rec)
+    out["mt_dynamic_server"] = rec
+    return out
+
+
+def _engine_speculative(p, mesh, mcfg, scfg, params, adapters):
+    """DecodeEngine(mesh=, speculative_k=k) on the committed speculative
+    trace, rectangular and paged, each from its own mesh precompute
+    (folded): with identity adapters (B = 0, m the row norm one card
+    computes; the largest |g - 1| of this rank's state beside it) and
+    with the perturbed ones, and the plain engine on the perturbed state;
+    EngineServer(mesh=).run(speculative_k=3) of p["mt_server"] over the
+    three tenants. Streams, stats, device steps, the plain gathers, pool
+    stats, the cache's stats and whether every rank's equal this one's."""
+    from repro_torch.bridge import tree_from_numpy
+    from repro_torch.launch import serve
+    from repro_torch.launch import sharding as S
+    from repro_torch.launch.engine import DecodeEngine
+    from repro_torch.launch.steps import make_precompute_step
+    from repro_torch.tree import flatten_paths
+
+    spec = p["spec"]
+    aspec = S.adapter_sharding(mcfg, scfg.dora, mesh)
+    precompute = make_precompute_step(mcfg, scfg, mesh, fold_gsb=True)
+    identity = S.shard_tree(tree_from_numpy(spec["identity"]), aspec, mesh)
+    out = {}
+    for kind, tree in (("identity", identity), ("perturbed", adapters)):
+        state = precompute(params, tree)
+        runs = [("rect", {}, spec["k"]), ("paged", spec["paged"], spec["k"])]
+        if kind == "perturbed":
+            runs.append(("plain", {}, 0))
+        for geo_name, geo, k in runs:
+            eng = DecodeEngine(mcfg, scfg, params, adapters=state, mesh=mesh,
+                               speculative_k=k, **spec["kw"], **geo)
+            with _counting_plain_calls() as calls:
+                streams = _drive(eng, spec["trace"], spec["prompts"])
+            rec = {"streams": streams, "stats": eng.stats().as_dict(),
+                   "device_steps": eng.device_steps(),
+                   "gathers": calls.get("paged_gather_plain", 0),
+                   "pool": eng.pool_stats() if geo else None}
+            rec["same_on_every_rank"] = _same_on_every_rank(rec)
+            out[f"spec_{kind}_{geo_name}"] = rec
+        if kind == "identity":
+            out["spec_identity_rect"]["g_dev"] = max(
+                float((leaf - 1).abs().max()) for name, leaf in
+                flatten_paths(state).items() if name.endswith("/g"))
+    prompts, owners, kw, gen = p["mt_server"]
+    cache = _tenant_cache(p, mesh, mcfg, scfg, aspec)
+    server = serve.EngineServer(mcfg, scfg, params, cache=cache, mesh=mesh,
+                                **kw)
+    res = server.run([serve.Request(q, t) for q, t in zip(prompts, owners)],
+                     gen_len=gen, speculative_k=3)
+    rec = {"tokens": [r.tokens.tolist() for r in res],
+           "reasons": [r.finish_reason for r in res],
+           "stats": server.engine.stats().as_dict(),
+           "cache": cache.stats().as_dict()}
+    rec["same_on_every_rank"] = _same_on_every_rank(rec)
+    out["spec_server"] = rec
     return out
